@@ -1,4 +1,5 @@
-"""Drive the PyTorch/CUDA port's serving path on one NVIDIA GPU, end to end.
+"""Drive the PyTorch/CUDA port's serving and training paths on one NVIDIA
+GPU, end to end.
 
     python3 chip_smoke.py
 
@@ -7,8 +8,11 @@
    matmuls and cuDNN convolutions: every comparison below is in f32.
 2. Builds the port's kernels from ``transformer_clip_eeg_tpu_torch/csrc``.
 3. Holds each kernel against its plain PyTorch twin on the card at the
-   flagship's shapes (seeded inputs), and times kernel, plain twin and the
-   nearest single PyTorch call with CUDA events (median of 20 runs).
+   flagship's shapes (seeded inputs): the block forward in eval and in
+   training mode (same seed, so the same dropout masks), the LSTM forward,
+   and the two backward kernels against autograd through the twins.  Times
+   kernel, plain twin and the nearest single PyTorch call with CUDA events
+   (median of 20 runs).
 4. Builds the flagship model (``TrainConfig()``: EEGConformerInterleaved
    depth 10, convLSTM, clip_sim_no_latent_proj) with seeded weights, serves
    it over HTTP on localhost, answers a request on every route, checks the
@@ -18,7 +22,18 @@
    Then times one full 128-window chunk through each embedder (host clock)
    and profiles it (``torch.profiler``): device time per chunk, the device's
    idle share and the operations that take the most device time.
-5. Prints one JSON line of per-kernel numbers, then, last, the
+5. Trains the flagship at full width through the port's CLI
+   (``cli.train``, the function ``cli.main`` runs): a synthetic SparrKULee
+   fixture with 1024-dim wav2vec-19 features, 2 epochs at batch 128, every
+   other flag at its default.  Checks ``loss.txt``, the checkpoint, the
+   memory bank and the exact kernel launches (10 block forwards, 10 block
+   backwards, 2 LSTM forwards and 2 LSTM backwards per train step; 10 and
+   2 forwards per validation step).  Then one step at batch 8 with dropout
+   on, card against CPU (same weights, batch and seed); the trained run
+   served from its results directory against the trainer's model; the
+   median step time of epoch 2 and a ``torch.profiler`` pass over 3 steps
+   (a ``{"train": ...}`` line).
+6. Prints one JSON line of per-kernel numbers, then, last, the
    ``{"ok": true, "device": ...}`` line.
 
 Any failure raises and exits non-zero.  Imports nothing of JAX.
@@ -28,6 +43,9 @@ from __future__ import annotations
 
 import io
 import json
+import os
+import re
+import shutil
 import statistics
 import subprocess
 import sys
@@ -43,12 +61,25 @@ if not torch.cuda.is_available():
           "CUDA card", file=sys.stderr)
     sys.exit(1)
 
-from transformer_clip_eeg_tpu_torch import _build  # noqa: E402
+from transformer_clip_eeg_tpu_torch import _build, cli  # noqa: E402
+from transformer_clip_eeg_tpu_torch.data.fixtures import make_fixture  # noqa: E402
+from transformer_clip_eeg_tpu_torch.models.registry import (  # noqa: E402
+    build_model_from_config as build_model,
+)
+from transformer_clip_eeg_tpu_torch.ops.dropout import (  # noqa: E402
+    fold_seed,
+    set_dropout_seeds,
+)
 from transformer_clip_eeg_tpu_torch.ops.fused_block import (  # noqa: E402
+    DropoutConfig,
+    fused_block_backward,
+    fused_block_forward_cuda,
     fused_transformer_block,
     fused_transformer_block_reference,
 )
 from transformer_clip_eeg_tpu_torch.ops.lstm_scan import (  # noqa: E402
+    _launch_forward as lstm_forward_cuda,
+    lstm_scan_backward,
     lstm_scan_packed,
     lstm_scan_reference,
 )
@@ -64,15 +95,26 @@ from transformer_clip_eeg_tpu_torch.server import (  # noqa: E402
     make_server,
 )
 from transformer_clip_eeg_tpu_torch.train.config import TrainConfig  # noqa: E402
+from transformer_clip_eeg_tpu_torch.train.loop import batch_iterator  # noqa: E402
+from transformer_clip_eeg_tpu_torch.train.steps import train_step  # noqa: E402
 
 # H100 SXM published peaks (dense): f32 outside the tensor cores, HBM3
 PEAK_F32_FLOPS = 67e12
 PEAK_BYTES = 3.35e12
 BLOCK_TOL = 1e-4   # f32 sums of 64-256 terms in another order than cuBLAS
 LSTM_TOL = 1e-5    # 192 contracting steps of f32 gate math
+# backward kernels: max abs error over max(1, max |reference|) per gradient.
+# The block's dW sums 24,576 rows in another order than autograd's; the
+# LSTM's backward carries a 4H-term dot product through 192 reverse steps
+BLOCK_BWD_TOL = 1e-4
+LSTM_BWD_TOL = 1e-5
 SERVE_TOL = 1e-3   # whole model, GPU vs CPU, after L2 normalisation
+STEP_TOL = 1e-3    # one whole train step, card vs CPU, gradients and losses
+STEP_GRAD_FLOOR = 1e-4  # of the largest gradient: the least scale a leaf is held to
 BANK_SIZE = 1000   # memory-bank rows; unused by serving, carried as state
 REPS = 20
+FLAGSHIP_DROP = DropoutConfig(True, 1234, 0.5, 0.5)  # the block's rates in training
+RUN_DIR = os.path.join(os.path.dirname(os.path.abspath(__file__)), "build", "chip_smoke_run")
 
 
 def log(msg: str) -> None:
@@ -101,8 +143,10 @@ def bound(flops: float, nbytes: float):
     return max(t_ops, t_bytes) * 1e3, ("operations" if t_ops >= t_bytes else "bytes")
 
 
-def check_block(gen: torch.Generator) -> dict:
-    b, t, e, h, f = 128, 192, 64, 8, 256
+def block_case(gen: torch.Generator):
+    """Flagship block inputs on the card: x [128, 192, 64] and the 16
+    parameters (torch's default init, LayerNorms perturbed)."""
+    b, t, e, f = 128, 192, 64, 256
     dev = "cuda"
 
     def u(*shape, fan_in):
@@ -120,27 +164,21 @@ def check_block(gen: torch.Generator) -> dict:
     w1, bb1 = u(f, e, fan_in=e), u(f, fan_in=e)
     w2, bb2 = u(e, f, fan_in=f), u(e, fan_in=f)
     params = (g1, be1, wq, wk, wv, bq, bk, bv, wo, bo, g2, be2, w1, bb1, w2, bb2)
-    x = torch.randn(b, t, e, generator=gen).to(dev)
-    scale = e ** 0.5
+    return torch.randn(b, t, e, generator=gen).to(dev), params
 
-    with torch.inference_mode():
-        got = fused_transformer_block(x, params, h, scale)
-        torch.cuda.synchronize()
-        want = fused_transformer_block_reference(x, params, h, scale)
-        err = float((got - want).abs().max())
-        log(f"fused_transformer_block x{tuple(x.shape)}: max_abs_err {err:.3e} "
-            f"(tol {BLOCK_TOL:g})")
-        if not err <= BLOCK_TOL:
-            raise AssertionError(f"fused block disagrees with its twin: {err}")
 
-        # the nearest single torch call: a pre-LN TransformerEncoderLayer.  Its
-        # attention divides by sqrt(head dim); folding sqrt(d)/sqrt(E) into the
-        # Q projection makes it compute this block's function exactly.
-        lib = torch.nn.TransformerEncoderLayer(
-            e, h, f, dropout=0.0, activation="gelu", batch_first=True,
-            norm_first=True, device=dev,
-        ).eval()
-        q_fold = (e // h) ** 0.5 / scale
+def library_layer(params, e=64, h=8, f=256, scale=8.0):
+    """The nearest single torch call: a pre-LN TransformerEncoderLayer with
+    the block's weights.  Its attention divides by sqrt(head dim); folding
+    sqrt(d)/sqrt(E) into the Q projection makes it compute this block's
+    function exactly."""
+    (g1, be1, wq, wk, wv, bq, bk, bv, wo, bo, g2, be2, w1, bb1, w2, bb2) = params
+    lib = torch.nn.TransformerEncoderLayer(
+        e, h, f, dropout=0.0, activation="gelu", batch_first=True,
+        norm_first=True, device="cuda",
+    )
+    q_fold = (e // h) ** 0.5 / scale
+    with torch.no_grad():
         lib.self_attn.in_proj_weight.copy_(torch.cat([wq * q_fold, wk, wv]))
         lib.self_attn.in_proj_bias.copy_(torch.cat([bq * q_fold, bk, bv]))
         lib.self_attn.out_proj.weight.copy_(wo)
@@ -153,23 +191,62 @@ def check_block(gen: torch.Generator) -> dict:
         lib.norm1.bias.copy_(be1)
         lib.norm2.weight.copy_(g2)
         lib.norm2.bias.copy_(be2)
+    return lib
+
+
+def block_flops(b, t, e=64, f=256):
+    """Forward products of the block: QKV, scores, P V, out-projection, FFN."""
+    return b * (2 * t * e * e * 4 + 2 * 2 * t * t * e + 2 * 2 * t * e * f)
+
+
+def check_block(x, params) -> dict:
+    b, t, e = x.shape
+    h, f = 8, 256
+    scale = e ** 0.5
+    with torch.inference_mode():
+        got = fused_transformer_block(x, params, h, scale)
+        torch.cuda.synchronize()
+        want = fused_transformer_block_reference(x, params, h, scale)
+        err = float((got - want).abs().max())
+        log(f"fused_transformer_block x{tuple(x.shape)}: max_abs_err {err:.3e} "
+            f"(tol {BLOCK_TOL:g})")
+        if not err <= BLOCK_TOL:
+            raise AssertionError(f"fused block disagrees with its twin: {err}")
+
+        lib = library_layer(params).eval()
         lib_err = float((lib(x) - want).abs().max())
+
+        # training mode: the same seed draws the twin's masks
+        got_tr = fused_transformer_block(x, params, h, scale, training=True,
+                                         seed=FLAGSHIP_DROP.seed, drop_p=0.5, ffn_drop_p=0.5)
+        torch.cuda.synchronize()
+        want_tr = fused_transformer_block_reference(x, params, h, scale, *FLAGSHIP_DROP)
+        err_tr = float((got_tr - want_tr).abs().max())
+        log(f"fused_transformer_block training (drop 0.5/0.5): max_abs_err {err_tr:.3e} "
+            f"(tol {BLOCK_TOL:g})")
+        if not err_tr <= BLOCK_TOL:
+            raise AssertionError(f"fused block in training mode disagrees with its twin: {err_tr}")
+        ms_tr = time_ms(lambda: fused_block_forward_cuda(x, params, h, scale, FLAGSHIP_DROP,
+                                                         save=True))
 
         ms = time_ms(lambda: fused_transformer_block(x, params, h, scale))
         plain_ms = time_ms(lambda: fused_transformer_block_reference(x, params, h, scale))
         library_ms = time_ms(lambda: lib(x))
 
-    flops = b * (2 * t * e * e * 4 + 2 * 2 * t * t * e + 2 * 2 * t * e * f)
+    flops = block_flops(b, t)
     nbytes = 2 * x.numel() * 4 + sum(p.numel() for p in params) * 4
     bound_ms, bound_by = bound(flops, nbytes)
-    log(f"  kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, TransformerEncoderLayer "
+    log(f"  kernel {ms:.4f} ms (training, saving for the backward: {ms_tr:.4f} ms), "
+        f"plain {plain_ms:.4f} ms, TransformerEncoderLayer "
         f"{library_ms:.4f} ms (its max_abs_err {lib_err:.3e}), bound {bound_ms:.4f} ms "
         f"({bound_by}, {flops / 1e9:.3f} GFLOP)")
     return {
         "name": "fused_transformer_block", "route": "cuda",
         "source": "transformer_clip_eeg_tpu_torch/csrc/fused_block.cu",
         "replaces": "transformer_clip_eeg_tpu/ops/pallas_block.py:458",
-        "max_abs_err": err, "tol": BLOCK_TOL, "ms": ms, "kernel_ms": ms,
+        "max_abs_err": max(err, err_tr), "max_abs_err_eval": err,
+        "max_abs_err_training": err_tr, "tol": BLOCK_TOL, "ms": ms, "kernel_ms": ms,
+        "training_ms": ms_tr,
         "plain_ms": plain_ms, "library_ms": library_ms,
         "library_call": "torch.nn.TransformerEncoderLayer(norm_first=True), eval",
         "library_max_abs_err": lib_err,
@@ -231,6 +308,130 @@ def check_lstm(gen: torch.Generator) -> dict:
     }
 
 
+def grad_err(got, want) -> float:
+    """max abs error over max(1, max |want|): relative for large gradients,
+    absolute for ones that are zero in exact arithmetic (the key bias's)."""
+    return float((got - want).abs().max()) / max(float(want.abs().max()), 1.0)
+
+
+def check_block_backward(x, params, gen: torch.Generator) -> dict:
+    """Kernel #2 through the autograd Function against autograd through the
+    twin, in training mode at the flagship's rates: dx and the 16 dparams."""
+    b, t, e = x.shape
+    h, scale = 8, e ** 0.5
+    g = torch.randn(b, t, e, generator=gen).to("cuda")
+    leaves = [x.clone().requires_grad_()] + [p.clone().requires_grad_() for p in params]
+    out = fused_transformer_block(leaves[0], leaves[1:], h, scale, training=True,
+                                  seed=FLAGSHIP_DROP.seed, drop_p=0.5, ffn_drop_p=0.5)
+    got = torch.autograd.grad(out, leaves, g)
+    torch.cuda.synchronize()
+    ref = [x.clone().requires_grad_()] + [p.clone().requires_grad_() for p in params]
+    want_out = fused_transformer_block_reference(ref[0], ref[1:], h, scale, *FLAGSHIP_DROP)
+    want = torch.autograd.grad(want_out, ref, g, retain_graph=True)
+    errs = [grad_err(a, w) for a, w in zip(got, want)]
+    abs_err = max(float((a - w).abs().max()) for a, w in zip(got, want))
+    log(f"fused_block_backward (training, drop 0.5/0.5): worst gradient error "
+        f"{max(errs):.3e} (tol {BLOCK_BWD_TOL:g} x max(1, max|ref|)), max_abs_err "
+        f"{abs_err:.3e}; per leaf {[f'{v:.1e}' for v in errs]}")
+    if not max(errs) <= BLOCK_BWD_TOL:
+        raise AssertionError(f"block backward disagrees with autograd through its twin: {errs}")
+
+    _, saved = fused_block_forward_cuda(x, params, h, scale, FLAGSHIP_DROP, save=True)
+    ms = time_ms(lambda: fused_block_backward(x, params, g, saved, h, scale, FLAGSHIP_DROP))
+    plain_ms = time_ms(lambda: torch.autograd.grad(want_out, ref, g, retain_graph=True))
+    lib = library_layer(params).train()
+    xl = x.clone().requires_grad_()
+    lib_leaves = [xl] + list(lib.parameters())
+    lib_out = lib(xl)
+    library_ms = time_ms(lambda: torch.autograd.grad(lib_out, lib_leaves, g, retain_graph=True))
+    # dX and dW for each forward product: twice the forward's operations;
+    # bytes: x, g, the saved activations and the parameters in, dx and dparams out
+    flops = 2 * block_flops(b, t)
+    n_par = sum(p.numel() for p in params)
+    nbytes = 4 * (2 * x.numel() + saved.numel() + n_par + x.numel() + n_par)
+    bound_ms, bound_by = bound(flops, nbytes)
+    log(f"  kernel {ms:.4f} ms, plain (autograd through the twin) {plain_ms:.4f} ms, "
+        f"TransformerEncoderLayer backward {library_ms:.4f} ms, bound {bound_ms:.4f} ms "
+        f"({bound_by}, {flops / 1e9:.3f} GFLOP)")
+    return {
+        "name": "fused_block_backward", "route": "cuda",
+        "source": "transformer_clip_eeg_tpu_torch/csrc/fused_block_bwd.cu",
+        "replaces": "transformer_clip_eeg_tpu/ops/pallas_block.py:498",
+        "max_abs_err": abs_err, "max_grad_err": max(errs), "tol": BLOCK_BWD_TOL,
+        "tol_is": "max abs error / max(1, max|ref|), per gradient",
+        "ms": ms, "kernel_ms": ms, "plain_ms": plain_ms, "library_ms": library_ms,
+        "library_call": "backward of torch.nn.TransformerEncoderLayer(norm_first=True)",
+        "bound_ms": bound_ms, "bound_by": bound_by,
+        "shape": {"x": list(x.shape), "heads": h, "ffn": 256, "drop": [0.5, 0.5]},
+    }
+
+
+def check_lstm_backward(gen: torch.Generator) -> dict:
+    """Kernel #4 through the autograd Function against autograd through the
+    twin, for both of the speech encoder's recurrences (H=128 and H=4)."""
+    t, d, b = 192, 2, 128
+    dev = "cuda"
+    shapes = []
+    for hidden, in_dim in ((128, 64), (4, 256)):
+        lim = 1.0 / hidden ** 0.5
+        xw = (0.5 * torch.randn(t, d, b, 4 * hidden, generator=gen)).to(dev)
+        whh = ((torch.rand(d, hidden, 4 * hidden, generator=gen) * 2 - 1) * lim).to(dev)
+        g = torch.randn(t, d, b, hidden, generator=gen).to(dev)
+        a, w = xw.clone().requires_grad_(), whh.clone().requires_grad_()
+        got = torch.autograd.grad(lstm_scan_packed(a, w), (a, w), g)
+        torch.cuda.synchronize()
+        ra, rw = xw.clone().requires_grad_(), whh.clone().requires_grad_()
+        ref_h = lstm_scan_reference(ra, rw)
+        want = torch.autograd.grad(ref_h, (ra, rw), g, retain_graph=True)
+        errs = [grad_err(u, v) for u, v in zip(got, want)]
+        abs_err = max(float((u - v).abs().max()) for u, v in zip(got, want))
+        log(f"lstm_scan_backward H={hidden}: dxw error {errs[0]:.3e}, dwhh error "
+            f"{errs[1]:.3e} (tol {LSTM_BWD_TOL:g} x max(1, max|ref|)), max_abs_err {abs_err:.3e}")
+        if not max(errs) <= LSTM_BWD_TOL:
+            raise AssertionError(f"LSTM backward disagrees with autograd through its twin: {errs}")
+        h, c, gates = lstm_forward_cuda(xw, whh, return_c=True, save_gates=True)
+        ms = time_ms(lambda: lstm_scan_backward(whh, h, c, gates, g))
+        plain_ms = time_ms(lambda: torch.autograd.grad(ref_h, (ra, rw), g, retain_graph=True),
+                           reps=5, warmup=1)
+        lib = torch.nn.LSTM(in_dim, hidden, batch_first=True, bidirectional=True, device=dev)
+        xl = torch.randn(b, t, in_dim, generator=gen).to(dev).requires_grad_()
+        lib_leaves = [xl] + list(lib.parameters())
+        lib_out, _ = lib(xl)
+        g_lib = torch.randn(b, t, 2 * hidden, generator=gen).to(dev)
+        library_ms = time_ms(lambda: torch.autograd.grad(lib_out, lib_leaves, g_lib,
+                                                         retain_graph=True))
+        rows = t * d * b
+        flops = 2 * rows * 4 * hidden * hidden * 2  # dpre whh^T and h_prev^T dpre
+        nbytes = 4 * (2 * rows * 4 * hidden + 3 * rows * hidden + 2 * whh.numel())
+        bound_ms, bound_by = bound(flops, nbytes)
+        log(f"  H={hidden}: kernel {ms:.4f} ms ({ms / t * 1e3:.3f} us/step), plain "
+            f"{plain_ms:.4f} ms, nn.LSTM backward {library_ms:.4f} ms, bound "
+            f"{bound_ms:.4f} ms ({bound_by})")
+        shapes.append({
+            "hidden": hidden, "xw": list(xw.shape), "max_abs_err": abs_err,
+            "max_grad_err": max(errs), "ms": ms, "us_per_step": ms / t * 1e3,
+            "plain_ms": plain_ms, "library_ms": library_ms, "bound_ms": bound_ms,
+            "bound_by": bound_by,
+        })
+    total = lambda key: sum(s[key] for s in shapes)  # noqa: E731
+    return {
+        "name": "lstm_scan_backward", "route": "cuda",
+        "source": "transformer_clip_eeg_tpu_torch/csrc/lstm_scan_bwd.cu",
+        "replaces": "transformer_clip_eeg_tpu/ops/pallas_lstm.py:290",
+        "max_abs_err": max(s["max_abs_err"] for s in shapes),
+        "max_grad_err": max(s["max_grad_err"] for s in shapes), "tol": LSTM_BWD_TOL,
+        "tol_is": "max abs error / max(1, max|ref|), per gradient",
+        "ms": total("ms"), "kernel_ms": total("ms"), "plain_ms": total("plain_ms"),
+        "library_ms": total("library_ms"),
+        "library_call": "backward of torch.nn.LSTM(bidirectional=True), input "
+                        "projection's gradients included",
+        "bound_ms": total("bound_ms"),
+        "bound_by": max(shapes, key=lambda s: s["bound_ms"])["bound_by"],
+        "times_are": "sums over the two recurrences of one train step",
+        "shapes": shapes,
+    }
+
+
 def _post(url, payload=None, body=None, headers=None):
     data = body if body is not None else json.dumps(payload).encode()
     req = urllib.request.Request(url, data=data, headers=headers or {})
@@ -263,18 +464,18 @@ def _device_us(evt) -> float:
     return float(val if val is not None else evt.self_cuda_time_total)
 
 
-def profile_chunk(name: str, fn, windows: np.ndarray, reps: int = 5) -> dict:
-    """Where one full chunk's time goes: ``reps`` calls of ``fn(windows)``
-    under ``torch.profiler``; host clock per chunk (copies included), device
-    time per chunk summed over every device operation, the device's idle
-    share of the window, and the operations that took the most device time."""
+def profile_calls(fn, reps: int) -> dict:
+    """Where the time of ``reps`` calls of ``fn()`` goes, under
+    ``torch.profiler``: host clock per call, device time per call summed
+    over every device operation, the device's idle share of the window, and
+    the operations that took the most device time."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
         for _ in range(reps):
-            fn(windows)
+            fn()
         torch.cuda.synchronize()
         wall_s = time.perf_counter() - t0
     # device-side records only (kernels, copies); the CPU operator that
@@ -284,19 +485,24 @@ def profile_chunk(name: str, fn, windows: np.ndarray, reps: int = 5) -> dict:
             and not evt.key.startswith("Activity Buffer")]
     rows = sorted((r for r in rows if r[1] > 0), key=lambda r: -r[1])
     if not rows:
-        raise AssertionError(f"the profiler recorded no device time for {name}")
+        raise AssertionError("the profiler recorded no device time")
     device_us = sum(r[1] for r in rows)
     return {
-        "embedder": name, "reps": reps,
-        "host_ms_per_chunk": wall_s / reps * 1e3,
-        "device_ms_per_chunk": device_us / reps / 1e3,
+        "reps": reps,
+        "host_ms_per_call": wall_s / reps * 1e3,
+        "device_ms_per_call": device_us / reps / 1e3,
         "device_idle_share": max(0.0, 1 - device_us / 1e6 / wall_s),
         "top_ops": [
-            {"op": key[:80], "device_ms_per_chunk": us / reps / 1e3,
-             "share_of_device": us / device_us, "calls_per_chunk": count / reps}
+            {"op": key[:80], "device_ms_per_call": us / reps / 1e3,
+             "share_of_device": us / device_us, "calls_per_call": count / reps}
             for key, us, count in rows[:8]
         ],
     }
+
+
+def profile_chunk(name: str, fn, windows: np.ndarray, reps: int = 5) -> dict:
+    """One full chunk through an embedder, ``reps`` times (copies included)."""
+    return {"embedder": name, **profile_calls(lambda: fn(windows), reps)}
 
 
 def serve_path() -> dict:
@@ -435,6 +641,157 @@ def serve_path() -> dict:
             "cpu_err": {"eeg": eeg_err, "speech": sp_err}}
 
 
+# loss.txt of a 2-epoch run, line by line: the JAX trainer's formats
+LOSS_LINES = [r"number of parameters \d+",
+              r"no model found at .*, training from scratch"] + [
+    line.replace("{e}", str(e)) for e in range(2) for line in (
+        r"train epoch {e} batch 0 loss_ce (\S+) loss average eeg (\S+)",
+        r"epoch {e} done in \d+\.\ds \(\d+ pairs/s\)",
+        r'epoch {e} phases \{"dispatch_s": \S+, "fetch_s": \S+, "block_s": \S+\}',
+        r"validation epoch {e}: mean loss ce : (\S+), mean loss average: (\S+), "
+        r"mean loss total: (\S+)",
+    )] + [r"training done: best val loss_ce \S+ at epoch \d"]
+COUNTERS = (fused_transformer_block, fused_block_backward, lstm_scan_packed,
+            lstm_scan_backward)
+
+
+def card_vs_cpu_step(cfg, host_batch) -> dict:
+    """One training step's forward and gradients at batch 8, dropout on, on
+    the card and on the CPU: same weights (seed 0), same batch, same step
+    seed, so the same masks.  Compares the losses, every gradient and the
+    bank's rows after the step's EMA update."""
+    out = {}
+    ids = host_batch["ids"][:8]
+    for dev in ("cuda", "cpu"):
+        model = build_model(cfg, cfg.bank_size, device=dev, seed=0).train()
+        set_dropout_seeds(model, fold_seed(99, 0))
+        batch = [torch.from_numpy(host_batch[k][:8]).to(dev) for k in ("eeg", "speech", "ids")]
+        losses = model(*batch)
+        params = list(model.parameters())
+        grads = torch.autograd.grad(losses[2], params, allow_unused=True)
+        out[dev] = {
+            "losses": [float(v.detach()) for v in losses],
+            "grads": [torch.zeros_like(p) if g is None else g.detach().cpu()
+                      for g, p in zip(grads, params)],
+            "names": [n for n, _ in model.named_parameters()],
+            "bank": model.eegMemoryBank.memory[torch.from_numpy(ids).to(dev)].cpu(),
+        }
+    gpu, cpu = out["cuda"], out["cpu"]
+    loss_err = max(abs(a - b) / max(1.0, abs(b)) for a, b in zip(gpu["losses"], cpu["losses"]))
+    # each leaf relative to its own largest gradient; the floor only keeps a
+    # leaf that is zero in exact arithmetic (each block's key bias) finite
+    top = max(float(g.abs().max()) for g in cpu["grads"])
+    errs = {n: float((a - b).abs().max()) / max(float(b.abs().max()), STEP_GRAD_FLOOR * top)
+            for n, a, b in zip(cpu["names"], gpu["grads"], cpu["grads"])}
+    grad_err = max(errs.values())
+    worst = sorted(errs.items(), key=lambda kv: -kv[1])[:6]
+    bank_err = float((gpu["bank"] - cpu["bank"]).abs().max())
+    log(f"one train step at batch 8, dropout on, card vs CPU: losses {gpu['losses']} vs "
+        f"{cpu['losses']} (err {loss_err:.2e}); worst gradient error {grad_err:.2e} "
+        f"(max abs error over max(leaf max, {STEP_GRAD_FLOOR:g} x largest gradient)), worst "
+        f"leaves {[(n, f'{v:.1e}') for n, v in worst]}; bank rows {bank_err:.2e} "
+        f"(tol {STEP_TOL:g})")
+    if not (loss_err <= STEP_TOL and grad_err <= STEP_TOL and bank_err <= STEP_TOL):
+        raise AssertionError("the card's train step disagrees with the CPU's")
+    return {"loss_err": loss_err, "grad_err": grad_err, "bank_err": bank_err,
+            "grad_floor": STEP_GRAD_FLOOR * top, "grad_err_by_leaf": errs,
+            "n_grads": len(gpu["grads"]), "losses_card": gpu["losses"],
+            "losses_cpu": cpu["losses"]}
+
+
+def train_path() -> dict:
+    """The flagship trained at full width through the port's CLI."""
+    shutil.rmtree(RUN_DIR, ignore_errors=True)
+    data_dir, results = os.path.join(RUN_DIR, "data"), os.path.join(RUN_DIR, "results")
+    try:
+        t0 = time.perf_counter()
+        # 6 stories: the default --run 4 validates on fold 4, which the
+        # fixture's round robin over stories[:-1] fills only from 5 stories
+        # on; 400 s per story is one chunk of 133 windows at batch 128
+        make_fixture(data_dir, n_stories=6, n_subjects=3, story_seconds=400, speech_dim=1024)
+        log(f"fixture written in {time.perf_counter() - t0:.1f} s")
+        for f in COUNTERS:
+            f.launches = 0
+        t0 = time.perf_counter()
+        trainer = cli.train(["--data_dir", data_dir, "--epochs", "2", "--skip_eval", "yes",
+                             "--results_folder", results], device="cuda")
+        torch.cuda.synchronize()
+        launches = {f.__name__: f.launches for f in COUNTERS}
+        train_s = time.perf_counter() - t0
+        cfg, history = trainer.cfg, trainer.history
+
+        def steps(ds):
+            return sum(c["eeg"].shape[0] for c in ds.chunks.values() if "eeg" in c)
+
+        n_train, n_val = steps(trainer.train_dataset), steps(trainer.val_dataset)
+        want = {"fused_transformer_block": 2 * 10 * (n_train + n_val),
+                "fused_block_backward": 2 * 10 * n_train,
+                "lstm_scan_packed": 2 * 2 * (n_train + n_val),
+                "lstm_scan_backward": 2 * 2 * n_train}
+        log(f"trained 2 epochs ({n_train} train and {n_val} validation steps each) in "
+            f"{train_s:.1f} s; kernel launches {launches}")
+        if launches != want or [len(h["step_s"]) for h in history] != [n_train] * 2:
+            raise AssertionError(f"launches on the training path {launches}, want {want}")
+
+        lines = open(trainer.loss_file).read().splitlines()
+        values = []
+        for line, fmt in zip(lines, LOSS_LINES):
+            m = re.fullmatch(fmt, line)
+            if m is None:
+                raise AssertionError(f"loss.txt line {line!r} does not match {fmt!r}")
+            values += [float(v) for v in m.groups()]
+        if len(lines) != len(LOSS_LINES) or not all(np.isfinite(values)):
+            raise AssertionError(f"loss.txt: {len(lines)} lines, losses {values}")
+        ckpt_dir = trainer.checkpoint_dir
+        for name in ("model_ckpt.pt", "best_meta.json"):
+            if not os.path.exists(os.path.join(ckpt_dir, name)):
+                raise AssertionError(f"no {name} in {ckpt_dir}")
+        bank0 = build_model(cfg, cfg.bank_size, device="cpu", seed=cfg.seed).eegMemoryBank.memory
+        moved = int((trainer.model.eegMemoryBank.memory.cpu() != bank0).any(dim=1).sum())
+        if moved == 0:
+            raise AssertionError("training left the memory bank as it was")
+        log(f"loss.txt has the {len(lines)} expected lines, losses finite; checkpoint and "
+            f"best_meta.json written; {moved} of {bank0.shape[0]} bank rows moved")
+
+        # serve what was trained
+        rng = np.random.default_rng(4)
+        eeg = rng.standard_normal((8, cfg.window_length, 64)).astype(np.float32)
+        speech = rng.standard_normal((8, cfg.window_length, 1024)).astype(np.float32)
+        served = InferenceSession.from_results_dir(trainer.results_dir, device="cuda")
+        live = InferenceSession(trainer.model, device="cuda")
+        serve_err = max(float(np.abs(served.embed_eeg(eeg) - live.embed_eeg(eeg)).max()),
+                        float(np.abs(served.embed_speech(speech) - live.embed_speech(speech)).max()))
+        log(f"from_results_dir vs the trainer's model, 8 windows: max_abs_err {serve_err:.2e}")
+        if not serve_err <= 1e-5:
+            raise AssertionError("the served checkpoint is not the trained model")
+
+        host_batch = next(batch_iterator(trainer.train_dataset))
+        step = card_vs_cpu_step(cfg, host_batch)
+
+        # step time: epoch 2's steps, host clock (the last closed by the drain)
+        step_s = history[1]["step_s"]
+        step_ms = statistics.median(step_s) * 1e3
+        batch = {k: torch.from_numpy(v).to("cuda") for k, v in host_batch.items()}
+        run_step = lambda: train_step(trainer.model, trainer.optimizer, batch,  # noqa: E731
+                                      cfg.seed + 1, False)
+        run_step()
+        profile = profile_calls(run_step, reps=3)
+        train = {
+            "config": "TrainConfig() defaults at full width, --epochs 2", "batch": cfg.batch_size,
+            "train_steps_per_epoch": n_train, "val_steps_per_epoch": n_val,
+            "step_ms_median_epoch2": step_ms, "step_ms_all_epoch2": [v * 1e3 for v in step_s],
+            "pairs_per_s_epoch2": cfg.batch_size / (step_ms / 1e3),
+            "epoch_pairs_per_s": [h["train_pairs_per_s"] for h in history],
+            "val_loss_ce": [h["val_loss_ce"] for h in history],
+            "launches": launches, "card_vs_cpu_step": step, "serve_err": serve_err,
+            "profile_3_steps": profile,
+        }
+        log(json.dumps({"train": train}))
+        return train
+    finally:
+        shutil.rmtree(RUN_DIR, ignore_errors=True)
+
+
 def main() -> int:
     t_start = time.perf_counter()
     smi = subprocess.run(
@@ -453,14 +810,24 @@ def main() -> int:
     log(f"kernels built and loaded in {time.perf_counter() - t0:.1f} s")
 
     gen = torch.Generator().manual_seed(0)
-    block = check_block(gen)
+    x, params = block_case(gen)
+    block = check_block(x, params)
+    block_bwd = check_block_backward(x, params, gen)
+    del x, params
     lstm = check_lstm(gen)
+    lstm_bwd = check_lstm_backward(gen)
+    torch.cuda.empty_cache()
     serve = serve_path()
-    block["launches"] = serve["launches"]["fused_transformer_block"]
-    lstm["launches"] = serve["launches"]["lstm_scan_packed"]
     log(json.dumps({"serve": serve}))
+    train = train_path()
+    serve_counts = dict(serve["launches"], fused_block_backward=0, lstm_scan_backward=0)
+    kernels = [block, block_bwd, lstm, lstm_bwd]
+    for k in kernels:
+        k["launches"] = train["launches"][k["name"]]
+        k["launches_by_path"] = {"serve": serve_counts[k["name"]],
+                                 "train": train["launches"][k["name"]]}
     log(f"chip_smoke finished in {time.perf_counter() - t_start:.1f} s")
-    log(json.dumps({"kernels": [block, lstm]}))
+    log(json.dumps({"kernels": kernels}))
     log(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count(),

@@ -1,6 +1,7 @@
-"""Torch port on the card: each CUDA kernel against its plain twin at the
-flagship's shapes, and a card session against a CPU session.  Marked
-``gpu``; each test skips where torch sees no CUDA card.  On a card
+"""Torch port on the card: each CUDA kernel against its plain twin (the
+backward kernels against autograd through the twins), gradients through
+the kernels against the CPU, and a card session against a CPU session.
+Marked ``gpu``; each test skips where torch sees no CUDA card.  On a card
 without JAX installed: ``python -m pytest tests/test_torch_port_cuda.py -q
 --noconftest`` (``tests/conftest.py`` imports JAX)."""
 
@@ -9,10 +10,13 @@ import pytest
 import torch
 
 from transformer_clip_eeg_tpu_torch.ops.fused_block import (
+    fused_block_backward,
     fused_transformer_block,
     fused_transformer_block_reference,
 )
+from transformer_clip_eeg_tpu_torch.ops.lstm import LSTM
 from transformer_clip_eeg_tpu_torch.ops.lstm_scan import (
+    lstm_scan_backward,
     lstm_scan_packed,
     lstm_scan_reference,
 )
@@ -80,3 +84,101 @@ def test_card_session_matches_cpu_session(cuda):
     speech = rng.standard_normal((5, cfg.window_length, 1024)).astype(np.float32)
     np.testing.assert_allclose(gpu.embed_eeg(eeg), cpu.embed_eeg(eeg), atol=1e-3)
     np.testing.assert_allclose(gpu.embed_speech(speech), cpu.embed_speech(speech), atol=1e-3)
+
+
+def _block_inputs(b, t, seed, cuda):
+    gen = torch.Generator().manual_seed(seed)
+    e, f = 64, 256
+    shapes = [(e,), (e,), (e, e), (e, e), (e, e), (e,), (e,), (e,), (e, e), (e,),
+              (e,), (e,), (f, e), (f,), (e, f), (e,)]
+    params = [(0.1 * torch.randn(s, generator=gen)).to(cuda) for s in shapes]
+    params[0] += 1.0
+    params[10] += 1.0
+    x = torch.randn(b, t, e, generator=gen).to(cuda)
+    g = torch.randn(b, t, e, generator=gen).to(cuda)
+    return x, params, g
+
+
+def _err(got, want):
+    """max abs error over max(1, max |want|): relative for large gradients,
+    absolute for ones that are zero in exact arithmetic (the key bias's
+    gradient is: softmax ignores a shift shared by every key)."""
+    return float((got - want).abs().max()) / max(float(want.abs().max()), 1.0)
+
+
+@pytest.mark.parametrize("b", [16, 6])
+def test_fused_block_training_forward_matches_twin(cuda, b):
+    """Kernel #1 with dropout draws the twin's masks: B=16 and B=6 take the
+    batch tiles 8 and 2."""
+    x, params, _ = _block_inputs(b, 192, 3, cuda)
+    kw = dict(training=True, seed=77, drop_p=0.5, ffn_drop_p=0.5)
+    got = fused_transformer_block(x, params, 8, 8.0, **kw)
+    torch.cuda.synchronize()
+    want = fused_transformer_block_reference(x, params, 8, 8.0, **kw)
+    assert float((got - want).abs().max()) <= 1e-4
+
+
+@pytest.mark.parametrize("b,t", [(16, 192), (3, 50)], ids=["full", "ragged"])
+@pytest.mark.parametrize("training", [True, False], ids=["dropout", "eval"])
+def test_fused_block_backward_matches_autograd(cuda, training, b, t):
+    """Kernel #2 (through the autograd Function) against autograd through the
+    twin: dx and the 16 parameter gradients.  B=3, T=50 leaves a partial
+    32-row tile and a partial warp of keys."""
+    x, params, g = _block_inputs(b, t, 4, cuda)
+    kw = dict(training=training, seed=5, drop_p=0.5, ffn_drop_p=0.5)
+    leaves = [x.clone().requires_grad_()] + [p.clone().requires_grad_() for p in params]
+    before = fused_block_backward.launches
+    out = fused_transformer_block(leaves[0], leaves[1:], 8, 8.0, **kw)
+    got = torch.autograd.grad(out, leaves, g)
+    torch.cuda.synchronize()
+    assert fused_block_backward.launches == before + 1
+    ref = [x.clone().requires_grad_()] + [p.clone().requires_grad_() for p in params]
+    want_out = fused_transformer_block_reference(ref[0], ref[1:], 8, 8.0, **kw)
+    want = torch.autograd.grad(want_out, ref, g)
+    assert float((out - want_out).detach().abs().max()) <= 1e-4
+    for i, (a, w) in enumerate(zip(got, want)):
+        assert _err(a, w) <= 1e-4, (i, _err(a, w))
+
+
+@pytest.mark.parametrize("hidden", [128, 4])
+def test_lstm_backward_matches_autograd(cuda, hidden):
+    """Kernel #4 (through the autograd Function) against autograd through
+    the twin: dxw and dwhh, with whh at torch's init scale U(+-1/sqrt(H))."""
+    gen = torch.Generator().manual_seed(6)
+    lim = hidden ** -0.5
+    xw = (0.5 * torch.randn(50, 2, 37, 4 * hidden, generator=gen)).to(cuda)
+    whh = ((torch.rand(2, hidden, 4 * hidden, generator=gen) * 2 - 1) * lim).to(cuda)
+    g = torch.randn(50, 2, 37, hidden, generator=gen).to(cuda)
+    a, w = xw.clone().requires_grad_(), whh.clone().requires_grad_()
+    before = lstm_scan_backward.launches
+    got = torch.autograd.grad(lstm_scan_packed(a, w), (a, w), g)
+    torch.cuda.synchronize()
+    assert lstm_scan_backward.launches == before + 1
+    a, w = xw.clone().requires_grad_(), whh.clone().requires_grad_()
+    want = torch.autograd.grad(lstm_scan_reference(a, w), (a, w), g)
+    for got_i, want_i in zip(got, want):
+        assert _err(got_i, want_i) <= 1e-5
+
+
+def test_gradients_flow_through_the_kernels_to_the_input(cuda):
+    """A loss through the block and the LSTM on the card gives x a gradient
+    that matches the CPU's (before the backward kernels, the kernels
+    returned tensors without a grad_fn and x.grad stayed None)."""
+    gen = torch.Generator().manual_seed(7)
+    x_cpu = torch.randn(4, 64, 64, generator=gen)
+    x_cpu[..., :2] *= 3.0
+    _, params_cpu, _ = _block_inputs(1, 1, 8, "cpu")
+    lstm = LSTM(64, 16, bidirectional=True)
+    for p in lstm.parameters():
+        torch.nn.init.uniform_(p, -0.25, 0.25, generator=gen)
+
+    def loss(x, params, lstm):
+        y = fused_transformer_block(x, params, 8, 8.0)
+        return (lstm(y) ** 2).sum()
+
+    x_gpu = x_cpu.to(cuda).requires_grad_()
+    loss(x_gpu, [p.to(cuda) for p in params_cpu], lstm.to(cuda)).backward()
+    assert x_gpu.grad is not None
+    x_cpu.requires_grad_()
+    loss(x_cpu, params_cpu, lstm.cpu()).backward()
+    assert _err(x_gpu.grad.cpu(), x_cpu.grad) <= 1e-4

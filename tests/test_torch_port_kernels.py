@@ -180,11 +180,19 @@ def test_cpu_tensors_leave_launch_counters_at_zero():
 
 
 def test_fused_block_has_no_training_mode():
+    """Without a drop rate the block has no training mode of its own:
+    ``training=True`` draws no mask and is the eval block (the JAX kernel's
+    ``_mask_cfg``).  Only a non-zero rate makes it drop."""
     x, variables = _block_case(16, 4, seed=4)
     block = _torch_block(16, 4, variables)
-    with pytest.raises(NotImplementedError, match="dropout"):
-        fused_transformer_block(torch.from_numpy(x), block.fused_params(), 4, 4.0,
-                                training=True)
+    xt, params = torch.from_numpy(x), block.fused_params()
+    with torch.no_grad():
+        ev = fused_transformer_block(xt, params, 4, 4.0)
+        tr0 = fused_transformer_block(xt, params, 4, 4.0, training=True, seed=3)
+        tr = fused_transformer_block(xt, params, 4, 4.0, training=True, seed=3,
+                                     drop_p=0.5, ffn_drop_p=0.5)
+    assert torch.equal(ev, tr0)
+    assert float((ev - tr).abs().max()) > 1e-2
 
 
 def test_block_kernel_window_limit():

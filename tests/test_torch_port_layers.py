@@ -103,11 +103,12 @@ def test_dropout_eval_is_identity_and_training_is_seeded():
     x = torch.ones(2000)
     assert drop.eval()(x) is x
     drop.train()
-    drop.generator = torch.Generator().manual_seed(1)
+    drop.dropout_seed = 1
     a = drop(x)
-    drop.generator = torch.Generator().manual_seed(1)
     b = drop(x)
     assert torch.equal(a, b)
+    drop.dropout_seed = 2
+    assert not torch.equal(drop(x), a)
     kept = a != 0
     assert abs(float(kept.float().mean()) - 0.6) < 0.05
     np.testing.assert_allclose(a[kept].numpy(), 1 / 0.6, rtol=1e-6)

@@ -29,13 +29,26 @@ CFLAGS = ["-std=c++17", "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
+_U = ctypes.c_uint
 _F = ctypes.c_float
+_L = ctypes.c_longlong
+# the dropout arguments of the block kernels (DropCfg in csrc/drop.cuh):
+# on, seed, batch tile, threshold and keep scale for drop_p and ffn_drop_p
+_DROP = [_I, _U, _I, _U, _F, _U, _F]
 # C entry points: name -> (argtypes, restype)
 _SIGNATURES = {
-    # x, out, params[16], B, T, E, H, F, inv_scale, stream
-    "tce_fused_block_fwd": ([_P, _P, _P, _I, _I, _I, _I, _I, _F, _P], _I),
-    # xw, whh, h_out, c_out (may be NULL), T, D, B, H, stream
-    "tce_lstm_scan_fwd": ([_P, _P, _P, _P, _I, _I, _I, _I, _P], _I),
+    # x, out, params[16], B, T, E, H, F, inv_scale, dropout, saved (may be NULL), stream
+    "tce_fused_block_fwd": ([_P, _P, _P, _I, _I, _I, _I, _I, _F, *_DROP, _P, _P], _I),
+    # x, g, saved, params[16], dx, dparams[16], workspace, B, T, E, H, F,
+    # inv_scale, dropout, stream
+    "tce_fused_block_bwd": ([_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _F, *_DROP,
+                             _P], _I),
+    "tce_fused_block_bwd_workspace": ([_I, _I], _L),
+    # xw, whh, h_out, c_out (may be NULL), gates_out (may be NULL), T, D, B, H, stream
+    "tce_lstm_scan_fwd": ([_P, _P, _P, _P, _P, _I, _I, _I, _I, _P], _I),
+    # gates, whh^T, h, c, g, dxw, dwhh, workspace, T, D, B, H, stream
+    "tce_lstm_scan_bwd": ([_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P], _I),
+    "tce_lstm_scan_bwd_workspace": ([_I, _I, _I, _I], _L),
     "tce_error_string": ([_I], ctypes.c_char_p),
 }
 

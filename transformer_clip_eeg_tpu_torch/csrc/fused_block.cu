@@ -1,4 +1,4 @@
-// Fused pre-LN transformer encoder block, forward, eval mode, f32.
+// Fused pre-LN transformer encoder block, forward, f32, eval or training.
 //
 // Replaces: transformer_clip_eeg_tpu/ops/pallas_block.py, _fused_block_fwd
 // (pl.pallas_call at :458; kernel body _fwd_kernel :255 / _forward_core :189).
@@ -9,6 +9,14 @@
 //   x1 = x + ctx Wo^T + bo
 //   out = x1 + W2 gelu(W1 LN2(x1) + b1) + b2       (exact erf GELU)
 // with `scale` the reference's full emb_size**0.5 (not the head dim).
+//
+// Training mode applies the JAX kernel's four dropout masks where
+// _forward_core does (each head's P, the attention output after Wo + bo, the
+// FFN inner after GELU, the FFN output after W2 + b2), drawn in-kernel by
+// drop_bits (drop.cuh), the counter hash of ops/dropout.py, so the masks are
+// the same bits as the JAX kernel's interpret mode and the plain twin.  When
+// `saved` is not NULL the kernel also writes q, k, v, the dropped-out
+// attention context and x1 ([5][B][T][E]) for the backward (fused_block_bwd.cu).
 //
 // Bound on an H100 at the flagship shape (B=128, T=192, E=64, H=8, F=256):
 // 28.3 MFLOP per sample, 3.62 GFLOP per launch against 12.6 MB of x in and
@@ -30,12 +38,11 @@
 #include <cuda_runtime.h>
 #include <math.h>
 
+#include "block_common.cuh"
+#include "drop.cuh"
+
 namespace {
 
-constexpr int E = 64;       // embedding width
-constexpr int H = 8;        // heads
-constexpr int D = E / H;    // head width
-constexpr int F = 4 * E;    // FFN hidden width
 constexpr int NT = 256;     // threads per CTA (== F: one hidden unit each)
 constexpr int NW = NT / 32; // warps per CTA
 constexpr int R = 16;       // FFN row chunk
@@ -43,76 +50,6 @@ constexpr int KS = E + 1;   // padded row stride of K and V
 
 static_assert(F == NT, "the FFN hidden phase maps one thread to one unit");
 static_assert(3 * E <= NT, "the QKV phase maps one thread to one column");
-
-// order and torch layouts of the 16 parameters:
-//   g1 [E], be1 [E], wq [E,E], wk [E,E], wv [E,E], bq [E], bk [E], bv [E],
-//   wo [E,E], bo [E], g2 [E], be2 [E], w1 [F,E], bb1 [F], w2 [E,F], bb2 [E]
-// (a weight is [out, in], as torch.nn.Linear stores it)
-struct BlockParams {
-  const float* p[16];
-};
-
-__device__ __forceinline__ float warp_sum(float v) {
-#pragma unroll
-  for (int o = 16; o > 0; o >>= 1) v += __shfl_xor_sync(0xffffffffu, v, o);
-  return v;
-}
-
-__device__ __forceinline__ float warp_max(float v) {
-#pragma unroll
-  for (int o = 16; o > 0; o >>= 1)
-    v = fmaxf(v, __shfl_xor_sync(0xffffffffu, v, o));
-  return v;
-}
-
-__device__ __forceinline__ float gelu(float x) {
-  return 0.5f * x * (1.0f + erff(x * 0.70710678118654752f));
-}
-
-// N consecutive floats of device memory (16-byte aligned) into registers.
-template <int N>
-__device__ __forceinline__ void load_row(const float* __restrict__ src,
-                                         float (&w)[N]) {
-  const float4* s4 = reinterpret_cast<const float4*>(src);
-#pragma unroll
-  for (int i = 0; i < N / 4; ++i) {
-    const float4 v = __ldg(s4 + i);
-    w[4 * i] = v.x;
-    w[4 * i + 1] = v.y;
-    w[4 * i + 2] = v.z;
-    w[4 * i + 3] = v.w;
-  }
-}
-
-// dot product of a 16-byte aligned shared-memory row with a register row
-template <int N>
-__device__ __forceinline__ float dot_row(const float* row, const float (&w)[N]) {
-  const float4* r4 = reinterpret_cast<const float4*>(row);
-  float a0 = 0.f, a1 = 0.f, a2 = 0.f, a3 = 0.f;
-#pragma unroll
-  for (int i = 0; i < N / 4; ++i) {
-    const float4 v = r4[i];
-    a0 = fmaf(v.x, w[4 * i], a0);
-    a1 = fmaf(v.y, w[4 * i + 1], a1);
-    a2 = fmaf(v.z, w[4 * i + 2], a2);
-    a3 = fmaf(v.w, w[4 * i + 3], a3);
-  }
-  return (a0 + a1) + (a2 + a3);
-}
-
-// LayerNorm (eps 1e-5) of one E=64 row by one warp: two values per lane.
-__device__ __forceinline__ void layernorm_row(const float* src, float* dst,
-                                              const float* __restrict__ g,
-                                              const float* __restrict__ b,
-                                              int lane) {
-  const float a0 = src[lane], a1 = src[lane + 32];
-  const float mean = warp_sum(a0 + a1) * (1.0f / E);
-  const float d0 = a0 - mean, d1 = a1 - mean;
-  const float var = warp_sum(d0 * d0 + d1 * d1) * (1.0f / E);
-  const float inv = rsqrtf(var + 1e-5f);
-  dst[lane] = d0 * inv * __ldg(g + lane) + __ldg(b + lane);
-  dst[lane + 32] = d1 * inv * __ldg(g + lane + 32) + __ldg(b + lane + 32);
-}
 
 __host__ __device__ inline size_t smem_floats(int T) {
   const size_t attn = 2 * (size_t)T * KS + (size_t)NW * T;  // K, V, scores
@@ -122,7 +59,8 @@ __host__ __device__ inline size_t smem_floats(int T) {
 
 __global__ void __launch_bounds__(NT, 1)
 fused_block_fwd_kernel(const float* __restrict__ x, float* __restrict__ out,
-                       BlockParams P, int T, float inv_scale) {
+                       BlockParams P, int T, float inv_scale, DropCfg drop,
+                       float* __restrict__ saved) {
   extern __shared__ __align__(16) float smem[];
   float* bufA = smem;              // [T][E]: LN1 out, then ctx, then LN2 out
   float* bufX = bufA + T * E;      // [T][E]: Q, then x1
@@ -136,6 +74,8 @@ fused_block_fwd_kernel(const float* __restrict__ x, float* __restrict__ out,
   const size_t base = (size_t)blockIdx.x * T * E;
   const float* __restrict__ xb = x + base;
   float* __restrict__ ob = out + base;
+  const DropSample ds = drop_sample(drop, blockIdx.x);
+  const size_t plane = (size_t)gridDim.x * T * E;  // one saved [B][T][E] plane
   const float *g1 = P.p[0], *be1 = P.p[1], *wq = P.p[2], *wk = P.p[3],
               *wv = P.p[4], *bq = P.p[5], *bk = P.p[6], *bv = P.p[7],
               *wo = P.p[8], *bo = P.p[9], *g2 = P.p[10], *be2 = P.p[11],
@@ -158,6 +98,14 @@ fused_block_fwd_kernel(const float* __restrict__ x, float* __restrict__ out,
     for (int t = 0; t < T; ++t) dst[t * stride] = dot_row<E>(bufA + t * E, w) + bias;
   }
   __syncthreads();
+  if (saved != nullptr) {  // q, k, v for the backward
+    for (int i = tid; i < T * E; i += NT) {
+      const int t = i / E, e = i % E;
+      saved[base + i] = bufX[i];
+      saved[plane + base + i] = kbuf[t * KS + e];
+      saved[2 * plane + base + i] = vbuf[t * KS + e];
+    }
+  }
 
   // 3. attention: a warp per (query row, head); lanes walk the keys
   float* srow = sc + warp * T;
@@ -181,9 +129,12 @@ fused_block_fwd_kernel(const float* __restrict__ x, float* __restrict__ out,
     float acc[D];
 #pragma unroll
     for (int d = 0; d < D; ++d) acc[d] = 0.f;
+    const uint32_t key = ds.seed_base + (uint32_t)h;
+    const uint32_t idx0 = (uint32_t)(ds.local * T + t) * (uint32_t)T;
     for (int j = lane; j < T; j += 32) {
-      const float p = expf(srow[j] - mx);
-      sum += p;
+      float p = expf(srow[j] - mx);
+      sum += p;  // the softmax normalises the clean probabilities
+      if (drop.on) p *= drop_mult(key, idx0 + j, drop.thr, drop.keep);
       const float* vr = vbuf + j * KS + h * D;
 #pragma unroll
       for (int d = 0; d < D; ++d) acc[d] = fmaf(p, vr[d], acc[d]);
@@ -198,6 +149,8 @@ fused_block_fwd_kernel(const float* __restrict__ x, float* __restrict__ out,
     if (lane < D) bufA[t * E + h * D + lane] = mine / sum;
   }
   __syncthreads();
+  if (saved != nullptr)  // the attention context, after dropout
+    for (int i = tid; i < T * E; i += NT) saved[3 * plane + base + i] = bufA[i];
 
   // 4. out-projection + residual: x1 = x + ctx Wo^T + bo, into bufX
   {
@@ -205,10 +158,16 @@ fused_block_fwd_kernel(const float* __restrict__ x, float* __restrict__ out,
     float w[E];
     load_row<E>(wo + o * E, w);
     const float bias = __ldg(bo + o);
-    for (int t = g; t < T; t += NT / E)
-      bufX[t * E + o] = xb[(size_t)t * E + o] + (dot_row<E>(bufA + t * E, w) + bias);
+    const uint32_t key = ds.seed_base + (uint32_t)H;
+    for (int t = g; t < T; t += NT / E) {
+      float a = dot_row<E>(bufA + t * E, w) + bias;
+      if (drop.on) a *= drop_mult(key, (uint32_t)(ds.local * T + t) * E + o, drop.thr, drop.keep);
+      bufX[t * E + o] = xb[(size_t)t * E + o] + a;
+    }
   }
   __syncthreads();
+  if (saved != nullptr)  // x1
+    for (int i = tid; i < T * E; i += NT) saved[4 * plane + base + i] = bufX[i];
 
   // 5. LN2, a warp per row
   for (int t = warp; t < T; t += NW)
@@ -223,10 +182,17 @@ fused_block_fwd_kernel(const float* __restrict__ x, float* __restrict__ out,
     const int o = tid % E, g = tid / E;  // output column, quarter of F
     float wb[F / 4];
     load_row<F / 4>(w2 + o * F + g * (F / 4), wb);
+    const uint32_t key_in = ds.seed_base + (uint32_t)(H + 1);
+    const uint32_t key_out = ds.seed_base + (uint32_t)(H + 2);
     for (int c0 = 0; c0 < T; c0 += R) {
       const int nr = min(R, T - c0);
-      for (int r = 0; r < nr; ++r)
-        hbuf[r * F + tid] = gelu(dot_row<E>(bufA + (c0 + r) * E, wa) + ba);
+      for (int r = 0; r < nr; ++r) {
+        float hv = gelu(dot_row<E>(bufA + (c0 + r) * E, wa) + ba);
+        if (drop.on)
+          hv *= drop_mult(key_in, (uint32_t)(ds.local * T + c0 + r) * F + tid,
+                          drop.thr_ffn, drop.keep_ffn);
+        hbuf[r * F + tid] = hv;
+      }
       __syncthreads();
       for (int r = 0; r < nr; ++r)
         part[(g * R + r) * E + o] = dot_row<F / 4>(hbuf + r * F + g * (F / 4), wb);
@@ -236,7 +202,11 @@ fused_block_fwd_kernel(const float* __restrict__ x, float* __restrict__ out,
         const float f2 =
             (part[r * E + oc] + part[(R + r) * E + oc]) +
             (part[(2 * R + r) * E + oc] + part[(3 * R + r) * E + oc]);
-        ob[(size_t)(c0 + r) * E + oc] = bufX[(c0 + r) * E + oc] + (f2 + __ldg(bb2 + oc));
+        float fo = f2 + __ldg(bb2 + oc);
+        if (drop.on)
+          fo *= drop_mult(key_out, (uint32_t)(ds.local * T + c0 + r) * E + oc,
+                          drop.thr, drop.keep);
+        ob[(size_t)(c0 + r) * E + oc] = bufX[(c0 + r) * E + oc] + fo;
       }
       __syncthreads();
     }
@@ -245,13 +215,17 @@ fused_block_fwd_kernel(const float* __restrict__ x, float* __restrict__ out,
 
 }  // namespace
 
-// Launch on `stream`; returns the CUDA error code (0 on success).
+// Launch on `stream`; returns the CUDA error code (0 on success).  The
+// dropout arguments are those of DropCfg (drop.cuh); `saved` may be NULL.
 extern "C" int tce_fused_block_fwd(const float* x, float* out,
                                    const void* const* params, int B, int T,
                                    int e, int h, int f, float inv_scale,
-                                   void* stream) {
-  if (e != E || h != H || f != F || B <= 0 || T <= 0)
+                                   int drop_on, unsigned seed, int tb,
+                                   unsigned thr, float keep, unsigned thr_ffn,
+                                   float keep_ffn, float* saved, void* stream) {
+  if (e != E || h != H || f != F || B <= 0 || T <= 0 || tb <= 0)
     return (int)cudaErrorInvalidValue;
+  const DropCfg drop{drop_on, seed, tb, thr, keep, thr_ffn, keep_ffn};
   BlockParams P;
   for (int i = 0; i < 16; ++i) P.p[i] = static_cast<const float*>(params[i]);
   const size_t bytes = smem_floats(T) * sizeof(float);
@@ -266,6 +240,6 @@ extern "C" int tce_fused_block_fwd(const float* x, float* out,
                              (int)bytes);
   if (err != cudaSuccess) return (int)err;
   fused_block_fwd_kernel<<<B, NT, bytes, static_cast<cudaStream_t>(stream)>>>(
-      x, out, P, T, inv_scale);
+      x, out, P, T, inv_scale, drop, saved);
   return (int)cudaGetLastError();
 }

@@ -8,6 +8,8 @@
 // biases) and recurrent weights whh [D, H, 4H], from a zero state:
 //   pre = xw[t, d] + h W;  i, f, o = sigmoid;  g = tanh   (torch order i,f,g,o)
 //   c = f c + i g;  h = o tanh(c);  h_out[t, d] = h   (c_out too, if asked)
+// and, when gates_out is not NULL (training), the activated gates i, f, g, o
+// laid out as xw, which the backward (lstm_scan_bwd.cu) reads.
 //
 // Bound on an H100 at the flagship's H=128 layer (T=192, D=2, B=128):
 // 6.4 GFLOP, about 96 us at 67 TFLOP/s in f32, and 100 MB of xw, about
@@ -36,8 +38,8 @@ __device__ __forceinline__ float sigmoidf(float x) {
 template <int RPT>
 __global__ void __launch_bounds__(NT)
 lstm_fwd_kernel(const float* __restrict__ xw, const float* __restrict__ whh,
-                float* __restrict__ h_out, float* __restrict__ c_out, int T,
-                int D, int B, int H, int KS) {
+                float* __restrict__ h_out, float* __restrict__ c_out,
+                float* __restrict__ gates_out, int T, int D, int B, int H, int KS) {
   extern __shared__ __align__(16) float smem[];
   const int G = 4 * H;
   const int RG = NT / H;   // row groups
@@ -123,6 +125,13 @@ lstm_fwd_kernel(const float* __restrict__ xw, const float* __restrict__ whh,
         const size_t o = (row0 + brow[r]) * H + j;
         h_out[o] = h;
         if (c_out != nullptr) c_out[o] = c[r];
+        if (gates_out != nullptr) {
+          float* gr = gates_out + (row0 + brow[r]) * G + j;
+          gr[0] = ig;
+          gr[H] = fg;
+          gr[2 * H] = gg;
+          gr[3 * H] = og;
+        }
       }
     }
     __syncthreads();  // h of step t is complete
@@ -131,7 +140,7 @@ lstm_fwd_kernel(const float* __restrict__ xw, const float* __restrict__ whh,
 
 template <int RPT>
 int launch(const float* xw, const float* whh, float* h_out, float* c_out,
-           int T, int D, int B, int H, cudaStream_t stream) {
+           float* gates_out, int T, int D, int B, int H, cudaStream_t stream) {
   const int BT = (NT / H) * RPT;
   int dev = 0, optin = 0;
   cudaError_t err = cudaGetDevice(&dev);
@@ -150,21 +159,21 @@ int launch(const float* xw, const float* whh, float* h_out, float* c_out,
                              (int)bytes);
   if (err != cudaSuccess) return (int)err;
   const dim3 grid((B + BT - 1) / BT, D);
-  lstm_fwd_kernel<RPT><<<grid, NT, bytes, stream>>>(xw, whh, h_out, c_out, T,
-                                                    D, B, H, (int)ks);
+  lstm_fwd_kernel<RPT><<<grid, NT, bytes, stream>>>(xw, whh, h_out, c_out,
+                                                    gates_out, T, D, B, H, (int)ks);
   return (int)cudaGetLastError();
 }
 
 }  // namespace
 
 // Launch on `stream`; returns the CUDA error code (0 on success).  `c_out`
-// may be NULL.  H must be a multiple of 4 that divides 128.
+// and `gates_out` may be NULL.  H must be a multiple of 4 that divides 128.
 extern "C" int tce_lstm_scan_fwd(const float* xw, const float* whh,
-                                 float* h_out, float* c_out, int T, int D,
-                                 int B, int H, void* stream) {
+                                 float* h_out, float* c_out, float* gates_out,
+                                 int T, int D, int B, int H, void* stream) {
   if (T <= 0 || D <= 0 || B <= 0 || H < 4 || H > NT || NT % H != 0 || H % 4 != 0)
     return (int)cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (H >= 32) return launch<4>(xw, whh, h_out, c_out, T, D, B, H, s);
-  return launch<1>(xw, whh, h_out, c_out, T, D, B, H, s);
+  if (H >= 32) return launch<4>(xw, whh, h_out, c_out, gates_out, T, D, B, H, s);
+  return launch<1>(xw, whh, h_out, c_out, gates_out, T, D, B, H, s);
 }

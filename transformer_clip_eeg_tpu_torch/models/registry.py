@@ -5,10 +5,13 @@ same flag values and defaults.  Only the default run's branches are ported:
 the ``EEGConformerInterleaved`` EEG encoder, the ``convLSTM`` speech encoder
 and the ``clip_sim_no_latent_proj`` head.  Any other name raises
 ``NotImplementedError``; ROADMAP.md lists what is still to port.
+:func:`build_model_from_config` assembles the whole model from a
+``TrainConfig`` with seeded weights, for the trainer and for serving.
 """
 
 from __future__ import annotations
 
+import torch
 from torch import nn
 
 from transformer_clip_eeg_tpu_torch.models.encoders import (
@@ -16,6 +19,7 @@ from transformer_clip_eeg_tpu_torch.models.encoders import (
     EEGConvLSTM,
 )
 from transformer_clip_eeg_tpu_torch.models.heads import CLIPSimNoLatentProj
+from transformer_clip_eeg_tpu_torch.ops.layers import init_parameters
 
 
 def _not_ported(kind: str, name: str) -> NotImplementedError:
@@ -101,3 +105,44 @@ def build_model(
             momentum_membank=momentum_membank,
         )
     raise _not_ported("model_arch", model_arch)
+
+
+def resolve_device(device) -> torch.device:
+    """``torch.device(device)``, raising if it names CUDA on a host without it."""
+    dev = torch.device(device)
+    if dev.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError(
+            f"device {str(dev)!r} requested but CUDA is not available; pass "
+            "device='cpu' to run on the CPU"
+        )
+    return dev
+
+
+def build_model_from_config(cfg, bank_size: int, device="cuda", seed: int = 0):
+    """Assemble the model as the trainer does, from a ``TrainConfig`` alone,
+    with every parameter drawn from ``torch.Generator().manual_seed(seed)``
+    (on the CPU, so a seed gives the same weights on any device), in eval
+    mode on ``device``."""
+    dev = resolve_device(device)
+    eeg_enc = load_eeg_encoder(
+        cfg.eeg_encoder, cfg.lstm_units, cfg.spatial_filters,
+        cfg.number_conv_layers, cfg.window_length, cfg.latent_dim,
+        cfg.attention_depth,
+    )
+    speech_enc = load_speech_encoder(
+        cfg.speech_encoder, cfg.lstm_units, cfg.spatial_filters,
+        cfg.number_conv_layers, cfg.window_length, cfg.stride_temporal,
+        cfg.speech_dimension, cfg.latent_dim,
+    )
+    model = build_model(
+        cfg.model_arch, eeg_enc, speech_enc,
+        window_length=cfg.window_length,
+        temperature=cfg.temperature,
+        latent_dim=cfg.latent_dim,
+        bank_size=bank_size,
+        lambda_clip_loss=cfg.lambda_clip_loss,
+        lambda_sim_loss=cfg.lambda_sim_loss,
+        momentum_membank=cfg.momentum_membank,
+    )
+    init_parameters(model, torch.Generator().manual_seed(seed))
+    return model.to(dev).eval()

@@ -5,10 +5,12 @@ logits are divided by ``emb_size ** 0.5``, the *full* embedding width and not
 the head width: a quirk of the reference that trained checkpoints depend on.
 
 Block structure: pre-LN residual blocks, ``x + Drop(MHA(LN(x)))`` then
-``x + Drop(FFN(LN(x)))``, 8 heads, FFN expansion 4, exact GELU.  On a CUDA
-tensor :class:`TransformerEncoderBlock` runs the fused kernel
-(``ops/fused_block.py``); on a CPU tensor it runs the eager modules below.
-Both read the same parameters.
+``x + Drop(FFN(LN(x)))``, 8 heads, FFN expansion 4, exact GELU.  Every
+tensor, on the CPU or the card, goes through
+:func:`~transformer_clip_eeg_tpu_torch.ops.fused_block.fused_transformer_block`
+(the fused kernels on CUDA, their plain twin on the CPU), with the four
+dropout masks of the JAX kernel in training mode.  The attention and FFN
+modules below only hold the parameters, under the flax names.
 """
 
 from __future__ import annotations
@@ -17,55 +19,35 @@ import torch
 from torch import nn
 
 from transformer_clip_eeg_tpu_torch.ops.fused_block import fused_transformer_block
-from transformer_clip_eeg_tpu_torch.ops.layers import (
-    Dense,
-    Dropout,
-    LayerNorm,
-    gelu_exact,
-)
+from transformer_clip_eeg_tpu_torch.ops.layers import Dense, LayerNorm
 
 
 class MultiHeadAttention(nn.Module):
-    """Self-attention with separate Q/K/V projections."""
+    """The parameters of self-attention: separate Q/K/V projections and the
+    output projection."""
 
-    def __init__(self, emb_size: int, num_heads: int, dropout: float):
+    def __init__(self, emb_size: int):
         super().__init__()
-        self.emb_size, self.num_heads = emb_size, num_heads
         self.queries = Dense(emb_size, emb_size)
         self.keys = Dense(emb_size, emb_size)
         self.values = Dense(emb_size, emb_size)
-        self.att_drop = Dropout(dropout)
         self.projection = Dense(emb_size, emb_size)
-
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
-        b, t, e = x.shape
-        h = self.num_heads
-        q = self.queries(x).reshape(b, t, h, e // h)
-        k = self.keys(x).reshape(b, t, h, e // h)
-        v = self.values(x).reshape(b, t, h, e // h)
-        energy = torch.einsum("bqhd,bkhd->bhqk", q, k)
-        # the reference's quirk: scale by the full emb_size**0.5
-        att = torch.softmax(energy / self.emb_size ** 0.5, dim=-1)
-        att = self.att_drop(att)
-        out = torch.einsum("bhqk,bkhd->bqhd", att, v).reshape(b, t, e)
-        return self.projection(out)
 
 
 class FeedForwardBlock(nn.Module):
-    """Dense(e→4e) → exact GELU → Dropout → Dense(4e→e)."""
+    """The parameters of Dense(e→4e) → exact GELU → Dropout → Dense(4e→e)."""
 
-    def __init__(self, emb_size: int, expansion: int = 4, drop_p: float = 0.5):
+    def __init__(self, emb_size: int, expansion: int = 4):
         super().__init__()
         self.fc1 = Dense(emb_size, expansion * emb_size)
-        self.drop = Dropout(drop_p)
         self.fc2 = Dense(expansion * emb_size, emb_size)
-
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
-        return self.fc2(self.drop(gelu_exact(self.fc1(x))))
 
 
 class TransformerEncoderBlock(nn.Module):
-    """Pre-LN residual block; the fused kernel on CUDA, eager on the CPU."""
+    """Pre-LN residual block, run by the fused block on every device.
+
+    ``dropout_seed`` keys the four masks of the next forward in training
+    mode (set per step by ``ops.dropout.set_dropout_seeds``)."""
 
     def __init__(
         self,
@@ -77,12 +59,12 @@ class TransformerEncoderBlock(nn.Module):
     ):
         super().__init__()
         self.emb_size, self.num_heads = emb_size, num_heads
+        self.drop_p, self.forward_drop_p = drop_p, forward_drop_p
+        self.dropout_seed = 0
         self.ln1 = LayerNorm(emb_size)
-        self.attn = MultiHeadAttention(emb_size, num_heads, drop_p)
-        self.drop1 = Dropout(drop_p)
+        self.attn = MultiHeadAttention(emb_size)
         self.ln2 = LayerNorm(emb_size)
-        self.ffn = FeedForwardBlock(emb_size, forward_expansion, forward_drop_p)
-        self.drop2 = Dropout(drop_p)
+        self.ffn = FeedForwardBlock(emb_size, forward_expansion)
 
     def fused_params(self):
         """The fused kernel's 16-tuple (``ops/fused_block.py``), as views."""
@@ -97,13 +79,11 @@ class TransformerEncoderBlock(nn.Module):
         )
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        if x.is_cuda:
-            return fused_transformer_block(
-                x, self.fused_params(), self.num_heads, self.emb_size ** 0.5,
-                training=self.training,
-            )
-        x = x + self.drop1(self.attn(self.ln1(x)))
-        return x + self.drop2(self.ffn(self.ln2(x)))
+        return fused_transformer_block(
+            x, self.fused_params(), self.num_heads, self.emb_size ** 0.5,
+            training=self.training, seed=self.dropout_seed,
+            drop_p=self.drop_p, ffn_drop_p=self.forward_drop_p,
+        )
 
 
 class TransformerEncoder(nn.Module):

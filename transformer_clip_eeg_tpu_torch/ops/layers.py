@@ -28,6 +28,8 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from transformer_clip_eeg_tpu_torch.ops.dropout import dropout_mask
+
 
 def torch_uniform_init(
     tensor: torch.Tensor, fan_in: int, generator: Optional[torch.Generator]
@@ -144,18 +146,18 @@ class LayerNormTC(nn.Module):
 
 
 class Dropout(nn.Module):
-    """Inverted dropout in training mode, drawing its mask from
-    ``self.generator`` (a ``torch.Generator`` on the input's device, set by
-    the caller; ``None`` uses torch's default generator)."""
+    """Inverted dropout in training mode.  The mask is the port's one mask
+    function (``ops/dropout.py``) keyed by ``dropout_seed``, over the
+    row-major index of ``x``, so the CPU and the card drop the same
+    elements; ``ops.dropout.set_dropout_seeds`` gives each layer its own
+    seed per step."""
 
     def __init__(self, rate: float):
         super().__init__()
         self.rate = rate
-        self.generator: Optional[torch.Generator] = None
+        self.dropout_seed = 0
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         if not self.training or self.rate == 0.0:
             return x
-        keep = 1.0 - self.rate
-        u = torch.rand(x.shape, generator=self.generator, device=x.device, dtype=x.dtype)
-        return torch.where(u < keep, x / keep, torch.zeros_like(x))
+        return x * dropout_mask(self.dropout_seed, x.shape, self.rate, x.device)

@@ -9,7 +9,9 @@ torch's own parameter names and layouts (``weight_ih_l0 [4H, in]``,
 The input projection of every timestep and both directions is one batched
 matmul; the recurrence of both directions is one call of
 :func:`~transformer_clip_eeg_tpu_torch.ops.lstm_scan.lstm_scan_packed`, the
-reverse direction running on time-flipped input.
+reverse direction running on time-flipped input, with its gradient through
+the recurrence's own backward.  The input projection stays a ``torch.matmul``
+under autograd, as the JAX package leaves it to XLA.
 """
 
 from __future__ import annotations

@@ -1,10 +1,14 @@
-"""LSTM recurrence, forward: the CUDA kernel and its plain twin.
+"""LSTM recurrence, forward and backward: the CUDA kernels and their plain
+twin.
 
 Counterpart of ``transformer_clip_eeg_tpu/ops/pallas_lstm.py``
-(``lstm_scan_pallas_packed``, forward).  The kernel is ``csrc/lstm_scan.cu``;
-its header says what bounds it and how it is laid out.
-:func:`lstm_scan_packed` launches it for a CUDA tensor and runs
-:func:`lstm_scan_reference` for a CPU tensor; there is no other path.
+(``lstm_scan_pallas_packed`` and its ``custom_vjp``).  The forward kernel is
+``csrc/lstm_scan.cu`` (kernel #3), the backward ``csrc/lstm_scan_bwd.cu``
+(kernel #4); each source's header says what bounds it and how it is laid
+out.  :func:`lstm_scan_packed` launches #3 for a CUDA tensor and runs
+:func:`lstm_scan_reference` for a CPU tensor; under autograd it goes through
+:class:`LSTMScanFunction` (#4 on the card, autograd through the twin on the
+CPU).  There is no other path.
 
 Shapes, as in the JAX package: gate inputs ``xw [T, D, B, 4H]`` (the input
 projection with both biases already added; ``D`` independent recurrences,
@@ -15,7 +19,7 @@ recurrent weights ``whh [D, H, 4H]`` (``[in, out]``, the transpose of torch's
 
 from __future__ import annotations
 
-from typing import Tuple, Union
+from typing import Optional, Tuple, Union
 
 import torch
 
@@ -64,17 +68,9 @@ def _check_cuda_inputs(xw: torch.Tensor, whh: torch.Tensor) -> None:
             raise ValueError(f"{name} must be 16-byte aligned on {xw.device}")
 
 
-def lstm_scan_packed(
-    xw: torch.Tensor, whh: torch.Tensor, return_c: bool = False
-) -> Union[torch.Tensor, Tuple[torch.Tensor, torch.Tensor]]:
-    """All ``D`` recurrences in one launch: ``h [T, D, B, H]`` (and ``c``
-    when ``return_c``).  A CUDA tensor launches the kernel (float32,
-    contiguous, H a multiple of 4 that divides 128, else it raises); a CPU
-    tensor runs the plain version."""
-    if xw.device.type == "cpu":
-        return lstm_scan_reference(xw, whh, return_c)
-    if xw.device.type != "cuda":
-        raise ValueError(f"no LSTM recurrence for device {xw.device}")
+def _launch_forward(xw: torch.Tensor, whh: torch.Tensor, return_c: bool,
+                    save_gates: bool) -> Tuple[torch.Tensor, Optional[torch.Tensor],
+                                               Optional[torch.Tensor]]:
     _check_cuda_inputs(xw, whh)
     from transformer_clip_eeg_tpu_torch import _build
 
@@ -82,15 +78,104 @@ def lstm_scan_packed(
     t, d, b, g4 = xw.shape
     h_out = xw.new_empty((t, d, b, g4 // 4))
     c_out = torch.empty_like(h_out) if return_c else None
+    gates = torch.empty_like(xw) if save_gates else None
     with torch.cuda.device(xw.device):
         stream = torch.cuda.current_stream(xw.device).cuda_stream
         rc = lib.tce_lstm_scan_fwd(
             xw.data_ptr(), whh.data_ptr(), h_out.data_ptr(),
-            None if c_out is None else c_out.data_ptr(), t, d, b, g4 // 4, stream,
+            None if c_out is None else c_out.data_ptr(),
+            None if gates is None else gates.data_ptr(), t, d, b, g4 // 4, stream,
         )
     _build.check(lib, rc, "lstm_scan_packed")
     lstm_scan_packed.launches += 1
+    return h_out, c_out, gates
+
+
+def lstm_scan_packed(
+    xw: torch.Tensor, whh: torch.Tensor, return_c: bool = False
+) -> Union[torch.Tensor, Tuple[torch.Tensor, torch.Tensor]]:
+    """All ``D`` recurrences in one launch: ``h [T, D, B, H]`` (and ``c``
+    when ``return_c``).  A CUDA tensor launches the kernel (float32,
+    contiguous, H a multiple of 4 that divides 128, else it raises); a CPU
+    tensor runs the plain version.  Under autograd ``h`` carries its
+    gradient through :class:`LSTMScanFunction`; ``c`` has none, so
+    ``return_c`` is refused there."""
+    if xw.device.type not in ("cpu", "cuda"):
+        raise ValueError(f"no LSTM recurrence for device {xw.device}")
+    if torch.is_grad_enabled() and (xw.requires_grad or whh.requires_grad):
+        if return_c:
+            raise ValueError("return_c has no gradient; call it without autograd")
+        return LSTMScanFunction.apply(xw, whh)
+    if xw.device.type == "cpu":
+        return lstm_scan_reference(xw, whh, return_c)
+    h_out, c_out, _ = _launch_forward(xw, whh, return_c, save_gates=False)
     return (h_out, c_out) if return_c else h_out
 
 
+def lstm_scan_backward(
+    whh: torch.Tensor, h: torch.Tensor, c: torch.Tensor, gates: torch.Tensor,
+    g: torch.Tensor,
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Kernel #4 on CUDA tensors: ``(dxw [T, D, B, 4H], dwhh [D, H, 4H])`` for
+    the upstream gradient ``g [T, D, B, H]`` of ``h``, from the forward's
+    ``h`` and ``c`` and the gate activations the training forward wrote
+    (``gates``, laid out as ``xw``: i, f, g, o after their sigmoid or
+    tanh).  Its plain version is autograd through :func:`lstm_scan_reference`.
+    Counted once per call, whatever number of launches it takes."""
+    t, d, b, g4 = gates.shape
+    hidden = g4 // 4
+    for name, a, shape in (("h", h, (t, d, b, hidden)), ("c", c, (t, d, b, hidden)),
+                           ("g", g, (t, d, b, hidden)),
+                           ("whh", whh, (d, hidden, g4))):
+        if tuple(a.shape) != shape or a.dtype != torch.float32 or a.device != gates.device:
+            raise ValueError(f"{name}: want float32 {shape} on {gates.device}, got "
+                             f"{a.dtype} {tuple(a.shape)} on {a.device}")
+    _check_cuda_inputs(gates, whh)
+    from transformer_clip_eeg_tpu_torch import _build
+
+    lib = _build.load()
+    g, h, c = g.contiguous(), h.contiguous(), c.contiguous()
+    whh_t = whh.transpose(1, 2).contiguous()  # [D, 4H, H]: dh = dpre whh^T
+    dxw = torch.empty_like(gates)
+    dwhh = torch.empty_like(whh)
+    ws = gates.new_empty((lib.tce_lstm_scan_bwd_workspace(t, d, b, hidden),))
+    with torch.cuda.device(gates.device):
+        stream = torch.cuda.current_stream(gates.device).cuda_stream
+        rc = lib.tce_lstm_scan_bwd(
+            gates.data_ptr(), whh_t.data_ptr(), h.data_ptr(), c.data_ptr(), g.data_ptr(),
+            dxw.data_ptr(), dwhh.data_ptr(), ws.data_ptr(), t, d, b, hidden, stream,
+        )
+    _build.check(lib, rc, "lstm_scan_backward")
+    lstm_scan_backward.launches += 1
+    return dxw, dwhh
+
+
+class LSTMScanFunction(torch.autograd.Function):
+    """The recurrence with its gradient: kernels #3 and #4 for a CUDA
+    tensor; the twin and autograd through the twin for a CPU tensor.  On
+    the card the forward saves ``h``, ``c`` and the gate activations, not
+    ``xw``: the backward reads the gates instead of recomputing ``xw + h whh``."""
+
+    @staticmethod
+    def forward(ctx, xw, whh):
+        if xw.device.type == "cpu":
+            ctx.save_for_backward(xw, whh)
+            return lstm_scan_reference(xw, whh)
+        h, c, gates = _launch_forward(xw, whh, return_c=True, save_gates=True)
+        ctx.save_for_backward(whh, h, c, gates)
+        return h
+
+    @staticmethod
+    def backward(ctx, g):
+        if ctx.saved_tensors[0].device.type == "cpu":
+            xw, whh = ctx.saved_tensors
+            with torch.enable_grad():
+                xs = xw.detach().requires_grad_()
+                ws = whh.detach().requires_grad_()
+                return torch.autograd.grad(lstm_scan_reference(xs, ws), (xs, ws), g)
+        whh, h, c, gates = ctx.saved_tensors
+        return lstm_scan_backward(whh, h, c, gates, g)
+
+
 lstm_scan_packed.launches = 0
+lstm_scan_backward.launches = 0

@@ -14,67 +14,25 @@ Counterpart of ``transformer_clip_eeg_tpu/serve.py``:
 
 Every entry point runs on the card (``device="cuda"``) unless the caller
 passes ``device="cpu"``; asking for the card on a host without one raises.
-Loading a training run (``from_results_dir``) and the CLI wait for the
-port's checkpoint format (ROADMAP.md).
+:meth:`InferenceSession.from_results_dir` serves what the port's trainer
+saved (``args.txt`` and ``checkpoints/model_ckpt.pt``); the serve and
+server CLIs are still to port (ROADMAP.md).
 """
 
 from __future__ import annotations
 
+import os
 from typing import Optional, Tuple
 
 import numpy as np
 import torch
 
 from transformer_clip_eeg_tpu_torch.eval.match_mismatch import embed_in_chunks
-from transformer_clip_eeg_tpu_torch.ops.layers import init_parameters
+from transformer_clip_eeg_tpu_torch.models.registry import (
+    build_model_from_config,
+    resolve_device,
+)
 from transformer_clip_eeg_tpu_torch.train.steps import make_embed_fns
-
-
-def resolve_device(device) -> torch.device:
-    """``torch.device(device)``, raising if it names CUDA on a host without it."""
-    dev = torch.device(device)
-    if dev.type == "cuda" and not torch.cuda.is_available():
-        raise RuntimeError(
-            f"device {str(dev)!r} requested but CUDA is not available; pass "
-            "device='cpu' to run on the CPU"
-        )
-    return dev
-
-
-def build_model_from_config(cfg, bank_size: int, device="cuda", seed: int = 0):
-    """Assemble the model as the trainer does, from a ``TrainConfig`` alone,
-    with every parameter drawn from ``torch.Generator().manual_seed(seed)``
-    (on the CPU, so a seed gives the same weights on any device), in eval
-    mode on ``device``."""
-    from transformer_clip_eeg_tpu_torch.models.registry import (
-        build_model,
-        load_eeg_encoder,
-        load_speech_encoder,
-    )
-
-    dev = resolve_device(device)
-    eeg_enc = load_eeg_encoder(
-        cfg.eeg_encoder, cfg.lstm_units, cfg.spatial_filters,
-        cfg.number_conv_layers, cfg.window_length, cfg.latent_dim,
-        cfg.attention_depth,
-    )
-    speech_enc = load_speech_encoder(
-        cfg.speech_encoder, cfg.lstm_units, cfg.spatial_filters,
-        cfg.number_conv_layers, cfg.window_length, cfg.stride_temporal,
-        cfg.speech_dimension, cfg.latent_dim,
-    )
-    model = build_model(
-        cfg.model_arch, eeg_enc, speech_enc,
-        window_length=cfg.window_length,
-        temperature=cfg.temperature,
-        latent_dim=cfg.latent_dim,
-        bank_size=bank_size,
-        lambda_clip_loss=cfg.lambda_clip_loss,
-        lambda_sim_loss=cfg.lambda_sim_loss,
-        momentum_membank=cfg.momentum_membank,
-    )
-    init_parameters(model, torch.Generator().manual_seed(seed))
-    return model.to(dev).eval()
 
 
 class InferenceSession:
@@ -92,6 +50,27 @@ class InferenceSession:
             self.model.load_state_dict(state_dict)
         self.chunk = chunk
         self._embed_eeg, self._embed_speech = make_embed_fns(self.model)
+
+    @classmethod
+    def from_results_dir(cls, results_dir: str, chunk: int = 128,
+                         device="cuda") -> "InferenceSession":
+        """Serve a training run: the model built from its ``args.txt``
+        (the memory bank sized by the ``bank_size`` the trainer persisted
+        there) with the weights of ``checkpoints/model_ckpt.pt``."""
+        from transformer_clip_eeg_tpu_torch.train.checkpoint import (
+            checkpoint_path,
+            load_checkpoint,
+        )
+        from transformer_clip_eeg_tpu_torch.train.config import TrainConfig
+
+        cfg = TrainConfig.load(os.path.join(results_dir, "args.txt"))
+        ckpt_dir = os.path.join(results_dir, "checkpoints")
+        payload = load_checkpoint(ckpt_dir)
+        if payload is None:
+            raise FileNotFoundError(f"no checkpoint at {checkpoint_path(ckpt_dir)}")
+        bank_size = int(cfg.bank_size) or payload["model"]["eegMemoryBank.memory"].shape[0] - 1
+        model = build_model_from_config(cfg, bank_size, device="cpu", seed=cfg.seed)
+        return cls(model, payload["model"], chunk=chunk, device=device)
 
     def embed_eeg(self, windows: np.ndarray, normalize: bool = False) -> np.ndarray:
         """``[N, T, 64]`` EEG windows → ``[N, D]`` L2-normalised embeddings.
