@@ -33,7 +33,23 @@ GPU, end to end.
    served from its results directory against the trainer's model; the
    median step time of epoch 2 and a ``torch.profiler`` pass over 3 steps
    (a ``{"train": ...}`` line).
-6. Prints one JSON line of per-kernel numbers, then, last, the
+6. The conv kernels at the flagship's shapes (B=128, T=192, C=64): the
+   fused BasicBlock forward (#5) against its plain twin in eval and in
+   training (dropout 0.2, fixed seed) for K=64 (EEG) and K=32 (speech), its
+   backward (#6) against autograd through the twin (all five gradients), and
+   the conv alone (#7) against ``F.conv1d``; each timed beside its plain twin
+   and a yardstick (the port's unfused ``BasicBlock``, its backward, and
+   ``F.conv1d``; cuDNN with TF32 off).
+7. The fused path: the flagship with ``fused=True`` on its 11 square
+   BasicBlocks (10 EEG blocks at K=64, the speech block at K=32).  8 windows
+   on the card against the same model unfused on the card and against a CPU
+   copy; one train step at batch 8 with dropout on, card against CPU; the
+   exact launches (10 #5 per EEG chunk, 1 per speech chunk; 11 #5, 11 #6 and
+   11 #7 per train step); the median step time at batch 128 on a batch
+   already on the card, fused and unfused in turns, and a ``torch.profiler``
+   pass over 3 fused steps.  The default serving and training paths above
+   launch none of #5-#7.
+8. Prints one JSON line of per-kernel numbers, then, last, the
    ``{"ok": true, "device": ...}`` line.
 
 Any failure raises and exits non-zero.  Imports nothing of JAX.
@@ -63,6 +79,7 @@ if not torch.cuda.is_available():
 
 from transformer_clip_eeg_tpu_torch import _build, cli  # noqa: E402
 from transformer_clip_eeg_tpu_torch.data.fixtures import make_fixture  # noqa: E402
+from transformer_clip_eeg_tpu_torch.models.encoders import BasicBlock  # noqa: E402
 from transformer_clip_eeg_tpu_torch.models.registry import (  # noqa: E402
     build_model_from_config as build_model,
 )
@@ -76,6 +93,14 @@ from transformer_clip_eeg_tpu_torch.ops.fused_block import (  # noqa: E402
     fused_block_forward_cuda,
     fused_transformer_block,
     fused_transformer_block_reference,
+)
+from transformer_clip_eeg_tpu_torch.ops.fused_conv import (  # noqa: E402
+    conv1d_reference,
+    conv1d_same,
+    fused_basic_block,
+    fused_basic_block_reference,
+    fused_conv_backward,
+    fused_conv_forward_cuda,
 )
 from transformer_clip_eeg_tpu_torch.ops.lstm_scan import (  # noqa: E402
     _launch_forward as lstm_forward_cuda,
@@ -96,6 +121,7 @@ from transformer_clip_eeg_tpu_torch.server import (  # noqa: E402
 )
 from transformer_clip_eeg_tpu_torch.train.config import TrainConfig  # noqa: E402
 from transformer_clip_eeg_tpu_torch.train.loop import batch_iterator  # noqa: E402
+from transformer_clip_eeg_tpu_torch.train.state import make_optimizer  # noqa: E402
 from transformer_clip_eeg_tpu_torch.train.steps import train_step  # noqa: E402
 
 # H100 SXM published peaks (dense): f32 outside the tensor cores, HBM3
@@ -108,12 +134,18 @@ LSTM_TOL = 1e-5    # 192 contracting steps of f32 gate math
 # LSTM's backward carries a 4H-term dot product through 192 reverse steps
 BLOCK_BWD_TOL = 1e-4
 LSTM_BWD_TOL = 1e-5
+# the conv kernels: K*C = 4,096-term f32 sums in another order than cuDNN's,
+# then a LayerNorm over 12,288 values; the backward's dW sums 24,576 rows
+CONV_TOL = 1e-4
+CONV_BWD_TOL = 1e-4  # of max(1, max |reference|), per gradient
 SERVE_TOL = 1e-3   # whole model, GPU vs CPU, after L2 normalisation
 STEP_TOL = 1e-3    # one whole train step, card vs CPU, gradients and losses
 STEP_GRAD_FLOOR = 1e-4  # of the largest gradient: the least scale a leaf is held to
 BANK_SIZE = 1000   # memory-bank rows; unused by serving, carried as state
 REPS = 20
 FLAGSHIP_DROP = DropoutConfig(True, 1234, 0.5, 0.5)  # the block's rates in training
+CONV_DROP = DropoutConfig(True, 4321, 0.2)  # the conv blocks' rate in training
+N_FUSED_BLOCKS = 11  # the flagship's square BasicBlocks: 10 EEG (K=64), 1 speech (K=32)
 RUN_DIR = os.path.join(os.path.dirname(os.path.abspath(__file__)), "build", "chip_smoke_run")
 
 
@@ -432,6 +464,169 @@ def check_lstm_backward(gen: torch.Generator) -> dict:
     }
 
 
+def conv_case(gen: torch.Generator, k: int, b: int = 128, t: int = 192, c: int = 64):
+    """Flagship conv-block inputs on the card: x [128, 192, 64], w [64, 64, K]
+    and b at torch's init scale, a perturbed [T, C] LayerNorm affine, and an
+    upstream gradient."""
+    lim = 1.0 / (c * k) ** 0.5
+    x = torch.randn(b, t, c, generator=gen)
+    w = (torch.rand(c, c, k, generator=gen) * 2 - 1) * lim
+    bb = (torch.rand(c, generator=gen) * 2 - 1) * lim
+    scale = 1 + 0.1 * torch.randn(t, c, generator=gen)
+    bias = 0.1 * torch.randn(t, c, generator=gen)
+    g = torch.randn(b, t, c, generator=gen)
+    return [v.to("cuda") for v in (x, w, bb, scale, bias, g)]
+
+
+def unfused_block(w, bb, scale, bias) -> BasicBlock:
+    """The port's unfused BasicBlock (cuDNN conv, LayerNorm, GELU) holding
+    the same parameters: the yardstick of kernels #5 and #6."""
+    c, _, k = w.shape
+    block = BasicBlock(c, c, k, scale.shape[0], CONV_DROP.drop_p).to("cuda")
+    with torch.no_grad():
+        for dst, src in ((block.conv.weight, w), (block.conv.bias, bb),
+                         (block.normalization.weight, scale), (block.normalization.bias, bias)):
+            dst.copy_(src)
+    return block
+
+
+def conv_flops(x, k) -> float:
+    b, t, c = x.shape
+    return 2.0 * b * t * k * c * c
+
+
+def check_conv(gen: torch.Generator):
+    """Kernels #5, #6 and #7 at the flagship's shapes, for the EEG blocks'
+    K=64 and the speech block's K=32: one dict each, whose top-level numbers
+    are K=64's (10 of a step's 11 launches) and whose ``shapes`` hold both."""
+    fwd, bwd, alone = [], [], []
+    for k in (64, 32):
+        x, w, bb, scale, bias, g = conv_case(gen, k)
+        b, t, c = x.shape
+        lib = unfused_block(w, bb, scale, bias)
+        with torch.inference_mode():
+            errs = {}
+            for mode, drop in (("eval", DropoutConfig()), ("training", CONV_DROP)):
+                got = fused_basic_block(x, w, bb, scale, bias, drop.seed, k, drop.drop_p,
+                                        drop.training)
+                torch.cuda.synchronize()
+                want = fused_basic_block_reference(x, w, bb, scale, bias, drop.seed, k,
+                                                   drop.drop_p, drop.training)
+                errs[mode] = float((got - want).abs().max())
+            lib_err = float((lib.eval()(x) - fused_basic_block_reference(
+                x, w, bb, scale, bias, 0, k, 0.0, False)).abs().max())
+            log(f"fused_basic_block K={k} x{tuple(x.shape)}: max_abs_err eval "
+                f"{errs['eval']:.3e}, training (drop 0.2) {errs['training']:.3e} "
+                f"(tol {CONV_TOL:g}); unfused BasicBlock {lib_err:.3e}")
+            if not max(errs.values()) <= CONV_TOL:
+                raise AssertionError(f"fused conv block disagrees with its twin: {errs}")
+            ms = time_ms(lambda: fused_basic_block(x, w, bb, scale, bias, 0, k, 0.0, False))
+            ms_tr = time_ms(lambda: fused_conv_forward_cuda(x, w, bb, scale, bias, CONV_DROP,
+                                                            save=True))
+            plain_ms = time_ms(lambda: fused_basic_block_reference(x, w, bb, scale, bias, 0, k,
+                                                                   0.0, False))
+            library_ms = time_ms(lambda: lib(x))
+        nbytes = 4 * (2 * x.numel() + w.numel() + c + 2 * t * c)
+        bound_ms, bound_by = bound(conv_flops(x, k), nbytes)
+        log(f"  kernel {ms:.4f} ms (training, saving for the backward: {ms_tr:.4f} ms), "
+            f"plain {plain_ms:.4f} ms, unfused BasicBlock {library_ms:.4f} ms, bound "
+            f"{bound_ms:.4f} ms ({bound_by}, {conv_flops(x, k) / 1e9:.3f} GFLOP)")
+        fwd.append({"k": k, "x": list(x.shape), "max_abs_err_eval": errs["eval"],
+                    "max_abs_err_training": errs["training"], "ms": ms, "training_ms": ms_tr,
+                    "plain_ms": plain_ms, "library_ms": library_ms,
+                    "library_max_abs_err": lib_err, "bound_ms": bound_ms,
+                    "bound_by": bound_by})
+
+        # #6 through the autograd Function against autograd through the twin
+        leaves = [v.clone().requires_grad_() for v in (x, w, bb, scale, bias)]
+        out = fused_basic_block(*leaves, CONV_DROP.seed, k, CONV_DROP.drop_p, True)
+        got = torch.autograd.grad(out, leaves, g)
+        torch.cuda.synchronize()
+        ref = [v.clone().requires_grad_() for v in (x, w, bb, scale, bias)]
+        want_out = fused_basic_block_reference(*ref, CONV_DROP.seed, k, CONV_DROP.drop_p, True)
+        want = torch.autograd.grad(want_out, ref, g, retain_graph=True)
+        names = ("dx", "dw", "db", "dscale", "dbias")
+        gerrs = {n: grad_err(a, r) for n, a, r in zip(names, got, want)}
+        abs_err = max(float((a - r).abs().max()) for a, r in zip(got, want))
+        log(f"fused_conv_backward K={k} (training, drop 0.2): gradient errors "
+            f"{ {n: f'{v:.1e}' for n, v in gerrs.items()} } (tol {CONV_BWD_TOL:g} x max(1, "
+            f"max|ref|)), max_abs_err {abs_err:.3e}")
+        if not max(gerrs.values()) <= CONV_BWD_TOL:
+            raise AssertionError(f"conv backward disagrees with autograd through its twin: "
+                                 f"{gerrs}")
+        _, z, stats = fused_conv_forward_cuda(x, w, bb, scale, bias, CONV_DROP, save=True)
+        ms = time_ms(lambda: fused_conv_backward(x, w, scale, bias, g, z, stats, CONV_DROP))
+        plain_ms = time_ms(lambda: torch.autograd.grad(want_out, ref, g, retain_graph=True))
+        lib.train()
+        lib.dropout.dropout_seed = CONV_DROP.seed
+        xl = x.clone().requires_grad_()
+        lib_leaves = [xl] + list(lib.parameters())
+        lib_out = lib(xl)
+        library_ms = time_ms(lambda: torch.autograd.grad(lib_out, lib_leaves, g,
+                                                         retain_graph=True))
+        # dW and dx; bytes: x, g, z, stats and the parameters in, the gradients out
+        flops = 2 * conv_flops(x, k)
+        nbytes = 4 * (4 * x.numel() + 2 * b + 2 * (w.numel() + c + 2 * t * c))
+        bound_ms, bound_by = bound(flops, nbytes)
+        log(f"  kernel (dx by #7 included) {ms:.4f} ms, plain (autograd through the twin) "
+            f"{plain_ms:.4f} ms, unfused BasicBlock backward {library_ms:.4f} ms, bound "
+            f"{bound_ms:.4f} ms ({bound_by}, {flops / 1e9:.3f} GFLOP)")
+        bwd.append({"k": k, "x": list(x.shape), "max_abs_err": abs_err,
+                    "max_grad_err": max(gerrs.values()), "grad_err": gerrs, "ms": ms,
+                    "plain_ms": plain_ms, "library_ms": library_ms, "bound_ms": bound_ms,
+                    "bound_by": bound_by})
+
+        # #7, the conv alone, against F.conv1d
+        with torch.inference_mode():
+            lo, hi = (k - 1) // 2, k - 1 - (k - 1) // 2
+            got = conv1d_same(x, w)
+            torch.cuda.synchronize()
+            err = float((got - conv1d_reference(x, w, (lo, hi))).abs().max())
+            log(f"conv1d_same K={k}: max_abs_err against F.conv1d {err:.3e} (tol {CONV_TOL:g})")
+            if not err <= CONV_TOL:
+                raise AssertionError(f"conv1d_same disagrees with F.conv1d: {err}")
+            xcp = torch.nn.functional.pad(x.transpose(1, 2), (lo, hi)).contiguous()
+            ms = time_ms(lambda: conv1d_same(x, w))
+            plain_ms = time_ms(lambda: conv1d_reference(x, w, (lo, hi)))
+            library_ms = time_ms(lambda: torch.nn.functional.conv1d(xcp, w))
+        bound_ms, bound_by = bound(conv_flops(x, k), 4 * (2 * x.numel() + w.numel()))
+        log(f"  kernel {ms:.4f} ms, plain (pad + F.conv1d + transposes) {plain_ms:.4f} ms, "
+            f"F.conv1d on the padded [B, C, T] input {library_ms:.4f} ms, bound "
+            f"{bound_ms:.4f} ms ({bound_by})")
+        alone.append({"k": k, "x": list(x.shape), "max_abs_err": err, "ms": ms,
+                      "plain_ms": plain_ms, "library_ms": library_ms, "bound_ms": bound_ms,
+                      "bound_by": bound_by})
+        del x, w, bb, scale, bias, g, lib, leaves, out, got, ref, want_out, want, z, stats
+        torch.cuda.empty_cache()
+
+    def entry(name, source, replaces, shapes, tol, library_call, **extra):
+        top = shapes[0]
+        return {"name": name, "route": "cuda", "source": source, "replaces": replaces,
+                "max_abs_err": max(s.get("max_abs_err", 0.0) for s in shapes), "tol": tol,
+                "ms": top["ms"], "kernel_ms": top["ms"], "plain_ms": top["plain_ms"],
+                "library_ms": top["library_ms"], "library_call": library_call,
+                "bound_ms": top["bound_ms"], "bound_by": top["bound_by"],
+                "times_are": "K=64 (the EEG blocks), per launch; shapes holds K=32",
+                "shapes": shapes, **extra}
+
+    for s in fwd:
+        s["max_abs_err"] = max(s["max_abs_err_eval"], s["max_abs_err_training"])
+    return [
+        entry("fused_basic_block", "transformer_clip_eeg_tpu_torch/csrc/fused_conv.cu",
+              "transformer_clip_eeg_tpu/ops/pallas_conv.py:267", fwd, CONV_TOL,
+              "the port's unfused BasicBlock in eval (cuDNN conv, layer_norm, gelu)",
+              training_ms=fwd[0]["training_ms"]),
+        entry("fused_conv_backward", "transformer_clip_eeg_tpu_torch/csrc/fused_conv_bwd.cu",
+              "transformer_clip_eeg_tpu/ops/pallas_conv.py:308", bwd, CONV_BWD_TOL,
+              "backward of the port's unfused BasicBlock in training",
+              max_grad_err=max(s["max_grad_err"] for s in bwd),
+              tol_is="max abs error / max(1, max|ref|), per gradient"),
+        entry("conv1d_same", "transformer_clip_eeg_tpu_torch/csrc/fused_conv.cu",
+              "scripts/bench_conv_algo.py:74", alone, CONV_TOL,
+              "torch.nn.functional.conv1d on the padded [B, C, T] input"),
+    ]
+
+
 def _post(url, payload=None, body=None, headers=None):
     data = body if body is not None else json.dumps(payload).encode()
     req = urllib.request.Request(url, data=data, headers=headers or {})
@@ -532,8 +727,8 @@ def serve_path() -> dict:
     npy_headers = {"Content-Type": NPY_CONTENT_TYPE, "Accept": NPY_CONTENT_TYPE}
     timings = {}
     try:
-        fused_transformer_block.launches = 0
-        lstm_scan_packed.launches = 0
+        for f in COUNTERS:
+            f.launches = 0
         t0 = time.perf_counter()
         with urllib.request.urlopen(f"{url}/healthz", timeout=60) as resp:
             health = json.loads(resp.read())
@@ -552,10 +747,7 @@ def serve_path() -> dict:
         })
         t5 = time.perf_counter()
         torch.cuda.synchronize()
-        launches = {
-            "fused_transformer_block": fused_transformer_block.launches,
-            "lstm_scan_packed": lstm_scan_packed.launches,
-        }
+        launches = {f.__name__: f.launches for f in COUNTERS}
         timings = {
             "healthz_s": t1 - t0, "embed_eeg_300_s": t2 - t1,
             "embed_speech_130_s": t3 - t2, "retrieval_add_topk_s": t4 - t3,
@@ -564,8 +756,10 @@ def serve_path() -> dict:
         log(f"routes answered; host seconds per request: {json.dumps(timings)}")
 
         # what the routes should have launched: 300 + 4 EEG windows are 3 + 1
-        # chunks of 128; 130 + 4 + 4 speech windows are 2 + 1 + 1 chunks
-        want = {"fused_transformer_block": 10 * 4, "lstm_scan_packed": 2 * 4}
+        # chunks of 128; 130 + 4 + 4 speech windows are 2 + 1 + 1 chunks; no
+        # backward and no conv kernel (the conv blocks are unfused by default)
+        want = dict.fromkeys(launches, 0)
+        want.update(fused_transformer_block=10 * 4, lstm_scan_packed=2 * 4)
         if launches != want:
             raise AssertionError(f"kernel launches on the serving path {launches}, "
                                  f"want {want}")
@@ -652,18 +846,31 @@ LOSS_LINES = [r"number of parameters \d+",
         r"mean loss total: (\S+)",
     )] + [r"training done: best val loss_ce \S+ at epoch \d"]
 COUNTERS = (fused_transformer_block, fused_block_backward, lstm_scan_packed,
-            lstm_scan_backward)
+            lstm_scan_backward, fused_basic_block, fused_conv_backward, conv1d_same)
 
 
-def card_vs_cpu_step(cfg, host_batch) -> dict:
+def set_fused(model, on: bool = True) -> int:
+    """``fused`` on every BasicBlock of ``model``; returns how many take the
+    fused path (those that are square and undilated, when ``on``)."""
+    n = 0
+    for m in model.modules():
+        if isinstance(m, BasicBlock):
+            m.fused = on
+            n += m.takes_fused_path
+    return n
+
+
+def card_vs_cpu_step(cfg, host_batch, fused: bool = False) -> dict:
     """One training step's forward and gradients at batch 8, dropout on, on
     the card and on the CPU: same weights (seed 0), same batch, same step
     seed, so the same masks.  Compares the losses, every gradient and the
-    bank's rows after the step's EMA update."""
+    bank's rows after the step's EMA update.  ``fused`` sets ``fused`` on the
+    BasicBlocks of both models."""
     out = {}
     ids = host_batch["ids"][:8]
     for dev in ("cuda", "cpu"):
         model = build_model(cfg, cfg.bank_size, device=dev, seed=0).train()
+        set_fused(model, fused)
         set_dropout_seeds(model, fold_seed(99, 0))
         batch = [torch.from_numpy(host_batch[k][:8]).to(dev) for k in ("eeg", "speech", "ids")]
         losses = model(*batch)
@@ -686,7 +893,8 @@ def card_vs_cpu_step(cfg, host_batch) -> dict:
     grad_err = max(errs.values())
     worst = sorted(errs.items(), key=lambda kv: -kv[1])[:6]
     bank_err = float((gpu["bank"] - cpu["bank"]).abs().max())
-    log(f"one train step at batch 8, dropout on, card vs CPU: losses {gpu['losses']} vs "
+    log(f"one train step at batch 8, dropout on{', conv blocks fused' if fused else ''}, "
+        f"card vs CPU: losses {gpu['losses']} vs "
         f"{cpu['losses']} (err {loss_err:.2e}); worst gradient error {grad_err:.2e} "
         f"(max abs error over max(leaf max, {STEP_GRAD_FLOOR:g} x largest gradient)), worst "
         f"leaves {[(n, f'{v:.1e}') for n, v in worst]}; bank rows {bank_err:.2e} "
@@ -727,7 +935,8 @@ def train_path() -> dict:
         want = {"fused_transformer_block": 2 * 10 * (n_train + n_val),
                 "fused_block_backward": 2 * 10 * n_train,
                 "lstm_scan_packed": 2 * 2 * (n_train + n_val),
-                "lstm_scan_backward": 2 * 2 * n_train}
+                "lstm_scan_backward": 2 * 2 * n_train,
+                "fused_basic_block": 0, "fused_conv_backward": 0, "conv1d_same": 0}
         log(f"trained 2 epochs ({n_train} train and {n_val} validation steps each) in "
             f"{train_s:.1f} s; kernel launches {launches}")
         if launches != want or [len(h["step_s"]) for h in history] != [n_train] * 2:
@@ -787,9 +996,98 @@ def train_path() -> dict:
             "profile_3_steps": profile,
         }
         log(json.dumps({"train": train}))
-        return train
+        return train, cfg, host_batch
     finally:
         shutil.rmtree(RUN_DIR, ignore_errors=True)
+
+
+def fused_path(cfg, host_batch) -> dict:
+    """The flagship with its 11 square BasicBlocks fused: embeddings against
+    the unfused model and a CPU copy, one step card vs CPU, the exact
+    launches per chunk and per step, and the step time fused and unfused."""
+    rng = np.random.default_rng(5)
+    eeg = rng.standard_normal((128, cfg.window_length, 64)).astype(np.float32)
+    speech = rng.standard_normal((128, cfg.window_length, cfg.speech_dimension)
+                                 ).astype(np.float32)
+    models = {}
+    for name, dev, fused in (("fused", "cuda", True), ("unfused", "cuda", False),
+                             ("cpu", "cpu", True)):
+        models[name] = build_model(cfg, cfg.bank_size, device=dev, seed=0)
+        n = set_fused(models[name], fused)
+        if n != (N_FUSED_BLOCKS if fused else 0):
+            raise AssertionError(f"{name}: {n} BasicBlocks take the fused path")
+    sessions = {name: InferenceSession(m, chunk=8 if name == "cpu" else 128,
+                                       device="cpu" if name == "cpu" else "cuda")
+                for name, m in models.items()}
+    emb = {name: (sess.embed_eeg(eeg[:8]), sess.embed_speech(speech[:8]))
+           for name, sess in sessions.items()}
+    emb_err = {f"{other}_{i}": float(np.abs(emb["fused"][j] - emb[other][j]).max())
+               for other in ("unfused", "cpu") for j, i in enumerate(("eeg", "speech"))}
+    log(f"fused conv blocks, 8 windows: card fused vs card unfused and vs CPU fused, "
+        f"max_abs_err {emb_err} (tol {SERVE_TOL:g})")
+    if not max(emb_err.values()) <= SERVE_TOL:
+        raise AssertionError("the fused model's embeddings disagree")
+
+    launches = {}
+    for what, fn, x in (("eeg_chunk", sessions["fused"].embed_eeg, eeg),
+                        ("speech_chunk", sessions["fused"].embed_speech, speech)):
+        for f in COUNTERS:
+            f.launches = 0
+        fn(x)
+        torch.cuda.synchronize()
+        launches[what] = {f.__name__: f.launches for f in COUNTERS}
+    step = card_vs_cpu_step(cfg, host_batch, fused=True)
+
+    batch = {k: torch.from_numpy(v).to("cuda") for k, v in host_batch.items()}
+    runs = {}
+    for name in ("fused", "unfused"):
+        model = models[name]
+        opt = make_optimizer(model.parameters(), cfg.optimizer, cfg.learning_rate, cfg.beta1,
+                             cfg.beta2, cfg.weight_decay, cfg.amsgrad_b)
+        runs[name] = lambda model=model, opt=opt: train_step(model, opt, batch, cfg.seed,
+                                                             False)
+    for f in COUNTERS:
+        f.launches = 0
+    runs["fused"]()
+    torch.cuda.synchronize()
+    launches["train_step"] = {f.__name__: f.launches for f in COUNTERS}
+    want = {
+        "eeg_chunk": {"fused_transformer_block": 10, "lstm_scan_packed": 0,
+                      "fused_basic_block": 10},
+        "speech_chunk": {"fused_transformer_block": 0, "lstm_scan_packed": 2,
+                         "fused_basic_block": 1},
+        "train_step": {"fused_transformer_block": 10, "fused_block_backward": 10,
+                       "lstm_scan_packed": 2, "lstm_scan_backward": 2,
+                       "fused_basic_block": N_FUSED_BLOCKS,
+                       "fused_conv_backward": N_FUSED_BLOCKS, "conv1d_same": N_FUSED_BLOCKS},
+    }
+    for what, counts in want.items():
+        full = dict.fromkeys(launches[what], 0)
+        full.update(counts)
+        if launches[what] != full:
+            raise AssertionError(f"launches on the fused path, {what}: {launches[what]}, "
+                                 f"want {full}")
+    log(f"kernel launches on the fused path: {launches}")
+
+    # step time on a batch already on the card, fused and unfused in turns
+    for run in runs.values():
+        run()
+    times = {"fused": [], "unfused": []}
+    for name in ("fused", "unfused", "unfused", "fused") * 5:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        runs[name]()
+        torch.cuda.synchronize()
+        times[name].append((time.perf_counter() - t0) * 1e3)
+    step_ms = {k: statistics.median(v) for k, v in times.items()}
+    log(f"train step at batch 128 on a batch on the card, host clock, median of 10: fused "
+        f"{step_ms['fused']:.3f} ms, unfused {step_ms['unfused']:.3f} ms")
+    profile = profile_calls(runs["fused"], reps=3)
+    result = {"launches": launches, "embedding_err": emb_err, "card_vs_cpu_step": step,
+              "step_ms_median": step_ms, "step_ms_all": times,
+              "profile_3_fused_steps": profile}
+    log(json.dumps({"fused_path": result}))
+    return result
 
 
 def main() -> int:
@@ -816,16 +1114,25 @@ def main() -> int:
     del x, params
     lstm = check_lstm(gen)
     lstm_bwd = check_lstm_backward(gen)
+    convs = check_conv(gen)
     torch.cuda.empty_cache()
     serve = serve_path()
     log(json.dumps({"serve": serve}))
-    train = train_path()
-    serve_counts = dict(serve["launches"], fused_block_backward=0, lstm_scan_backward=0)
+    train, cfg, host_batch = train_path()
+    fused = fused_path(cfg, host_batch)
     kernels = [block, block_bwd, lstm, lstm_bwd]
     for k in kernels:
         k["launches"] = train["launches"][k["name"]]
-        k["launches_by_path"] = {"serve": serve_counts[k["name"]],
+        k["launches_by_path"] = {"serve": serve["launches"][k["name"]],
                                  "train": train["launches"][k["name"]]}
+    # #5-#7 run on the fused path; the default paths launch none of them
+    for k in convs:
+        k["launches"] = fused["launches"]["train_step"][k["name"]]
+        k["launches_by_path"] = {
+            "serve": serve["launches"][k["name"]], "train": train["launches"][k["name"]],
+            **{f"fused_{what}": counts[k["name"]]
+               for what, counts in fused["launches"].items()}}
+    kernels += convs
     log(f"chip_smoke finished in {time.perf_counter() - t_start:.1f} s")
     log(json.dumps({"kernels": kernels}))
     log(json.dumps({"ok": True, "device": {

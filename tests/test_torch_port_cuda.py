@@ -14,6 +14,13 @@ from transformer_clip_eeg_tpu_torch.ops.fused_block import (
     fused_transformer_block,
     fused_transformer_block_reference,
 )
+from transformer_clip_eeg_tpu_torch.ops.fused_conv import (
+    conv1d_reference,
+    conv1d_same,
+    fused_basic_block,
+    fused_basic_block_reference,
+    fused_conv_backward,
+)
 from transformer_clip_eeg_tpu_torch.ops.lstm import LSTM
 from transformer_clip_eeg_tpu_torch.ops.lstm_scan import (
     lstm_scan_backward,
@@ -182,3 +189,103 @@ def test_gradients_flow_through_the_kernels_to_the_input(cuda):
     x_cpu.requires_grad_()
     loss(x_cpu, params_cpu, lstm.cpu()).backward()
     assert _err(x_gpu.grad.cpu(), x_cpu.grad) <= 1e-4
+
+
+def _conv_inputs(b, t, k, seed, cuda, c=64):
+    """x, w [C, C, K] at torch's init scale, b, a perturbed [T, C] LayerNorm
+    affine, and an upstream gradient."""
+    gen = torch.Generator().manual_seed(seed)
+    lim = 1.0 / (c * k) ** 0.5
+    x = torch.randn(b, t, c, generator=gen)
+    w = (torch.rand(c, c, k, generator=gen) * 2 - 1) * lim
+    bb = (torch.rand(c, generator=gen) * 2 - 1) * lim
+    scale = 1 + 0.2 * torch.randn(t, c, generator=gen)
+    bias = 0.2 * torch.randn(t, c, generator=gen)
+    g = torch.randn(b, t, c, generator=gen)
+    return [v.to(cuda) for v in (x, w, bb, scale, bias, g)]
+
+
+# (B, T, K): ragged batch tiles (B=6 and 5 take tiles 2 and 1), odd K, the
+# flagship's K=64 at T=192 and at the encoders' default T=320 (two row passes)
+CONV_CASES = [(6, 192, 64), (5, 320, 64), (6, 50, 7), (5, 192, 32)]
+CONV_IDS = ["B6T192K64", "B5T320K64", "B6T50K7", "B5T192K32"]
+
+
+@pytest.mark.parametrize("training", [False, True], ids=["eval", "dropout"])
+@pytest.mark.parametrize("b,t,k", CONV_CASES, ids=CONV_IDS)
+def test_fused_conv_forward_matches_twin(cuda, b, t, k, training):
+    """Kernel #5 against its plain twin; in training the same seed draws the
+    twin's mask."""
+    x, w, bb, scale, bias, _ = _conv_inputs(b, t, k, 9, cuda)
+    before = fused_basic_block.launches
+    got = fused_basic_block(x, w, bb, scale, bias, 4321, k, 0.2, training)
+    torch.cuda.synchronize()
+    assert fused_basic_block.launches == before + 1
+    want = fused_basic_block_reference(x, w, bb, scale, bias, 4321, k, 0.2, training)
+    assert float((got - want).abs().max()) <= 1e-4
+
+
+@pytest.mark.parametrize("training", [False, True], ids=["eval", "dropout"])
+@pytest.mark.parametrize("b,t,k", CONV_CASES, ids=CONV_IDS)
+def test_fused_conv_backward_matches_autograd(cuda, b, t, k, training):
+    """Kernel #6 (and #7 for its dx) through the autograd Function against
+    autograd through the twin: dx, dw, db, dscale, dbias."""
+    x, w, bb, scale, bias, g = _conv_inputs(b, t, k, 10, cuda)
+    leaves = [v.clone().requires_grad_() for v in (x, w, bb, scale, bias)]
+    before = (fused_basic_block.launches, fused_conv_backward.launches, conv1d_same.launches)
+    out = fused_basic_block(*leaves, 99, k, 0.2, training)
+    got = torch.autograd.grad(out, leaves, g)
+    torch.cuda.synchronize()
+    after = (fused_basic_block.launches, fused_conv_backward.launches, conv1d_same.launches)
+    assert after == tuple(n + 1 for n in before)
+    ref = [v.clone().requires_grad_() for v in (x, w, bb, scale, bias)]
+    want_out = fused_basic_block_reference(*ref, 99, k, 0.2, training)
+    want = torch.autograd.grad(want_out, ref, g)
+    assert float((out - want_out).detach().abs().max()) <= 1e-4
+    for name, a, r in zip(("dx", "dw", "db", "dscale", "dbias"), got, want):
+        assert _err(a, r) <= 1e-4, (name, _err(a, r))
+
+
+@pytest.mark.parametrize("t,k,padding", [(192, 64, None), (320, 32, None), (50, 7, (2, 4))])
+def test_conv1d_kernel_matches_conv1d(cuda, t, k, padding):
+    """Kernel #7, the conv alone, against F.conv1d (TF32 off), with torch's
+    'same' padding and with a lopsided one."""
+    x, w, *_ = _conv_inputs(6, t, k, 11, cuda)
+    before = conv1d_same.launches
+    got = conv1d_same(x, w, padding)
+    torch.cuda.synchronize()
+    assert conv1d_same.launches == before + 1
+    pad = padding if padding is not None else ((k - 1) // 2, k - 1 - (k - 1) // 2)
+    want = conv1d_reference(x, w, pad)
+    assert float((got - want).abs().max()) <= 1e-4
+
+
+def test_fused_conv_takes_a_transposed_input(cuda):
+    """The encoders hand their first block the 1x1 conv's output, a
+    transposed view of [B, C, T]: the block takes it and its gradient reaches
+    the view."""
+    x, w, bb, scale, bias, g = _conv_inputs(4, 192, 64, 13, cuda)
+    xt = x.transpose(1, 2).contiguous().transpose(1, 2).requires_grad_()
+    assert not xt.is_contiguous()
+    out = fused_basic_block(xt, w, bb, scale, bias, 7, 64, 0.2, True)
+    (dx,) = torch.autograd.grad(out, xt, g)
+    xr = x.clone().requires_grad_()
+    want = fused_basic_block_reference(xr, w, bb, scale, bias, 7, 64, 0.2, True)
+    (dxr,) = torch.autograd.grad(want, xr, g)
+    assert float((out - want).detach().abs().max()) <= 1e-4
+    assert _err(dx, dxr) <= 1e-4
+
+
+def test_fused_conv_refuses_other_widths_and_long_windows(cuda):
+    x, w, bb, scale, bias, _ = _conv_inputs(2, 64, 8, 12, cuda, c=32)
+    before = (fused_basic_block.launches, conv1d_same.launches)
+    with pytest.raises(ValueError, match="C=64"):
+        fused_basic_block(x, w, bb, scale, bias, 0, 8, 0.0, False)
+    with pytest.raises(ValueError, match="C=64"):
+        conv1d_same(x, w)
+    x, w, bb, scale, bias, _ = _conv_inputs(2, 400, 64, 12, cuda)
+    with pytest.raises(ValueError, match="T <= 345"):
+        fused_basic_block(x, w, bb, scale, bias, 0, 64, 0.0, False)
+    with pytest.raises(ValueError, match="no backward kernel"):
+        conv1d_same(x.requires_grad_(), w)
+    assert (fused_basic_block.launches, conv1d_same.launches) == before

@@ -49,7 +49,8 @@ def test_the_scan_sees_the_port():
     names = {p.name for p in _port_files()}
     assert {"serve.py", "server.py", "fused_block.py", "lstm_scan.py",
             "convert.py", "chip_smoke.py", "dropout.py", "cli.py", "loop.py",
-            "state.py", "checkpoint.py", "dataset.py", "fixtures.py"} <= names
+            "state.py", "checkpoint.py", "dataset.py", "fixtures.py",
+            "fused_conv.py"} <= names
 
 
 def test_cuda_default_raises_without_a_card():

@@ -49,6 +49,16 @@ _SIGNATURES = {
     # gates, whh^T, h, c, g, dxw, dwhh, workspace, T, D, B, H, stream
     "tce_lstm_scan_bwd": ([_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P], _I),
     "tce_lstm_scan_bwd_workspace": ([_I, _I, _I, _I], _L),
+    # x, w (tap-major), b, scale, bias, out, B, T, C, K, the first five dropout
+    # arguments, saved z and saved stats (both may be NULL), stream
+    "tce_fused_conv_fwd": ([_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, *_DROP[:5], _P, _P, _P],
+                           _I),
+    # x, w (tap-major), out, B, T, C, K, zero rows before x, stream
+    "tce_conv1d_fwd": ([_P, _P, _P, _I, _I, _I, _I, _I, _P], _I),
+    # x, g, z, stats, scale, bias, dconv, dw, db, dln, workspace, B, T, C, K,
+    # the first five dropout arguments, stream
+    "tce_fused_conv_bwd": ([_P] * 11 + [_I, _I, _I, _I, *_DROP[:5], _P], _I),
+    "tce_fused_conv_bwd_workspace": ([_I, _I, _I], _L),
     "tce_error_string": ([_I], ctypes.c_char_p),
 }
 

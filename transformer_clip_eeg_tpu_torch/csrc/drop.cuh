@@ -1,13 +1,14 @@
-// Dropout masks of the fused block, drawn in-kernel.
+// Dropout masks of the fused kernels (the transformer block and the conv
+// block), drawn in-kernel.
 //
 // The counter hash of transformer_clip_eeg_tpu_torch/ops/dropout.py (and of
 // the JAX block kernel's interpret mode, _dropout_mask(use_prng=False) in
 // transformer_clip_eeg_tpu/ops/pallas_block.py): the bits of element `idx`
 // of the mask keyed by `key` = seed_base + mask_id, in uint32 arithmetic.
 // An element is kept when its bits are >= `thr` = uint32(p * 2^32) and then
-// scaled by `keep` = float32(1 / (1 - p)).  The forward (fused_block.cu) and
-// the backward (fused_block_bwd.cu) regenerate the same masks from the seed,
-// so no mask is ever stored.
+// scaled by `keep` = float32(1 / (1 - p)).  Each forward kernel and its
+// backward regenerate the same masks from the seed, so no mask is ever
+// stored.
 #pragma once
 
 #include <stdint.h>
@@ -22,15 +23,20 @@ struct DropCfg {
   float keep_ffn;
 };
 
-// per sample: the tile's seed_base = (seed + b / tb) * 8191 and the sample's
+// each JAX kernel's per-tile seed multiplier: pallas_block.py _fwd_kernel
+// (8191) and pallas_conv.py _fwd_kernel (7577)
+constexpr uint32_t BLOCK_TILE_MULT = 8191u;
+constexpr uint32_t CONV_TILE_MULT = 7577u;
+
+// per sample: the tile's seed_base = (seed + b / tb) * mult and the sample's
 // place inside its tile
 struct DropSample {
   uint32_t seed_base;
   int local;
 };
 
-__device__ __forceinline__ DropSample drop_sample(const DropCfg& d, int b) {
-  return DropSample{(d.seed + (uint32_t)(b / d.tb)) * 8191u, b % d.tb};
+__device__ __forceinline__ DropSample drop_sample(const DropCfg& d, int b, uint32_t mult) {
+  return DropSample{(d.seed + (uint32_t)(b / d.tb)) * mult, b % d.tb};
 }
 
 __device__ __forceinline__ uint32_t drop_bits(uint32_t key, uint32_t idx) {

@@ -74,7 +74,7 @@ fused_block_fwd_kernel(const float* __restrict__ x, float* __restrict__ out,
   const size_t base = (size_t)blockIdx.x * T * E;
   const float* __restrict__ xb = x + base;
   float* __restrict__ ob = out + base;
-  const DropSample ds = drop_sample(drop, blockIdx.x);
+  const DropSample ds = drop_sample(drop, blockIdx.x, BLOCK_TILE_MULT);
   const size_t plane = (size_t)gridDim.x * T * E;  // one saved [B][T][E] plane
   const float *g1 = P.p[0], *be1 = P.p[1], *wq = P.p[2], *wk = P.p[3],
               *wv = P.p[4], *bq = P.p[5], *bk = P.p[6], *bv = P.p[7],

@@ -96,7 +96,7 @@ ffn_bwd_kernel(const float* __restrict__ g, const float* __restrict__ x1,
       continue;
     }
     const int b = row / T, t = row % T;
-    const DropSample ds = drop_sample(drop, b);
+    const DropSample ds = drop_sample(drop, b, BLOCK_TILE_MULT);
     const float* xr = x1 + (size_t)row * E;
     const float a0 = xr[lane], a1 = xr[lane + 32];
     const float mean = warp_sum(a0 + a1) * (1.0f / E);
@@ -141,7 +141,7 @@ ffn_bwd_kernel(const float* __restrict__ g, const float* __restrict__ x1,
       float m1 = 1.f;
       if (drop.on) {
         const int b = row / T, t = row % T;
-        const DropSample ds = drop_sample(drop, b);
+        const DropSample ds = drop_sample(drop, b, BLOCK_TILE_MULT);
         m1 = drop_mult(ds.seed_base + (uint32_t)(H + 1), (uint32_t)(ds.local * T + t) * F + f,
                        drop.thr_ffn, drop.keep_ffn);
       }
@@ -173,7 +173,7 @@ ffn_bwd_kernel(const float* __restrict__ g, const float* __restrict__ x1,
       continue;
     }
     const int b = row / T, t = row % T;
-    const DropSample ds = drop_sample(drop, b);
+    const DropSample ds = drop_sample(drop, b, BLOCK_TILE_MULT);
     float dy[2], y[2], gh[2];
 #pragma unroll
     for (int half = 0; half < 2; ++half) {
@@ -234,7 +234,7 @@ attn_bwd_kernel(const float* __restrict__ q, const float* __restrict__ k,
 
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
   const int b = blockIdx.x / H, h = blockIdx.x % H;
-  const DropSample ds = drop_sample(drop, b);
+  const DropSample ds = drop_sample(drop, b, BLOCK_TILE_MULT);
   const uint32_t key = ds.seed_base + (uint32_t)h;
   const size_t base = (size_t)b * T * E + h * D;
   const float* __restrict__ dctx = S.e[kDctx];

@@ -3,14 +3,16 @@
 //
 // The TPU kernels accumulate their dW products in VMEM across the
 // sequential grid (pallas_block.py _bwd_kernel :299-370, pallas_lstm.py
-// _bwd_kernel :145-147).  On the card the rows are spread over CTAs, so each
-// CTA writes the partial sum of its chunk of rows into a workspace and a
-// second kernel adds the partials chunk by chunk, in chunk order: the result
-// is the same from run to run.  Plain f32 FMAs, no tensor cores.
+// _bwd_kernel :145-147, pallas_conv.py _bwd_kernel :193-215).  On the card
+// the rows are spread over CTAs, so each CTA writes the partial sum of its
+// chunk of rows into a workspace and a second kernel adds the partials chunk
+// by chunk, in chunk order: the result is the same from run to run.  Plain
+// f32 FMAs, no tensor cores.
 //
-// Rows are addressed in two levels so that one kernel reads both the block's
-// [B*T, C] activations and one direction of the LSTM's [T, D, B, C] tensors:
-// row k of a Rows view is at p + (k / inner) * outer + (k % inner) * ld.
+// Rows are addressed in two levels so that one kernel reads the block's
+// [B*T, C] activations, one direction of the LSTM's [T, D, B, C] tensors and
+// the conv's padded input shifted by a tap: row k of a Rows view is at
+// p + (k / inner) * outer + (k % inner) * ld.
 #pragma once
 
 #include <cuda_runtime.h>
@@ -27,7 +29,9 @@ struct Rows {
 };
 
 // contiguous [K][ld] rows
-inline Rows rows(const float* p, long long ld) { return Rows{p, INT_MAX, 0, ld}; }
+__host__ __device__ inline Rows rows(const float* p, long long ld) {
+  return Rows{p, INT_MAX, 0, ld};
+}
 
 __device__ __forceinline__ const float* row_ptr(const Rows& r, int k) {
   return r.p + (long long)(k / r.inner) * r.outer + (long long)(k % r.inner) * r.ld;
@@ -41,14 +45,12 @@ constexpr int KC_SUM = 64;   // rows per partial (column sums)
 
 inline int chunks(int K, int kc) { return K > 0 ? (K + kc - 1) / kc : 1; }
 
-// partial[s][m][n] = sum of A[k][m] B[k][n] over the rows k of chunk s
-__global__ void __launch_bounds__(NT)
-atb_partial_kernel(Rows A, Rows B, int M, int N, int K, float* __restrict__ partial) {
+// out[m][n] (row stride N) = sum of A[k][m] B[k][n] over the rows k0 <= k < k1,
+// for the TILE x TILE tile at (m0, n0); NT threads
+__device__ __forceinline__ void atb_tile(Rows A, Rows B, int M, int N, int k0, int k1,
+                                         int m0, int n0, float* __restrict__ out) {
   __shared__ float As[KT][TILE];
   __shared__ float Bs[KT][TILE];
-  const int m0 = blockIdx.y * TILE, n0 = blockIdx.x * TILE;
-  const int k0 = blockIdx.z * KC;
-  const int k1 = k0 + KC < K ? k0 + KC : K;
   const int tx = threadIdx.x % 16, ty = threadIdx.x / 16;
   float acc[4][4];
 #pragma unroll
@@ -78,7 +80,6 @@ atb_partial_kernel(Rows A, Rows B, int M, int N, int K, float* __restrict__ part
     }
     __syncthreads();
   }
-  float* out = partial + (size_t)blockIdx.z * M * N;
 #pragma unroll
   for (int i = 0; i < 4; ++i)
 #pragma unroll
@@ -86,6 +87,15 @@ atb_partial_kernel(Rows A, Rows B, int M, int N, int K, float* __restrict__ part
       const int m = m0 + ty * 4 + i, n = n0 + tx * 4 + j;
       if (m < M && n < N) out[(size_t)m * N + n] = acc[i][j];
     }
+}
+
+// partial[s][m][n] = sum of A[k][m] B[k][n] over the rows k of chunk s
+__global__ void __launch_bounds__(NT)
+atb_partial_kernel(Rows A, Rows B, int M, int N, int K, float* __restrict__ partial) {
+  const int k0 = blockIdx.z * KC;
+  const int k1 = k0 + KC < K ? k0 + KC : K;
+  atb_tile(A, B, M, N, k0, k1, blockIdx.y * TILE, blockIdx.x * TILE,
+           partial + (size_t)blockIdx.z * M * N);
 }
 
 // partial[s][n] = sum of A[k][n] over the rows k of chunk s

@@ -15,6 +15,7 @@ import torch
 from torch import nn
 
 from transformer_clip_eeg_tpu_torch.ops.attention import TransformerEncoder
+from transformer_clip_eeg_tpu_torch.ops.fused_conv import fused_basic_block
 from transformer_clip_eeg_tpu_torch.ops.layers import (
     Conv1d,
     Dense,
@@ -26,7 +27,17 @@ from transformer_clip_eeg_tpu_torch.ops.lstm import LSTM
 
 
 class BasicBlock(nn.Module):
-    """Conv1d(same) → Dropout → joint-[T, C] LayerNorm → exact GELU."""
+    """Conv1d(same) → Dropout → joint-[T, C] LayerNorm → exact GELU.
+
+    ``fused`` is the JAX block's ``use_pallas``: off by default, and set by
+    no encoder, config field or flag.  When it is on and the block is square
+    (input channels = output channels) with dilation 1, the forward is
+    :func:`~transformer_clip_eeg_tpu_torch.ops.fused_conv.fused_basic_block`
+    on this block's own conv, LayerNorm and dropout parameters and seed
+    (kernels #5-#7 on the card, their plain twin on the CPU); any other
+    block takes the unfused path, as JAX's rule does (``encoders.py:100-107``).
+    The parameters are the same either way.
+    """
 
     def __init__(
         self,
@@ -36,13 +47,26 @@ class BasicBlock(nn.Module):
         time_dimension: int = 320,
         dropout_rate: float = 0.2,
         dilation: int = 1,
+        fused: bool = False,
     ):
         super().__init__()
+        self.fused = fused
         self.conv = Conv1d(in_channels, out_channels, kernel_size, dilation=dilation)
         self.dropout = Dropout(dropout_rate)
         self.normalization = LayerNormTC(time_dimension, out_channels)
 
+    @property
+    def takes_fused_path(self) -> bool:
+        out_c, in_c, _ = self.conv.weight.shape
+        return self.fused and in_c == out_c and self.conv.dilation == 1
+
     def forward(self, x: torch.Tensor) -> torch.Tensor:
+        if self.takes_fused_path:
+            w = self.conv.weight
+            return fused_basic_block(
+                x, w, self.conv.bias, self.normalization.weight, self.normalization.bias,
+                self.dropout.dropout_seed, w.shape[2], self.dropout.rate, self.training,
+            )
         return gelu_exact(self.normalization(self.dropout(self.conv(x))))
 
 

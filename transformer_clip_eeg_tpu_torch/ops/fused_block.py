@@ -78,8 +78,9 @@ MAX_KERNEL_T = SMEM_OPTIN_BYTES // (4 * (4 * KERNEL_E + 2 + 8))
 
 
 class DropoutConfig(NamedTuple):
-    """What the block needs to draw its masks: ``training`` off (or both
-    rates 0) means no masks at all, as ``_mask_cfg`` in the JAX kernel."""
+    """What a fused kernel needs to draw its masks: ``training`` off (or both
+    rates 0) means no masks at all, as ``_mask_cfg`` in the JAX block kernel.
+    The conv block (``ops/fused_conv.py``) has one mask, at ``drop_p``."""
 
     training: bool = False
     seed: int = 0
@@ -204,9 +205,10 @@ def _check_cuda_inputs(x: torch.Tensor, params: Sequence[torch.Tensor],
             raise ValueError(f"tensor {i} must be contiguous and 16-byte aligned")
 
 
-def _drop_args(drop: DropoutConfig, b: int):
-    """The kernels' dropout arguments: on, seed (uint32), batch tile, and
-    (threshold, keep scale) for drop_p and for ffn_drop_p."""
+def drop_args(drop: DropoutConfig, b: int):
+    """The kernels' dropout arguments (``DropCfg`` in ``csrc/drop.cuh``): on,
+    seed (uint32), batch tile, and (threshold, keep scale) for drop_p and
+    for ffn_drop_p."""
     return (int(drop.active), int(drop.seed) & M32, pick_tile(b),
             threshold(drop.drop_p), keep_scale(drop.drop_p),
             threshold(drop.ffn_drop_p), keep_scale(drop.ffn_drop_p))
@@ -234,7 +236,7 @@ def fused_block_forward_cuda(
         stream = torch.cuda.current_stream(x.device).cuda_stream
         rc = lib.tce_fused_block_fwd(
             x.data_ptr(), out.data_ptr(), _params_array(params), b, t, e, num_heads,
-            params[13].shape[0], 1.0 / scale, *_drop_args(drop, b),
+            params[13].shape[0], 1.0 / scale, *drop_args(drop, b),
             None if saved is None else saved.data_ptr(), stream,
         )
     _build.check(lib, rc, "fused_transformer_block")
@@ -271,7 +273,7 @@ def fused_block_backward(
         rc = lib.tce_fused_block_bwd(
             x.data_ptr(), g.data_ptr(), saved.data_ptr(), _params_array(params),
             dx.data_ptr(), _params_array(dparams), ws.data_ptr(), b, t, e,
-            num_heads, params[13].shape[0], 1.0 / scale, *_drop_args(drop, b), stream,
+            num_heads, params[13].shape[0], 1.0 / scale, *drop_args(drop, b), stream,
         )
     _build.check(lib, rc, "fused_block_backward")
     fused_block_backward.launches += 1
