@@ -12,7 +12,11 @@ GPU, end to end.
    training mode (same seed, so the same dropout masks), the LSTM forward,
    and the two backward kernels against autograd through the twins.  Times
    kernel, plain twin and the nearest single PyTorch call with CUDA events
-   (median of 20 runs).
+   (median of 20 runs).  For the LSTM kernels (one thread-block cluster per
+   recurrence) also the launch plan, microseconds per step, what ``ptxas
+   -v`` reported (registers, spills), the backward's recurrence and its
+   dwhh reduction timed apart, and H=128 under its other plan (clusters of
+   8), checked and timed beside the default.
 4. Builds the flagship model (``TrainConfig()``: EEGConformerInterleaved
    depth 10, convLSTM, clip_sim_no_latent_proj) with seeded weights, serves
    it over HTTP on localhost, answers a request on every route, checks the
@@ -103,7 +107,10 @@ from transformer_clip_eeg_tpu_torch.ops.fused_conv import (  # noqa: E402
     fused_conv_forward_cuda,
 )
 from transformer_clip_eeg_tpu_torch.ops.lstm_scan import (  # noqa: E402
+    _backward_recurrence as lstm_backward_recurrence,
+    _dwhh as lstm_dwhh,
     _launch_forward as lstm_forward_cuda,
+    lstm_launch_plan,
     lstm_scan_backward,
     lstm_scan_packed,
     lstm_scan_reference,
@@ -287,6 +294,21 @@ def check_block(x, params) -> dict:
     }
 
 
+def ptxas_usage(kind: str, hidden: int) -> dict:
+    """What ``ptxas -v`` reported for ``lstm_{kind}_cluster<hidden>``:
+    registers, spill stores and loads, stack bytes."""
+    hits = [v for k, v in _build.ptxas_usage().items()
+            if f"lstm_{kind}_clusterILi{hidden}E" in k]
+    if len(hits) != 1:
+        raise AssertionError(f"ptxas -v reported {len(hits)} kernels lstm_{kind}_cluster<{hidden}>")
+    return hits[0]
+
+
+def plan_text(plan) -> str:
+    return (f"clusters of {plan.cluster} CTAs x {plan.batch_tile} rows, {plan.ctas} CTAs of "
+            f"{plan.threads} threads")
+
+
 def check_lstm(gen: torch.Generator) -> dict:
     """Both of the speech encoder's recurrences: H=128 (input 64) and H=4
     (input 256), forward and reverse packed, batch 128, T=192."""
@@ -316,14 +338,18 @@ def check_lstm(gen: torch.Generator) -> dict:
             flops = 2 * hidden * 4 * hidden * t * b * d
             nbytes = (xw.numel() + whh.numel() + t * d * b * hidden) * 4
             bound_ms, bound_by = bound(flops, nbytes)
+            plan = lstm_launch_plan(b, d, hidden)
+            usage = ptxas_usage("fwd", hidden)
             log(f"  H={hidden}: kernel {ms:.4f} ms ({ms / t * 1e3:.3f} us/step), plain "
                 f"{plain_ms:.4f} ms, nn.LSTM {library_ms:.4f} ms, bound {bound_ms:.4f} ms "
-                f"({bound_by})")
-            shapes.append({
+                f"({bound_by}); {plan_text(plan)}; ptxas {usage}")
+            shape = {
                 "hidden": hidden, "xw": list(xw.shape), "max_abs_err": err, "ms": ms,
                 "us_per_step": ms / t * 1e3, "plain_ms": plain_ms,
                 "library_ms": library_ms, "bound_ms": bound_ms, "bound_by": bound_by,
-            })
+                "plan": plan._asdict(), "ptxas": usage,
+            }
+            shapes.append(shape)
     total = lambda key: sum(s[key] for s in shapes)  # noqa: E731
     return {
         "name": "lstm_scan_packed", "route": "cuda",
@@ -423,6 +449,12 @@ def check_lstm_backward(gen: torch.Generator) -> dict:
             raise AssertionError(f"LSTM backward disagrees with autograd through its twin: {errs}")
         h, c, gates = lstm_forward_cuda(xw, whh, return_c=True, save_gates=True)
         ms = time_ms(lambda: lstm_scan_backward(whh, h, c, gates, g))
+        # its two parts apart: the recurrence (dxw) and the dwhh reduction
+        dxw = lstm_backward_recurrence(whh, c, gates, g)
+        recurrence_ms = time_ms(lambda: lstm_backward_recurrence(whh, c, gates, g))
+        dwhh_ms = time_ms(lambda: lstm_dwhh(h, dxw))
+        plan = lstm_launch_plan(b, d, hidden)
+        usage = ptxas_usage("bwd", hidden)
         plain_ms = time_ms(lambda: torch.autograd.grad(ref_h, (ra, rw), g, retain_graph=True),
                            reps=5, warmup=1)
         lib = torch.nn.LSTM(in_dim, hidden, batch_first=True, bidirectional=True, device=dev)
@@ -436,15 +468,19 @@ def check_lstm_backward(gen: torch.Generator) -> dict:
         flops = 2 * rows * 4 * hidden * hidden * 2  # dpre whh^T and h_prev^T dpre
         nbytes = 4 * (2 * rows * 4 * hidden + 3 * rows * hidden + 2 * whh.numel())
         bound_ms, bound_by = bound(flops, nbytes)
-        log(f"  H={hidden}: kernel {ms:.4f} ms ({ms / t * 1e3:.3f} us/step), plain "
-            f"{plain_ms:.4f} ms, nn.LSTM backward {library_ms:.4f} ms, bound "
-            f"{bound_ms:.4f} ms ({bound_by})")
-        shapes.append({
+        log(f"  H={hidden}: kernel {ms:.4f} ms ({ms / t * 1e3:.3f} us/step): recurrence "
+            f"{recurrence_ms:.4f} ms ({recurrence_ms / t * 1e3:.3f} us/step), dwhh "
+            f"{dwhh_ms:.4f} ms; plain {plain_ms:.4f} ms, nn.LSTM backward {library_ms:.4f} "
+            f"ms, bound {bound_ms:.4f} ms ({bound_by}); {plan_text(plan)}; ptxas {usage}")
+        shape = {
             "hidden": hidden, "xw": list(xw.shape), "max_abs_err": abs_err,
             "max_grad_err": max(errs), "ms": ms, "us_per_step": ms / t * 1e3,
-            "plain_ms": plain_ms, "library_ms": library_ms, "bound_ms": bound_ms,
-            "bound_by": bound_by,
-        })
+            "recurrence_ms": recurrence_ms, "recurrence_us_per_step": recurrence_ms / t * 1e3,
+            "dwhh_ms": dwhh_ms, "plain_ms": plain_ms, "library_ms": library_ms,
+            "bound_ms": bound_ms, "bound_by": bound_by, "plan": plan._asdict(),
+            "ptxas": usage,
+        }
+        shapes.append(shape)
     total = lambda key: sum(s[key] for s in shapes)  # noqa: E731
     return {
         "name": "lstm_scan_backward", "route": "cuda",

@@ -22,7 +22,9 @@ from transformer_clip_eeg_tpu_torch.ops.fused_conv import (
     fused_conv_backward,
 )
 from transformer_clip_eeg_tpu_torch.ops.lstm import LSTM
+from transformer_clip_eeg_tpu_torch import _build
 from transformer_clip_eeg_tpu_torch.ops.lstm_scan import (
+    lstm_launch_plan,
     lstm_scan_backward,
     lstm_scan_packed,
     lstm_scan_reference,
@@ -165,6 +167,81 @@ def test_lstm_backward_matches_autograd(cuda, hidden):
     want = torch.autograd.grad(lstm_scan_reference(a, w), (a, w), g)
     for got_i, want_i in zip(got, want):
         assert _err(got_i, want_i) <= 1e-5
+
+
+def _lstm_inputs(t, d, b, hidden, seed, cuda):
+    """xw, whh at torch's init scale U(+-1/sqrt(H)), and an upstream gradient."""
+    gen = torch.Generator().manual_seed(seed)
+    lim = hidden ** -0.5
+    xw = (0.5 * torch.randn(t, d, b, 4 * hidden, generator=gen)).to(cuda)
+    whh = ((torch.rand(d, hidden, 4 * hidden, generator=gen) * 2 - 1) * lim).to(cuda)
+    g = torch.randn(t, d, b, hidden, generator=gen).to(cuda)
+    return xw, whh, g
+
+
+# (T, D, B): partial batch tiles (B=37, and B=5 or 1 below one tile at every
+# H), one direction, and a single step
+LSTM_CASES = [(40, 2, 37), (40, 2, 5), (40, 2, 1), (40, 1, 37), (1, 2, 37)]
+LSTM_IDS = ["T40D2B37", "T40D2B5", "T40D2B1", "T40D1B37", "T1D2B37"]
+
+
+@pytest.mark.parametrize("t,d,b", LSTM_CASES, ids=LSTM_IDS)
+@pytest.mark.parametrize("hidden", [4, 8, 16, 32, 64, 128])
+def test_lstm_cluster_kernels_match_twin(cuda, hidden, t, d, b):
+    """Kernels #3 and #4 (the clusters of every H) against the twin: h and
+    c, then dxw and dwhh against autograd through the twin."""
+    xw, whh, g = _lstm_inputs(t, d, b, hidden, 14, cuda)
+    with torch.no_grad():
+        h, c = lstm_scan_packed(xw, whh, return_c=True)
+        torch.cuda.synchronize()
+        want_h, want_c = lstm_scan_reference(xw, whh, return_c=True)
+    assert float((h - want_h).abs().max()) <= 1e-5
+    assert float((c - want_c).abs().max()) <= 1e-5
+    a, w = xw.clone().requires_grad_(), whh.clone().requires_grad_()
+    before = (lstm_scan_packed.launches, lstm_scan_backward.launches)
+    got = torch.autograd.grad(lstm_scan_packed(a, w), (a, w), g)
+    torch.cuda.synchronize()
+    assert (lstm_scan_packed.launches, lstm_scan_backward.launches) == (before[0] + 1,
+                                                                          before[1] + 1)
+    a, w = xw.clone().requires_grad_(), whh.clone().requires_grad_()
+    want = torch.autograd.grad(lstm_scan_reference(a, w), (a, w), g)
+    for name, got_i, want_i in zip(("dxw", "dwhh"), got, want):
+        assert _err(got_i, want_i) <= 1e-5, (name, _err(got_i, want_i))
+
+
+def test_lstm_cluster_kernels_repeat_bit_for_bit(cuda):
+    """No atomics and a fixed summation order: two runs on the same inputs
+    give the same h, c, dxw and dwhh, bit for bit."""
+    xw, whh, g = _lstm_inputs(60, 2, 130, 128, 16, cuda)
+    runs = []
+    for _ in range(2):
+        with torch.no_grad():
+            h, c = lstm_scan_packed(xw, whh, return_c=True)
+        a, w = xw.clone().requires_grad_(), whh.clone().requires_grad_()
+        runs.append((h, c, *torch.autograd.grad(lstm_scan_packed(a, w), (a, w), g)))
+    torch.cuda.synchronize()
+    for name, first, second in zip(("h", "c", "dxw", "dwhh"), *runs):
+        assert torch.equal(first, second), name
+
+
+def test_lstm_kernel_refuses_a_plan_it_cannot_run(cuda):
+    """The C entry points check the plan they are given: the plan of
+    another H, or the wrong shared-memory size, is refused with
+    cudaErrorInvalidValue and launches nothing."""
+    xw, whh, g = _lstm_inputs(4, 2, 8, 128, 17, cuda)
+    h = torch.empty(4, 2, 8, 128, device=cuda)
+    lib = _build.load()
+    stream = torch.cuda.current_stream().cuda_stream
+    plan = lstm_launch_plan(8, 2, 128)
+    wrong = lstm_launch_plan(8, 2, 64)
+    for p in (wrong, plan._replace(smem_fwd=plan.smem_fwd + 4, smem_bwd=plan.smem_bwd + 4)):
+        fwd = lib.tce_lstm_scan_fwd(xw.data_ptr(), whh.data_ptr(), h.data_ptr(), None, None,
+                                    4, 2, 8, 128, p.cluster, p.batch_tile, p.threads,
+                                    p.smem_fwd, stream)
+        bwd = lib.tce_lstm_scan_bwd(xw.data_ptr(), whh.data_ptr(), h.data_ptr(), g.data_ptr(),
+                                    xw.data_ptr(), 4, 2, 8, 128, p.cluster, p.batch_tile,
+                                    p.threads, p.smem_bwd, stream)
+        assert (fwd, bwd) == (1, 1), p  # cudaErrorInvalidValue
 
 
 def test_gradients_flow_through_the_kernels_to_the_input(cuda):

@@ -16,6 +16,7 @@ import ctypes
 import functools
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 import tempfile
@@ -44,11 +45,14 @@ _SIGNATURES = {
     "tce_fused_block_bwd": ([_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _F, *_DROP,
                              _P], _I),
     "tce_fused_block_bwd_workspace": ([_I, _I], _L),
-    # xw, whh, h_out, c_out (may be NULL), gates_out (may be NULL), T, D, B, H, stream
-    "tce_lstm_scan_fwd": ([_P, _P, _P, _P, _P, _I, _I, _I, _I, _P], _I),
-    # gates, whh^T, h, c, g, dxw, dwhh, workspace, T, D, B, H, stream
-    "tce_lstm_scan_bwd": ([_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P], _I),
-    "tce_lstm_scan_bwd_workspace": ([_I, _I, _I, _I], _L),
+    # xw, whh, h_out, c_out (may be NULL), gates_out (may be NULL), T, D, B, H,
+    # the launch plan (cluster size, batch tile, threads, shared-memory bytes), stream
+    "tce_lstm_scan_fwd": ([_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _L, _P], _I),
+    # gates, whh, c, g, dxw, T, D, B, H, the launch plan as above, stream
+    "tce_lstm_scan_bwd": ([_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _L, _P], _I),
+    # h, dxw, dwhh, workspace, T, D, B, H, stream
+    "tce_lstm_dwhh": ([_P, _P, _P, _P, _I, _I, _I, _I, _P], _I),
+    "tce_lstm_dwhh_workspace": ([_I, _I, _I, _I], _L),
     # x, w (tap-major), b, scale, bias, out, B, T, C, K, the first five dropout
     # arguments, saved z and saved stats (both may be NULL), stream
     "tce_fused_conv_fwd": ([_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, *_DROP[:5], _P, _P, _P],
@@ -108,11 +112,12 @@ def build(verbose: bool = False) -> Path:
             procs.append((src, obj, subprocess.Popen(
                 cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True
             )))
-        failed = []
+        failed, logs = [], []
         for src, _, proc in procs:
             log, _ = proc.communicate()
+            logs.append(f"[nvcc {src.name}]\n{log}")
             if verbose or proc.returncode:
-                print(f"[nvcc {src.name}]\n{log}", flush=True)
+                print(logs[-1], flush=True)
             if proc.returncode:
                 failed.append(src.name)
         if failed:
@@ -125,10 +130,40 @@ def build(verbose: bool = False) -> Path:
         )
         if link.returncode:
             raise RuntimeError(f"linking the kernels failed:\n{link.stdout}")
+        build_log(out).write_text("".join(logs))
         os.replace(tmp_lib, out)
     if verbose:
         print(f"built {out.name} in {time.perf_counter() - t0:.1f} s", flush=True)
     return out
+
+
+def build_log(lib: Path) -> Path:
+    """Where :func:`build` keeps what ``nvcc`` printed for ``lib``."""
+    return lib.with_suffix(".log")
+
+
+def ptxas_usage() -> dict:
+    """Per kernel (mangled name), what ``ptxas -v`` reported when the
+    library was built: ``registers``, ``spill_stores`` and ``spill_loads``
+    (bytes) and ``stack`` (bytes of stack frame)."""
+    usage, name = {}, None
+    for line in build_log(library_path()).read_text().splitlines():
+        m = re.search(r"Compiling entry function '(\S+)'", line)
+        if m:
+            name = m.group(1)
+            usage[name] = {}
+            continue
+        if name is None:
+            continue
+        m = re.search(r"(\d+) bytes stack frame, (\d+) bytes spill stores, (\d+) bytes "
+                      r"spill loads", line)
+        if m:
+            usage[name].update(stack=int(m.group(1)), spill_stores=int(m.group(2)),
+                               spill_loads=int(m.group(3)))
+        m = re.search(r"Used (\d+) registers", line)
+        if m:
+            usage[name]["registers"] = int(m.group(1))
+    return usage
 
 
 @functools.lru_cache(maxsize=None)

@@ -13,167 +13,207 @@
 //
 // Bound on an H100 at the flagship's H=128 layer (T=192, D=2, B=128):
 // 6.4 GFLOP, about 96 us at 67 TFLOP/s in f32, and 100 MB of xw, about
-// 30 us at 3.35 TB/s; the real floor is the chain of 192 dependent steps.
+// 30 us at 3.35 TB/s; the real floor is the chain of 192 dependent steps,
+// each a [B, H] x [H, 4H] product, the gate math and an exchange of h.
 //
-// Design: one CTA per (batch tile, direction); both directions of a biLSTM
-// run at once, each on its own CTAs.  A thread owns one hidden unit and
-// RPT batch rows: it computes that unit's four gates, so c stays in its
-// registers and only h is exchanged, through shared memory, once a step.
-// At H=128 whh is 256 KB, more than the 227 KB a CTA can hold: the first
-// KS rows of whh are staged in shared memory once, the rest are read from
-// L2 every step.  Batch tile 4 at H=128 balances the per-step arithmetic
-// (4 x 128 x 512 FMAs) against the per-step weight reads, and gives 64 CTAs.
+// Design (lstm_cluster.cuh): one thread-block cluster per (batch tile,
+// direction).  At H=128 a cluster of 4 CTAs splits the hidden units 32 per
+// CTA; each CTA keeps its [128 k x 128 gate columns] slice of whh in
+// registers for all T steps (64 floats a thread, each slice held by two
+// threads, so nothing of whh is read from memory in the step loop) and
+// tiles 8 batch rows, giving 16 x 2 x 4 = 128 CTAs of 512 threads at
+// B=128.  A step: every thread sums its 16 k of h_prev W for 4 rows x 4
+// gates (256 FMAs, one shared-memory float4 per 16); the 8 lanes of a k
+// group add their sums by shuffles, leaving 4 gates of one (row, unit) in
+// its owner, which does the gate math with c in its registers; every 4th
+// owner sends the h of 4 units into the h buffer of every CTA of the
+// cluster (16-byte st.async into distributed shared memory, counted on the
+// receiver's mbarrier), double-buffered by step parity.  The next step's xw
+// is loaded a step ahead.  No atomics: the same inputs give the same bits.
 
 #include <cuda_runtime.h>
 #include <math.h>
 
-namespace {
+#include "lstm_cluster.cuh"
 
-constexpr int NT = 128;  // threads per CTA
+namespace {
 
 __device__ __forceinline__ float sigmoidf(float x) {
   return 1.0f / (1.0f + expf(-x));
 }
 
-template <int RPT>
-__global__ void __launch_bounds__(NT)
-lstm_fwd_kernel(const float* __restrict__ xw, const float* __restrict__ whh,
-                float* __restrict__ h_out, float* __restrict__ c_out,
-                float* __restrict__ gates_out, int T, int D, int B, int H, int KS) {
-  extern __shared__ __align__(16) float smem[];
-  const int G = 4 * H;
-  const int RG = NT / H;   // row groups
-  const int BT = RG * RPT; // batch rows per CTA
+template <int H>
+__global__ void __launch_bounds__(lstm::threads<H>())
+lstm_fwd_cluster(const float* __restrict__ xw, const float* __restrict__ whh,
+                 float* __restrict__ h_out, float* __restrict__ c_out,
+                 float* __restrict__ gates_out, int T, int D, int B, int U) {
+  using S = lstm::Fwd<H>;
+  constexpr int NT = S::NT, KPT = S::KPT, KG = S::KG, RPT = S::RPT, G = 4 * H;
+  constexpr int FULL = KG * S::KEEP / S::NV;  // lanes left with the same sums
+  static_assert(S::NV / S::KEEP <= KG && 4 * KG <= 32, "a group's rows fit its lanes");
+  extern __shared__ float4 smem4[];
+  uint64_t* bar = reinterpret_cast<uint64_t*>(smem4);        // [EG][2]: h arrived
+  float* hbuf = reinterpret_cast<float*>(smem4 + lstm::EG);  // [2][BT][H]: h_prev, by parity
+  const int N = H / U;
+  const int BT = lstm::OWNERS / U;
+  const int n = blockIdx.x % N;  // rank in the cluster
+  const int tile = blockIdx.x / N;
   const int d = blockIdx.y;
-  const int j = threadIdx.x % H;
-  const int rg = threadIdx.x / H;
-  float* h_s = smem;           // [BT][H]: h of the previous step
-  float* w_s = smem + BT * H;  // [KS][G]: rows k < KS of this direction's whh
-  const float* __restrict__ W = whh + (size_t)d * H * G;
+  const int tid = threadIdx.x;
+  // this thread's exchange group: its rows' h arrive on gbar
+  const int eg = tid / (NT / lstm::EG);
+  uint64_t* gbar = bar + 2 * eg;
+  const uint32_t h_bytes = (uint32_t)(BT / lstm::EG * H * sizeof(float));
 
-  for (int i = threadIdx.x; i < KS * G; i += NT) w_s[i] = W[i];
-  for (int i = threadIdx.x; i < BT * H; i += NT) h_s[i] = 0.f;
+  // product role: k group kg (the low lane bits), unit u, rows prg * RPT ..
+  const int kg = tid % KG, u = (tid / KG) % U, prg = tid / (KG * U);
+  // owner role: the row whose 4 gates this thread keeps after group_sum
+  const int orow = prg * RPT + lstm::group_offset<KG / 2, S::NV, S::KEEP>(kg) / 4;
+  const bool owner = kg % FULL == 0;
+  const int j = n * U + u;
+  const int b = tile * BT + orow;
+  const bool valid = owner && b < B;
 
-  int lr[RPT];      // local row in the tile
-  bool valid[RPT];  // row < B
-  size_t brow[RPT]; // global batch row
-  float c[RPT];
+  float w[KPT / 4][4][4];  // whh[k][g H + j], k = 4 KG i + 4 kg + q
+  {
+    const float* W = whh + (size_t)d * H * G + j;
 #pragma unroll
-  for (int r = 0; r < RPT; ++r) {
-    lr[r] = rg + r * RG;
-    const int b = blockIdx.x * BT + lr[r];
-    valid[r] = b < B;
-    brow[r] = valid[r] ? (size_t)b : 0;
-    c[r] = 0.f;
+    for (int i = 0; i < KPT / 4; ++i)
+#pragma unroll
+      for (int q = 0; q < 4; ++q)
+#pragma unroll
+        for (int g = 0; g < 4; ++g)
+          w[i][q][g] = __ldg(W + (size_t)(4 * KG * i + 4 * kg + q) * G + g * H);
   }
-  __syncthreads();
+  for (int i = tid; i < BT * H; i += NT) hbuf[i] = 0.f;  // h of step -1
+  // gbar[1] counts the group's h of the steps t = 1, 3, ..., gbar[0] of
+  // t = 2, 4, ...; the group's first thread arms them
+  if (N > 1 && tid % (NT / lstm::EG) == 0) {
+    lstm::mbar_init(&gbar[0]);
+    lstm::mbar_init(&gbar[1]);
+    lstm::fence_mbar_init();
+    if (T > 1) lstm::mbar_expect(&gbar[1], h_bytes);
+    if (T > 2) lstm::mbar_expect(&gbar[0], h_bytes);
+  }
+
+  float xc[4] = {0.f, 0.f, 0.f, 0.f};
+  if (valid) {
+    const float* xr = xw + ((size_t)d * B + b) * G + j;
+#pragma unroll
+    for (int g = 0; g < 4; ++g) xc[g] = __ldg(xr + g * H);
+  }
+  float c = 0.f;
+  lstm::cluster_sync();  // every CTA of the cluster runs, its mbarriers armed
 
   for (int t = 0; t < T; ++t) {
-    const size_t row0 = ((size_t)t * D + d) * B;
-    float xv[RPT][4];  // issued early, consumed after the matmul
+    float xn[4] = {0.f, 0.f, 0.f, 0.f};  // next step's xw, in flight during this one
+    if (valid && t + 1 < T) {
+      const float* xr = xw + (((size_t)(t + 1) * D + d) * B + b) * G + j;
 #pragma unroll
-    for (int r = 0; r < RPT; ++r) {
-      const float* xr = xw + (row0 + brow[r]) * G + j;
-#pragma unroll
-      for (int g = 0; g < 4; ++g) xv[r][g] = valid[r] ? __ldg(xr + g * H) : 0.f;
+      for (int g = 0; g < 4; ++g) xn[g] = __ldg(xr + g * H);
     }
-    float acc[RPT][4];
-#pragma unroll
-    for (int r = 0; r < RPT; ++r)
-#pragma unroll
-      for (int g = 0; g < 4; ++g) acc[r][g] = 0.f;
+    if (N > 1 && t > 0) {  // the group's h of step t-1 from every CTA of the cluster
+      lstm::mbar_wait(&gbar[t & 1], ((t - 1) >> 1) & 1);
+      if (tid % (NT / lstm::EG) == 0 && t + 2 < T) lstm::mbar_expect(&gbar[t & 1], h_bytes);
+    }
+    const float* hb = hbuf + (t & 1) * BT * H + prg * RPT * H + 4 * kg;
 
-    // h W over k, four k at a time (H % 4 == 0, KS % 4 == 0)
-    for (int k = 0; k < H; k += 4) {
-      float4 hv[RPT];
+    float acc[S::NV];  // [RPT rows][4 gates]
 #pragma unroll
-      for (int r = 0; r < RPT; ++r)
-        hv[r] = *reinterpret_cast<const float4*>(h_s + lr[r] * H + k);
-      const bool staged = k < KS;
+    for (int v = 0; v < S::NV; ++v) acc[v] = 0.f;
 #pragma unroll
-      for (int kk = 0; kk < 4; ++kk) {
-        float w[4];
-        if (staged) {
-          const float* wr = w_s + (k + kk) * G + j;
+    for (int i = 0; i < KPT / 4; ++i) {
 #pragma unroll
-          for (int g = 0; g < 4; ++g) w[g] = wr[g * H];
-        } else {
-          const float* wr = W + (size_t)(k + kk) * G + j;
+      for (int r = 0; r < RPT; ++r) {
+        const float4 hv = *reinterpret_cast<const float4*>(hb + r * H + 4 * KG * i);
+        const float hk[4] = {hv.x, hv.y, hv.z, hv.w};
 #pragma unroll
-          for (int g = 0; g < 4; ++g) w[g] = __ldg(wr + g * H);
-        }
+        for (int q = 0; q < 4; ++q)
 #pragma unroll
-        for (int r = 0; r < RPT; ++r) {
-          const float hk = kk == 0 ? hv[r].x : kk == 1 ? hv[r].y : kk == 2 ? hv[r].z : hv[r].w;
-#pragma unroll
-          for (int g = 0; g < 4; ++g) acc[r][g] = fmaf(hk, w[g], acc[r][g]);
-        }
+          for (int g = 0; g < 4; ++g) acc[4 * r + g] = fmaf(hk[q], w[i][q][g], acc[4 * r + g]);
       }
     }
-    __syncthreads();  // every thread has read h of step t-1
+    lstm::group_sum<KG / 2, S::NV, S::KEEP>(acc, kg);  // acc[0..4): the row's gates
 
-#pragma unroll
-    for (int r = 0; r < RPT; ++r) {
-      const float ig = sigmoidf(xv[r][0] + acc[r][0]);
-      const float fg = sigmoidf(xv[r][1] + acc[r][1]);
-      const float gg = tanhf(xv[r][2] + acc[r][2]);
-      const float og = sigmoidf(xv[r][3] + acc[r][3]);
-      c[r] = fg * c[r] + ig * gg;
-      const float h = og * tanhf(c[r]);
-      h_s[lr[r] * H + j] = valid[r] ? h : 0.f;
-      if (valid[r]) {
-        const size_t o = (row0 + brow[r]) * H + j;
-        h_out[o] = h;
-        if (c_out != nullptr) c_out[o] = c[r];
-        if (gates_out != nullptr) {
-          float* gr = gates_out + (row0 + brow[r]) * G + j;
-          gr[0] = ig;
-          gr[H] = fg;
-          gr[2 * H] = gg;
-          gr[3 * H] = og;
-        }
+    const float ig = sigmoidf(xc[0] + acc[0]);
+    const float fg = sigmoidf(xc[1] + acc[1]);
+    const float gg = tanhf(xc[2] + acc[2]);
+    const float og = sigmoidf(xc[3] + acc[3]);
+    c = fg * c + ig * gg;
+    const float h = og * tanhf(c);
+    // h into the next step's buffer of every CTA of the cluster, this one
+    // too; the last step's h is not needed there
+    if (t + 1 < T) {
+      const float hv = valid ? h : 0.f;
+      float* slot = hbuf + ((t + 1) & 1) * BT * H + orow * H + j;
+      if (N == 1) {
+        if (owner) *slot = hv;
+      } else {  // the owner of every 4th unit sends the h of 4 units
+        const int lane0 = (tid & 31) - KG * (u & 3);
+        const float4 h4 = make_float4(__shfl_sync(0xffffffffu, hv, lane0),
+                                      __shfl_sync(0xffffffffu, hv, lane0 + KG),
+                                      __shfl_sync(0xffffffffu, hv, lane0 + 2 * KG),
+                                      __shfl_sync(0xffffffffu, hv, lane0 + 3 * KG));
+        if (owner && (u & 3) == 0) lstm::send_all(slot, &gbar[(t + 1) & 1], h4, N);
       }
     }
-    __syncthreads();  // h of step t is complete
+    if (valid) {
+      const size_t o = (((size_t)t * D + d) * B + b) * H + j;
+      h_out[o] = h;
+      if (c_out != nullptr) c_out[o] = c;
+      if (gates_out != nullptr) {
+        float* gr = gates_out + (((size_t)t * D + d) * B + b) * G + j;
+        gr[0] = ig;
+        gr[H] = fg;
+        gr[2 * H] = gg;
+        gr[3 * H] = og;
+      }
+    }
+#pragma unroll
+    for (int g = 0; g < 4; ++g) xc[g] = xn[g];
+    if (N == 1) __syncthreads();  // a cluster of one CTA: the block barrier is the exchange
   }
+  // no CTA leaves while a store of the cluster into shared memory may be in
+  // flight (the waits cover what arrives here, not what this CTA sent)
+  if (N > 1) lstm::cluster_sync();
 }
 
-template <int RPT>
-int launch(const float* xw, const float* whh, float* h_out, float* c_out,
-           float* gates_out, int T, int D, int B, int H, cudaStream_t stream) {
-  const int BT = (NT / H) * RPT;
-  int dev = 0, optin = 0;
-  cudaError_t err = cudaGetDevice(&dev);
-  if (err != cudaSuccess) return (int)err;
-  err = cudaDeviceGetAttribute(&optin, cudaDevAttrMaxSharedMemoryPerBlockOptin, dev);
-  if (err != cudaSuccess) return (int)err;
-  const size_t h_bytes = (size_t)BT * H * sizeof(float);
-  const size_t row_bytes = (size_t)4 * H * sizeof(float);
-  if (h_bytes > (size_t)optin) return (int)cudaErrorInvalidValue;
-  long ks = (long)(((size_t)optin - h_bytes) / row_bytes);
-  if (ks > H) ks = H;
-  ks -= ks % 4;
-  const size_t bytes = h_bytes + (size_t)ks * row_bytes;
-  err = cudaFuncSetAttribute(lstm_fwd_kernel<RPT>,
-                             cudaFuncAttributeMaxDynamicSharedMemorySize,
-                             (int)bytes);
-  if (err != cudaSuccess) return (int)err;
-  const dim3 grid((B + BT - 1) / BT, D);
-  lstm_fwd_kernel<RPT><<<grid, NT, bytes, stream>>>(xw, whh, h_out, c_out,
-                                                    gates_out, T, D, B, H, (int)ks);
-  return (int)cudaGetLastError();
+template <int H>
+int launch(const float* xw, const float* whh, float* h_out, float* c_out, float* gates_out,
+           int T, int D, int B, int n, int bt, int threads, long long smem,
+           cudaStream_t stream) {
+  using S = lstm::Fwd<H>;
+  const int units = lstm::plan_units(H, n, bt, threads, S::NT, S::RPT);
+  if (units == 0 || smem < 0) return (int)cudaErrorInvalidValue;
+  const dim3 grid(((B + bt - 1) / bt) * n, D);
+  return lstm::launch_clusters(lstm_fwd_cluster<H>, grid, S::NT, n, (size_t)smem,
+                               lstm::fwd_smem_bytes(H, bt), stream,
+                               xw, whh, h_out, c_out, gates_out, T, D, B, units);
 }
 
 }  // namespace
 
 // Launch on `stream`; returns the CUDA error code (0 on success).  `c_out`
-// and `gates_out` may be NULL.  H must be a multiple of 4 that divides 128.
-extern "C" int tce_lstm_scan_fwd(const float* xw, const float* whh,
-                                 float* h_out, float* c_out, float* gates_out,
-                                 int T, int D, int B, int H, void* stream) {
-  if (T <= 0 || D <= 0 || B <= 0 || H < 4 || H > NT || NT % H != 0 || H % 4 != 0)
-    return (int)cudaErrorInvalidValue;
+// and `gates_out` may be NULL.  H is 4, 8, 16, 32, 64 or 128; (n, bt,
+// threads, smem) is the plan of lstm_launch_plan in ops/lstm_scan.py:
+// clusters of n CTAs, bt batch rows each, `smem` bytes of shared memory.
+extern "C" int tce_lstm_scan_fwd(const float* xw, const float* whh, float* h_out,
+                                 float* c_out, float* gates_out, int T, int D, int B, int H,
+                                 int n, int bt, int threads, long long smem, void* stream) {
+  if (T <= 0 || D <= 0 || B <= 0) return (int)cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (H >= 32) return launch<4>(xw, whh, h_out, c_out, gates_out, T, D, B, H, s);
-  return launch<1>(xw, whh, h_out, c_out, gates_out, T, D, B, H, s);
+#define TCE_LSTM_FWD(HH)                                                              \
+  case HH:                                                                            \
+    return launch<HH>(xw, whh, h_out, c_out, gates_out, T, D, B, n, bt, threads, smem, s);
+  switch (H) {
+    TCE_LSTM_FWD(4)
+    TCE_LSTM_FWD(8)
+    TCE_LSTM_FWD(16)
+    TCE_LSTM_FWD(32)
+    TCE_LSTM_FWD(64)
+    TCE_LSTM_FWD(128)
+    default:
+      return (int)cudaErrorInvalidValue;
+  }
+#undef TCE_LSTM_FWD
 }

@@ -5,7 +5,10 @@ Counterpart of ``transformer_clip_eeg_tpu/ops/pallas_lstm.py``
 (``lstm_scan_pallas_packed`` and its ``custom_vjp``).  The forward kernel is
 ``csrc/lstm_scan.cu`` (kernel #3), the backward ``csrc/lstm_scan_bwd.cu``
 (kernel #4); each source's header says what bounds it and how it is laid
-out.  :func:`lstm_scan_packed` launches #3 for a CUDA tensor and runs
+out.  Both run each recurrence as a thread-block cluster whose CTAs split
+the hidden units; :func:`lstm_launch_plan` is the one place that sizes the
+launch (``csrc/lstm_cluster.cuh`` checks it).  :func:`lstm_scan_packed`
+launches #3 for a CUDA tensor and runs
 :func:`lstm_scan_reference` for a CPU tensor; under autograd it goes through
 :class:`LSTMScanFunction` (#4 on the card, autograd through the twin on the
 CPU).  There is no other path.
@@ -19,9 +22,47 @@ recurrent weights ``whh [D, H, 4H]`` (``[in, out]``, the transpose of torch's
 
 from __future__ import annotations
 
-from typing import Optional, Tuple, Union
+from typing import NamedTuple, Optional, Tuple, Union
 
 import torch
+
+OWNERS = 256         # threads of a CTA that own a (row, unit) (csrc/lstm_cluster.cuh)
+EXCHANGE_GROUPS = 2  # of a CTA's threads, each waiting only for its own rows
+MAX_UNITS = 32       # hidden units per CTA
+
+
+class LaunchPlan(NamedTuple):
+    """How the recurrence kernels launch (``csrc/lstm_cluster.cuh``)."""
+
+    cluster: int     # CTAs per recurrence; each owns hidden // cluster units
+    batch_tile: int  # batch rows per cluster: one owner thread per (row, unit)
+    threads: int     # per CTA: 2 x OWNERS at H >= 32, else OWNERS
+    ctas: int        # in the grid: tiles x directions x cluster
+    smem_fwd: int    # shared-memory bytes per CTA of the forward kernel
+    smem_bwd: int    # and of the backward kernel
+
+
+def lstm_launch_plan(b: int, d: int, hidden: int) -> LaunchPlan:
+    """The launch plan of kernels #3 and #4 for ``D=d`` recurrences of batch
+    ``b`` and hidden size ``hidden``: one cluster per (batch tile,
+    direction), each CTA owning ``min(hidden, 32)`` units (H=128: clusters
+    of 4 CTAs of 8 batch rows, 128 CTAs at B=128, D=2).  The C entry points
+    check the plan against the header's rules, which also hold each product
+    thread's rows; ``tests/test_torch_port_lstm_cluster.py`` holds this
+    function to them.  Raises ``ValueError`` for a shape the kernels cannot
+    run."""
+    if hidden <= 0 or hidden % 4 or 128 % hidden or min(b, d) < 1:
+        raise ValueError(f"the CUDA recurrence takes H a multiple of 4 dividing 128 and "
+                         f"B, D >= 1; got H={hidden}, B={b}, D={d}")
+    units = min(hidden, MAX_UNITS)
+    cluster, bt = hidden // units, OWNERS // units
+    threads = 2 * OWNERS if hidden >= 32 else OWNERS
+    # two mbarriers per exchange group, then two step buffers of h (forward)
+    # or dpre (backward)
+    barriers = 2 * EXCHANGE_GROUPS * 8
+    smem_fwd = barriers + 4 * 2 * bt * hidden
+    smem_bwd = barriers + 4 * 2 * bt * 4 * hidden
+    return LaunchPlan(cluster, bt, threads, -(-b // bt) * d * cluster, smem_fwd, smem_bwd)
 
 
 def lstm_scan_reference(
@@ -69,13 +110,15 @@ def _check_cuda_inputs(xw: torch.Tensor, whh: torch.Tensor) -> None:
 
 
 def _launch_forward(xw: torch.Tensor, whh: torch.Tensor, return_c: bool,
-                    save_gates: bool) -> Tuple[torch.Tensor, Optional[torch.Tensor],
-                                               Optional[torch.Tensor]]:
+                    save_gates: bool
+                    ) -> Tuple[torch.Tensor, Optional[torch.Tensor], Optional[torch.Tensor]]:
+    """Kernel #3."""
     _check_cuda_inputs(xw, whh)
     from transformer_clip_eeg_tpu_torch import _build
 
     lib = _build.load()
     t, d, b, g4 = xw.shape
+    plan = lstm_launch_plan(b, d, g4 // 4)
     h_out = xw.new_empty((t, d, b, g4 // 4))
     c_out = torch.empty_like(h_out) if return_c else None
     gates = torch.empty_like(xw) if save_gates else None
@@ -84,7 +127,8 @@ def _launch_forward(xw: torch.Tensor, whh: torch.Tensor, return_c: bool,
         rc = lib.tce_lstm_scan_fwd(
             xw.data_ptr(), whh.data_ptr(), h_out.data_ptr(),
             None if c_out is None else c_out.data_ptr(),
-            None if gates is None else gates.data_ptr(), t, d, b, g4 // 4, stream,
+            None if gates is None else gates.data_ptr(), t, d, b, g4 // 4,
+            plan.cluster, plan.batch_tile, plan.threads, plan.smem_fwd, stream,
         )
     _build.check(lib, rc, "lstm_scan_packed")
     lstm_scan_packed.launches += 1
@@ -131,23 +175,47 @@ def lstm_scan_backward(
             raise ValueError(f"{name}: want float32 {shape} on {gates.device}, got "
                              f"{a.dtype} {tuple(a.shape)} on {a.device}")
     _check_cuda_inputs(gates, whh)
+    dxw = _backward_recurrence(whh, c.contiguous(), gates, g.contiguous())
+    dwhh = _dwhh(h.contiguous(), dxw)
+    lstm_scan_backward.launches += 1
+    return dxw, dwhh
+
+
+def _backward_recurrence(whh: torch.Tensor, c: torch.Tensor, gates: torch.Tensor,
+                         g: torch.Tensor) -> torch.Tensor:
+    """Kernel #4's recurrence on checked, contiguous inputs: ``dxw``."""
     from transformer_clip_eeg_tpu_torch import _build
 
     lib = _build.load()
-    g, h, c = g.contiguous(), h.contiguous(), c.contiguous()
-    whh_t = whh.transpose(1, 2).contiguous()  # [D, 4H, H]: dh = dpre whh^T
+    t, d, b, g4 = gates.shape
+    plan = lstm_launch_plan(b, d, g4 // 4)
     dxw = torch.empty_like(gates)
-    dwhh = torch.empty_like(whh)
-    ws = gates.new_empty((lib.tce_lstm_scan_bwd_workspace(t, d, b, hidden),))
     with torch.cuda.device(gates.device):
         stream = torch.cuda.current_stream(gates.device).cuda_stream
         rc = lib.tce_lstm_scan_bwd(
-            gates.data_ptr(), whh_t.data_ptr(), h.data_ptr(), c.data_ptr(), g.data_ptr(),
-            dxw.data_ptr(), dwhh.data_ptr(), ws.data_ptr(), t, d, b, hidden, stream,
+            gates.data_ptr(), whh.data_ptr(), c.data_ptr(), g.data_ptr(), dxw.data_ptr(),
+            t, d, b, g4 // 4, plan.cluster, plan.batch_tile, plan.threads, plan.smem_bwd,
+            stream,
         )
-    _build.check(lib, rc, "lstm_scan_backward")
-    lstm_scan_backward.launches += 1
-    return dxw, dwhh
+    _build.check(lib, rc, "lstm_scan_backward (recurrence)")
+    return dxw
+
+
+def _dwhh(h: torch.Tensor, dxw: torch.Tensor) -> torch.Tensor:
+    """Kernel #4's weight gradient through ``wgrad.cuh``: ``dwhh [D, H, 4H]``
+    = the sum over t >= 1 and b of ``h[t-1]^T dxw[t]``, in a fixed order."""
+    from transformer_clip_eeg_tpu_torch import _build
+
+    lib = _build.load()
+    t, d, b, hidden = h.shape
+    dwhh = h.new_empty((d, hidden, 4 * hidden))
+    ws = h.new_empty((lib.tce_lstm_dwhh_workspace(t, d, b, hidden),))
+    with torch.cuda.device(h.device):
+        stream = torch.cuda.current_stream(h.device).cuda_stream
+        rc = lib.tce_lstm_dwhh(h.data_ptr(), dxw.data_ptr(), dwhh.data_ptr(), ws.data_ptr(),
+                               t, d, b, hidden, stream)
+    _build.check(lib, rc, "lstm_scan_backward (dwhh)")
+    return dwhh
 
 
 class LSTMScanFunction(torch.autograd.Function):
