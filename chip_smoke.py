@@ -12,7 +12,10 @@ GPU, end to end.
    training mode (same seed, so the same dropout masks), the LSTM forward,
    and the two backward kernels against autograd through the twins.  Times
    kernel, plain twin and the nearest single PyTorch call with CUDA events
-   (median of 20 runs).  For the LSTM kernels (one thread-block cluster per
+   (median of 20 runs).  For the block's backward (#2) also its parts timed
+   apart under ``torch.profiler`` (row kernels, attention, the weight
+   gradients' products with their TFLOP/s, sums), the device launches per
+   call, a bit-for-bit repeat and what ``ptxas -v`` reported.  For the LSTM kernels (one thread-block cluster per
    recurrence) also the launch plan, microseconds per step, what ``ptxas
    -v`` reported (registers, spills), the backward's recurrence and its
    dwhh reduction timed apart, and H=128 under its other plan (clusters of
@@ -40,8 +43,9 @@ GPU, end to end.
 6. The conv kernels at the flagship's shapes (B=128, T=192, C=64): the
    fused BasicBlock forward (#5) against its plain twin in eval and in
    training (dropout 0.2, fixed seed) for K=64 (EEG) and K=32 (speech), its
-   backward (#6) against autograd through the twin (all five gradients), and
-   the conv alone (#7) against ``F.conv1d``; each timed beside its plain twin
+   backward (#6) against autograd through the twin (all five gradients; its
+   parts timed apart, launches per call, a bit-for-bit repeat and ``ptxas``
+   as for #2), and the conv alone (#7) against ``F.conv1d``; each timed beside its plain twin
    and a yardstick (the port's unfused ``BasicBlock``, its backward, and
    ``F.conv1d``; cuDNN with TF32 off).
 7. The fused path: the flagship with ``fused=True`` on its 11 square
@@ -297,11 +301,8 @@ def check_block(x, params) -> dict:
 def ptxas_usage(kind: str, hidden: int) -> dict:
     """What ``ptxas -v`` reported for ``lstm_{kind}_cluster<hidden>``:
     registers, spill stores and loads, stack bytes."""
-    hits = [v for k, v in _build.ptxas_usage().items()
-            if f"lstm_{kind}_clusterILi{hidden}E" in k]
-    if len(hits) != 1:
-        raise AssertionError(f"ptxas -v reported {len(hits)} kernels lstm_{kind}_cluster<{hidden}>")
-    return hits[0]
+    name = f"lstm_{kind}_clusterILi{hidden}E"
+    return ptxas_of(name)[name]
 
 
 def plan_text(plan) -> str:
@@ -395,7 +396,27 @@ def check_block_backward(x, params, gen: torch.Generator) -> dict:
         raise AssertionError(f"block backward disagrees with autograd through its twin: {errs}")
 
     _, saved = fused_block_forward_cuda(x, params, h, scale, FLAGSHIP_DROP, save=True)
-    ms = time_ms(lambda: fused_block_backward(x, params, g, saved, h, scale, FLAGSHIP_DROP))
+
+    def run():
+        dx, dparams = fused_block_backward(x, params, g, saved, h, scale, FLAGSHIP_DROP)
+        return (dx, *dparams)
+
+    assert_repeats("fused_block_backward", run)
+    ms = time_ms(run)
+    parts = kernel_parts(run, {"rows": ("ffn_bwd_kernel", "qkv_bwd_kernel"),
+                               "attention": ("attn_bwd_kernel",),
+                               "dw": ("products_kernel",), "sums": ("sums_kernel",)})
+    dw_flops = 2.0 * b * t * (2 * e * 256 + 4 * e * e)
+    dw_tflops = dw_flops / (parts["parts_ms"]["dw"] * 1e-3) / 1e12
+    usage = ptxas_of("ffn_bwd_kernel", "attn_bwd_kernel", "qkv_bwd_kernel", "products_kernel",
+                     "sums_kernel")
+    log(f"  parts (device ms per call, torch.profiler): {json.dumps(parts['parts_ms'])}; "
+        f"{parts['launches_per_call']:g} device launches per call; dW products "
+        f"{dw_flops / 1e9:.3f} GFLOP at {dw_tflops:.2f} TFLOP/s (f32 peak "
+        f"{PEAK_F32_FLOPS / 1e12:g}); ptxas {json.dumps(usage)}")
+    if parts["launches_per_call"] > 6:
+        raise AssertionError(f"fused_block_backward takes {parts['launches_per_call']} "
+                             f"launches a call, want at most 6")
     plain_ms = time_ms(lambda: torch.autograd.grad(want_out, ref, g, retain_graph=True))
     lib = library_layer(params).train()
     xl = x.clone().requires_grad_()
@@ -420,6 +441,9 @@ def check_block_backward(x, params, gen: torch.Generator) -> dict:
         "ms": ms, "kernel_ms": ms, "plain_ms": plain_ms, "library_ms": library_ms,
         "library_call": "backward of torch.nn.TransformerEncoderLayer(norm_first=True)",
         "bound_ms": bound_ms, "bound_by": bound_by,
+        "parts_ms": parts["parts_ms"], "parts_launches": parts["parts_launches"],
+        "device_launches_per_call": parts["launches_per_call"],
+        "dw_tflops": dw_tflops, "repeats_bit_for_bit": True, "ptxas": usage,
         "shape": {"x": list(x.shape), "heads": h, "ffn": 256, "drop": [0.5, 0.5]},
     }
 
@@ -453,6 +477,7 @@ def check_lstm_backward(gen: torch.Generator) -> dict:
         dxw = lstm_backward_recurrence(whh, c, gates, g)
         recurrence_ms = time_ms(lambda: lstm_backward_recurrence(whh, c, gates, g))
         dwhh_ms = time_ms(lambda: lstm_dwhh(h, dxw))
+        dwhh_tflops = 2.0 * (t - 1) * d * b * hidden * 4 * hidden / (dwhh_ms * 1e-3) / 1e12
         plan = lstm_launch_plan(b, d, hidden)
         usage = ptxas_usage("bwd", hidden)
         plain_ms = time_ms(lambda: torch.autograd.grad(ref_h, (ra, rw), g, retain_graph=True),
@@ -470,13 +495,14 @@ def check_lstm_backward(gen: torch.Generator) -> dict:
         bound_ms, bound_by = bound(flops, nbytes)
         log(f"  H={hidden}: kernel {ms:.4f} ms ({ms / t * 1e3:.3f} us/step): recurrence "
             f"{recurrence_ms:.4f} ms ({recurrence_ms / t * 1e3:.3f} us/step), dwhh "
-            f"{dwhh_ms:.4f} ms; plain {plain_ms:.4f} ms, nn.LSTM backward {library_ms:.4f} "
+            f"{dwhh_ms:.4f} ms ({dwhh_tflops:.2f} TFLOP/s, two launches); plain {plain_ms:.4f} ms, nn.LSTM backward {library_ms:.4f} "
             f"ms, bound {bound_ms:.4f} ms ({bound_by}); {plan_text(plan)}; ptxas {usage}")
         shape = {
             "hidden": hidden, "xw": list(xw.shape), "max_abs_err": abs_err,
             "max_grad_err": max(errs), "ms": ms, "us_per_step": ms / t * 1e3,
             "recurrence_ms": recurrence_ms, "recurrence_us_per_step": recurrence_ms / t * 1e3,
-            "dwhh_ms": dwhh_ms, "plain_ms": plain_ms, "library_ms": library_ms,
+            "dwhh_ms": dwhh_ms, "dwhh_tflops": dwhh_tflops, "plain_ms": plain_ms,
+            "library_ms": library_ms,
             "bound_ms": bound_ms, "bound_by": bound_by, "plan": plan._asdict(),
             "ptxas": usage,
         }
@@ -591,7 +617,23 @@ def check_conv(gen: torch.Generator):
             raise AssertionError(f"conv backward disagrees with autograd through its twin: "
                                  f"{gerrs}")
         _, z, stats = fused_conv_forward_cuda(x, w, bb, scale, bias, CONV_DROP, save=True)
-        ms = time_ms(lambda: fused_conv_backward(x, w, scale, bias, g, z, stats, CONV_DROP))
+        run = lambda: fused_conv_backward(x, w, scale, bias, g, z, stats, CONV_DROP)  # noqa: E731
+        assert_repeats(f"fused_conv_backward K={k}", run)
+        ms = time_ms(run)
+        # the rest is dx: #7 on dconv and the copies that flip and re-lay its weights
+        parts = kernel_parts(run, {"rows": ("conv_bwd_rows_kernel",),
+                                   "dw": ("dw_partial_kernel",), "sums": ("sums_kernel",)},
+                             rest="dx")
+        own = parts["launches_per_call"] - parts["parts_launches"]["dx"]
+        dw_tflops = conv_flops(x, k) / (parts["parts_ms"]["dw"] * 1e-3) / 1e12
+        usage = ptxas_of("conv_bwd_rows_kernel", "dw_partial_kernel", "sums_kernel")
+        log(f"  parts (device ms per call, torch.profiler): {json.dumps(parts['parts_ms'])}; "
+            f"{own:g} device launches per call without dx, {parts['launches_per_call']:g} "
+            f"with; dW {conv_flops(x, k) / 1e9:.3f} GFLOP at {dw_tflops:.2f} TFLOP/s (f32 "
+            f"peak {PEAK_F32_FLOPS / 1e12:g}); ptxas {json.dumps(usage)}")
+        if own > 5:
+            raise AssertionError(f"fused_conv_backward takes {own} launches a call without "
+                                 f"its dx, want at most 5")
         plain_ms = time_ms(lambda: torch.autograd.grad(want_out, ref, g, retain_graph=True))
         lib.train()
         lib.dropout.dropout_seed = CONV_DROP.seed
@@ -610,7 +652,11 @@ def check_conv(gen: torch.Generator):
         bwd.append({"k": k, "x": list(x.shape), "max_abs_err": abs_err,
                     "max_grad_err": max(gerrs.values()), "grad_err": gerrs, "ms": ms,
                     "plain_ms": plain_ms, "library_ms": library_ms, "bound_ms": bound_ms,
-                    "bound_by": bound_by})
+                    "bound_by": bound_by, "parts_ms": parts["parts_ms"],
+                    "parts_launches": parts["parts_launches"],
+                    "device_launches_per_call": parts["launches_per_call"],
+                    "device_launches_without_dx": own,
+                    "dw_tflops": dw_tflops, "repeats_bit_for_bit": True, "ptxas": usage})
 
         # #7, the conv alone, against F.conv1d
         with torch.inference_mode():
@@ -695,11 +741,12 @@ def _device_us(evt) -> float:
     return float(val if val is not None else evt.self_cuda_time_total)
 
 
-def profile_calls(fn, reps: int) -> dict:
+def profile_calls(fn, reps: int, top: int = 8) -> dict:
     """Where the time of ``reps`` calls of ``fn()`` goes, under
     ``torch.profiler``: host clock per call, device time per call summed
-    over every device operation, the device's idle share of the window, and
-    the operations that took the most device time."""
+    over every device operation, the device operations (kernels, copies) per
+    call, the device's idle share of the window, and the ``top`` operations
+    that took the most device time."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -722,13 +769,57 @@ def profile_calls(fn, reps: int) -> dict:
         "reps": reps,
         "host_ms_per_call": wall_s / reps * 1e3,
         "device_ms_per_call": device_us / reps / 1e3,
+        "device_ops_per_call": sum(r[2] for r in rows) / reps,
         "device_idle_share": max(0.0, 1 - device_us / 1e6 / wall_s),
         "top_ops": [
             {"op": key[:80], "device_ms_per_call": us / reps / 1e3,
              "share_of_device": us / device_us, "calls_per_call": count / reps}
-            for key, us, count in rows[:8]
+            for key, us, count in rows[:top]
         ],
     }
+
+
+def kernel_parts(fn, parts: dict, rest: str = "", reps: int = 5) -> dict:
+    """The device time and the device launches of one call of ``fn()`` by
+    part, under ``torch.profiler``: ``parts`` maps a part's name to the
+    kernel names (substrings) that make it up; any other device operation
+    goes to the part ``rest``, or fails the run when there is none."""
+    prof = profile_calls(fn, reps, top=64)
+    names = list(parts) + ([rest] if rest else [])
+    ms, launches = dict.fromkeys(names, 0.0), dict.fromkeys(names, 0.0)
+    for op in prof["top_ops"]:
+        hits = [name for name, keys in parts.items() if any(k in op["op"] for k in keys)]
+        if len(hits) > 1 or not (hits or rest):
+            raise AssertionError(f"device operation {op['op']!r} belongs to parts {hits}")
+        part = hits[0] if hits else rest
+        ms[part] += op["device_ms_per_call"]
+        launches[part] += op["calls_per_call"]
+    return {"parts_ms": ms, "parts_launches": launches,
+            "launches_per_call": prof["device_ops_per_call"]}
+
+
+def ptxas_of(*names: str) -> dict:
+    """What ``ptxas -v`` reported for the kernels whose mangled name holds one
+    of ``names``, by that name (of a kernel compiled into several translation
+    units, the copy with the most registers)."""
+    out = {}
+    for mangled, usage in _build.ptxas_usage().items():
+        for name in names:
+            if name in mangled and usage["registers"] >= out.get(name, usage)["registers"]:
+                out[name] = usage
+    if sorted(out) != sorted(names):
+        raise AssertionError(f"ptxas -v reported {sorted(out)}, want {sorted(names)}")
+    return out
+
+
+def assert_repeats(name: str, run) -> None:
+    """Two calls of ``run()`` (a tuple of tensors) give the same bits."""
+    first, second = run(), run()
+    torch.cuda.synchronize()
+    for i, (a, b) in enumerate(zip(first, second)):
+        if not torch.equal(a, b):
+            raise AssertionError(f"{name}: output {i} differs between two calls")
+    log(f"{name}: two calls give the same bits in all {len(first)} outputs")
 
 
 def profile_chunk(name: str, fn, windows: np.ndarray, reps: int = 5) -> dict:

@@ -10,7 +10,10 @@ import pytest
 import torch
 
 from transformer_clip_eeg_tpu_torch.ops.fused_block import (
+    DropoutConfig,
+    drop_args,
     fused_block_backward,
+    fused_block_forward_cuda,
     fused_transformer_block,
     fused_transformer_block_reference,
 )
@@ -20,6 +23,7 @@ from transformer_clip_eeg_tpu_torch.ops.fused_conv import (
     fused_basic_block,
     fused_basic_block_reference,
     fused_conv_backward,
+    fused_conv_forward_cuda,
 )
 from transformer_clip_eeg_tpu_torch.ops.lstm import LSTM
 from transformer_clip_eeg_tpu_torch import _build
@@ -180,9 +184,10 @@ def _lstm_inputs(t, d, b, hidden, seed, cuda):
 
 
 # (T, D, B): partial batch tiles (B=37, and B=5 or 1 below one tile at every
-# H), one direction, and a single step
-LSTM_CASES = [(40, 2, 37), (40, 2, 5), (40, 2, 1), (40, 1, 37), (1, 2, 37)]
-LSTM_IDS = ["T40D2B37", "T40D2B5", "T40D2B1", "T40D1B37", "T1D2B37"]
+# H), one direction, a single step (dwhh sums no rows), and 30 rows of dwhh
+# (less than one stage of the weight-gradient tile)
+LSTM_CASES = [(40, 2, 37), (40, 2, 5), (40, 2, 1), (40, 1, 37), (1, 2, 37), (7, 2, 5)]
+LSTM_IDS = ["T40D2B37", "T40D2B5", "T40D2B1", "T40D1B37", "T1D2B37", "T7D2B5"]
 
 
 @pytest.mark.parametrize("t,d,b", LSTM_CASES, ids=LSTM_IDS)
@@ -366,3 +371,118 @@ def test_fused_conv_refuses_other_widths_and_long_windows(cuda):
     with pytest.raises(ValueError, match="no backward kernel"):
         conv1d_same(x.requires_grad_(), w)
     assert (fused_basic_block.launches, conv1d_same.launches) == before
+
+
+# ---- the weight-gradient tile (csrc/wgrad.cuh) through its callers ----------------
+
+@pytest.mark.parametrize("t", [1, 7, 192, 218])
+@pytest.mark.parametrize("b", [1, 5, 37])
+def test_block_backward_at_ragged_shapes(cuda, b, t):
+    """Kernel #2 at row counts that fill no stage, chunk or key tile evenly
+    (B*T from 1 to 8,066; T=218 is the longest window), dropout on: dx and
+    the 16 parameter gradients against autograd through the twin."""
+    x, params, g = _block_inputs(b, t, 20 + b, cuda)
+    kw = dict(training=True, seed=11, drop_p=0.5, ffn_drop_p=0.5)
+    leaves = [x.clone().requires_grad_()] + [p.clone().requires_grad_() for p in params]
+    got = torch.autograd.grad(fused_transformer_block(leaves[0], leaves[1:], 8, 8.0, **kw),
+                              leaves, g)
+    torch.cuda.synchronize()
+    ref = [x.clone().requires_grad_()] + [p.clone().requires_grad_() for p in params]
+    want = torch.autograd.grad(fused_transformer_block_reference(ref[0], ref[1:], 8, 8.0, **kw),
+                               ref, g)
+    for i, (a, w) in enumerate(zip(got, want)):
+        assert _err(a, w) <= 1e-4, (i, _err(a, w))
+
+
+# (B, T, K): one tap, an odd K short of a tap group, the speech block's K, the
+# longest window at K=64, and sample groups that do not divide B
+DW_CASES = [(5, 7, 1), (1, 50, 31), (37, 192, 32), (5, 345, 64), (37, 192, 64)]
+DW_IDS = ["B5T7K1", "B1T50K31", "B37T192K32", "B5T345K64", "B37T192K64"]
+
+
+@pytest.mark.parametrize("b,t,k", DW_CASES, ids=DW_IDS)
+def test_conv_backward_at_ragged_shapes(cuda, b, t, k):
+    """Kernel #6 where the dW kernel's stages, tap groups and sample groups
+    are ragged, dropout on: all five gradients against autograd through the
+    twin."""
+    x, w, bb, scale, bias, g = _conv_inputs(b, t, k, 30 + k, cuda)
+    leaves = [v.clone().requires_grad_() for v in (x, w, bb, scale, bias)]
+    got = torch.autograd.grad(fused_basic_block(*leaves, 99, k, 0.2, True), leaves, g)
+    torch.cuda.synchronize()
+    ref = [v.clone().requires_grad_() for v in (x, w, bb, scale, bias)]
+    want = torch.autograd.grad(fused_basic_block_reference(*ref, 99, k, 0.2, True), ref, g)
+    for name, a, r in zip(("dx", "dw", "db", "dscale", "dbias"), got, want):
+        assert _err(a, r) <= 1e-4, (name, _err(a, r))
+
+
+def test_block_and_conv_backward_repeat_bit_for_bit(cuda):
+    """No atomics and a fixed summation order in kernels #2 and #6: two calls
+    on the same inputs give the same bits in every gradient."""
+    drop = DropoutConfig(True, 5, 0.5, 0.5)
+    x, params, g = _block_inputs(37, 192, 40, cuda)
+    _, saved = fused_block_forward_cuda(x, params, 8, 8.0, drop, save=True)
+    runs = [fused_block_backward(x, params, g, saved, 8, 8.0, drop) for _ in range(2)]
+    torch.cuda.synchronize()
+    assert torch.equal(runs[0][0], runs[1][0])
+    for i, (a, b) in enumerate(zip(runs[0][1], runs[1][1])):
+        assert torch.equal(a, b), i
+    cdrop = DropoutConfig(True, 6, 0.2)
+    x, w, bb, scale, bias, g = _conv_inputs(37, 192, 64, 41, cuda)
+    _, z, stats = fused_conv_forward_cuda(x, w, bb, scale, bias, cdrop, save=True)
+    runs = [fused_conv_backward(x, w, scale, bias, g, z, stats, cdrop) for _ in range(2)]
+    torch.cuda.synchronize()
+    for name, a, b in zip(("dx", "dw", "db", "dscale", "dbias"), *runs):
+        assert torch.equal(a, b), name
+
+
+def test_weight_gradient_entry_points_refuse_what_they_cannot_copy(cuda):
+    """The tile copies 16 bytes at a time: a misaligned operand, a width that
+    is no multiple of 4 floats, and a window whose attention backward would
+    not fit shared memory are refused with cudaErrorInvalidValue (1) and
+    launch nothing."""
+    lib = _build.load()
+    stream = torch.cuda.current_stream().cuda_stream
+    t, d, b, hidden = 6, 2, 5, 8
+    h = torch.zeros(t * d * b * hidden + 4, device=cuda)
+    dxw = torch.zeros(t * d * b * 4 * hidden + 4, device=cuda)
+    dwhh = torch.full((d, hidden, 4 * hidden), 7.0, device=cuda)
+    ws = torch.zeros(lib.tce_lstm_dwhh_workspace(t, d, b, hidden), device=cuda)
+
+    def dwhh_rc(h_ptr, dxw_ptr, hid=hidden):
+        return lib.tce_lstm_dwhh(h_ptr, dxw_ptr, dwhh.data_ptr(), ws.data_ptr(), t, d, b, hid,
+                                 stream)
+
+    assert dwhh_rc(h.data_ptr(), dxw.data_ptr()) == 0
+    torch.cuda.synchronize()
+    assert float(dwhh.abs().max()) == 0.0  # zeros in, zeros out: it ran
+    dwhh.fill_(7.0)
+    assert dwhh_rc(h.data_ptr() + 4, dxw.data_ptr()) == 1
+    assert dwhh_rc(h.data_ptr(), dxw.data_ptr() + 8) == 1
+    assert dwhh_rc(h.data_ptr(), dxw.data_ptr(), hid=6) == 1  # rows of 24 bytes
+    torch.cuda.synchronize()
+    assert float(dwhh.min()) == 7.0  # nothing was launched
+
+    # the conv's dW: x off a 16-byte boundary
+    bsz, tt, k = 2, 16, 8
+    x, w, bb, scale, bias, g = _conv_inputs(bsz, tt, k, 50, cuda)
+    pad = torch.zeros(bsz * tt * 64 + 4, device=cuda)
+    outs = [torch.zeros_like(x), torch.zeros_like(w), torch.zeros(64, device=cuda),
+            torch.zeros(2, tt, 64, device=cuda)]
+    cws = torch.zeros(lib.tce_fused_conv_bwd_workspace(bsz, tt, k), device=cuda)
+    stats = torch.ones(bsz, 2, device=cuda)
+    rc = lib.tce_fused_conv_bwd(pad.data_ptr() + 4, g.data_ptr(), x.data_ptr(),
+                                stats.data_ptr(), scale.data_ptr(), bias.data_ptr(),
+                                *(o.data_ptr() for o in outs), cws.data_ptr(), bsz, tt, 64, k,
+                                *drop_args(DropoutConfig(), bsz)[:5], stream)
+    assert rc == 1
+
+    # the block's backward at a window no CTA's shared memory holds
+    long_t = 4096
+    small = torch.zeros(64, device=cuda)
+    ptrs = (torch.zeros(16, dtype=torch.int64) + small.data_ptr()).numpy()
+    rc = lib.tce_fused_block_bwd(small.data_ptr(), small.data_ptr(), small.data_ptr(),
+                                 ptrs.ctypes.data, small.data_ptr(), ptrs.ctypes.data,
+                                 small.data_ptr(), 1, long_t, 64, 8, 256, 0.125,
+                                 *drop_args(DropoutConfig(), 1), stream)
+    assert rc == 1
+    torch.cuda.synchronize()

@@ -16,7 +16,8 @@
 // drop_bits (drop.cuh), the counter hash of ops/dropout.py, so the masks are
 // the same bits as the JAX kernel's interpret mode and the plain twin.  When
 // `saved` is not NULL the kernel also writes q, k, v, the dropped-out
-// attention context and x1 ([5][B][T][E]) for the backward (fused_block_bwd.cu).
+// attention context and x1 ([5][B][T][E]) and then each softmax row's
+// log-sum-exp ([B][H][T]) for the backward (fused_block_bwd.cu).
 //
 // Bound on an H100 at the flagship shape (B=128, T=192, E=64, H=8, F=256):
 // 28.3 MFLOP per sample, 3.62 GFLOP per launch against 12.6 MB of x in and
@@ -147,6 +148,8 @@ fused_block_fwd_kernel(const float* __restrict__ x, float* __restrict__ out,
       if (lane == d) mine = a;
     }
     if (lane < D) bufA[t * E + h * D + lane] = mine / sum;
+    if (saved != nullptr && lane == 0)  // the row's log-sum-exp: P = exp(s - lse)
+      saved[5 * plane + ((size_t)blockIdx.x * H + h) * T + t] = mx + logf(sum);
   }
   __syncthreads();
   if (saved != nullptr)  // the attention context, after dropout

@@ -36,9 +36,10 @@
 // complete every thread sums its column group of dpre whh^T for 4 rows x 4
 // units (256 FMAs), and the 32 lanes of a warp, one column group each, add
 // their sums by shuffles into the owners, which keep dh' and dc in
-// registers.  dwhh is a separate reduction over the T*B rows of each
-// direction (wgrad.cuh, tce_lstm_dwhh): per-chunk partial sums, then a
-// fixed-order sum.  No atomics anywhere: the same inputs give the same bits.
+// registers.  dwhh is a separate reduction over the T*B rows
+// (wgrad.cuh, tce_lstm_dwhh): the directions' products as one launch of
+// per-chunk partial sums, then one launch of fixed-order sums.  No atomics
+// anywhere: the same inputs give the same bits.
 
 #include <cuda_runtime.h>
 #include <math.h>
@@ -246,23 +247,29 @@ extern "C" int tce_lstm_scan_bwd(const float* gates, const float* whh, const flo
 
 // Floats of workspace tce_lstm_dwhh needs (the partial sums).
 extern "C" long long tce_lstm_dwhh_workspace(int T, int D, int B, int H) {
-  (void)D;
-  return (long long)wgrad::atb_workspace(H, 4 * H, T > 1 ? (T - 1) * B : 0);
+  return (long long)D * (long long)wgrad::workspace(H, 4 * H, T > 1 ? (T - 1) * B : 0);
 }
 
 // dwhh[d] = sum over t >= 1 and b of h[t-1, d, b]^T dxw[t, d, b], in a fixed
 // order: h [T][D][B][H], dxw [T][D][B][4H]; out dwhh [D][H][4H]; ws: the
-// workspace above.  Returns the CUDA error code (0 on success).
+// workspace above.  The D products are one launch and their sums another
+// (per wgrad::MAX_JOBS directions).  Returns the CUDA error code (0 on
+// success); H must be a multiple of 4 and the tensors 16-byte aligned.
 extern "C" int tce_lstm_dwhh(const float* h, const float* dxw, float* dwhh, float* ws,
                              int T, int D, int B, int H, void* stream) {
   if (T <= 0 || D <= 0 || B <= 0 || H <= 0) return (int)cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const int G = 4 * H;
-  for (int d = 0; d < D; ++d) {
-    const wgrad::Rows hp{h + (size_t)d * B * H, B, (long long)D * B * H, H};
-    const wgrad::Rows dp{dxw + ((size_t)D + d) * B * G, B, (long long)D * B * G, G};
-    const cudaError_t err = wgrad::atb(hp, dp, H, G, T > 1 ? (T - 1) * B : 0,
-                                       dwhh + (size_t)d * H * G, ws, s);
+  const int G = 4 * H, K = T > 1 ? (T - 1) * B : 0;
+  for (int d0 = 0; d0 < D; d0 += wgrad::MAX_JOBS) {
+    wgrad::Plan plan;
+    for (int d = d0; d < D && d < d0 + wgrad::MAX_JOBS; ++d) {
+      const wgrad::Rows hp{h + (size_t)d * B * H, B, (long long)D * B * H, H};
+      const wgrad::Rows dp{dxw + ((size_t)D + d) * B * G, B, (long long)D * B * G, G};
+      if (!plan.add_product(hp, dp, H, G, K, dwhh + (size_t)d * H * G, ws))
+        return (int)cudaErrorInvalidValue;
+    }
+    cudaError_t err = plan.launch_products(s);
+    if (err == cudaSuccess) err = plan.launch_sums(s);
     if (err != cudaSuccess) return (int)err;
   }
   return 0;

@@ -56,8 +56,14 @@ KERNEL_E, KERNEL_H, KERNEL_F = 64, 8, 256
 # the most dynamic shared memory a CTA may opt into on sm_90 (227 KB)
 SMEM_OPTIN_BYTES = 227 * 1024
 # the training forward saves q, k, v, the attention context and x1 for the
-# backward: five [B, T, E] planes
+# backward: five [B, T, E] planes, then each softmax row's log-sum-exp [B, H, T]
 N_SAVED = 5
+
+
+def saved_numel(b: int, t: int, e: int, num_heads: int) -> int:
+    """Floats the training forward saves for the backward (one flat tensor:
+    ``[N_SAVED, B, T, E]`` then ``[B, H, T]``)."""
+    return N_SAVED * b * t * e + b * num_heads * t
 
 
 def kernel_smem_bytes(t: int) -> int:
@@ -72,8 +78,8 @@ def kernel_smem_bytes(t: int) -> int:
 
 # the longest window that fits: 218 rows (3.4 s at 64 Hz); the attention
 # term dominates at any T above 60, so kernel_smem_bytes is 4 * 266 * T here.
-# The backward keeps one head's Q, K, V and dctx (about 36 floats a row) and
-# is not the tighter limit.
+# The backward keeps one head's query records and dQ (28 floats a row) and a
+# 5 KB block per warp, and is not the tighter limit.
 MAX_KERNEL_T = SMEM_OPTIN_BYTES // (4 * (4 * KERNEL_E + 2 + 8))
 
 
@@ -170,6 +176,103 @@ def fused_transformer_block_reference(
     return x1 + f2
 
 
+def attention_backward_reference(
+    q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, ctx: torch.Tensor,
+    lse: torch.Tensor, dctx: torch.Tensor, num_heads: int, scale: float,
+    mask: Optional[torch.Tensor] = None,
+) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Kernel #2's attention backward in eager torch, each (query, key) pair
+    once: ``(dq, dk, dv)``, all ``[B, T, E]``, from the forward's ``q``, ``k``,
+    ``v``, its dropped-out context ``ctx``, the softmax rows' log-sum-exp
+    ``lse [B, H, T]`` and the context's gradient ``dctx``.  Two identities
+    replace the softmax's row statistics: ``P = exp(S - lse)`` and
+    ``rowsum(dP * P) = dctx . ctx`` per head (``ctx`` was computed with the
+    dropped-out ``P``, so it holds with ``mask``, the attention mask of
+    :func:`block_masks`, ``[B, H, T, T]``)."""
+    b, t, e = q.shape
+    d = e // num_heads
+
+    def heads(a):
+        return a.reshape(b, t, num_heads, d).transpose(1, 2)  # [B, H, T, d]
+
+    qh, kh, vh, ch, dch = map(heads, (q, k, v, ctx, dctx))
+    p = torch.exp(qh @ kh.transpose(2, 3) * (1.0 / scale) - lse[..., None])
+    delta = (dch * ch).sum(-1, keepdim=True)
+    dp = dch @ vh.transpose(2, 3)
+    pm = p
+    if mask is not None:
+        dp, pm = dp * mask, p * mask
+    ds = p * (dp - delta) * (1.0 / scale)
+    return tuple(a.transpose(1, 2).reshape(b, t, e)
+                 for a in (ds @ kh, ds.transpose(2, 3) @ qh, pm.transpose(2, 3) @ dch))
+
+
+def _layer_norm_backward(dy, y, g, inv):
+    """dx of ``LayerNorm`` over the last axis from the gradient ``dy`` of its
+    output, its normalised input ``y`` (before the affine), the scale ``g``
+    and ``inv = 1 / sigma``."""
+    gh = dy * g
+    return (gh - gh.mean(-1, keepdim=True) - y * (gh * y).mean(-1, keepdim=True)) * inv
+
+
+def fused_block_backward_reference(
+    x: torch.Tensor, params: Sequence[torch.Tensor], g: torch.Tensor, num_heads: int,
+    scale: float, drop: DropoutConfig = DropoutConfig(),
+) -> Tuple[torch.Tensor, Tuple[torch.Tensor, ...]]:
+    """Kernel #2 in eager torch, formula by formula as ``csrc/fused_block_bwd.cu``
+    computes it (no autograd): ``(dx, dparams)``.  The forward's saved values
+    (q, k, v, the dropped-out context, x1, the log-sum-exp) are recomputed
+    here; the attention part is :func:`attention_backward_reference`."""
+    (g1, be1, wq, wk, wv, bq, bk, bv, wo, bo,
+     g2, be2, w1, bb1, w2, bb2) = params
+    b, t, e = x.shape
+    d = e // num_heads
+    m_attn, m_ao, m_fi, m_fo = block_masks(b, t, e, w1.shape[0], num_heads, drop, x.device)
+
+    def one(m):
+        return 1.0 if m is None else m
+
+    def normalise(a):
+        inv = torch.rsqrt(a.var(-1, unbiased=False, keepdim=True) + 1e-5)
+        return (a - a.mean(-1, keepdim=True)) * inv, inv
+
+    def cols(a):
+        return a.reshape(-1, a.shape[-1]).sum(0)
+
+    def atb(a, c):  # a^T c over the B*T rows
+        return a.reshape(-1, a.shape[-1]).T @ c.reshape(-1, c.shape[-1])
+
+    # the forward, keeping what the training forward saves
+    y1, inv1 = normalise(x)
+    y1a = y1 * g1 + be1
+    q, k, v = (F.linear(y1a, w, bias) for w, bias in ((wq, bq), (wk, bk), (wv, bv)))
+    qh, kh, vh = (a.reshape(b, t, num_heads, d).transpose(1, 2) for a in (q, k, v))
+    s = qh @ kh.transpose(2, 3) * (1.0 / scale)
+    lse = torch.logsumexp(s, dim=-1)
+    ctx = ((torch.exp(s - lse[..., None]) * one(m_attn)) @ vh).transpose(1, 2).reshape(b, t, e)
+    x1 = x + F.linear(ctx, wo, bo) * one(m_ao)
+    y2, inv2 = normalise(x1)
+    y2a = y2 * g2 + be2
+    f1 = F.linear(y2a, w1, bb1)
+    gld = F.gelu(f1) * one(m_fi)
+
+    # FFN, LN2 and out-projection backward
+    df2 = g * one(m_fo)
+    pdf = torch.exp(-0.5 * f1 * f1) * 0.3989422804014327
+    df1 = (df2 @ w2) * one(m_fi) * (0.5 * (1 + torch.erf(f1 * 0.7071067811865476)) + f1 * pdf)
+    dy2 = df1 @ w1
+    dx1 = g + _layer_norm_backward(dy2, y2, g2, inv2)
+    da = dx1 * one(m_ao)
+    dctx = da @ wo
+    dq, dk, dv = attention_backward_reference(q, k, v, ctx, lse, dctx, num_heads, scale, m_attn)
+    dy1 = dq @ wq + dk @ wk + dv @ wv
+    dx = dx1 + _layer_norm_backward(dy1, y1, g1, inv1)
+    dparams = (cols(dy1 * y1), cols(dy1), atb(dq, y1a), atb(dk, y1a), atb(dv, y1a),
+               cols(dq), cols(dk), cols(dv), atb(da, ctx), cols(da),
+               cols(dy2 * y2), cols(dy2), atb(df1, y2a), cols(df1), atb(df2, gld), cols(df2))
+    return dx, dparams
+
+
 def _check_cuda_inputs(x: torch.Tensor, params: Sequence[torch.Tensor],
                        num_heads: int) -> None:
     if x.dtype != torch.float32 or x.dim() != 3:
@@ -223,15 +326,16 @@ def fused_block_forward_cuda(
     drop: DropoutConfig = DropoutConfig(), save: bool = False,
 ) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
     """Launch kernel #1 on a CUDA tensor: ``(out, saved)``, where ``saved``
-    (``[5, B, T, E]``: q, k, v, the dropped-out attention context and x1) is
-    written only when ``save``, for kernel #2."""
+    (one flat tensor of :func:`saved_numel` floats: ``[5, B, T, E]`` of q, k,
+    v, the dropped-out attention context and x1, then ``[B, H, T]`` of the
+    softmax rows' log-sum-exp) is written only when ``save``, for kernel #2."""
     _check_cuda_inputs(x, params, num_heads)
     from transformer_clip_eeg_tpu_torch import _build
 
     lib = _build.load()
     b, t, e = x.shape
     out = torch.empty_like(x)
-    saved = x.new_empty((N_SAVED, b, t, e)) if save else None
+    saved = x.new_empty((saved_numel(b, t, e, num_heads),)) if save else None
     with torch.cuda.device(x.device):
         stream = torch.cuda.current_stream(x.device).cuda_stream
         rc = lib.tce_fused_block_fwd(
@@ -252,15 +356,18 @@ def fused_block_backward(
     """Kernel #2 on CUDA tensors: ``(dx, dparams)`` for the upstream gradient
     ``g`` of the block's output, from x, the parameters and what the
     training forward saved.  Its plain version is autograd through
-    :func:`fused_transformer_block_reference`.  Counted once per call,
-    whatever number of launches it takes."""
+    :func:`fused_transformer_block_reference`.  Counted once per call; it is
+    five kernel launches (``csrc/fused_block_bwd.cu``)."""
     _check_cuda_inputs(x, params, num_heads)
     b, t, e = x.shape
     if g.shape != x.shape or g.dtype != torch.float32 or g.device != x.device:
         raise ValueError(f"g must be float32 {tuple(x.shape)} on {x.device}")
-    if saved is None or saved.shape != (N_SAVED, b, t, e) or not saved.is_contiguous():
-        raise ValueError("the backward needs the [5, B, T, E] tensor the "
-                         "training forward saved")
+    if saved is None or saved.shape != (saved_numel(b, t, e, num_heads),) \
+            or saved.dtype != torch.float32 or saved.device != x.device \
+            or saved.data_ptr() % 16:
+        raise ValueError(f"the backward needs the flat tensor of "
+                         f"{saved_numel(b, t, e, num_heads)} floats the training forward "
+                         f"saved")
     from transformer_clip_eeg_tpu_torch import _build
 
     lib = _build.load()

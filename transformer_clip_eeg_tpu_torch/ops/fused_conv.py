@@ -108,6 +108,46 @@ def fused_basic_block_reference(
     return F.gelu(F.layer_norm(conv, (t, c), scale, bias, 1e-5))
 
 
+def conv_dw_reference(x: torch.Tensor, dconv: torch.Tensor, k: int) -> torch.Tensor:
+    """Kernel #6's dW in eager torch, as the one product the kernel computes:
+    ``A^T dconv`` over the ``B*T`` rows, where row ``(b, t)`` of ``A`` is the
+    window of ``k`` rows of the zero-padded ``x[b]`` that meets output row
+    ``t``, flattened to ``(tap, input channel)``.  Returns torch's Conv1d
+    layout ``[C_out, C_in, K]``."""
+    bsz, t, c = x.shape
+    u = F.pad(x, (0, 0, *same_padding(k, 1)))                    # [B, T + K - 1, C]
+    a = u.unfold(1, k, 1).permute(0, 1, 3, 2).reshape(bsz * t, k * c)
+    dw = a.T @ dconv.reshape(bsz * t, -1)                        # [(tap, C_in), C_out]
+    return dw.reshape(k, c, -1).permute(2, 1, 0)
+
+
+def fused_conv_backward_reference(
+    x: torch.Tensor, w: torch.Tensor, b: torch.Tensor, scale: torch.Tensor,
+    bias: torch.Tensor, g: torch.Tensor, drop: DropoutConfig = DropoutConfig(),
+) -> Tuple[torch.Tensor, ...]:
+    """Kernel #6 in eager torch, formula by formula as
+    ``csrc/fused_conv_bwd.cu`` computes it (no autograd): ``(dx, dw, db,
+    dscale, dbias)``.  What the training forward saves (z, mean, 1/sigma) is
+    recomputed here."""
+    bsz, t, c = x.shape
+    k = w.shape[2]
+    lo, hi = same_padding(k, 1)
+    mask = conv_mask(drop.seed, bsz, t, c, drop.drop_p, x.device) if drop.active else 1.0
+    z = (conv1d_reference(x, w, (lo, hi)) + b) * mask
+    mean = z.mean((1, 2), keepdim=True)
+    inv = torch.rsqrt(z.var((1, 2), unbiased=False, keepdim=True) + 1e-5)
+    y = (z - mean) * inv
+    a = y * scale + bias
+    pdf = torch.exp(-0.5 * a * a) * 0.3989422804014327
+    da = g * (0.5 * (1 + torch.erf(a * 0.7071067811865476)) + a * pdf)
+    gh = da * scale
+    dz = (gh - gh.mean((1, 2), keepdim=True) - y * (gh * y).mean((1, 2), keepdim=True)) * inv
+    dconv = dz * mask
+    dx = conv1d_reference(dconv, w.transpose(0, 1).flip(2), (hi, lo))
+    return (dx, conv_dw_reference(x, dconv, k), dconv.sum((0, 1)), (da * y).sum(0),
+            da.sum(0))
+
+
 def _check_x(x: torch.Tensor, what: str) -> None:
     if x.dtype != torch.float32 or x.dim() != 3:
         raise ValueError(f"{what}: x must be float32 [B, T, C], got {x.dtype} "
@@ -204,8 +244,8 @@ def fused_conv_backward(
     upstream gradient ``g`` of the block's output, from x, the parameters and
     what the training forward saved.  dx is :func:`conv1d_same` (kernel #7)
     of the kernel's dconv.  Its plain version is autograd through
-    :func:`fused_basic_block_reference`.  Counted once per call, whatever
-    number of launches it takes."""
+    :func:`fused_basic_block_reference`.  Counted once per call; it is three
+    kernel launches (``csrc/fused_conv_bwd.cu``) and #7's."""
     _check_x(x, "fused_conv_backward")
     k = _check_w(x, w, "fused_conv_backward")
     bsz, t, c = x.shape
@@ -224,7 +264,9 @@ def fused_conv_backward(
     dw = torch.empty_like(w)
     db = x.new_empty((c,))
     dln = x.new_empty((2, t, c))
-    ws = x.new_empty((lib.tce_fused_conv_bwd_workspace(bsz, t, k),))
+    n_ws = lib.tce_fused_conv_bwd_workspace(bsz, t, k)
+    _build.check(lib, max(-n_ws, 0), "fused_conv_backward (workspace)")
+    ws = x.new_empty((n_ws,))
     with torch.cuda.device(x.device):
         rc = lib.tce_fused_conv_bwd(
             _ptr(x), _ptr(g), _ptr(z), _ptr(stats), _ptr(scale), _ptr(bias), _ptr(dconv),
