@@ -12,7 +12,14 @@ GPU, end to end.
    training mode (same seed, so the same dropout masks), the LSTM forward,
    and the two backward kernels against autograd through the twins.  Times
    kernel, plain twin and the nearest single PyTorch call with CUDA events
-   (median of 20 runs).  For the block's backward (#2) also its parts timed
+   (median of 20 runs).  For the block's forward (#1) also what it saves for
+   the backward (q, k, v, the dropped-out context, x1, the log-sum-exp)
+   against the twin's intermediates, its three kernels timed apart under
+   ``torch.profiler`` in eval and in training, exactly 3 device launches a
+   call, a bit-for-bit repeat of out and ``saved``, what ``ptxas -v``
+   reported (no spills), and that it is under the library layer; then #1 and
+   #2 at T=256 and T=320 (batch 128) against the twins, timed, and #1 at
+   batch 8.  For the block's backward (#2) also its parts timed
    apart under ``torch.profiler`` (row kernels, attention, the weight
    gradients' products with their TFLOP/s, sums), the device launches per
    call, a bit-for-bit repeat and what ``ptxas -v`` reported.  For the LSTM kernels (one thread-block cluster per
@@ -57,7 +64,12 @@ GPU, end to end.
    already on the card, fused and unfused in turns, and a ``torch.profiler``
    pass over 3 fused steps.  The default serving and training paths above
    launch none of #5-#7.
-8. Prints one JSON line of per-kernel numbers, then, last, the
+8. The long window: the flagship built with ``window_length_s=4`` (T=256). 8
+   windows through both embedders on the card against a CPU copy, one train
+   step at batch 8 with dropout on, card against CPU, and the exact launches
+   of each (10 block forwards and 2 LSTM recurrences per embedding; 10, 10,
+   2 and 2 forwards and backwards per step).
+9. Prints one JSON line of per-kernel numbers, then, last, the
    ``{"ok": true, "device": ...}`` line.
 
 Any failure raises and exits non-zero.  Imports nothing of JAX.
@@ -99,6 +111,7 @@ from transformer_clip_eeg_tpu_torch.ops.fused_block import (  # noqa: E402
     DropoutConfig,
     fused_block_backward,
     fused_block_forward_cuda,
+    fused_block_saved_reference,
     fused_transformer_block,
     fused_transformer_block_reference,
 )
@@ -242,39 +255,73 @@ def block_flops(b, t, e=64, f=256):
     return b * (2 * t * e * e * 4 + 2 * 2 * t * t * e + 2 * 2 * t * e * f)
 
 
+BLOCK_FWD_PARTS = {"ln_qkv": ("ln_qkv_kernel",), "attention": ("attn_fwd_kernel",),
+                   "proj_ffn": ("proj_ffn_kernel",)}
+BLOCK_FWD_LAUNCHES = 3  # device launches of one call of kernel #1
+SAVED_NAMES = ("q", "k", "v", "ctx", "x1", "lse")
+
+
+def block_forward_errors(x, params) -> dict:
+    """Kernel #1 against its twin on ``x``: the output in eval and in training
+    (the flagship's rates, the same seed, so the same masks) and what the
+    training forward saves for #2 (q, k, v, the dropped-out context, x1 and
+    the log-sum-exp) against the twin's intermediates; raises past
+    ``BLOCK_TOL``."""
+    b, t, e = x.shape
+    h, scale = 8, e ** 0.5
+    with torch.inference_mode():
+        got = fused_transformer_block(x, params, h, scale)
+        torch.cuda.synchronize()
+        errs = {"eval": float((got - fused_transformer_block_reference(
+            x, params, h, scale)).abs().max())}
+        got_tr, saved = fused_block_forward_cuda(x, params, h, scale, FLAGSHIP_DROP, save=True)
+        torch.cuda.synchronize()
+        errs["training"] = float((got_tr - fused_transformer_block_reference(
+            x, params, h, scale, *FLAGSHIP_DROP)).abs().max())
+        diff = (saved - fused_block_saved_reference(x, params, h, scale, FLAGSHIP_DROP)).abs()
+        n = x.numel()
+        for i, name in enumerate(SAVED_NAMES):
+            errs[f"saved_{name}"] = float(diff[i * n:(i + 1) * n if i < 5 else None].max())
+    log(f"fused_transformer_block x{tuple(x.shape)}: max_abs_err {json.dumps(errs)} "
+        f"(tol {BLOCK_TOL:g})")
+    if not max(errs.values()) <= BLOCK_TOL:
+        raise AssertionError(f"fused block disagrees with its twin: {errs}")
+    return errs
+
+
+def block_forward_parts(run) -> dict:
+    """One call of kernel #1 by part under the profiler; exactly
+    ``BLOCK_FWD_LAUNCHES`` device launches a call."""
+    parts = kernel_parts(run, BLOCK_FWD_PARTS)
+    if parts["launches_per_call"] != BLOCK_FWD_LAUNCHES:
+        raise AssertionError(f"fused_transformer_block takes {parts['launches_per_call']} "
+                             f"device launches a call, want {BLOCK_FWD_LAUNCHES}")
+    return parts
+
+
 def check_block(x, params) -> dict:
     b, t, e = x.shape
     h, f = 8, 256
     scale = e ** 0.5
+    errs = block_forward_errors(x, params)
+    run_eval = lambda: fused_block_forward_cuda(x, params, h, scale)[:1]  # noqa: E731
+    run_tr = lambda: fused_block_forward_cuda(x, params, h, scale, FLAGSHIP_DROP,  # noqa: E731
+                                              save=True)
     with torch.inference_mode():
-        got = fused_transformer_block(x, params, h, scale)
-        torch.cuda.synchronize()
-        want = fused_transformer_block_reference(x, params, h, scale)
-        err = float((got - want).abs().max())
-        log(f"fused_transformer_block x{tuple(x.shape)}: max_abs_err {err:.3e} "
-            f"(tol {BLOCK_TOL:g})")
-        if not err <= BLOCK_TOL:
-            raise AssertionError(f"fused block disagrees with its twin: {err}")
-
+        assert_repeats("fused_transformer_block (eval)", run_eval)
+        assert_repeats("fused_transformer_block (training: out and saved)", run_tr)
         lib = library_layer(params).eval()
+        want = fused_transformer_block_reference(x, params, h, scale)
         lib_err = float((lib(x) - want).abs().max())
-
-        # training mode: the same seed draws the twin's masks
-        got_tr = fused_transformer_block(x, params, h, scale, training=True,
-                                         seed=FLAGSHIP_DROP.seed, drop_p=0.5, ffn_drop_p=0.5)
-        torch.cuda.synchronize()
-        want_tr = fused_transformer_block_reference(x, params, h, scale, *FLAGSHIP_DROP)
-        err_tr = float((got_tr - want_tr).abs().max())
-        log(f"fused_transformer_block training (drop 0.5/0.5): max_abs_err {err_tr:.3e} "
-            f"(tol {BLOCK_TOL:g})")
-        if not err_tr <= BLOCK_TOL:
-            raise AssertionError(f"fused block in training mode disagrees with its twin: {err_tr}")
-        ms_tr = time_ms(lambda: fused_block_forward_cuda(x, params, h, scale, FLAGSHIP_DROP,
-                                                         save=True))
-
+        ms_tr = time_ms(run_tr)
         ms = time_ms(lambda: fused_transformer_block(x, params, h, scale))
         plain_ms = time_ms(lambda: fused_transformer_block_reference(x, params, h, scale))
         library_ms = time_ms(lambda: lib(x))
+        parts = {"eval": block_forward_parts(run_eval), "training": block_forward_parts(run_tr)}
+    usage = ptxas_of(*(k for keys in BLOCK_FWD_PARTS.values() for k in keys))
+    spills = {k: u for k, u in usage.items() if u["spill_stores"] or u["spill_loads"]}
+    if spills:
+        raise AssertionError(f"kernel #1 spills registers: {spills}")
 
     flops = block_flops(b, t)
     nbytes = 2 * x.numel() * 4 + sum(p.numel() for p in params) * 4
@@ -283,19 +330,67 @@ def check_block(x, params) -> dict:
         f"plain {plain_ms:.4f} ms, TransformerEncoderLayer "
         f"{library_ms:.4f} ms (its max_abs_err {lib_err:.3e}), bound {bound_ms:.4f} ms "
         f"({bound_by}, {flops / 1e9:.3f} GFLOP)")
+    log(f"  parts (device ms per call, torch.profiler): eval "
+        f"{json.dumps(parts['eval']['parts_ms'])}, training "
+        f"{json.dumps(parts['training']['parts_ms'])}; {BLOCK_FWD_LAUNCHES} device launches "
+        f"per call; ptxas {json.dumps(usage)}")
+    if not (ms < library_ms and ms_tr < library_ms):
+        raise AssertionError(f"kernel #1 ({ms:.4f} ms eval, {ms_tr:.4f} ms training) is not "
+                             f"under the library layer ({library_ms:.4f} ms)")
     return {
         "name": "fused_transformer_block", "route": "cuda",
         "source": "transformer_clip_eeg_tpu_torch/csrc/fused_block.cu",
         "replaces": "transformer_clip_eeg_tpu/ops/pallas_block.py:458",
-        "max_abs_err": max(err, err_tr), "max_abs_err_eval": err,
-        "max_abs_err_training": err_tr, "tol": BLOCK_TOL, "ms": ms, "kernel_ms": ms,
+        "max_abs_err": max(errs.values()), "max_abs_err_eval": errs["eval"],
+        "max_abs_err_training": errs["training"], "max_abs_err_by_output": errs,
+        "tol": BLOCK_TOL, "ms": ms, "kernel_ms": ms,
         "training_ms": ms_tr,
         "plain_ms": plain_ms, "library_ms": library_ms,
         "library_call": "torch.nn.TransformerEncoderLayer(norm_first=True), eval",
         "library_max_abs_err": lib_err,
         "bound_ms": bound_ms, "bound_by": bound_by,
+        "parts_ms": {mode: p["parts_ms"] for mode, p in parts.items()},
+        "device_launches_per_call": BLOCK_FWD_LAUNCHES, "repeats_bit_for_bit": True,
+        "ptxas": usage,
         "shape": {"x": list(x.shape), "heads": h, "ffn": f},
     }
+
+
+def check_block_windows(gen: torch.Generator, params) -> dict:
+    """Kernels #1 and #2 away from the flagship's window: T=256 and T=320 at
+    batch 128 (``--window_length_s`` 4 and 5) against the twins, timed, and #1
+    at batch 8, T=192 (a small request), timed."""
+    h = 8
+    out = {}
+    for b, t in ((128, 256), (128, 320), (8, 192)):
+        x = torch.randn(b, t, 64, generator=gen).to("cuda")
+        scale = x.shape[-1] ** 0.5
+        entry = {"x": list(x.shape), "max_abs_err": block_forward_errors(x, params)}
+        with torch.inference_mode():
+            entry["ms"] = time_ms(lambda: fused_transformer_block(x, params, h, scale))
+            entry["training_ms"] = time_ms(lambda: fused_block_forward_cuda(
+                x, params, h, scale, FLAGSHIP_DROP, save=True))
+            # the three kernels' device time: at a small batch the CUDA-event
+            # time of a call is the host's time to enqueue it
+            entry["device_ms"] = sum(block_forward_parts(
+                lambda: fused_block_forward_cuda(x, params, h, scale)[:1])["parts_ms"].values())
+        entry["bound_ms"] = bound(block_flops(b, t), 0)[0]
+        if b == 128:
+            g = torch.randn(b, t, 64, generator=gen).to("cuda")
+            errs, _, _, _ = block_backward_errors(x, params, g)
+            _, saved = fused_block_forward_cuda(x, params, h, scale, FLAGSHIP_DROP, save=True)
+            entry["backward_max_grad_err"] = max(errs)
+            entry["backward_ms"] = time_ms(lambda: fused_block_backward(
+                x, params, g, saved, h, scale, FLAGSHIP_DROP))
+            del g, saved
+        log(f"  B={b}, T={t}: #1 {entry['ms']:.4f} ms eval ({entry['device_ms']:.4f} ms on the "
+            f"device), {entry['training_ms']:.4f} ms training (bound {entry['bound_ms']:.4f} ms)"
+            + (f"; #2 {entry['backward_ms']:.4f} ms, worst gradient error "
+               f"{entry['backward_max_grad_err']:.3e}" if b == 128 else ""))
+        out[f"B{b}_T{t}"] = entry
+        del x
+        torch.cuda.empty_cache()
+    return out
 
 
 def ptxas_usage(kind: str, hidden: int) -> dict:
@@ -373,12 +468,12 @@ def grad_err(got, want) -> float:
     return float((got - want).abs().max()) / max(float(want.abs().max()), 1.0)
 
 
-def check_block_backward(x, params, gen: torch.Generator) -> dict:
+def block_backward_errors(x, params, g):
     """Kernel #2 through the autograd Function against autograd through the
-    twin, in training mode at the flagship's rates: dx and the 16 dparams."""
-    b, t, e = x.shape
-    h, scale = 8, e ** 0.5
-    g = torch.randn(b, t, e, generator=gen).to("cuda")
+    twin, in training mode at the flagship's rates, dx and the 16 dparams:
+    the errors per leaf (raises past ``BLOCK_BWD_TOL``), the largest absolute
+    error, and the twin's output and leaves (to time its backward)."""
+    h, scale = 8, x.shape[-1] ** 0.5
     leaves = [x.clone().requires_grad_()] + [p.clone().requires_grad_() for p in params]
     out = fused_transformer_block(leaves[0], leaves[1:], h, scale, training=True,
                                   seed=FLAGSHIP_DROP.seed, drop_p=0.5, ffn_drop_p=0.5)
@@ -389,11 +484,21 @@ def check_block_backward(x, params, gen: torch.Generator) -> dict:
     want = torch.autograd.grad(want_out, ref, g, retain_graph=True)
     errs = [grad_err(a, w) for a, w in zip(got, want)]
     abs_err = max(float((a - w).abs().max()) for a, w in zip(got, want))
-    log(f"fused_block_backward (training, drop 0.5/0.5): worst gradient error "
-        f"{max(errs):.3e} (tol {BLOCK_BWD_TOL:g} x max(1, max|ref|)), max_abs_err "
+    log(f"fused_block_backward x{tuple(x.shape)} (training, drop 0.5/0.5): worst gradient "
+        f"error {max(errs):.3e} (tol {BLOCK_BWD_TOL:g} x max(1, max|ref|)), max_abs_err "
         f"{abs_err:.3e}; per leaf {[f'{v:.1e}' for v in errs]}")
     if not max(errs) <= BLOCK_BWD_TOL:
         raise AssertionError(f"block backward disagrees with autograd through its twin: {errs}")
+    return errs, abs_err, want_out, ref
+
+
+def check_block_backward(x, params, gen: torch.Generator) -> dict:
+    """Kernel #2 at the flagship shape: against autograd through the twin,
+    its parts, its launches, a bit-for-bit repeat and its times."""
+    b, t, e = x.shape
+    h, scale = 8, e ** 0.5
+    g = torch.randn(b, t, e, generator=gen).to("cuda")
+    errs, abs_err, want_out, ref = block_backward_errors(x, params, g)
 
     _, saved = fused_block_forward_cuda(x, params, h, scale, FLAGSHIP_DROP, save=True)
 
@@ -1217,6 +1322,57 @@ def fused_path(cfg, host_batch) -> dict:
     return result
 
 
+def long_window_path() -> dict:
+    """The flagship built for 4 s windows (``window_length_s=4``, T=256, longer
+    than a block kernel that keeps a sample in shared memory could take): 8
+    windows through both embedders on the card against a CPU copy, then one
+    train step at batch 8 with dropout on, card against CPU, with the kernel
+    launches of each counted."""
+    cfg = TrainConfig(window_length_s=4, bank_size=BANK_SIZE)
+    t = cfg.window_length
+    if t != 256:
+        raise AssertionError(f"window_length_s=4 gives T={t}, want 256")
+    rng = np.random.default_rng(6)
+    batch = {"eeg": rng.standard_normal((8, t, 64)).astype(np.float32),
+             "speech": rng.standard_normal((8, t, cfg.speech_dimension)).astype(np.float32),
+             "ids": np.arange(1, 9, dtype=np.int64)}
+    sessions = {dev: InferenceSession(build_model(cfg, cfg.bank_size, device=dev, seed=0),
+                                      chunk=8, device=dev) for dev in ("cuda", "cpu")}
+    launches = {}
+    for f in COUNTERS:
+        f.launches = 0
+    emb = {dev: (s.embed_eeg(batch["eeg"]), s.embed_speech(batch["speech"]))
+           for dev, s in sessions.items()}
+    torch.cuda.synchronize()
+    launches["embed"] = {f.__name__: f.launches for f in COUNTERS}
+    dim = sessions["cuda"].model.eegModel.get_output_dim(t)
+    _check_embeddings("embed_eeg at T=256", emb["cuda"][0], 8, dim)
+    errs = {name: float(np.abs(emb["cuda"][i] - emb["cpu"][i]).max())
+            for i, name in enumerate(("eeg", "speech"))}
+    log(f"window_length_s=4 (T={t}), 8 windows, card vs CPU: max_abs_err {errs} "
+        f"(tol {SERVE_TOL:g})")
+    if not max(errs.values()) <= SERVE_TOL:
+        raise AssertionError("card and CPU embeddings disagree at T=256")
+    del sessions
+    for f in COUNTERS:
+        f.launches = 0
+    step = card_vs_cpu_step(cfg, batch)
+    launches["train_step"] = {f.__name__: f.launches for f in COUNTERS}
+    want = {"embed": {"fused_transformer_block": 10, "lstm_scan_packed": 2},
+            "train_step": {"fused_transformer_block": 10, "fused_block_backward": 10,
+                           "lstm_scan_packed": 2, "lstm_scan_backward": 2}}
+    for what, counts in want.items():
+        full = dict.fromkeys(launches[what], 0)
+        full.update(counts)
+        if launches[what] != full:
+            raise AssertionError(f"launches at T=256, {what}: {launches[what]}, want {full}")
+    log(f"kernel launches at T=256: {launches}")
+    result = {"window_length": t, "launches": launches, "embedding_err": errs,
+              "card_vs_cpu_step": step}
+    log(json.dumps({"long_window_path": result}))
+    return result
+
+
 def main() -> int:
     t_start = time.perf_counter()
     smi = subprocess.run(
@@ -1238,6 +1394,7 @@ def main() -> int:
     x, params = block_case(gen)
     block = check_block(x, params)
     block_bwd = check_block_backward(x, params, gen)
+    block["windows"] = check_block_windows(gen, params)
     del x, params
     lstm = check_lstm(gen)
     lstm_bwd = check_lstm_backward(gen)
@@ -1247,11 +1404,14 @@ def main() -> int:
     log(json.dumps({"serve": serve}))
     train, cfg, host_batch = train_path()
     fused = fused_path(cfg, host_batch)
+    long_window = long_window_path()
     kernels = [block, block_bwd, lstm, lstm_bwd]
     for k in kernels:
         k["launches"] = train["launches"][k["name"]]
-        k["launches_by_path"] = {"serve": serve["launches"][k["name"]],
-                                 "train": train["launches"][k["name"]]}
+        k["launches_by_path"] = {
+            "serve": serve["launches"][k["name"]], "train": train["launches"][k["name"]],
+            **{f"t256_{what}": counts[k["name"]]
+               for what, counts in long_window["launches"].items()}}
     # #5-#7 run on the fused path; the default paths launch none of them
     for k in convs:
         k["launches"] = fused["launches"]["train_step"][k["name"]]

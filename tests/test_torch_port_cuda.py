@@ -10,10 +10,12 @@ import pytest
 import torch
 
 from transformer_clip_eeg_tpu_torch.ops.fused_block import (
+    MAX_KERNEL_T,
     DropoutConfig,
     drop_args,
     fused_block_backward,
     fused_block_forward_cuda,
+    fused_block_saved_reference,
     fused_transformer_block,
     fused_transformer_block_reference,
 )
@@ -69,9 +71,24 @@ def test_fused_block_kernel_refuses_long_windows(cuda):
               (e,), (e,), (f, e), (f,), (e, f), (e,)]
     params = [torch.zeros(s, device=cuda) for s in shapes]
     before = fused_transformer_block.launches
-    with pytest.raises(ValueError, match="T <= 218"):
-        fused_transformer_block(torch.zeros(2, 256, e, device=cuda), params, 8, 8.0)
+    assert MAX_KERNEL_T == 1699
+    with pytest.raises(ValueError, match="T <= 1699; T=1700"):
+        fused_transformer_block(torch.zeros(2, 1700, e, device=cuda), params, 8, 8.0)
+    with pytest.raises(ValueError, match="E=64"):
+        fused_transformer_block(torch.zeros(2, 16, 32, device=cuda), params, 8, 8.0)
+    with pytest.raises(ValueError, match="contiguous"):
+        fused_transformer_block(torch.zeros(2, e, 256, device=cuda).transpose(1, 2), params, 8,
+                                8.0)
     assert fused_transformer_block.launches == before
+    # the C entry point alone refuses a window its attention cannot hold
+    lib = _build.load()
+    small = torch.zeros(64, device=cuda)
+    ptrs = (torch.zeros(16, dtype=torch.int64) + small.data_ptr()).numpy()
+    rc = lib.tce_fused_block_fwd(small.data_ptr(), small.data_ptr(), ptrs.ctypes.data, 1, 4096,
+                                 64, 8, 256, 0.125, *drop_args(DropoutConfig(), 1),
+                                 small.data_ptr(), 0, torch.cuda.current_stream().cuda_stream)
+    assert rc == 1  # cudaErrorInvalidValue
+    torch.cuda.synchronize()
 
 
 @pytest.mark.parametrize("hidden", [128, 4])
@@ -117,6 +134,65 @@ def _err(got, want):
     absolute for ones that are zero in exact arithmetic (the key bias's
     gradient is: softmax ignores a shift shared by every key)."""
     return float((got - want).abs().max()) / max(float(want.abs().max()), 1.0)
+
+
+# (B, T): single rows, ragged row tiles, ragged key tiles and query pairs,
+# the first kernel's limit and one past it, 4 s and 5 s windows, the flagship
+# batch, and the longest window the kernels take
+FWD_CASES = [(b, t) for t in (1, 7, 31, 33, 192, 218, 219, 256, 320) for b in (1, 5, 37)]
+FWD_CASES += [(128, 192), (2, MAX_KERNEL_T)]
+
+
+@pytest.mark.parametrize("b,t", FWD_CASES, ids=[f"B{b}T{t}" for b, t in FWD_CASES])
+def test_fused_block_forward_at_ragged_shapes(cuda, b, t):
+    """Kernel #1 in eval and in training (dropout 0.5/0.5) against the twin,
+    and what it saves for #2 (q, k, v, the dropped-out context, x1, the
+    log-sum-exp) against the twin's intermediates."""
+    x, params, _ = _block_inputs(b, t, 60 + b, cuda)
+    drop = DropoutConfig(True, 21, 0.5, 0.5)
+    before = fused_transformer_block.launches
+    with torch.no_grad():
+        got = fused_transformer_block(x, params, 8, 8.0)
+        got_tr, saved = fused_block_forward_cuda(x, params, 8, 8.0, drop, save=True)
+        torch.cuda.synchronize()
+        assert fused_transformer_block.launches == before + 2
+        want = fused_transformer_block_reference(x, params, 8, 8.0)
+        want_tr = fused_transformer_block_reference(x, params, 8, 8.0, *drop)
+        want_saved = fused_block_saved_reference(x, params, 8, 8.0, drop)
+    assert float((got - want).abs().max()) <= 1e-4
+    assert float((got_tr - want_tr).abs().max()) <= 1e-4
+    assert saved.shape == want_saved.shape
+    n = x.numel()
+    for i, name in enumerate(("q", "k", "v", "ctx", "x1", "lse")):
+        part = slice(i * n, (i + 1) * n if i < 5 else None)
+        assert float((saved[part] - want_saved[part]).abs().max()) <= 1e-4, name
+
+
+def test_fused_block_forward_repeats_bit_for_bit(cuda):
+    """No atomics and a fixed summation order in kernel #1: two calls give the
+    same bits in out and in everything saved, in eval and in training."""
+    x, params, _ = _block_inputs(37, 192, 61, cuda)
+    for drop in (DropoutConfig(), DropoutConfig(True, 9, 0.5, 0.5)):
+        runs = [fused_block_forward_cuda(x, params, 8, 8.0, drop, save=True) for _ in range(2)]
+        torch.cuda.synchronize()
+        assert torch.equal(runs[0][0], runs[1][0])
+        assert torch.equal(runs[0][1], runs[1][1])
+
+
+def test_fused_block_gradient_at_t256_matches_cpu(cuda):
+    """A 4 s window through ``FusedBlockFunction`` on the card (kernels #1 and
+    #2) against the same function on the CPU (the twin and autograd through
+    it), dropout on: the output, dx and the 16 parameter gradients."""
+    x, params, g = _block_inputs(3, 256, 62, "cpu")
+    kw = dict(training=True, seed=31, drop_p=0.5, ffn_drop_p=0.5)
+    grads = {}
+    for dev in ("cpu", cuda):
+        leaves = [v.to(dev).requires_grad_() for v in (x, *params)]
+        out = fused_transformer_block(leaves[0], leaves[1:], 8, 8.0, **kw)
+        grads[str(dev)] = [out.detach().cpu()] + [
+            v.cpu() for v in torch.autograd.grad(out, leaves, g.to(dev))]
+    for i, (a, w) in enumerate(zip(grads[str(cuda)], grads["cpu"])):
+        assert _err(a, w) <= 1e-4, (i, _err(a, w))
 
 
 @pytest.mark.parametrize("b", [16, 6])
@@ -373,13 +449,31 @@ def test_fused_conv_refuses_other_widths_and_long_windows(cuda):
     assert (fused_basic_block.launches, conv1d_same.launches) == before
 
 
+def test_block_backward_at_the_longest_window(cuda):
+    """Kernels #1 and #2 at T = MAX_KERNEL_T, where the attention backward's
+    CTA fills its shared memory: dx and the parameter gradients against
+    autograd through the twin."""
+    x, params, g = _block_inputs(2, MAX_KERNEL_T, 63, cuda)
+    kw = dict(training=True, seed=13, drop_p=0.5, ffn_drop_p=0.5)
+    leaves = [x.clone().requires_grad_()] + [p.clone().requires_grad_() for p in params]
+    got = torch.autograd.grad(fused_transformer_block(leaves[0], leaves[1:], 8, 8.0, **kw),
+                              leaves, g)
+    torch.cuda.synchronize()
+    ref = [x.clone().requires_grad_()] + [p.clone().requires_grad_() for p in params]
+    want = torch.autograd.grad(fused_transformer_block_reference(ref[0], ref[1:], 8, 8.0, **kw),
+                               ref, g)
+    for i, (a, w) in enumerate(zip(got, want)):
+        assert _err(a, w) <= 1e-4, (i, _err(a, w))
+
+
 # ---- the weight-gradient tile (csrc/wgrad.cuh) through its callers ----------------
 
-@pytest.mark.parametrize("t", [1, 7, 192, 218])
+@pytest.mark.parametrize("t", [1, 7, 192, 218, 256, 320])
 @pytest.mark.parametrize("b", [1, 5, 37])
 def test_block_backward_at_ragged_shapes(cuda, b, t):
     """Kernel #2 at row counts that fill no stage, chunk or key tile evenly
-    (B*T from 1 to 8,066; T=218 is the longest window), dropout on: dx and
+    (B*T from 1 to 11,840; T=256 and 320 are 4 s and 5 s windows, with more
+    key tiles than the CTA has warps), dropout on: dx and
     the 16 parameter gradients against autograd through the twin."""
     x, params, g = _block_inputs(b, t, 20 + b, cuda)
     kw = dict(training=True, seed=11, drop_p=0.5, ffn_drop_p=0.5)

@@ -21,9 +21,11 @@ from transformer_clip_eeg_tpu_torch.ops.fused_block import (
     MAX_KERNEL_T,
     SMEM_OPTIN_BYTES,
     _check_cuda_inputs,
+    attention_backward_smem_bytes,
+    attention_smem_bytes,
     fused_transformer_block,
     fused_transformer_block_reference,
-    kernel_smem_bytes,
+    saved_numel,
 )
 from transformer_clip_eeg_tpu_torch.ops.lstm import LSTM
 from transformer_clip_eeg_tpu_torch.ops.lstm_scan import (
@@ -196,16 +198,24 @@ def test_fused_block_has_no_training_mode():
 
 
 def test_block_kernel_window_limit():
-    """The kernel keeps one sample in shared memory: T=192 takes about 200 KB,
-    218 rows is the most that fits in 227 KB, and a longer window raises."""
-    assert kernel_smem_bytes(192) == 204_288
-    assert kernel_smem_bytes(MAX_KERNEL_T) <= SMEM_OPTIN_BYTES
-    assert kernel_smem_bytes(MAX_KERNEL_T + 1) > SMEM_OPTIN_BYTES
-    assert MAX_KERNEL_T == 218
+    """No kernel keeps a whole sample in shared memory: the forward's attention
+    takes one head's K and V (64 bytes a row), the backward's one head's query
+    records and dQ beside a block per warp, which sets the limit, 1,699 rows.
+    T=256 and T=320 (4 s and 5 s windows) pass; a longer window than the limit
+    raises a ValueError that names it.  ``saved`` keeps its five planes, then
+    the log-sum-exp."""
+    assert attention_smem_bytes(192) == 12_288 and attention_smem_bytes(320) == 20_480
+    assert attention_smem_bytes(193) == attention_smem_bytes(208)  # whole key tiles of 16
+    assert attention_backward_smem_bytes(MAX_KERNEL_T) <= SMEM_OPTIN_BYTES
+    assert attention_backward_smem_bytes(MAX_KERNEL_T + 1) > SMEM_OPTIN_BYTES
+    assert attention_smem_bytes(MAX_KERNEL_T) <= SMEM_OPTIN_BYTES
+    assert MAX_KERNEL_T == 1699
+    assert saved_numel(128, 192, 64, 8) == 5 * 128 * 192 * 64 + 128 * 8 * 192
     params = [p.contiguous() for p in _torch_block(64, 8, _block_case(64, 8)[1]).fused_params()]
-    _check_cuda_inputs(torch.zeros(1, MAX_KERNEL_T, 64), params, 8)
-    with pytest.raises(ValueError, match=f"T <= {MAX_KERNEL_T}; T=256"):
-        _check_cuda_inputs(torch.zeros(1, 256, 64), params, 8)
+    for t in (1, 192, 218, 219, 256, 320, 640, MAX_KERNEL_T):
+        _check_cuda_inputs(torch.zeros(1, t, 64), params, 8)
+    with pytest.raises(ValueError, match=f"T <= {MAX_KERNEL_T}; T=1700"):
+        _check_cuda_inputs(torch.zeros(1, 1700, 64), params, 8)
 
 
 def test_wrappers_refuse_devices_without_a_kernel():

@@ -85,6 +85,25 @@ def test_empty_input_gives_empty_embeddings(sessions):
         assert got.dtype == np.float32
 
 
+def test_from_results_dir_keeps_the_runs_config(sessions, tmp_path):
+    """As the JAX session: ``cfg`` is None on a session built from a model
+    and the run's config on one built from a results directory."""
+    import os
+
+    import torch
+
+    _, port = sessions
+    assert port.cfg is None
+    cfg = TrainConfig(**SMALL, bank_size=16)
+    cfg.save(str(tmp_path / "args.txt"))
+    os.makedirs(tmp_path / "checkpoints")
+    torch.save({"model": port.model.state_dict()}, tmp_path / "checkpoints" / "model_ckpt.pt")
+    served = InferenceSession.from_results_dir(str(tmp_path), chunk=CHUNK, device="cpu")
+    assert isinstance(served.cfg, TrainConfig) and served.cfg.to_dict() == cfg.to_dict()
+    eeg = np.random.default_rng(9).standard_normal((3, T, EEG_C)).astype(np.float32)
+    np.testing.assert_array_equal(served.embed_eeg(eeg), port.embed_eeg(eeg))
+
+
 def _unit(rng, shape):
     x = rng.standard_normal(shape).astype(np.float32)
     return x / np.linalg.norm(x, axis=1, keepdims=True)

@@ -38,8 +38,9 @@ _L = ctypes.c_longlong
 _DROP = [_I, _U, _I, _U, _F, _U, _F]
 # C entry points: name -> (argtypes, restype)
 _SIGNATURES = {
-    # x, out, params[16], B, T, E, H, F, inv_scale, dropout, saved (may be NULL), stream
-    "tce_fused_block_fwd": ([_P, _P, _P, _I, _I, _I, _I, _I, _F, *_DROP, _P, _P], _I),
+    # x, out, params[16], B, T, E, H, F, inv_scale, dropout, work (q, k, v, ctx,
+    # and when saving x1 and lse), save, stream
+    "tce_fused_block_fwd": ([_P, _P, _P, _I, _I, _I, _I, _I, _F, *_DROP, _P, _I, _P], _I),
     # x, g, saved, params[16], dx, dparams[16], workspace, B, T, E, H, F,
     # inv_scale, dropout, stream
     "tce_fused_block_bwd": ([_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _F, *_DROP,

@@ -38,6 +38,29 @@ __device__ __forceinline__ float gelu(float x) {
   return 0.5f * x * (1.0f + erff(x * 0.70710678118654752f));
 }
 
+// 8 floats (16-byte aligned) as two float4 loads
+__device__ __forceinline__ void load8(const float* p, float (&v)[8]) {
+  const float4 a = *reinterpret_cast<const float4*>(p);
+  const float4 b = *reinterpret_cast<const float4*>(p + 4);
+  v[0] = a.x, v[1] = a.y, v[2] = a.z, v[3] = a.w;
+  v[4] = b.x, v[5] = b.y, v[6] = b.z, v[7] = b.w;
+}
+
+__device__ __forceinline__ void store8(float* p, const float (&v)[8]) {
+  *reinterpret_cast<float4*>(p) = make_float4(v[0], v[1], v[2], v[3]);
+  *reinterpret_cast<float4*>(p + 4) = make_float4(v[4], v[5], v[6], v[7]);
+}
+
+__device__ __forceinline__ float dot8(const float (&a)[8], const float (&b)[8]) {
+  float s0 = a[0] * b[0], s1 = a[1] * b[1];
+#pragma unroll
+  for (int d = 2; d < 8; d += 2) {
+    s0 = fmaf(a[d], b[d], s0);
+    s1 = fmaf(a[d + 1], b[d + 1], s1);
+  }
+  return s0 + s1;
+}
+
 // N consecutive floats of device memory (16-byte aligned) into registers.
 template <int N>
 __device__ __forceinline__ void load_row(const float* __restrict__ src,

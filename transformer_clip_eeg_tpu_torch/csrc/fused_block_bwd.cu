@@ -93,29 +93,6 @@ struct Scratch {
   float* sums_qkv;  // [row CTAs][QKV_SUMS]: qkv_bwd_kernel's column sums
 };
 
-// 8 floats (16-byte aligned) as two float4 loads
-__device__ __forceinline__ void load8(const float* p, float (&v)[8]) {
-  const float4 a = *reinterpret_cast<const float4*>(p);
-  const float4 b = *reinterpret_cast<const float4*>(p + 4);
-  v[0] = a.x, v[1] = a.y, v[2] = a.z, v[3] = a.w;
-  v[4] = b.x, v[5] = b.y, v[6] = b.z, v[7] = b.w;
-}
-
-__device__ __forceinline__ void store8(float* p, const float (&v)[8]) {
-  *reinterpret_cast<float4*>(p) = make_float4(v[0], v[1], v[2], v[3]);
-  *reinterpret_cast<float4*>(p + 4) = make_float4(v[4], v[5], v[6], v[7]);
-}
-
-__device__ __forceinline__ float dot8(const float (&a)[8], const float (&b)[8]) {
-  float s0 = a[0] * b[0], s1 = a[1] * b[1];
-#pragma unroll
-  for (int d = 2; d < 8; d += 2) {
-    s0 = fmaf(a[d], b[d], s0);
-    s1 = fmaf(a[d + 1], b[d + 1], s1);
-  }
-  return s0 + s1;
-}
-
 // ---- 1. FFN, LN2 and out-projection backward ---------------------------------
 __global__ void __launch_bounds__(NT, 2)
 ffn_bwd_kernel(const float* __restrict__ g, const float* __restrict__ x1,

@@ -1,0 +1,122 @@
+// Row products Y = A W^T of the fused block's forward (fused_block.cu) on the
+// tensor cores, in split TF32: f32-grade results from three TF32 products.
+//
+// What bounds such a product on an H100 outside the tensor cores is not the
+// FMAs but the instructions around them: an outer-product register tile of
+// 4 x 8 sums a thread (one 16-byte shared-memory load per 10.7 FMAs, weight
+// panels padded against bank conflicts) measured 21-23 TFLOP/s of the 67 in
+// this kernel, where every product is only 64 deep and sits between barriers.
+// mma.sync m16n8k8 does 1,024 multiply-adds an instruction.  TF32 keeps 11
+// bits of mantissa, so each operand is split as x = hi + lo (hi = x cut to
+// TF32, lo = x - hi) and the product taken as lo*hi + hi*lo + hi*hi, summed
+// in f32 by the tensor core, small terms first: what is dropped (lo*lo, and
+// lo's bits below TF32) is 2^-20 of a term, so the result agrees with an f32
+// FMA chain to about 1e-6 of the sum's terms.
+//
+// Layout.  A warp owns MB x NB blocks of 16 rows x 8 columns.  Both operands
+// lie in shared memory along the reduction axis with rows of K + 4 floats (K a
+// multiple of 32): the fragment loads of m16n8k8 (lane = 4 g + t reads row g,
+// or g + 8, at column t, or t + 4, of its block) then hit 32 different banks,
+// 4 g + t.  Weight rows arrive by 16-byte cp.async straight from torch's
+// [out, in] matrix, activation rows likewise, while the CTA normalises.
+#pragma once
+
+#include <cuda_runtime.h>
+#include <stdint.h>
+
+#include "cp_async.cuh"
+
+namespace rowtile {
+namespace {
+
+constexpr int PAD = 4;  // floats added to every row in shared memory: 4 banks
+
+// Start the copies of `rows` rows of K floats (row n at src + n ld; rows from
+// `valid` on are zero-filled) into dst[rows][K + PAD]; all nt threads call it
+template <int K>
+__device__ __forceinline__ void stage_rows(float* dst, const float* __restrict__ src, int ld,
+                                           int rows, int valid, int tid, int nt) {
+  constexpr int C4 = K / 4;
+  for (int c = tid; c < rows * C4; c += nt) {
+    const int n = c / C4, k = (c % C4) * 4;
+    const bool in = n < valid;
+    cp_async16(dst + n * (K + PAD) + k, in ? src + (size_t)n * ld + k : src, in);
+  }
+}
+
+// x = hi + lo exactly: hi is x with the 13 low bits of its mantissa cleared,
+// which is what the tensor core reads of x; of lo it reads the top 11 bits
+// (cvt.rna.tf32.f32 would round both, but costs more than the products do)
+__device__ __forceinline__ void split_tf32(float x, uint32_t& hi, uint32_t& lo) {
+  hi = __float_as_uint(x) & 0xffffe000u;
+  lo = __float_as_uint(x - __uint_as_float(hi));
+}
+
+// c += a b for one block: a 16 x 8 (row major), b 8 x 8 (column major), f32 sums
+__device__ __forceinline__ void mma_tf32(float (&c)[4], const uint32_t (&a)[4],
+                                         const uint32_t (&b)[2]) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 {%0,%1,%2,%3}, {%4,%5,%6,%7}, "
+      "{%8,%9}, {%0,%1,%2,%3};"
+      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
+}
+
+// acc[mi][ni] += A W^T over k < K for the warp's MB x NB blocks.
+//   a: the warp's first row of A (rows LDA floats apart), w: its first row of
+//   W, i.e. its first output column (rows LDW floats apart); both offset alike
+//   along the reduction axis when only a part of it is taken.
+// Lane 4 g + t holds of block (mi, ni): acc[..][0], [1] at row 16 mi + g,
+// columns 8 ni + 2 t and + 1; acc[..][2], [3] at row 16 mi + g + 8 (frag_row,
+// frag_col).
+template <int MB, int NB, int K, int LDA, int LDW>
+__device__ __forceinline__ void mma_tile(const float* a, const float* w,
+                                         float (&acc)[MB][NB][4], int lane) {
+  const int g = lane >> 2, t = lane & 3;
+  const float* ap = a + g * LDA + t;
+  const float* wp = w + g * LDW + t;
+#pragma unroll 2
+  for (int k = 0; k < K; k += 8) {
+    uint32_t ah[MB][4], al[MB][4];
+#pragma unroll
+    for (int mi = 0; mi < MB; ++mi) {
+      const float* p = ap + 16 * mi * LDA + k;
+      split_tf32(p[0], ah[mi][0], al[mi][0]);
+      split_tf32(p[8 * LDA], ah[mi][1], al[mi][1]);
+      split_tf32(p[4], ah[mi][2], al[mi][2]);
+      split_tf32(p[8 * LDA + 4], ah[mi][3], al[mi][3]);
+    }
+#pragma unroll
+    for (int ni = 0; ni < NB; ++ni) {  // one block of W at a time: few registers
+      const float* p = wp + 8 * ni * LDW + k;
+      uint32_t bh[2], bl[2];
+      split_tf32(p[0], bh[0], bl[0]);
+      split_tf32(p[4], bh[1], bl[1]);
+#pragma unroll
+      for (int mi = 0; mi < MB; ++mi) {
+        mma_tf32(acc[mi][ni], al[mi], bh);
+        mma_tf32(acc[mi][ni], ah[mi], bl);
+        mma_tf32(acc[mi][ni], ah[mi], bh);
+      }
+    }
+  }
+}
+
+// row and first column, inside the warp's tile, of acc[mi][ni][2 half], [2 half + 1]
+__device__ __forceinline__ int frag_row(int lane, int mi, int half) {
+  return 16 * mi + (lane >> 2) + 8 * half;
+}
+__device__ __forceinline__ int frag_col(int lane, int ni) { return 8 * ni + 2 * (lane & 3); }
+
+template <int MB, int NB>
+__device__ __forceinline__ void zero(float (&acc)[MB][NB][4]) {
+#pragma unroll
+  for (int mi = 0; mi < MB; ++mi)
+#pragma unroll
+    for (int ni = 0; ni < NB; ++ni)
+#pragma unroll
+      for (int c = 0; c < 4; ++c) acc[mi][ni][c] = 0.f;
+}
+
+}  // namespace
+}  // namespace rowtile

@@ -43,6 +43,8 @@
 #include <limits.h>
 #include <stdint.h>
 
+#include "cp_async.cuh"
+
 namespace wgrad {
 namespace {  // each translation unit that includes this keeps its own copy
 
@@ -80,22 +82,10 @@ static_assert(KT % KG == 0 && KT * TILE / 4 == 2 * NT, "two 16-byte copies per o
 static_assert(KG * TILE * TILE * 4 <= SMEM_BYTES, "the groups' tiles fit the ring");
 static_assert(NT == SUM_COLS * SUM_WAYS, "one warp per running sum");
 
-// 16 bytes from device to shared memory, or 16 zero bytes when !valid (src
-// must still be a device address)
-__device__ __forceinline__ void cp_async16(float* dst, const float* src, bool valid) {
-  const unsigned s = (unsigned)__cvta_generic_to_shared(dst);
-  const int n = valid ? 16 : 0;
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(s), "l"(src), "r"(n));
-}
-
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::);
-}
-
-template <int N>
-__device__ __forceinline__ void cp_async_wait() {
-  asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
-}
+// the 16-byte copies of cp_async.cuh, also under this namespace's name
+using ::cp_async16;
+using ::cp_async_commit;
+using ::cp_async_wait;
 
 // this thread's 8 x 8 sums: acc[i][j] += a[i] * b[j] for one row, a and b
 // each two float4 of a stage row (`ar`, `br`: the row's 64 floats of the A

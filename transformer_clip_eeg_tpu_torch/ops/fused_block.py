@@ -2,14 +2,22 @@
 their plain twin.
 
 Counterpart of ``transformer_clip_eeg_tpu/ops/pallas_block.py``
-(``fused_transformer_block`` and its ``custom_vjp``).  The forward kernel is
-``csrc/fused_block.cu`` (kernel #1), the backward ``csrc/fused_block_bwd.cu``
-(kernel #2); each source's header says what bounds it and how it is laid
-out.  :func:`fused_transformer_block` goes through :class:`FusedBlockFunction`
-whenever a gradient is wanted: for a CUDA tensor its forward launches #1 and
-its backward #2; for a CPU tensor its forward is
-:func:`fused_transformer_block_reference` and its backward is autograd
-through that twin.  There is no other path.
+(``fused_transformer_block`` and its ``custom_vjp``).  The forward is
+``csrc/fused_block.cu`` (kernel #1: three launches, LN1 and Q/K/V over tiles
+of 32 rows, the attention per (sample, head) with an online softmax over key
+tiles, then out-projection, LN2 and the FFN over tiles of 64 rows; the row
+products run on the tensor cores in split TF32, f32-grade), the
+backward ``csrc/fused_block_bwd.cu`` (kernel #2); each source's header says
+what bounds it and how it is laid out.  :func:`fused_transformer_block` goes
+through :class:`FusedBlockFunction` whenever a gradient is wanted: for a CUDA
+tensor its forward launches #1 and its backward #2; for a CPU tensor its
+forward is :func:`fused_transformer_block_reference` and its backward is
+autograd through that twin.  There is no other path.
+
+On the card the block takes float32, E=64 with 8 heads, F=256 and any window
+of ``T <= MAX_KERNEL_T`` rows (26 s at 64 Hz): no kernel holds a whole sample
+in shared memory, and the limit that is left is one head's records in the
+attention backward.
 
 ``params`` is the JAX kernel's 16-tuple in the same order, with every
 weight in torch's ``[out, in]`` layout (as ``nn.Linear.weight`` holds it)::
@@ -36,6 +44,7 @@ inside that tile's mask shape:
 from __future__ import annotations
 
 import ctypes
+import math
 from typing import NamedTuple, Optional, Sequence, Tuple
 
 import torch
@@ -66,21 +75,36 @@ def saved_numel(b: int, t: int, e: int, num_heads: int) -> int:
     return N_SAVED * b * t * e + b * num_heads * t
 
 
-def kernel_smem_bytes(t: int) -> int:
-    """Shared memory the forward kernel takes for one sample of ``t`` rows
-    (``smem_floats`` in ``csrc/fused_block.cu``: LN/ctx and Q/x1 rows, then
-    the larger of padded K, V and a score row per warp, or the FFN chunk)."""
-    e, f, warps, rows = KERNEL_E, KERNEL_F, 8, 16
-    attn = 2 * t * (e + 1) + warps * t
-    ffn = rows * f + 4 * rows * e
-    return 4 * (2 * t * e + max(attn, ffn))
+# the forward's attention walks the keys in tiles of this many (KT in
+# csrc/fused_block.cu), the backward's in tiles of 32, one warp each, 8 at most
+ATTN_KEY_TILE = 16
 
 
-# the longest window that fits: 218 rows (3.4 s at 64 Hz); the attention
-# term dominates at any T above 60, so kernel_smem_bytes is 4 * 266 * T here.
-# The backward keeps one head's query records and dQ (28 floats a row) and a
-# 5 KB block per warp, and is not the tighter limit.
-MAX_KERNEL_T = SMEM_OPTIN_BYTES // (4 * (4 * KERNEL_E + 2 + 8))
+def attention_smem_bytes(t: int) -> int:
+    """Shared memory of the forward's attention CTA for a window of ``t``
+    rows (``attn_smem_bytes`` in ``csrc/fused_block.cu``): one head's K and V,
+    8 floats a row each, padded to whole key tiles."""
+    d = KERNEL_E // KERNEL_H
+    return 4 * 2 * d * (-(-t // ATTN_KEY_TILE) * ATTN_KEY_TILE)
+
+
+# the attention backward's shared memory: floats a query (a 20-float record
+# and dQ) and floats a warp (a 32 x 33 dS block, 32 keys, 4 of padding)
+_BWD_QUERY_FLOATS = 3 * (KERNEL_E // KERNEL_H) + 4
+_BWD_WARP_FLOATS = 32 * 33 + 32 * (KERNEL_E // KERNEL_H) + 4
+
+
+def attention_backward_smem_bytes(t: int) -> int:
+    """Shared memory of the backward's attention CTA (``attn_smem_floats`` in
+    ``csrc/fused_block_bwd.cu``): one head's queries and a block for each of
+    its warps, one per tile of 32 keys and 8 at most."""
+    return 4 * (t * _BWD_QUERY_FLOATS + min(-(-t // 32), 8) * _BWD_WARP_FLOATS)
+
+
+# the longest window the kernels take: the row kernels' shared memory does not
+# grow with T, the forward's attention keeps 64 bytes a row, the backward's 112
+# bytes a row beside 41 KB: 1,699 rows (26.5 s at 64 Hz)
+MAX_KERNEL_T = (SMEM_OPTIN_BYTES - 4 * 8 * _BWD_WARP_FLOATS) // (4 * _BWD_QUERY_FLOATS)
 
 
 class DropoutConfig(NamedTuple):
@@ -176,6 +200,42 @@ def fused_transformer_block_reference(
     return x1 + f2
 
 
+def attention_online_reference(
+    q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, num_heads: int, scale: float,
+    mask: Optional[torch.Tensor] = None, tile: int = ATTN_KEY_TILE,
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Kernel #1's attention in eager torch, step by step as
+    ``attn_fwd_kernel`` walks it: ``(ctx [B, T, E], lse [B, H, T])`` from
+    ``q``, ``k``, ``v`` ``[B, T, E]``.  An online softmax in base 2 over key
+    tiles of ``tile``: ``log2(e) / scale`` is folded into q, the running max
+    ``m`` moves once a tile and rescales the running sum ``l`` and context,
+    ``l`` takes the clean probabilities and the context the ones multiplied
+    by ``mask`` (the attention mask of :func:`block_masks`), the context is
+    divided by ``l`` at the end and ``lse = m ln 2 + log l``."""
+    b, t, e = q.shape
+    d = e // num_heads
+
+    def heads(a):
+        return a.reshape(b, t, num_heads, d).transpose(1, 2)  # [B, H, T, d]
+
+    qh, kh, vh = heads(q) * (math.log2(math.e) / scale), heads(k), heads(v)
+    m = q.new_full((b, num_heads, t), -math.inf)
+    l = q.new_zeros((b, num_heads, t))
+    acc = q.new_zeros((b, num_heads, t, d))
+    for j0 in range(0, t, tile):
+        s = qh @ kh[:, :, j0:j0 + tile].transpose(2, 3)  # a ragged last tile is just shorter
+        m_new = torch.maximum(m, s.amax(-1))
+        alpha = torch.exp2(m - m_new)
+        p = torch.exp2(s - m_new[..., None])
+        l = l * alpha + p.sum(-1)
+        if mask is not None:
+            p = p * mask[:, :, :, j0:j0 + tile]
+        acc = acc * alpha[..., None] + p @ vh[:, :, j0:j0 + tile]
+        m = m_new
+    ctx = (acc / l[..., None]).transpose(1, 2).reshape(b, t, e)
+    return ctx, m * math.log(2.0) + torch.log(l)
+
+
 def attention_backward_reference(
     q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, ctx: torch.Tensor,
     lse: torch.Tensor, dctx: torch.Tensor, num_heads: int, scale: float,
@@ -215,6 +275,39 @@ def _layer_norm_backward(dy, y, g, inv):
     return (gh - gh.mean(-1, keepdim=True) - y * (gh * y).mean(-1, keepdim=True)) * inv
 
 
+def _normalise(a):
+    """LayerNorm over the last axis before its affine, and ``1 / sigma``."""
+    inv = torch.rsqrt(a.var(-1, unbiased=False, keepdim=True) + 1e-5)
+    return (a - a.mean(-1, keepdim=True)) * inv, inv
+
+
+def fused_block_saved_reference(
+    x: torch.Tensor, params: Sequence[torch.Tensor], num_heads: int, scale: float,
+    drop: DropoutConfig = DropoutConfig(),
+) -> torch.Tensor:
+    """What kernel #1's training forward saves for #2, in eager torch: the flat
+    tensor of :func:`saved_numel` floats (q, k, v, the dropped-out attention
+    context and x1, each ``[B, T, E]``, then the softmax rows' log-sum-exp
+    ``[B, H, T]``)."""
+    (g1, be1, wq, wk, wv, bq, bk, bv, wo, bo, *_rest) = params
+    b, t, e = x.shape
+    d = e // num_heads
+    m_attn, m_ao, _, _ = block_masks(b, t, e, params[12].shape[0], num_heads, drop, x.device)
+    y1a = _normalise(x)[0] * g1 + be1
+    q, k, v = (F.linear(y1a, w, bias) for w, bias in ((wq, bq), (wk, bk), (wv, bv)))
+    qh, kh, vh = (a.reshape(b, t, num_heads, d).transpose(1, 2) for a in (q, k, v))
+    s = qh @ kh.transpose(2, 3) * (1.0 / scale)
+    lse = torch.logsumexp(s, dim=-1)
+    p = torch.exp(s - lse[..., None])
+    if m_attn is not None:
+        p = p * m_attn
+    ctx = (p @ vh).transpose(1, 2).reshape(b, t, e)
+    a = F.linear(ctx, wo, bo)
+    if m_ao is not None:
+        a = a * m_ao
+    return torch.cat([torch.stack([q, k, v, ctx, x + a]).reshape(-1), lse.reshape(-1)])
+
+
 def fused_block_backward_reference(
     x: torch.Tensor, params: Sequence[torch.Tensor], g: torch.Tensor, num_heads: int,
     scale: float, drop: DropoutConfig = DropoutConfig(),
@@ -226,15 +319,10 @@ def fused_block_backward_reference(
     (g1, be1, wq, wk, wv, bq, bk, bv, wo, bo,
      g2, be2, w1, bb1, w2, bb2) = params
     b, t, e = x.shape
-    d = e // num_heads
     m_attn, m_ao, m_fi, m_fo = block_masks(b, t, e, w1.shape[0], num_heads, drop, x.device)
 
     def one(m):
         return 1.0 if m is None else m
-
-    def normalise(a):
-        inv = torch.rsqrt(a.var(-1, unbiased=False, keepdim=True) + 1e-5)
-        return (a - a.mean(-1, keepdim=True)) * inv, inv
 
     def cols(a):
         return a.reshape(-1, a.shape[-1]).sum(0)
@@ -242,16 +330,13 @@ def fused_block_backward_reference(
     def atb(a, c):  # a^T c over the B*T rows
         return a.reshape(-1, a.shape[-1]).T @ c.reshape(-1, c.shape[-1])
 
-    # the forward, keeping what the training forward saves
-    y1, inv1 = normalise(x)
+    # the forward: what the training forward saves, the rest recomputed
+    saved = fused_block_saved_reference(x, params, num_heads, scale, drop)
+    q, k, v, ctx, x1 = saved[:N_SAVED * x.numel()].reshape(N_SAVED, b, t, e)
+    lse = saved[N_SAVED * x.numel():].reshape(b, num_heads, t)
+    y1, inv1 = _normalise(x)
     y1a = y1 * g1 + be1
-    q, k, v = (F.linear(y1a, w, bias) for w, bias in ((wq, bq), (wk, bk), (wv, bv)))
-    qh, kh, vh = (a.reshape(b, t, num_heads, d).transpose(1, 2) for a in (q, k, v))
-    s = qh @ kh.transpose(2, 3) * (1.0 / scale)
-    lse = torch.logsumexp(s, dim=-1)
-    ctx = ((torch.exp(s - lse[..., None]) * one(m_attn)) @ vh).transpose(1, 2).reshape(b, t, e)
-    x1 = x + F.linear(ctx, wo, bo) * one(m_ao)
-    y2, inv2 = normalise(x1)
+    y2, inv2 = _normalise(x1)
     y2a = y2 * g2 + be2
     f1 = F.linear(y2a, w1, bb1)
     gld = F.gelu(f1) * one(m_fi)
@@ -285,10 +370,9 @@ def _check_cuda_inputs(x: torch.Tensor, params: Sequence[torch.Tensor],
         )
     if t > MAX_KERNEL_T:
         raise ValueError(
-            f"the CUDA block holds a whole sample in shared memory, which fits "
-            f"T <= {MAX_KERNEL_T}; T={t} needs {kernel_smem_bytes(t)} bytes of "
-            f"{SMEM_OPTIN_BYTES}.  Longer windows wait for a K/V-tiled kernel "
-            f"(ROADMAP.md)"
+            f"the CUDA block's attention backward holds one head's queries in shared "
+            f"memory, which fits T <= {MAX_KERNEL_T}; T={t} needs "
+            f"{attention_backward_smem_bytes(t)} bytes of {SMEM_OPTIN_BYTES}"
         )
     if len(params) != N_PARAMS:
         raise ValueError(f"params must hold {N_PARAMS} tensors, got {len(params)}")
@@ -328,24 +412,27 @@ def fused_block_forward_cuda(
     """Launch kernel #1 on a CUDA tensor: ``(out, saved)``, where ``saved``
     (one flat tensor of :func:`saved_numel` floats: ``[5, B, T, E]`` of q, k,
     v, the dropped-out attention context and x1, then ``[B, H, T]`` of the
-    softmax rows' log-sum-exp) is written only when ``save``, for kernel #2."""
+    softmax rows' log-sum-exp) is returned only when ``save``, for kernel #2.
+    Counted once per call; it is three kernel launches, which hand q, k, v
+    and the context to each other through device memory (``saved``'s first
+    four planes, or scratch of that size)."""
     _check_cuda_inputs(x, params, num_heads)
     from transformer_clip_eeg_tpu_torch import _build
 
     lib = _build.load()
     b, t, e = x.shape
     out = torch.empty_like(x)
-    saved = x.new_empty((saved_numel(b, t, e, num_heads),)) if save else None
+    work = x.new_empty((saved_numel(b, t, e, num_heads) if save else 4 * b * t * e,))
     with torch.cuda.device(x.device):
         stream = torch.cuda.current_stream(x.device).cuda_stream
         rc = lib.tce_fused_block_fwd(
             x.data_ptr(), out.data_ptr(), _params_array(params), b, t, e, num_heads,
             params[13].shape[0], 1.0 / scale, *drop_args(drop, b),
-            None if saved is None else saved.data_ptr(), stream,
+            work.data_ptr(), int(save), stream,
         )
     _build.check(lib, rc, "fused_transformer_block")
     fused_transformer_block.launches += 1
-    return out, saved
+    return out, (work if save else None)
 
 
 def fused_block_backward(
@@ -436,8 +523,8 @@ def fused_transformer_block(
     ``emb_size ** 0.5``).  ``training`` applies the four dropout masks drawn
     from the integer ``seed`` at rates ``drop_p`` and ``ffn_drop_p``.  A CUDA
     tensor launches the kernels (float32, contiguous, E=64 with 8 heads,
-    F=256 and T <= ``MAX_KERNEL_T``, else it raises); a CPU tensor runs the
-    plain version.  Under autograd the gradient is kernel #2 on the card and
+    F=256 and any window of T <= ``MAX_KERNEL_T`` = 1,699 rows, else it
+    raises); a CPU tensor runs the plain version.  Under autograd the gradient is kernel #2 on the card and
     autograd through the twin on the CPU.
     """
     drop = DropoutConfig(bool(training), int(seed), float(drop_p), float(ffn_drop_p))

@@ -49,6 +49,7 @@ class InferenceSession:
         if state_dict is not None:
             self.model.load_state_dict(state_dict)
         self.chunk = chunk
+        self.cfg = None  # set by from_results_dir
         self._embed_eeg, self._embed_speech = make_embed_fns(self.model)
 
     @classmethod
@@ -70,7 +71,9 @@ class InferenceSession:
             raise FileNotFoundError(f"no checkpoint at {checkpoint_path(ckpt_dir)}")
         bank_size = int(cfg.bank_size) or payload["model"]["eegMemoryBank.memory"].shape[0] - 1
         model = build_model_from_config(cfg, bank_size, device="cpu", seed=cfg.seed)
-        return cls(model, payload["model"], chunk=chunk, device=device)
+        session = cls(model, payload["model"], chunk=chunk, device=device)
+        session.cfg = cfg  # the run's config, for callers that surface model info
+        return session
 
     def embed_eeg(self, windows: np.ndarray, normalize: bool = False) -> np.ndarray:
         """``[N, T, 64]`` EEG windows → ``[N, D]`` L2-normalised embeddings.
