@@ -36,17 +36,28 @@ GPU, end to end.
    Then times one full 128-window chunk through each embedder (host clock)
    and profiles it (``torch.profiler``): device time per chunk, the device's
    idle share and the operations that take the most device time.
-5. Trains the flagship at full width through the port's CLI
-   (``cli.train``, the function ``cli.main`` runs): a synthetic SparrKULee
-   fixture with 1024-dim wav2vec-19 features, 2 epochs at batch 128, every
-   other flag at its default.  Checks ``loss.txt``, the checkpoint, the
-   memory bank and the exact kernel launches (10 block forwards, 10 block
-   backwards, 2 LSTM forwards and 2 LSTM backwards per train step; 10 and
-   2 forwards per validation step).  Then one step at batch 8 with dropout
-   on, card against CPU (same weights, batch and seed); the trained run
-   served from its results directory against the trainer's model; the
-   median step time of epoch 2 and a ``torch.profiler`` pass over 3 steps
-   (a ``{"train": ...}`` line).
+5. Runs the reference's default command line on the flagship at full width
+   through the port's CLI (``cli.main`` with ``--data_dir``, ``--epochs 2``
+   and ``--results_folder`` only): a synthetic SparrKULee fixture with
+   1024-dim wav2vec-19 features and its ``icassp/`` challenge tree, batch
+   128, every other flag at its default.  Checks that ``--data_mode auto``
+   took the device-resident chunk store, ``loss.txt`` in the device-mode
+   format (epoch 0 uploads every train chunk once, epoch 1 none), the
+   checkpoint, the memory bank, the exact kernel launches of training (10
+   block forwards, 10 block backwards, 2 LSTM forwards and 2 LSTM backwards
+   per train step; 10 and 2 forwards per validation step) and of the
+   evaluation suite apart (10 block forwards per EEG-encoder call, 2 LSTM
+   forwards per speech-encoder call, nothing else), that
+   ``release_host_data`` gives back at least the bytes the stores held, and
+   the eight evaluation JSONs (present, finite, no ``error_regression.txt``).
+   Then the same training with ``--data_mode host --skip_eval yes`` (its
+   losses against the device run's), ``--only_evaluate yes`` on the first
+   run (the match-mismatch JSONs rewritten with the same values), one step
+   at batch 8 with dropout on, card against CPU; the trained run served from
+   its results directory against the trainer's model; the median step time
+   of epoch 2 in each mode, the gather of one batch timed, and a
+   ``torch.profiler`` pass over 3 device-mode steps (a ``{"train": ...}``
+   line).
 6. The conv kernels at the flagship's shapes (B=128, T=192, C=64): the
    fused BasicBlock forward (#5) against its plain twin in eval and in
    training (dropout 0.2, fixed seed) for K=64 (EEG) and K=32 (speech), its
@@ -144,9 +155,16 @@ from transformer_clip_eeg_tpu_torch.server import (  # noqa: E402
     make_server,
 )
 from transformer_clip_eeg_tpu_torch.train.config import TrainConfig  # noqa: E402
-from transformer_clip_eeg_tpu_torch.train.loop import batch_iterator  # noqa: E402
+from transformer_clip_eeg_tpu_torch.train.device_data import (  # noqa: E402
+    DeviceChunkStore,
+    gather_batch,
+)
+from transformer_clip_eeg_tpu_torch.train.loop import Trainer, batch_iterator  # noqa: E402
 from transformer_clip_eeg_tpu_torch.train.state import make_optimizer  # noqa: E402
-from transformer_clip_eeg_tpu_torch.train.steps import train_step  # noqa: E402
+from transformer_clip_eeg_tpu_torch.train.steps import (  # noqa: E402
+    chunk_train_step,
+    train_step,
+)
 
 # H100 SXM published peaks (dense): f32 outside the tensor cores, HBM3
 PEAK_F32_FLOPS = 67e12
@@ -1067,16 +1085,38 @@ def serve_path() -> dict:
             "cpu_err": {"eeg": eeg_err, "speech": sp_err}}
 
 
-# loss.txt of a 2-epoch run, line by line: the JAX trainer's formats
-LOSS_LINES = [r"number of parameters \d+",
-              r"no model found at .*, training from scratch"] + [
-    line.replace("{e}", str(e)) for e in range(2) for line in (
-        r"train epoch {e} batch 0 loss_ce (\S+) loss average eeg (\S+)",
-        r"epoch {e} done in \d+\.\ds \(\d+ pairs/s\)",
-        r'epoch {e} phases \{"dispatch_s": \S+, "fetch_s": \S+, "block_s": \S+\}',
-        r"validation epoch {e}: mean loss ce : (\S+), mean loss average: (\S+), "
-        r"mean loss total: (\S+)",
-    )] + [r"training done: best val loss_ce \S+ at epoch \d"]
+# loss.txt of a 2-epoch run, line by line: the JAX trainer's formats; in
+# device mode the phases line also carries the chunk store's uploads
+PHASES = {
+    "host": r'\{"dispatch_s": \S+, "fetch_s": \S+, "block_s": \S+\}',
+    "device": (r'\{"dispatch_s": \S+, "fetch_s": \S+, "block_s": \S+, "uploads": \d+, '
+               r'"upload_gb": \S+, "upload_s": \S+, "upload_wait_s": \S+\}'),
+}
+
+
+def loss_lines(mode: str) -> list:
+    return [r"number of parameters \d+", r"no model found at .*, training from scratch"] + [
+        line.replace("{e}", str(e)) for e in range(2) for line in (
+            r"train epoch {e} batch 0 loss_ce (\S+) loss average eeg (\S+)",
+            r"epoch {e} done in \d+\.\ds \(\d+ pairs/s\)",
+            r"epoch {e} phases " + PHASES[mode],
+            r"validation epoch {e}: mean loss ce : (\S+), mean loss average: (\S+), "
+            r"mean loss total: (\S+)",
+        )] + [r"training done: best val loss_ce \S+ at epoch \d"]
+
+
+# what the evaluation suite writes into a run's results directory (the JAX
+# package's run_eval_suite); the last has entries only for challenge subjects
+# with a probe of their own, which the fixture's challenge subjects lack
+MM_JSONS = ("evaluation_challenge_set_2023_mm.json",
+            "evaluation_challenge_set_2023_mm_logits.json",
+            "evaluation_challenge_set_2023_mm_top_x.json",
+            "evaluation_challenge_set_2023_mm_top_x_logits.json")
+EVAL_JSONS = MM_JSONS + ("evaluation_regression.json",
+                         "evaluation_regression_general_model_env.json",
+                         "evaluation_challenge_set_2023_regression.json",
+                         "evaluation_challenge_set_2023_regression_sub_specific.json")
+HOST_DEVICE_TOL = 1e-5  # relative, every loss in loss.txt of the two data paths
 COUNTERS = (fused_transformer_block, fused_block_backward, lstm_scan_packed,
             lstm_scan_backward, fused_basic_block, fused_conv_backward, conv1d_same)
 
@@ -1139,97 +1179,275 @@ def card_vs_cpu_step(cfg, host_batch, fused: bool = False) -> dict:
             "losses_cpu": cpu["losses"]}
 
 
+def counts() -> dict:
+    return {f.__name__: f.launches for f in COUNTERS}
+
+
+def read_loss_txt(path: str, mode: str):
+    """The losses of a 2-epoch run's ``loss.txt`` (every line in the JAX
+    trainer's format for ``mode``, every loss finite) and its phases records."""
+    lines, fmts = open(path).read().splitlines(), loss_lines(mode)
+    if len(lines) != len(fmts):
+        raise AssertionError(f"{path}: {len(lines)} lines, want {len(fmts)}: {lines}")
+    values, phases = [], []
+    for line, fmt in zip(lines, fmts):
+        m = re.fullmatch(fmt, line)
+        if m is None:
+            raise AssertionError(f"loss.txt line {line!r} does not match {fmt!r}")
+        values += [float(v) for v in m.groups()]
+        if " phases " in line:
+            phases.append(json.loads(line.split(" phases ", 1)[1]))
+    if not all(np.isfinite(values)):
+        raise AssertionError(f"{path}: losses {values}")
+    return values, phases
+
+
+def _numbers(obj) -> list:
+    """Every number in a JSON tree."""
+    if isinstance(obj, dict):
+        return [v for x in obj.values() for v in _numbers(x)]
+    if isinstance(obj, list):
+        return [v for x in obj for v in _numbers(x)]
+    return [float(obj)] if isinstance(obj, (int, float)) else []
+
+
+def check_eval_files(results_dir: str) -> dict:
+    """Each file of ``EVAL_JSONS`` exists, and every number in it is finite;
+    all but the challenge's sub-specific file have entries.  Returns the
+    count of numbers per file."""
+    out = {}
+    for name in EVAL_JSONS:
+        with open(os.path.join(results_dir, name)) as f:
+            obj = json.load(f)
+        nums = _numbers(obj)
+        if not all(np.isfinite(nums)) or (not obj and not name.endswith("_sub_specific.json")):
+            raise AssertionError(f"{name}: {str(obj)[:300]}")
+        out[name] = len(nums)
+    if os.path.exists(os.path.join(results_dir, "error_regression.txt")):
+        raise AssertionError("error_regression.txt written: the batched probe trainer failed")
+    return out
+
+
 def train_path() -> dict:
-    """The flagship trained at full width through the port's CLI."""
+    """The reference's default run on the card through the port's CLI
+    (``cli.main``): train on the device-resident chunk store, keep the best
+    checkpoint, run the evaluation suite; the same training on the host
+    path; then ``--only_evaluate yes`` on the first run's results."""
     shutil.rmtree(RUN_DIR, ignore_errors=True)
-    data_dir, results = os.path.join(RUN_DIR, "data"), os.path.join(RUN_DIR, "results")
+    data_dir = os.path.join(RUN_DIR, "data")
+    seen: dict = {"trainers": [], "eval": []}
+    real = (Trainer.fit, Trainer.release_host_data, cli.run_eval_suite)
+
+    def fit(self):
+        seen["trainers"].append(self)
+        return real[0](self)
+
+    def release_host_data(self):
+        # training's launches end here; what the stores hold goes next
+        torch.cuda.synchronize()
+        seen["train_launches"] = counts()
+        seen["chunks"] = [sum("eeg" in c for c in ds.chunks.values())
+                          for ds in (self.train_dataset, self.val_dataset)]
+        seen["steps"] = [sum(c["eeg"].shape[0] for c in ds.chunks.values() if "eeg" in c)
+                         for ds in (self.train_dataset, self.val_dataset)]
+        seen["resident_bytes"] = sum(s._resident_bytes
+                                     for s in (self.chunk_store, self.val_chunk_store))
+        before = torch.cuda.memory_allocated()
+        real[1](self)
+        torch.cuda.synchronize()
+        seen["memory_allocated"] = (before, torch.cuda.memory_allocated())
+
+    def run_eval_suite(model, *args, **kw):
+        for f in COUNTERS:
+            f.launches = 0
+        calls = {"eeg": 0, "speech": 0}
+
+        def hook(name):
+            return lambda *_: calls.__setitem__(name, calls[name] + 1)
+
+        hooks = [model.eegModel.register_forward_pre_hook(hook("eeg")),
+                 model.speechModel.register_forward_pre_hook(hook("speech"))]
+        t0 = time.perf_counter()
+        try:
+            real[2](model, *args, **kw)
+            torch.cuda.synchronize()
+        finally:
+            for h in hooks:
+                h.remove()
+        seen["eval"].append({"wall_s": time.perf_counter() - t0, "launches": counts(),
+                             "encoder_calls": calls})
+
+    Trainer.fit, Trainer.release_host_data, cli.run_eval_suite = (
+        fit, release_host_data, run_eval_suite)
     try:
         t0 = time.perf_counter()
         # 6 stories: the default --run 4 validates on fold 4, which the
         # fixture's round robin over stories[:-1] fills only from 5 stories
-        # on; 400 s per story is one chunk of 133 windows at batch 128
+        # on; 400 s per story is one chunk of 133 windows at batch 128.  The
+        # fixture also writes the icassp/ tree the evaluation suite reads
         make_fixture(data_dir, n_stories=6, n_subjects=3, story_seconds=400, speech_dim=1024)
         log(f"fixture written in {time.perf_counter() - t0:.1f} s")
+
+        # 1. the default command line: training, then the evaluation suite
         for f in COUNTERS:
             f.launches = 0
         t0 = time.perf_counter()
-        trainer = cli.train(["--data_dir", data_dir, "--epochs", "2", "--skip_eval", "yes",
-                             "--results_folder", results], device="cuda")
-        torch.cuda.synchronize()
-        launches = {f.__name__: f.launches for f in COUNTERS}
-        train_s = time.perf_counter() - t0
-        cfg, history = trainer.cfg, trainer.history
-
-        def steps(ds):
-            return sum(c["eeg"].shape[0] for c in ds.chunks.values() if "eeg" in c)
-
-        n_train, n_val = steps(trainer.train_dataset), steps(trainer.val_dataset)
+        if cli.main(["--data_dir", data_dir, "--epochs", "2", "--results_folder",
+                     os.path.join(RUN_DIR, "device")], device="cuda") != 0:
+            raise AssertionError("the default run returned non-zero")
+        default_s = time.perf_counter() - t0
+        dev = seen["trainers"][-1]
+        cfg, history = dev.cfg, dev.history
+        if not (cfg.data_mode == "auto" and dev.device_data
+                and isinstance(dev.chunk_store, DeviceChunkStore)):
+            raise AssertionError("--data_mode auto did not resolve to the device store on CUDA")
+        n_train, n_val = seen["steps"]
         want = {"fused_transformer_block": 2 * 10 * (n_train + n_val),
                 "fused_block_backward": 2 * 10 * n_train,
                 "lstm_scan_packed": 2 * 2 * (n_train + n_val),
                 "lstm_scan_backward": 2 * 2 * n_train,
                 "fused_basic_block": 0, "fused_conv_backward": 0, "conv1d_same": 0}
-        log(f"trained 2 epochs ({n_train} train and {n_val} validation steps each) in "
-            f"{train_s:.1f} s; kernel launches {launches}")
-        if launches != want or [len(h["step_s"]) for h in history] != [n_train] * 2:
-            raise AssertionError(f"launches on the training path {launches}, want {want}")
+        train_launches = seen["train_launches"]
+        log(f"default run: trained 2 epochs ({n_train} train and {n_val} validation steps "
+            f"each, {seen['chunks']} train and validation chunks) on the device store; "
+            f"training's kernel launches {train_launches}")
+        if train_launches != want or [len(h["step_s"]) for h in history] != [n_train] * 2:
+            raise AssertionError(f"launches in training {train_launches}, want {want}")
+        suite = seen["eval"][-1]
+        calls = suite["encoder_calls"]
+        want_eval = dict.fromkeys(want, 0)
+        want_eval.update(fused_transformer_block=10 * calls["eeg"],
+                         lstm_scan_packed=2 * calls["speech"])
+        log(f"evaluation suite in {suite['wall_s']:.1f} s: {calls} encoder calls, kernel "
+            f"launches {suite['launches']}")
+        if suite["launches"] != want_eval or not (calls["eeg"] and calls["speech"]):
+            raise AssertionError(f"launches in the evaluation suite {suite['launches']}, "
+                                 f"want {want_eval}")
+        launches = {k: train_launches[k] + suite["launches"][k] for k in want}
 
-        lines = open(trainer.loss_file).read().splitlines()
-        values = []
-        for line, fmt in zip(lines, LOSS_LINES):
-            m = re.fullmatch(fmt, line)
-            if m is None:
-                raise AssertionError(f"loss.txt line {line!r} does not match {fmt!r}")
-            values += [float(v) for v in m.groups()]
-        if len(lines) != len(LOSS_LINES) or not all(np.isfinite(values)):
-            raise AssertionError(f"loss.txt: {len(lines)} lines, losses {values}")
-        ckpt_dir = trainer.checkpoint_dir
+        dev_values, phases = read_loss_txt(dev.loss_file, "device")
+        uploads = [p["uploads"] for p in phases]
+        if uploads != [seen["chunks"][0], 0]:
+            raise AssertionError(f"uploads per epoch {uploads}: want every train chunk once "
+                                 f"in epoch 0 ({seen['chunks'][0]}) and none in epoch 1")
+        before, after = seen["memory_allocated"]
+        if not before - after >= seen["resident_bytes"] > 0:
+            raise AssertionError(f"memory_allocated {before} -> {after} after "
+                                 f"release_device_data; the stores held "
+                                 f"{seen['resident_bytes']} bytes")
+        eval_files = check_eval_files(dev.results_dir)
+        log(f"loss.txt in the device-mode format, losses finite; phases {phases}; "
+            f"release_host_data freed {(before - after) / 2**20:.1f} MiB of device memory "
+            f"(the stores held {seen['resident_bytes'] / 2**20:.1f} MiB); evaluation "
+            f"files {eval_files}, no error_regression.txt")
+        ckpt_dir = dev.checkpoint_dir
         for name in ("model_ckpt.pt", "best_meta.json"):
             if not os.path.exists(os.path.join(ckpt_dir, name)):
                 raise AssertionError(f"no {name} in {ckpt_dir}")
         bank0 = build_model(cfg, cfg.bank_size, device="cpu", seed=cfg.seed).eegMemoryBank.memory
-        moved = int((trainer.model.eegMemoryBank.memory.cpu() != bank0).any(dim=1).sum())
+        moved = int((dev.model.eegMemoryBank.memory.cpu() != bank0).any(dim=1).sum())
         if moved == 0:
             raise AssertionError("training left the memory bank as it was")
-        log(f"loss.txt has the {len(lines)} expected lines, losses finite; checkpoint and "
-            f"best_meta.json written; {moved} of {bank0.shape[0]} bank rows moved")
+
+        # 2. the same training on the host path, same seed
+        for f in COUNTERS:
+            f.launches = 0
+        if cli.main(["--data_dir", data_dir, "--epochs", "2", "--data_mode", "host",
+                     "--skip_eval", "yes", "--results_folder", os.path.join(RUN_DIR, "host")],
+                    device="cuda") != 0:
+            raise AssertionError("the host-mode run returned non-zero")
+        host = seen["trainers"][-1]
+        if host.device_data or counts() != want:
+            raise AssertionError(f"host mode: device_data {host.device_data}, launches "
+                                 f"{counts()}, want {want}")
+        host_values, _ = read_loss_txt(host.loss_file, "host")
+        loss_rel = max(abs(a - b) / max(abs(b), 1e-30) for a, b in zip(dev_values, host_values))
+        log(f"device vs host data path, {len(dev_values)} losses of loss.txt: max relative "
+            f"difference {loss_rel:.3e} (tol {HOST_DEVICE_TOL:g})")
+        if not loss_rel <= HOST_DEVICE_TOL:
+            raise AssertionError(f"losses differ: device {dev_values}, host {host_values}")
+
+        # 3. --only_evaluate yes on the default run's results
+        mm = {}
+        for name in MM_JSONS:
+            with open(os.path.join(dev.results_dir, name)) as f:
+                mm[name] = json.load(f)
+        if cli.main(["--only_evaluate", "yes", "--results_folder", dev.results_dir],
+                    device="cuda") != 0:
+            raise AssertionError("--only_evaluate returned non-zero")
+        for name in MM_JSONS:
+            with open(os.path.join(dev.results_dir, name)) as f:
+                if json.load(f) != mm[name]:
+                    raise AssertionError(f"--only_evaluate rewrote {name} with other values")
+        check_eval_files(dev.results_dir)
+        log(f"--only_evaluate yes: evaluation suite again in {seen['eval'][-1]['wall_s']:.1f} "
+            f"s, the match-mismatch files identical")
 
         # serve what was trained
         rng = np.random.default_rng(4)
         eeg = rng.standard_normal((8, cfg.window_length, 64)).astype(np.float32)
         speech = rng.standard_normal((8, cfg.window_length, 1024)).astype(np.float32)
-        served = InferenceSession.from_results_dir(trainer.results_dir, device="cuda")
-        live = InferenceSession(trainer.model, device="cuda")
+        served = InferenceSession.from_results_dir(dev.results_dir, device="cuda")
+        live = InferenceSession(dev.model, device="cuda")
         serve_err = max(float(np.abs(served.embed_eeg(eeg) - live.embed_eeg(eeg)).max()),
                         float(np.abs(served.embed_speech(speech) - live.embed_speech(speech)).max()))
         log(f"from_results_dir vs the trainer's model, 8 windows: max_abs_err {serve_err:.2e}")
         if not serve_err <= 1e-5:
             raise AssertionError("the served checkpoint is not the trained model")
 
-        host_batch = next(batch_iterator(trainer.train_dataset))
+        host_batch = next(batch_iterator(host.train_dataset))
         step = card_vs_cpu_step(cfg, host_batch)
 
         # step time: epoch 2's steps, host clock (the last closed by the drain)
-        step_s = history[1]["step_s"]
-        step_ms = statistics.median(step_s) * 1e3
-        batch = {k: torch.from_numpy(v).to("cuda") for k, v in host_batch.items()}
-        run_step = lambda: train_step(trainer.model, trainer.optimizer, batch,  # noqa: E731
-                                      cfg.seed + 1, False)
+        step_ms = {name: statistics.median(t.history[1]["step_s"]) * 1e3
+                   for name, t in (("device", dev), ("host", host))}
+        log(f"epoch-2 median train step, host clock: device store {step_ms['device']:.2f} ms, "
+            f"host path {step_ms['host']:.2f} ms")
+        # where a device-mode step's time goes: a resident chunk, one batch's
+        # index vectors on the card, the gather and the step
+        ds = host.train_dataset
+        store = DeviceChunkStore(ds, device="cuda", prefetch=False)
+        key = next(k for k in ds.batches_keys if "eeg" in ds.chunks[k])
+        eeg_c, sp_c, ids_c, _, _ = store.get(key)
+        idx_m, subs_m = ds.create_eeg_indices(ds.chunks[key]["eeg"])
+        idx, subs = (torch.from_numpy(np.asarray(m[0], np.int64)).to("cuda")
+                     for m in (idx_m, subs_m))
+        run_step = lambda: chunk_train_step(host.model, host.optimizer, eeg_c,  # noqa: E731
+                                            sp_c, ids_c, idx, subs, cfg.seed + 1, False)
         run_step()
         profile = profile_calls(run_step, reps=3)
+        gather = gather_batch(eeg_c, sp_c, ids_c, idx, subs)
+        gather_bytes = 2 * sum(v.numel() * v.element_size() for v in gather.values())
+        gather_ms = time_ms(lambda: gather_batch(eeg_c, sp_c, ids_c, idx, subs))
+        log(f"gather of one batch: {gather_ms:.4f} ms for {gather_bytes / 1e6:.1f} MB read "
+            f"and written (bound {gather_bytes / PEAK_BYTES * 1e3:.4f} ms)")
+        store.release()
         train = {
             "config": "TrainConfig() defaults at full width, --epochs 2", "batch": cfg.batch_size,
             "train_steps_per_epoch": n_train, "val_steps_per_epoch": n_val,
-            "step_ms_median_epoch2": step_ms, "step_ms_all_epoch2": [v * 1e3 for v in step_s],
-            "pairs_per_s_epoch2": cfg.batch_size / (step_ms / 1e3),
-            "epoch_pairs_per_s": [h["train_pairs_per_s"] for h in history],
+            "chunks_train_val": seen["chunks"],
+            "default_run_s": default_s, "eval_suite_s": suite["wall_s"],
+            "only_evaluate_s": seen["eval"][-1]["wall_s"],
+            "step_ms_median_epoch2": step_ms,
+            "step_ms_all_epoch2": {name: [v * 1e3 for v in t.history[1]["step_s"]]
+                                   for name, t in (("device", dev), ("host", host))},
+            "epoch_s": {name: [h["epoch_time_s"] for h in t.history]
+                        for name, t in (("device", dev), ("host", host))},
+            "phases_device": phases,
             "val_loss_ce": [h["val_loss_ce"] for h in history],
-            "launches": launches, "card_vs_cpu_step": step, "serve_err": serve_err,
-            "profile_3_steps": profile,
+            "host_vs_device_loss_rel": loss_rel,
+            "launches": launches, "launches_train": train_launches,
+            "launches_eval": suite["launches"], "eval_encoder_calls": calls,
+            "eval_files": eval_files,
+            "memory_allocated_release": seen["memory_allocated"],
+            "card_vs_cpu_step": step, "serve_err": serve_err,
+            "gather_ms": gather_ms, "gather_bytes": gather_bytes,
+            "profile_3_device_steps": profile,
         }
         log(json.dumps({"train": train}))
         return train, cfg, host_batch
     finally:
+        Trainer.fit, Trainer.release_host_data, cli.run_eval_suite = real
         shutil.rmtree(RUN_DIR, ignore_errors=True)
 
 
@@ -1409,7 +1627,8 @@ def main() -> int:
     for k in kernels:
         k["launches"] = train["launches"][k["name"]]
         k["launches_by_path"] = {
-            "serve": serve["launches"][k["name"]], "train": train["launches"][k["name"]],
+            "serve": serve["launches"][k["name"]], "train": train["launches_train"][k["name"]],
+            "eval_suite": train["launches_eval"][k["name"]],
             **{f"t256_{what}": counts[k["name"]]
                for what, counts in long_window["launches"].items()}}
     # #5-#7 run on the fused path; the default paths launch none of them

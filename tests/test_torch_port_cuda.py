@@ -580,3 +580,95 @@ def test_weight_gradient_entry_points_refuse_what_they_cannot_copy(cuda):
                                  *drop_args(DropoutConfig(), 1), stream)
     assert rc == 1
     torch.cuda.synchronize()
+
+
+# -- the device-resident chunk store and the host path's pinned ring ----------
+
+@pytest.fixture(scope="module")
+def small_corpus(tmp_path_factory):
+    from transformer_clip_eeg_tpu_torch.data.discovery import get_train_val_test_files_final
+    from transformer_clip_eeg_tpu_torch.data.fixtures import make_fixture
+
+    root = str(tmp_path_factory.mktemp("store_corpus"))
+    make_fixture(root, n_stories=3, n_subjects=3, story_seconds=30, speech_dim=16)
+    return get_train_val_test_files_final(root, 0, "wav2vec_19", f"{root}/fold_split.json", 3)
+
+
+def _store_dataset(files):
+    from transformer_clip_eeg_tpu_torch.data.dataset import EEGWindowDataset
+
+    return EEGWindowDataset(files[0], files[4], 64, 64, batch_size=4, shuffle=True,
+                            shuffle_percentage=1.0, seed=0)
+
+
+@pytest.mark.parametrize("store_dtype", ["float32", "bfloat16"])
+def test_chunk_store_on_the_card_equals_the_cpu_store(cuda, small_corpus, store_dtype):
+    """Two epochs, prefetch on, under a budget that holds two chunks (so
+    chunks are evicted and uploaded again while queued gathers still read
+    the previous ones): every batch gathered on the card equals the CPU
+    store's, and epoch 0 uploads each chunk once (later uploads depend on
+    what the prefetch evicted, so the two stores' counts differ)."""
+    import sys
+
+    from transformer_clip_eeg_tpu_torch.train.device_data import DeviceChunkStore, gather_batch
+
+    card = DeviceChunkStore(_store_dataset(small_corpus), device=cuda, max_resident=2,
+                            store_dtype=store_dtype)
+    host = DeviceChunkStore(_store_dataset(small_corpus), device="cpu", prefetch=False,
+                            store_dtype=store_dtype)
+    n_chunks = len(card.dataset.batches_keys)
+    old = sys.getswitchinterval()
+    sys.setswitchinterval(1e-5)
+    try:
+        got, want = [], []
+        for epoch in range(2):
+            for a, b in zip(card.epoch_batches(), host.epoch_batches(), strict=True):
+                idx, subs = (torch.from_numpy(v).to(cuda) for v in a[3:5])
+                got.append(gather_batch(*a[:3], idx, subs))
+                want.append(gather_batch(*b[:3], torch.from_numpy(b[3]), torch.from_numpy(b[4])))
+            if epoch == 0:
+                assert card.stats["uploads"] == n_chunks
+    finally:
+        sys.setswitchinterval(old)
+    torch.cuda.synchronize()
+    assert len(got) > 20
+    for g, w in zip(got, want):
+        for k in w:
+            assert torch.equal(g[k].cpu(), w[k]), k
+    assert card.stats["upload_s"] > 0  # the finished transfers, timed
+    card.release()
+
+
+def test_release_gives_the_memory_back(cuda, small_corpus):
+    from transformer_clip_eeg_tpu_torch.train.device_data import DeviceChunkStore
+
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    store = DeviceChunkStore(_store_dataset(small_corpus), device=cuda)
+    assert sum(1 for _ in store.epoch_batches()) > 0  # no batch outlives the walk
+    torch.cuda.synchronize()
+    held = torch.cuda.memory_allocated() - base
+    assert held >= store._resident_bytes > 0
+    store.release()
+    torch.cuda.synchronize()
+    assert torch.cuda.memory_allocated() == base
+    assert store._pool is None and store._staging is None
+
+
+def test_host_prefetch_ring_hands_over_every_batch_intact(cuda):
+    """The host path's pinned ring (size + 1 slots, a slot refilled once
+    its copy's event has completed): 40 batches of differing shapes arrive
+    on the card equal to the host arrays they were copied from."""
+    from transformer_clip_eeg_tpu_torch.train.loop import prefetch_to_device
+
+    rng = np.random.default_rng(0)
+    batches = [{"eeg": rng.standard_normal((8 + i % 3, 64, 64)).astype(np.float32),
+                "ids": np.arange(i, i + 8 + i % 3, dtype=np.int64)} for i in range(40)]
+    out = [{k: v.clone() for k, v in b.items()}
+           for b in prefetch_to_device(iter(batches), cuda, size=2)]
+    torch.cuda.synchronize()
+    assert len(out) == len(batches)
+    for got, want in zip(out, batches):
+        for k in want:
+            assert got[k].device.type == "cuda"
+            np.testing.assert_array_equal(got[k].cpu().numpy(), want[k])

@@ -275,9 +275,9 @@ def test_warmup_step_follows_loss_ce_alone():
 
 
 @pytest.mark.parametrize("override", [
-    dict(data_mode="device"), dict(n_data_shards=2), dict(compute_dtype="bfloat16"),
+    dict(n_data_shards=2), dict(compute_dtype="bfloat16"),
     dict(addEEG="yes"), dict(profile_dir="trace"), dict(prng_impl="threefry2x32"),
-], ids=["device_data", "mesh", "bf16", "addEEG", "profile", "prng_impl"])
+], ids=["mesh", "bf16", "addEEG", "profile", "prng_impl"])
 def test_unported_trainer_options_raise(fixture_root, tmp_path, override):
     cfg = _config(fixture_root, **override)
     with pytest.raises(NotImplementedError, match="ROADMAP.md"):
@@ -291,15 +291,6 @@ def test_augmentations_raise(fixture_root):
         cfg.data_dir, cfg.run, cfg.stimulus_features, cfg.fold_split_path, 3)
     with pytest.raises(NotImplementedError, match="ROADMAP.md"):
         EEGWindowDataset(tr, tra, 64, 64, batch_size=4, data_augmentation=["SignFlip"])
-
-
-@pytest.mark.parametrize("flags", [["--only_evaluate", "yes", "--skip_eval", "yes"], []],
-                         ids=["only_evaluate", "eval_suite"])
-def test_cli_refuses_the_eval_suite_before_training(fixture_root, tmp_path, flags):
-    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-        cli.main(["--data_dir", fixture_root, "--run", "0",
-                  "--results_folder", str(tmp_path), *flags], device="cpu")
-    assert not os.listdir(tmp_path)
 
 
 def test_cli_trains_and_the_run_serves(fixture_root, tmp_path):

@@ -1,24 +1,27 @@
-"""CLI driver — the reference ``train_clip_final.py`` training workflow.
+"""The command line — the reference ``train_clip_final.py`` workflow end to end.
 
 Counterpart of ``transformer_clip_eeg_tpu/cli.py``: the same flags and
 defaults, the same outputs (a timestamped results directory with
-``args.txt``, ``loss.txt`` and ``checkpoints/``), on the card unless the
-caller passes ``device="cpu"`` to :func:`main`.  The post-training
-evaluation suite is not ported yet: ``--only_evaluate yes`` and
-``--skip_eval no`` raise ``NotImplementedError`` before any training
-(ROADMAP.md), so a run passes ``--skip_eval yes``.
+``args.txt``, ``loss.txt``, ``checkpoints/`` and the post-training
+evaluation JSONs, ref ``:558-601``), on the card unless the caller passes
+``device="cpu"`` to :func:`main`.  The default run trains (on the
+device-resident chunk store on the card), keeps the best checkpoint, then
+runs the evaluation suite; ``--skip_eval yes`` stops after training.
+``--only_evaluate yes`` reloads ``args.txt`` and the checkpoint from
+``--results_folder`` (a run's results directory) and runs the suite again.
 
-Run: ``python -m transformer_clip_eeg_tpu_torch.cli --data_dir <sparrkulee>
---skip_eval yes ...``
+Run: ``python -m transformer_clip_eeg_tpu_torch.cli --data_dir <sparrkulee> ...``
 """
 
 from __future__ import annotations
 
 import argparse
 import dataclasses
+import json
 import os
 import sys
 import time
+from typing import Optional
 
 
 def build_arg_parser() -> argparse.ArgumentParser:
@@ -124,20 +127,20 @@ def build_arg_parser() -> argparse.ArgumentParser:
     p.add_argument("--data_mode", type=str, default="auto",
                    choices=["auto", "host", "device"],
                    help="batch assembly: device-resident chunk store vs "
-                        "host per-batch gathers (the port has only host, "
-                        "which auto means; device raises)")
+                        "host per-batch gathers (auto = the store on a CUDA "
+                        "device, host on the CPU)")
     p.add_argument("--compute_dtype", type=str, default="float32",
                    choices=["float32", "bfloat16"],
                    help="encoder compute dtype (the port's kernels are "
                         "float32; bfloat16 raises)")
     p.add_argument("--chunk_store_dtype", type=str, default="float32",
                    choices=["float32", "bfloat16"],
-                   help="device chunk-store storage dtype (used only by "
-                        "--data_mode device, which the port does not have)")
+                   help="device chunk-store storage dtype; bfloat16 halves "
+                        "device residency and upload bytes (inputs rounded, "
+                        "compute stays float32)")
     p.add_argument("--chunk_budget_frac", type=float, default=0.75,
-                   help="fraction of free device memory the chunk store "
-                        "may keep resident (used only by --data_mode device, "
-                        "which the port does not have)")
+                   help="fraction of free device memory the chunk stores "
+                        "may keep resident (auto budget)")
     p.add_argument("--prng_impl", type=str, default="rbg",
                    choices=["rbg", "threefry2x32", "unsafe_rbg"],
                    help="PRNG of the JAX package's dropout streams; the "
@@ -156,24 +159,41 @@ def build_arg_parser() -> argparse.ArgumentParser:
     return p
 
 
-def train(argv=None, device="cuda"):
-    """Parse ``argv``, build the datasets and train; returns the
-    :class:`~transformer_clip_eeg_tpu_torch.train.loop.Trainer` after
-    ``fit`` (its model holds the best state, as the checkpoint does)."""
-    from transformer_clip_eeg_tpu_torch.data.dataset import EEGWindowDataset
-    from transformer_clip_eeg_tpu_torch.data.discovery import (
-        get_train_val_test_files_final,
+def find_icassp_folder(data_dir: str, task: str) -> Optional[str]:
+    """The challenge set's ``task`` folder: ``<data_dir>/icassp/<task>`` (the
+    fixture's) first, else the reference's sibling
+    ``ICASSP-2023-eeg-decoding-challenge-dataset/<task>`` (ref :561-562)."""
+    candidates = [
+        os.path.join(data_dir, "icassp", task),
+        os.path.join(os.path.dirname(data_dir), "ICASSP-2023-eeg-decoding-challenge-dataset",
+                     task),
+    ]
+    for c in candidates:
+        if os.path.isdir(c):
+            return c
+    return None
+
+
+def _split(cfg):
+    """The run's file lists (8 lists, as ``get_train_val_test_files_final``)."""
+    from transformer_clip_eeg_tpu_torch.data.discovery import get_train_val_test_files_final
+
+    files = get_train_val_test_files_final(
+        cfg.data_dir, cfg.run, cfg.stimulus_features, cfg.fold_split_path,
+        cfg.number_of_training_subjects, debug=cfg.is_debug,
     )
+    print(f"train files: {len(files[0])}, val: {len(files[1])}, "
+          f"test: {len(files[2])}, heldout: {len(files[3])}")
+    return files
+
+
+def _train(args, device):
+    """Build the datasets from ``args`` and train; returns the trainer and
+    the file lists."""
+    from transformer_clip_eeg_tpu_torch.data.dataset import EEGWindowDataset
     from transformer_clip_eeg_tpu_torch.train.config import TrainConfig
     from transformer_clip_eeg_tpu_torch.train.loop import Trainer, check_supported, printf
 
-    args = build_arg_parser().parse_args(argv)
-    if args.only_evaluate == "yes" or args.skip_eval != "yes":
-        raise NotImplementedError(
-            "the evaluation suite (--only_evaluate yes, --skip_eval no) is not "
-            "ported to the torch package yet (see ROADMAP.md); pass "
-            "--skip_eval yes to train"
-        )
     if args.compile_cache_dir is None:
         args.compile_cache_dir = "auto"  # the TrainConfig default
     known = {f.name for f in dataclasses.fields(TrainConfig)}
@@ -182,13 +202,8 @@ def train(argv=None, device="cuda"):
     results_dir = os.path.join(
         cfg.results_folder, cfg.results_dir_name(time.strftime("%Y_%m_%d_%H_%M_%S"))
     )
-    (train_files, val_files, test_files, test_files_heldout,
-     train_audio, val_audio, _test_audio, _heldout_audio) = get_train_val_test_files_final(
-        cfg.data_dir, cfg.run, cfg.stimulus_features, cfg.fold_split_path,
-        cfg.number_of_training_subjects, debug=cfg.is_debug,
-    )
-    print(f"train files: {len(train_files)}, val: {len(val_files)}, "
-          f"test: {len(test_files)}, heldout: {len(test_files_heldout)}")
+    files = _split(cfg)
+    train_files, val_files, _, _, train_audio, val_audio, _, _ = files
     if not val_files:
         raise SystemExit(
             f"validation split is empty: CV fold {cfg.run} matched no stories "
@@ -215,12 +230,112 @@ def train(argv=None, device="cuda"):
     out = trainer.fit()
     printf(f"training done: best val loss_ce {out['best_loss']} at epoch "
            f"{out['best_epoch']}", trainer.loss_file)
-    return trainer
+    return trainer, files
+
+
+def train(argv=None, device="cuda"):
+    """Parse ``argv``, build the datasets and train, without the evaluation
+    suite; returns the :class:`~transformer_clip_eeg_tpu_torch.train.loop.
+    Trainer` after ``fit`` (its model holds the best state, as the
+    checkpoint does)."""
+    return _train(build_arg_parser().parse_args(argv), device)[0]
+
+
+def _restore_run(results_dir: str, device):
+    """The config and the best model of a finished run, or ``(cfg, None)``
+    when its checkpoint is missing."""
+    from transformer_clip_eeg_tpu_torch.models.registry import build_model_from_config
+    from transformer_clip_eeg_tpu_torch.train import checkpoint as ckpt_lib
+    from transformer_clip_eeg_tpu_torch.train.config import TrainConfig
+
+    cfg = TrainConfig.load(os.path.join(results_dir, "args.txt"))
+    ckpt_dir = os.path.join(results_dir, "checkpoints")
+    model = build_model_from_config(cfg, cfg.bank_size, device=device, seed=cfg.seed)
+    if ckpt_lib.restore_checkpoint(ckpt_dir, model) is None:
+        if os.path.exists(os.path.join(ckpt_dir, "model.ckpt")):
+            raise NotImplementedError(
+                f"{ckpt_dir} holds only the reference's model.ckpt; resuming from it is "
+                "not ported to the torch package yet (ROADMAP.md §2, resuming from the "
+                "reference's model.ckpt)")
+        return cfg, None
+    return cfg, model.eval()
 
 
 def main(argv=None, device="cuda") -> int:
-    train(argv, device)
+    args = build_arg_parser().parse_args(argv)
+    if args.only_evaluate == "yes":
+        # the saved config and checkpoint of --results_folder (ref :274-285,541-556)
+        results_dir = args.results_folder
+        cfg, model = _restore_run(results_dir, device)
+        if model is None:
+            print(f"no checkpoint found in {os.path.join(results_dir, 'checkpoints')}")
+            return 1
+        print(f"loaded model from {os.path.join(results_dir, 'checkpoints')}")
+        if args.skip_eval == "yes":
+            return 0
+        files = _split(cfg)
+    else:
+        trainer, files = _train(args, device)
+        if args.skip_eval == "yes":
+            return 0
+        # free the chunk stores' device memory and the training datasets'
+        # host arrays: the suite ingests its own splits
+        trainer.release_host_data()
+        cfg, model, results_dir = trainer.cfg, trainer.model, trainer.results_dir
+    train_files, val_files, test_files, _, train_audio, val_audio, test_audio, _ = files
+    run_eval_suite(model, cfg, results_dir, train_files, val_files, test_files,
+                   train_audio, val_audio, test_audio)
     return 0
+
+
+def _dump(results_dir: str, name: str, obj) -> None:
+    with open(os.path.join(results_dir, name), "w") as f:
+        json.dump(obj, f)
+
+
+def run_eval_suite(model, cfg, results_dir, train_files, val_files, test_files,
+                   train_audio, val_audio, test_audio) -> None:
+    """The four post-training evaluation blocks (ref :558-601), each writing
+    the JSON files the reference writes."""
+    from transformer_clip_eeg_tpu_torch.eval.match_mismatch import (
+        evaluate_model_challenge_2023_mm,
+    )
+    from transformer_clip_eeg_tpu_torch.eval.regression import (
+        evaluate_model_challenge_2023_regression,
+        evaluate_model_do_regression_sub_independent,
+        evaluate_model_do_regression_sub_specific,
+    )
+
+    mm_folder = find_icassp_folder(cfg.data_dir, "TEST_task1_matchmismatch")
+    if mm_folder:
+        results = evaluate_model_challenge_2023_mm(model, mm_folder,
+                                                   speech_feature=cfg.stimulus_features)
+        for name, obj in zip(("evaluation_challenge_set_2023_mm.json",
+                              "evaluation_challenge_set_2023_mm_logits.json",
+                              "evaluation_challenge_set_2023_mm_top_x.json",
+                              "evaluation_challenge_set_2023_mm_top_x_logits.json"), results):
+            _dump(results_dir, name, obj)
+    else:
+        print("no ICASSP task-1 folder found, skipping match-mismatch eval")
+
+    # both regression blocks embed the same corpus: one shared extraction
+    # (the regression dataset's batch is the configured one; the reference
+    # hardcodes 128, ref :496)
+    emb_cache: dict = {}
+    for block in (evaluate_model_do_regression_sub_specific,
+                  evaluate_model_do_regression_sub_independent):
+        block(model, train_files, val_files, test_files, train_audio, val_audio, test_audio,
+              results_dir, regress_to="env", window_length=cfg.window_length_s, fs=cfg.fs,
+              batch_size=cfg.batch_size, embeddings_cache=emb_cache)
+    emb_cache.clear()
+
+    reg_folder = find_icassp_folder(cfg.data_dir, "TEST_task2_regression")
+    if reg_folder:
+        ev, ev_sub = evaluate_model_challenge_2023_regression(model, results_dir, reg_folder)
+        _dump(results_dir, "evaluation_challenge_set_2023_regression.json", ev)
+        _dump(results_dir, "evaluation_challenge_set_2023_regression_sub_specific.json", ev_sub)
+    else:
+        print("no ICASSP task-2 folder found, skipping challenge regression")
 
 
 if __name__ == "__main__":

@@ -10,9 +10,11 @@ drop-last quirk, EEG zero-pad/crop, globally unique segment identifiers,
 (``create_eeg_indices``).  ``split_into_windows_np`` is copied from
 ``transformer_clip_eeg_tpu/ops/windowing.py``, which imports JAX.
 
-The trainer gathers batches itself (``train/loop.batch_iterator``), so the
-reference-compatible ``__iter__`` and its host mixup, the device path's
-``sample_epoch_indices`` and the CV driver's file cache are not copied.  The
+The trainer gathers batches itself (``train/loop.batch_iterator``, or the
+device-resident store of ``train/device_data.py``), so the
+reference-compatible ``__iter__`` and its host mixup,
+``sample_epoch_indices`` and the cross-validation file cache are not copied;
+``iter_subject_windows`` feeds the regression evals.  The
 braindecode augmentations run in JAX in the other package and are not
 ported yet: asking for them raises ``NotImplementedError`` (ROADMAP.md).
 """
@@ -20,7 +22,7 @@ ported yet: asking for them raises ``NotImplementedError`` (ROADMAP.md).
 from __future__ import annotations
 
 import os
-from typing import Dict, List, Optional, Sequence
+from typing import Dict, Iterator, List, Optional, Sequence, Tuple
 
 import numpy as np
 
@@ -294,3 +296,16 @@ class EEGWindowDataset:
                 axis=1,
             )
         return speech_idx, subs_per_batch
+
+    def iter_subject_windows(self) -> Iterator[Tuple]:
+        """Per-(subject, chunk) windows for the regression evaluation suite:
+        yields ``(sub, story_key, eeg [n, wl, 64], features dict)``.  (The
+        reference's regression evals expect 5-tuples its loader never
+        yields; this is the working equivalent the JAX package uses.)"""
+        for key in self.batches_keys:
+            chunk = self.chunks[key]
+            if "eeg" not in chunk:
+                continue
+            feats = {f: chunk[f] for f in self.features_to_load if f in chunk}
+            for si, sub in enumerate(chunk["sub"]):
+                yield sub, key, chunk["eeg"][si], feats

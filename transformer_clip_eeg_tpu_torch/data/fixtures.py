@@ -10,17 +10,22 @@ same numpy stream, so a seed gives byte-identical files in both packages::
       derivatives/preprocessed_stimuli/<story>_-_wav2vec_19.npy            [T, D]
       derivatives/preprocessed_stimuli/<story>_-_env.npy                   [1, T, 1]
       derivatives/preprocessed_stimuli/<story>_-_mel.npy                   [1, T, 28]
+    icassp/TEST_task1_matchmismatch/
+      labels/*.json, sub-*.json, wav2vec_segments_wholefile_64hz/*.pkl
+    icassp/TEST_task2_regression/
+      labels/*.json, sub-*.json
 
 The EEG is a noisy linear mix of the stimulus feature, so a trained model
-has real signal to find.  The ICASSP challenge folders (``icassp/``) that the
-JAX fixture also writes are for the evaluation suite, which is not ported
-yet (ROADMAP.md).
+has real signal to find.  The ``icassp/`` tree (the ICASSP-2023 challenge
+folders the evaluation suite reads) is drawn from the same stream after the
+training data, so it too equals the JAX package's file for file.
 """
 
 from __future__ import annotations
 
 import json
 import os
+import pickle
 from typing import Dict, List, Optional
 
 import numpy as np
@@ -48,10 +53,13 @@ def make_fixture(
     n_subjects: int = 3,
     story_seconds: int = 120,
     speech_dim: int = 32,
+    window_length: int = 192,
     seed: int = 0,
     correlated: bool = True,
     n_test_subjects: int = 1,
     stories_per_subject: Optional[int] = None,
+    mm_subjects: int = 2,
+    mm_noise: float = 0.5,
     env_decodable: bool = False,
     env_gain: float = 1.0,
 ) -> Dict:
@@ -156,7 +164,7 @@ def make_fixture(
             name = f"{sub}_task-listening_-audio-{story}_eeg.npy"
             np.save(os.path.join(sub_dir, name), eeg.T)  # on-disk layout [64, T]
 
-    return {
+    meta = {
         "stories": stories,
         "train_subjects": train_subjects,
         "test_subjects": test_subjects,
@@ -164,3 +172,164 @@ def make_fixture(
         "t": t,
         "root": root,
     }
+    _make_icassp_testset(
+        root, rng, mix, speech_dim, window_length, n_subjects=mm_subjects,
+        meta=meta, noise=mm_noise, env_decodable=env_decodable,
+        env_gain=env_gain, env_direction=env_direction,
+    )
+    return meta
+
+def regen_icassp_testset(
+    root: str,
+    speech_dim: int,
+    window_length: int = 192,
+    n_subjects: int = 14,
+    noise: float = 0.5,
+    seed: int = 0,
+    trials: int = 8,
+    env_decodable: bool = False,
+    env_gain: float = 1.0,
+) -> Dict:
+    """Regenerate ONLY the ``icassp/`` held-out eval tree of an existing
+    fixture — e.g. with more subjects or a lower SNR (``noise`` is the EEG
+    noise std against a unit-variance projected-speech signal) so the MM
+    eval measures *discrimination* rather than saturating at 100%
+    (VERDICT r3 #4).  The speech→EEG mixing matrix is reproduced from
+    ``seed`` exactly as :func:`make_fixture` drew it (its first rng draw),
+    so a model trained on the corpus transfers; candidate segments and
+    trials are freshly drawn.
+    """
+    rng = np.random.default_rng(seed)
+    mix = rng.standard_normal((speech_dim, 64)).astype(np.float32) / np.sqrt(
+        speech_dim
+    )
+    # reproduce the fixture's env_direction (its second rng draw — see
+    # make_fixture) so env_decodable corpora regen with matching EEG physics
+    env_direction = rng.standard_normal(64).astype(np.float32)
+    meta: Dict = {"root": root}
+    _make_icassp_testset(
+        root, np.random.default_rng(seed + 1000), mix, speech_dim,
+        window_length, n_subjects=n_subjects, meta=meta, noise=noise,
+        trials=trials, env_decodable=env_decodable, env_gain=env_gain,
+        env_direction=env_direction,
+    )
+    return meta
+
+
+def _make_icassp_testset(
+    root: str,
+    rng: np.random.Generator,
+    mix: np.ndarray,
+    speech_dim: int,
+    window_length: int,
+    n_subjects: int,
+    meta: Dict,
+    noise: float = 0.5,
+    trials: int = 8,
+    env_decodable: bool = False,
+    env_gain: float = 1.0,
+    env_direction: Optional[np.ndarray] = None,
+):
+    """ICASSP-2023 challenge test folders (match-mismatch + regression)."""
+    mm_dir = os.path.join(root, "icassp", "TEST_task1_matchmismatch")
+    seg_dir = os.path.join(mm_dir, "wav2vec_segments_wholefile_64hz")
+    lab_dir = os.path.join(mm_dir, "labels")
+    os.makedirs(seg_dir, exist_ok=True)
+    os.makedirs(lab_dir, exist_ok=True)
+
+    # candidate stimulus segments: one pkl of {key: [wl, speech_dim]}
+    n_segments = 12
+    seg_keys = [f"teststory_-_seg{i}" for i in range(n_segments)]
+    segments = {
+        k: rng.standard_normal((window_length, speech_dim)).astype(np.float32)
+        for k in seg_keys
+    }
+    if env_decodable:
+        # keep the eval segments distributionally consistent with the
+        # training stories: channel 0 is a standardized smooth envelope
+        for k in seg_keys:
+            segments[k][:, 0] = _standardize(_smooth_env(rng, window_length))
+    with open(os.path.join(seg_dir, "teststory_-_wav2vec_19.pkl"), "wb") as f:
+        pickle.dump(segments, f)
+    # mel/env candidate sets for the same segments (the MM eval globs
+    # ``*{stimulus_feature}*.pkl`` — ref helper:58,92 — so runs trained on
+    # mel/env need their own candidate files), derived with the same
+    # transformations the main fixture applies to story features above
+    def _mel_of(x):
+        m = np.abs(x[:, : min(28, speech_dim)])
+        if m.shape[1] < 28:
+            m = np.tile(m, (1, int(np.ceil(28 / m.shape[1]))))[:, :28]
+        return m.astype(np.float32)
+
+    with open(os.path.join(seg_dir, "teststory_-_mel.pkl"), "wb") as f:
+        pickle.dump({k: _mel_of(v) for k, v in segments.items()}, f)
+    with open(os.path.join(seg_dir, "teststory_-_env.pkl"), "wb") as f:
+        pickle.dump(
+            {k: np.abs(v[:, :1]).astype(np.float32)
+             for k, v in segments.items()},
+            f,
+        )
+
+    for si in range(n_subjects):
+        sub = f"sub-9{si:02d}"
+        mapping = {}
+        labels = {}
+        for trial in range(trials):
+            key = f"{sub}_trial{trial}"
+            match_idx, mismatch_idx = rng.choice(n_segments, 2, replace=False)
+            label = int(rng.integers(0, 2))
+            cand = (
+                [seg_keys[match_idx], seg_keys[mismatch_idx]]
+                if label == 0
+                else [seg_keys[mismatch_idx], seg_keys[match_idx]]
+            )
+            eeg = segments[seg_keys[match_idx]] @ mix
+            if env_decodable:
+                eeg = eeg + env_gain * np.outer(
+                    segments[seg_keys[match_idx]][:, 0], env_direction / 8.0
+                )
+            eeg = (
+                eeg + noise * rng.standard_normal((window_length, 64))
+            ).astype(np.float32)
+            mapping[key] = [eeg.tolist(), cand[0] + ".npy", cand[1] + ".npy"]
+            labels[key] = label
+        with open(os.path.join(mm_dir, f"{sub}.json"), "w") as f:
+            json.dump(mapping, f)
+        with open(os.path.join(lab_dir, f"{sub}_labels.json"), "w") as f:
+            json.dump(labels, f)
+
+    # task 2: regression — per-subject trials of raw EEG + envelope labels
+    reg_dir = os.path.join(root, "icassp", "TEST_task2_regression")
+    reg_lab_dir = os.path.join(reg_dir, "labels")
+    os.makedirs(reg_lab_dir, exist_ok=True)
+    t_trial = window_length * 4  # several overlap-add windows
+    for si in range(n_subjects):
+        sub = f"sub-9{si:02d}"
+        mapping = {}
+        labels = {}
+        for trial in range(3):
+            key = f"{sub}_reg_trial{trial}"
+            speech = rng.standard_normal((t_trial, speech_dim)).astype(np.float32)
+            if env_decodable:
+                env_trial = _smooth_env(rng, t_trial)
+                env_std = _standardize(env_trial)
+                speech[:, 0] = env_std
+                eeg = (
+                    speech @ mix
+                    + env_gain * np.outer(env_std, env_direction / 8.0)
+                    + noise * rng.standard_normal((t_trial, 64))
+                ).astype(np.float32)
+                labels[key] = [env_trial.tolist()]
+            else:
+                eeg = (
+                    speech @ mix + noise * rng.standard_normal((t_trial, 64))
+                ).astype(np.float32)
+                labels[key] = [np.abs(speech[:, 0]).tolist()]
+            mapping[key] = eeg.tolist()
+        with open(os.path.join(reg_dir, f"{sub}.json"), "w") as f:
+            json.dump(mapping, f)
+        with open(os.path.join(reg_lab_dir, f"{sub}_labels.json"), "w") as f:
+            json.dump(labels, f)
+
+    meta["icassp_mm_dir"] = mm_dir
+    meta["icassp_reg_dir"] = reg_dir

@@ -92,6 +92,7 @@ class CLIPSimNoLatentProj(nn.Module):
         super().__init__()
         self.eegModel = eegModel
         self.speechModel = speechModel
+        self.window_length = window_length  # read by the challenge regression
         self.init_temperature = float(temperature)
         self.temperature = nn.Parameter(torch.tensor(float(temperature)))
         self.temperature_eeg = nn.Parameter(torch.tensor(float(temperature)))

@@ -12,7 +12,9 @@ package writes an orbax tree; the port writes one ``torch.save`` file,
 written atomically (a temporary file, then ``os.replace``), so a crash
 mid-write leaves the previous checkpoint whole.  ``best_meta.json`` keeps
 the JAX package's format: the val ``loss_ce`` the best checkpoint was saved
-at, so a resumed run knows the bar to beat.
+at, so a resumed run knows the bar to beat.  The regression evals' probes
+are saved bare (:func:`save_params_only`): a ``state_dict`` in one
+``torch.save`` file at the path where the JAX package writes its orbax tree.
 """
 
 from __future__ import annotations
@@ -93,3 +95,17 @@ def load_best_meta(checkpoint_dir: str) -> Optional[float]:
             return float(json.load(f)["best_loss"])
     except (ValueError, KeyError, OSError):
         return None
+
+
+def save_params_only(path: str, state_dict: dict) -> None:
+    """Atomically write a bare ``state_dict`` (the probes' analogue of the
+    reference's per-subject ``.pth`` files, ref
+    ``train_clip_helper_functions.py:660-663``), its tensors on the CPU."""
+    tmp = path + ".tmp"
+    torch.save({k: v.detach().cpu() for k, v in state_dict.items()}, tmp)
+    os.replace(tmp, path)
+
+
+def restore_params_only(path: str, device="cpu") -> dict:
+    """The ``state_dict`` :func:`save_params_only` wrote, on ``device``."""
+    return torch.load(path, map_location=device, weights_only=True)

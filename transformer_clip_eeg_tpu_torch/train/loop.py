@@ -1,17 +1,24 @@
 """The training driver: epoch loop, early stopping, checkpointing, logging.
 
-Counterpart of ``transformer_clip_eeg_tpu/train/loop.py`` on its host data
-path (ref ``train_clip_final.py:443-540``): auto-resume from
-``checkpoints/``, warmup epochs backprop ``loss_ce`` only, a per-epoch
-scheduler step, validation in eval mode (the memory bank still updating),
-best-on-val-CE checkpointing with the in-memory best restored at the end,
-and the same ``loss.txt`` lines.  Batches are gathered on the host in numpy
-and copied to the card from pinned buffers, two batches ahead.
+Counterpart of ``transformer_clip_eeg_tpu/train/loop.py`` (ref
+``train_clip_final.py:443-540``): auto-resume from ``checkpoints/``, warmup
+epochs backprop ``loss_ce`` only, a per-epoch scheduler step, validation in
+eval mode (the memory bank still updating), best-on-val-CE checkpointing
+with the in-memory best restored at the end, and the same ``loss.txt``
+lines.
 
-Not ported yet, each raising ``NotImplementedError`` (ROADMAP.md): the
-device-resident chunk store (``data_mode="device"``), a data-parallel mesh
-(``n_data_shards``), the bf16 compute mode, augmentations and ``addEEG``
-mixup, ``profile_dir`` tracing, and a ``prng_impl`` other than the default.
+Two batch paths, chosen by ``data_mode``: ``"device"`` keeps the story
+chunks resident on the device and gathers each batch there from index
+vectors (``train/device_data.py``); ``"host"`` gathers each batch on the
+host in numpy and copies it to the card from a ring of pinned buffers, two
+batches ahead.  ``"auto"`` is the device store on a CUDA device and the host
+path on the CPU.  Both draw the dataset's ``rng`` in the same order, so
+they train on the same batches.
+
+Not ported yet, each raising ``NotImplementedError`` (ROADMAP.md): a
+data-parallel mesh (``n_data_shards``), the bf16 compute mode, augmentations
+and ``addEEG`` mixup, ``profile_dir`` tracing, and a ``prng_impl`` other
+than the default.
 """
 
 from __future__ import annotations
@@ -38,7 +45,14 @@ from transformer_clip_eeg_tpu_torch.train.state import (
     make_optimizer,
     set_learning_rate,
 )
-from transformer_clip_eeg_tpu_torch.train.steps import eval_step, train_step
+from transformer_clip_eeg_tpu_torch.train import device_data
+from transformer_clip_eeg_tpu_torch.train.device_data import DeviceChunkStore
+from transformer_clip_eeg_tpu_torch.train.steps import (
+    chunk_eval_step,
+    chunk_train_step,
+    eval_step,
+    train_step,
+)
 
 
 def printf(statement: str, file: str) -> None:
@@ -101,23 +115,37 @@ def batch_iterator(
 def prefetch_to_device(
     iterator: Iterator[Dict[str, np.ndarray]], device: torch.device, size: int = 2,
 ) -> Iterator[Dict[str, torch.Tensor]]:
-    """Batches on ``device``, ``size`` ahead: on the card each array is
+    """Batches on ``device``, ``size`` ahead.  On the card each array is
     staged in pinned host memory and copied with ``non_blocking=True``, so
-    the copy overlaps the step before it."""
+    the copy overlaps the step before it; the pinned buffers form a ring
+    ``size + 1`` deep, and a slot is refilled only after the event recorded
+    behind its last copy has completed."""
     device = torch.device(device)
+    if device.type != "cuda":
+        for batch in iterator:
+            yield {k: torch.from_numpy(np.ascontiguousarray(v)) for k, v in batch.items()}
+        return
+    ring: List[Dict[str, torch.Tensor]] = [{} for _ in range(size + 1)]
+    events: List[Optional[torch.cuda.Event]] = [None] * (size + 1)
     queue: collections.deque = collections.deque()
 
-    def put(batch):
-        out = {}
+    def put(batch, slot: int):
+        if events[slot] is not None:
+            events[slot].synchronize()  # the copy that read this slot is done
+        bufs, out = ring[slot], {}
         for k, v in batch.items():
-            t = torch.from_numpy(np.ascontiguousarray(v))
-            if device.type == "cuda":
-                t = t.pin_memory().to(device, non_blocking=True)
-            out[k] = t
+            src = torch.from_numpy(np.ascontiguousarray(v))
+            buf = bufs.get(k)
+            if buf is None or buf.shape != src.shape or buf.dtype != src.dtype:
+                buf = bufs[k] = torch.empty(src.shape, dtype=src.dtype, pin_memory=True)
+            buf.copy_(src)
+            out[k] = buf.to(device, non_blocking=True)
+        events[slot] = torch.cuda.Event()
+        events[slot].record()
         return out
 
-    for batch in iterator:
-        queue.append(put(batch))
+    for i, batch in enumerate(iterator):
+        queue.append(put(batch, i % (size + 1)))
         if len(queue) >= size:
             yield queue.popleft()
     while queue:
@@ -133,8 +161,6 @@ def _not_ported(what: str) -> NotImplementedError:
 
 def check_supported(cfg: TrainConfig, mesh=None, profile_dir: Optional[str] = None) -> None:
     """Raise ``NotImplementedError`` for the options the port does not run yet."""
-    if cfg.data_mode == "device":
-        raise _not_ported("data_mode='device' (the device-resident chunk store)")
     if cfg.n_data_shards or mesh is not None:
         raise _not_ported("data-parallel training over several devices (n_data_shards)")
     if cfg.compute_dtype != "float32":
@@ -182,6 +208,20 @@ class Trainer:
         cfg.bank_size = bank_size  # persisted so serving rebuilds the head
         cfg.save(os.path.join(self.results_dir, "args.txt"))
 
+        # the device-resident chunk path (train/device_data.py): on a CUDA
+        # device by default, as the JAX package uses it on a TPU.  There is
+        # no fallback: a store that cannot upload fails the run
+        if cfg.data_mode not in ("auto", "host", "device"):
+            raise ValueError(f"data_mode must be auto, host or device, got {cfg.data_mode!r}")
+        self.device_data = (cfg.data_mode == "device"
+                            or (cfg.data_mode == "auto" and self.device.type == "cuda"))
+        if self.device_data:
+            store_kw = dict(device=self.device, store_dtype=cfg.chunk_store_dtype,
+                            budget_frac=cfg.chunk_budget_frac)
+            self.chunk_store = DeviceChunkStore(train_dataset, **store_kw)
+            if val_dataset is not None:
+                self.val_chunk_store = DeviceChunkStore(val_dataset, **store_kw)
+
         # the JAX trainer draws one example batch to initialise its state; the
         # same draw here checks that the dataset yields batches and leaves its
         # sampling stream where the JAX trainer leaves it
@@ -203,6 +243,68 @@ class Trainer:
 
     def _batches(self, dataset) -> Iterator[Dict[str, torch.Tensor]]:
         return prefetch_to_device(batch_iterator(dataset, add_eeg=False), self.device)
+
+    def _indices(self, *mats: np.ndarray) -> List[torch.Tensor]:
+        """Index matrices as int64 on the device (from pinned memory on the
+        card, without blocking)."""
+        out = [torch.from_numpy(np.ascontiguousarray(m, np.int64)) for m in mats]
+        if self.device.type == "cuda":
+            out = [t.pin_memory().to(self.device, non_blocking=True) for t in out]
+        return out
+
+    def _train_batches(self, warmup: bool):
+        """One training epoch: yields ``(losses, pairs)`` per item and
+        appends the host clock at each train step's start to
+        ``self._step_starts``.  In device mode an item is a chunk's
+        bucket-aligned prefix (its mean losses, ``n_scan * bs`` pairs) or one
+        batch of its tail, as the JAX trainer's scan and per-batch steps."""
+        cfg, phase, seed = self.cfg, self._phase, self._train_seed
+        if self.device_data:
+            for eeg_c, sp_c, ids_c, idx_m, subs_m, n in self.chunk_store.epoch_chunk_batches():
+                bs = idx_m.shape[1]
+                n_scan = (n // device_data.SUBS_BUCKET) * device_data.SUBS_BUCKET
+                idx_d, subs_d = self._indices(idx_m, subs_m)
+
+                def step(i):
+                    t0 = time.perf_counter()
+                    self._step_starts.append(t0)
+                    losses = chunk_train_step(self.model, self.optimizer, eeg_c, sp_c, ids_c,
+                                              idx_d[i], subs_d[i], seed, warmup, cfg.model_arch)
+                    phase["dispatch_s"] += time.perf_counter() - t0
+                    return losses
+
+                if n_scan:
+                    scanned = [step(i) for i in range(n_scan)]
+                    yield ({k: torch.stack([s[k] for s in scanned]).mean() for k in scanned[0]},
+                           n_scan * bs)
+                for i in range(n_scan, n):
+                    yield step(i), bs
+        else:
+            for batch in self._batches(self.train_dataset):
+                t0 = time.perf_counter()
+                self._step_starts.append(t0)
+                losses = train_step(self.model, self.optimizer, batch, seed, warmup,
+                                    cfg.model_arch)
+                phase["dispatch_s"] += time.perf_counter() - t0
+                yield losses, batch["eeg"].shape[0]
+
+    def release_device_data(self) -> None:
+        """Drop the chunk stores' resident chunks, so the device memory they
+        held is free for the eval suite's embedding extraction."""
+        for store in (getattr(self, "chunk_store", None),
+                      getattr(self, "val_chunk_store", None)):
+            if store is not None:
+                store.release()
+
+    def release_host_data(self) -> None:
+        """Also free the ingested datasets' host arrays (the eval suite
+        ingests its own splits)."""
+        self.release_device_data()
+        for ds in (self.train_dataset, self.val_dataset):
+            if ds is not None and hasattr(ds, "chunks"):
+                ds.chunks.clear()
+        self.train_dataset = None
+        self.val_dataset = None
 
     def _snapshot(self) -> Dict[str, Any]:
         """A deep copy of the model (parameters and bank) and the optimizer."""
@@ -238,7 +340,7 @@ class Trainer:
             printf(f"no model found at {self.checkpoint_dir}, training from scratch",
                    self.loss_file)
 
-        train_seed = cfg.seed + 1  # the JAX trainer's PRNGKey(seed + 1)
+        self._train_seed = cfg.seed + 1  # the JAX trainer's PRNGKey(seed + 1)
         # a resumed run starts from the recorded best val CE, so its first
         # (possibly worse) epoch cannot overwrite the saved best
         best_loss = float("inf")
@@ -266,21 +368,19 @@ class Trainer:
             n_batches = n_pairs = next_log = 0
             # dispatch = host time in step calls, fetch = host time turning
             # the deferred loss scalars into log lines, block = the
-            # end-of-epoch wait for the card's queue to drain
-            phase = {"dispatch_s": 0.0, "fetch_s": 0.0}
+            # end-of-epoch wait for the card's queue to drain; in device mode
+            # the store's uploads and the time waited for them
+            self._phase = phase = {"dispatch_s": 0.0, "fetch_s": 0.0}
+            store_before = self.chunk_store.snapshot_stats() if self.device_data else None
             # host clock at each step's start; the intervals between them
             # (the last one closed after the drain) are the step times
-            step_starts: List[float] = []
+            self._step_starts = step_starts = []
             stream_logs = cfg.loss_log_stream == "batch"
             pending_logs: List[Tuple[int, Dict]] = []
             try:
-                for batch in self._batches(self.train_dataset):
-                    t_step = time.perf_counter()
-                    step_starts.append(t_step)
-                    losses = train_step(self.model, self.optimizer, batch, train_seed,
-                                        warmup, cfg.model_arch)
-                    phase["dispatch_s"] += time.perf_counter() - t_step
-                    pairs = batch["eeg"].shape[0]
+                for losses, pairs in self._train_batches(warmup):
+                    # an item may cover several batches (a chunk's prefix);
+                    # log at every crossing of the 100-batch mark
                     if n_batches >= next_log:
                         next_log = n_batches - (n_batches % 100) + 100
                         if stream_logs:
@@ -316,6 +416,15 @@ class Trainer:
             )
             phase_rec = {k: round(v, 1) for k, v in phase.items()}
             phase_rec["block_s"] = round(block_s, 1)
+            if store_before is not None:
+                after = self.chunk_store.snapshot_stats()
+                phase_rec.update(
+                    uploads=after["uploads"] - store_before["uploads"],
+                    upload_gb=round((after["upload_bytes"] - store_before["upload_bytes"])
+                                    / 2**30, 2),
+                    upload_s=round(after["upload_s"] - store_before["upload_s"], 1),
+                    upload_wait_s=round(after["wait_s"] - store_before["wait_s"], 1),
+                )
             printf(f"epoch {epoch} phases {json.dumps(phase_rec)}", self.loss_file)
 
             # scheduler (ref :502-504); plateau consumes the last val loss
@@ -371,8 +480,24 @@ class Trainer:
             return {"loss_ce": float("nan"), "loss_total": float("nan")}
         sums: Dict[str, torch.Tensor] = {}
         count = 0
-        for batch in self._batches(self.val_dataset):
-            for k, v in eval_step(self.model, batch, self.cfg.model_arch).items():
+
+        def add(losses):
+            for k, v in losses.items():
                 sums[k] = sums[k] + v if k in sums else v
-            count += 1
+
+        arch = self.cfg.model_arch
+        if self.device_data:
+            # every batch of a chunk in turn (the JAX trainer scans a chunk's
+            # bucket-aligned prefix; the sum is the same), summed in the host
+            # path's order
+            for eeg_c, sp_c, ids_c, idx_m, subs_m, n in self.val_chunk_store.epoch_chunk_batches():
+                idx_d, subs_d = self._indices(idx_m, subs_m)
+                for i in range(n):
+                    add(chunk_eval_step(self.model, eeg_c, sp_c, ids_c, idx_d[i], subs_d[i],
+                                        arch))
+                    count += 1
+        else:
+            for batch in self._batches(self.val_dataset):
+                add(eval_step(self.model, batch, arch))
+                count += 1
         return {k: float(v) / max(count, 1) for k, v in sums.items()}

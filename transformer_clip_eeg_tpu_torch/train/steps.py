@@ -1,11 +1,16 @@
 """The train and validation steps, and the embedding functions.
 
 Counterpart of ``transformer_clip_eeg_tpu/train/steps.py``
-(``_split_outputs``, ``make_train_step``, ``make_eval_step``,
-``make_embed_fns``).  PyTorch runs eagerly, so a step is a function rather
-than a compiled program: forward through both encoders and the head,
-backward (the kernels' own backward on the card), the optimizer update,
-and the memory bank's EMA update in place.
+(``_split_outputs``, ``make_train_step``, ``make_eval_step``, the chunk
+steps of the device-resident store, ``make_encode_fn``, ``make_embed_fns``).
+PyTorch runs eagerly, so a step is a function rather than a compiled
+program: forward through both encoders and the head, backward (the kernels'
+own backward on the card), the optimizer update, and the memory bank's EMA
+update in place.  The chunk steps gather their batch on the device from a
+resident chunk (``train/device_data.gather_batch``) and then run the same
+step; the JAX package's ``lax.scan`` over a chunk's batches is the
+trainer's plain loop of chunk steps (``train/loop.py``), with the same
+per-step seeds, so its losses are those of the per-batch steps.
 
 Warmup (ref ``train_clip_final.py:486-491``): during the first
 ``warmup_epochs`` epochs the gradient is taken on ``loss_ce`` alone; after
@@ -27,6 +32,7 @@ import torch
 from transformer_clip_eeg_tpu_torch.models.heads import flatten_features
 from transformer_clip_eeg_tpu_torch.ops.dropout import fold_seed, set_dropout_seeds
 from transformer_clip_eeg_tpu_torch.ops.layers import l2_normalize
+from transformer_clip_eeg_tpu_torch.train.device_data import gather_batch
 
 
 def _split_outputs(model_arch: str, outs) -> Dict[str, torch.Tensor]:
@@ -67,6 +73,34 @@ def eval_step(model, batch: Dict[str, torch.Tensor],
     still EMA-updates, as the reference's eval forward does."""
     model.eval()
     return _split_outputs(model_arch, model(batch["eeg"], batch["speech"], batch["ids"]))
+
+
+def chunk_train_step(model, optimizer, eeg_chunk, speech_chunk, ids_chunk,
+                     idx: torch.Tensor, subs: torch.Tensor, seed: int, warmup: bool,
+                     model_arch: str = "clip_sim_no_latent_proj") -> Dict[str, torch.Tensor]:
+    """:func:`train_step` on the batch gathered from a resident chunk;
+    ``idx`` and ``subs`` are int64 index vectors on the chunk's device."""
+    batch = gather_batch(eeg_chunk, speech_chunk, ids_chunk, idx, subs)
+    return train_step(model, optimizer, batch, seed, warmup, model_arch)
+
+
+def chunk_eval_step(model, eeg_chunk, speech_chunk, ids_chunk, idx: torch.Tensor,
+                    subs: torch.Tensor, model_arch: str = "clip_sim_no_latent_proj"
+                    ) -> Dict[str, torch.Tensor]:
+    """:func:`eval_step` on the batch gathered from a resident chunk."""
+    return eval_step(model, gather_batch(eeg_chunk, speech_chunk, ids_chunk, idx, subs),
+                     model_arch)
+
+
+def make_encode_fn(model) -> Callable:
+    """The raw EEG encoder (no flatten, no normalisation): the regression
+    evals read its per-timestep embeddings ``[B, T', D]``."""
+
+    @torch.inference_mode()
+    def encode_eeg(eeg: torch.Tensor) -> torch.Tensor:
+        return model.encode_eeg(eeg)
+
+    return encode_eeg
 
 
 def make_embed_fns(model) -> Tuple[Callable, Callable]:

@@ -14,8 +14,10 @@ names and layouts change:
 * ``membank`` ``eegMemoryBank/memory`` → the ``eegMemoryBank.memory`` buffer
 * root scalars (``temperature``, ``temperature_eeg``) keep their names.
 
-The function takes numpy arrays (anything ``np.asarray`` reads) and imports
-nothing of JAX.
+The functions take numpy arrays (anything ``np.asarray`` reads) and import
+nothing of JAX.  :func:`probe_state_dict_from_jax` carries an envelope
+probe (JAX ``models/regression.RegressionModel``, a Conv1d named ``conv``)
+across, its shape read from the kernel.
 """
 
 from __future__ import annotations
@@ -89,3 +91,12 @@ def state_dict_from_jax(variables: Mapping, model: nn.Module) -> Dict[str, torch
         raise ValueError(f"JAX leaves with no port tensor: {unused}; port "
                          f"tensors left unfilled: {missing}")
     return out
+
+
+def probe_state_dict_from_jax(variables: Mapping) -> Dict[str, torch.Tensor]:
+    """A JAX regression probe's ``{"params": {"conv": {"kernel", "bias"}}}``
+    → the port's ``RegressionModel`` ``state_dict``."""
+    from transformer_clip_eeg_tpu_torch.models.regression import RegressionModel
+
+    k, i, o = np.asarray(variables["params"]["conv"]["kernel"]).shape
+    return state_dict_from_jax(variables, RegressionModel(i, o, k))
