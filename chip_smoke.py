@@ -22,11 +22,13 @@ GPU, end to end.
    batch 8.  For the block's backward (#2) also its parts timed
    apart under ``torch.profiler`` (row kernels, attention, the weight
    gradients' products with their TFLOP/s, sums), the device launches per
-   call, a bit-for-bit repeat and what ``ptxas -v`` reported.  For the LSTM kernels (one thread-block cluster per
-   recurrence) also the launch plan, microseconds per step, what ``ptxas
-   -v`` reported (registers, spills), the backward's recurrence and its
-   dwhh reduction timed apart, and H=128 under its other plan (clusters of
-   8), checked and timed beside the default.
+   call, a bit-for-bit repeat and what ``ptxas -v`` reported.  For the LSTM
+   kernels (one thread-block cluster per recurrence) also the launch plan,
+   microseconds per step, what ``ptxas -v`` reported (registers, spills),
+   the backward's recurrence and its dwhh reduction timed apart; beside the
+   flagship's two biLSTMs (D=2, H=128 and H=4) the zoo's unidirectional
+   recurrence (D=1, H=128, B=128), also against a unidirectional
+   ``nn.LSTM``.
 4. Builds the flagship model (``TrainConfig()``: EEGConformerInterleaved
    depth 10, convLSTM, clip_sim_no_latent_proj) with seeded weights, serves
    it over HTTP on localhost, answers a request on every route, checks the
@@ -50,15 +52,27 @@ GPU, end to end.
    forwards per speech-encoder call, nothing else), that
    ``release_host_data`` gives back at least the bytes the stores held, and
    the eight evaluation JSONs (present, finite, no ``error_regression.txt``).
-   Then the same training with ``--data_mode host --skip_eval yes`` (its
-   losses against the device run's), ``--only_evaluate yes`` on the first
+   Then the same training with ``--data_mode host --skip_eval yes``, and
+   both modes once more on cuDNN's deterministic algorithms (their losses
+   held to each other), ``--only_evaluate yes`` on the first
    run (the match-mismatch JSONs rewritten with the same values), one step
    at batch 8 with dropout on, card against CPU; the trained run served from
    its results directory against the trainer's model; the median step time
    of epoch 2 in each mode, the gather of one batch timed, and a
    ``torch.profiler`` pass over 3 device-mode steps (a ``{"train": ...}``
    line).
-6. The conv kernels at the flagship's shapes (B=128, T=192, C=64): the
+6. The model zoo (``zoo_path``): six configurations Z1-Z6 that between them
+   run every encoder and head of the JAX registry at full width (batch 128,
+   T=192, depth 10, latent 8, ``--lstm_units 128``).  For each, one train
+   step at batch 8 with dropout on, card against CPU (losses, every
+   gradient, the memory bank, the batch norms' running statistics); then
+   ``cli.main`` on the same fixture on the card (device store, ``--epochs
+   1 --skip_eval yes``; Z1 the whole default run, evaluation suite
+   included) with the exact launches of kernels #1-#4, printed per train
+   step, and the median step time; then the Z3 run (a head without a memory
+   bank) served by ``from_results_dir``, one 128-window chunk against the
+   CPU.  Prints the phase's seconds.
+7. The conv kernels at the flagship's shapes (B=128, T=192, C=64): the
    fused BasicBlock forward (#5) against its plain twin in eval and in
    training (dropout 0.2, fixed seed) for K=64 (EEG) and K=32 (speech), its
    backward (#6) against autograd through the twin (all five gradients; its
@@ -66,7 +80,7 @@ GPU, end to end.
    as for #2), and the conv alone (#7) against ``F.conv1d``; each timed beside its plain twin
    and a yardstick (the port's unfused ``BasicBlock``, its backward, and
    ``F.conv1d``; cuDNN with TF32 off).
-7. The fused path: the flagship with ``fused=True`` on its 11 square
+8. The fused path: the flagship with ``fused=True`` on its 11 square
    BasicBlocks (10 EEG blocks at K=64, the speech block at K=32).  8 windows
    on the card against the same model unfused on the card and against a CPU
    copy; one train step at batch 8 with dropout on, card against CPU; the
@@ -75,19 +89,20 @@ GPU, end to end.
    already on the card, fused and unfused in turns, and a ``torch.profiler``
    pass over 3 fused steps.  The default serving and training paths above
    launch none of #5-#7.
-8. The long window: the flagship built with ``window_length_s=4`` (T=256). 8
+9. The long window: the flagship built with ``window_length_s=4`` (T=256). 8
    windows through both embedders on the card against a CPU copy, one train
    step at batch 8 with dropout on, card against CPU, and the exact launches
    of each (10 block forwards and 2 LSTM recurrences per embedding; 10, 10,
    2 and 2 forwards and backwards per step).
-9. Prints one JSON line of per-kernel numbers, then, last, the
-   ``{"ok": true, "device": ...}`` line.
+10. Prints one JSON line of per-kernel numbers, then, last, the
+    ``{"ok": true, "device": ...}`` line.
 
 Any failure raises and exits non-zero.  Imports nothing of JAX.
 """
 
 from __future__ import annotations
 
+import contextlib
 import io
 import json
 import os
@@ -162,6 +177,7 @@ from transformer_clip_eeg_tpu_torch.train.device_data import (  # noqa: E402
 from transformer_clip_eeg_tpu_torch.train.loop import Trainer, batch_iterator  # noqa: E402
 from transformer_clip_eeg_tpu_torch.train.state import make_optimizer  # noqa: E402
 from transformer_clip_eeg_tpu_torch.train.steps import (  # noqa: E402
+    _split_outputs as split_outputs,
     chunk_train_step,
     train_step,
 )
@@ -423,14 +439,21 @@ def plan_text(plan) -> str:
             f"{plan.threads} threads")
 
 
+# the recurrences timed in the kernel phase: (H, input width, D).  The
+# flagship's speech encoder packs both directions (D=2) of a biLSTM of H=128
+# (input 64) and one of H=4 (input 256); the zoo's double_lstm and lstm
+# encoders run unidirectional ones (D=1) at H=--lstm_units=128
+LSTM_SHAPES = ((128, 64, 2), (4, 256, 2), (128, 128, 1))
+
+
 def check_lstm(gen: torch.Generator) -> dict:
-    """Both of the speech encoder's recurrences: H=128 (input 64) and H=4
-    (input 256), forward and reverse packed, batch 128, T=192."""
-    t, d, b = 192, 2, 128
+    """The recurrences of ``LSTM_SHAPES`` at batch 128, T=192; the entry's
+    totals are the flagship's two (D=2), the D=1 one is in ``shapes``."""
+    t, b = 192, 128
     dev = "cuda"
     shapes = []
     with torch.inference_mode():
-        for hidden, in_dim in ((128, 64), (4, 256)):
+        for hidden, in_dim, d in LSTM_SHAPES:
             lim = 1.0 / hidden ** 0.5
             xw = (0.5 * torch.randn(t, d, b, 4 * hidden, generator=gen)).to(dev)
             whh = ((torch.rand(d, hidden, 4 * hidden, generator=gen) * 2 - 1) * lim).to(dev)
@@ -442,8 +465,8 @@ def check_lstm(gen: torch.Generator) -> dict:
                 f"(tol {LSTM_TOL:g})")
             if not err <= LSTM_TOL:
                 raise AssertionError(f"LSTM recurrence disagrees with its twin: {err}")
-            # yardstick: cuDNN's biLSTM, input projection included
-            lib = torch.nn.LSTM(in_dim, hidden, batch_first=True, bidirectional=True,
+            # yardstick: cuDNN's LSTM (bidirectional at D=2), input projection included
+            lib = torch.nn.LSTM(in_dim, hidden, batch_first=True, bidirectional=d == 2,
                                 device=dev).eval()
             x = torch.randn(b, t, in_dim, generator=gen).to(dev)
             ms = time_ms(lambda: lstm_scan_packed(xw, whh))
@@ -454,17 +477,19 @@ def check_lstm(gen: torch.Generator) -> dict:
             bound_ms, bound_by = bound(flops, nbytes)
             plan = lstm_launch_plan(b, d, hidden)
             usage = ptxas_usage("fwd", hidden)
-            log(f"  H={hidden}: kernel {ms:.4f} ms ({ms / t * 1e3:.3f} us/step), plain "
+            log(f"  H={hidden}, D={d}: kernel {ms:.4f} ms ({ms / t * 1e3:.3f} us/step), plain "
                 f"{plain_ms:.4f} ms, nn.LSTM {library_ms:.4f} ms, bound {bound_ms:.4f} ms "
                 f"({bound_by}); {plan_text(plan)}; ptxas {usage}")
             shape = {
-                "hidden": hidden, "xw": list(xw.shape), "max_abs_err": err, "ms": ms,
+                "hidden": hidden, "directions": d, "xw": list(xw.shape), "max_abs_err": err,
+                "ms": ms,
                 "us_per_step": ms / t * 1e3, "plain_ms": plain_ms,
                 "library_ms": library_ms, "bound_ms": bound_ms, "bound_by": bound_by,
                 "plan": plan._asdict(), "ptxas": usage,
             }
             shapes.append(shape)
-    total = lambda key: sum(s[key] for s in shapes)  # noqa: E731
+    flagship = [s for s in shapes if s["directions"] == 2]
+    total = lambda key: sum(s[key] for s in flagship)  # noqa: E731
     return {
         "name": "lstm_scan_packed", "route": "cuda",
         "source": "transformer_clip_eeg_tpu_torch/csrc/lstm_scan.cu",
@@ -474,8 +499,9 @@ def check_lstm(gen: torch.Generator) -> dict:
         "library_ms": total("library_ms"),
         "library_call": "torch.nn.LSTM(bidirectional=True), input projection included",
         "bound_ms": total("bound_ms"),
-        "bound_by": max(shapes, key=lambda s: s["bound_ms"])["bound_by"],
-        "times_are": "sums over the two recurrences of one speech chunk",
+        "bound_by": max(flagship, key=lambda s: s["bound_ms"])["bound_by"],
+        "times_are": "sums over the two recurrences of one flagship speech chunk (D=2); "
+                     "shapes also holds D=1",
         "shapes": shapes,
     }
 
@@ -573,11 +599,12 @@ def check_block_backward(x, params, gen: torch.Generator) -> dict:
 
 def check_lstm_backward(gen: torch.Generator) -> dict:
     """Kernel #4 through the autograd Function against autograd through the
-    twin, for both of the speech encoder's recurrences (H=128 and H=4)."""
-    t, d, b = 192, 2, 128
+    twin, for the recurrences of ``LSTM_SHAPES``; the entry's totals are the
+    flagship's two (D=2)."""
+    t, b = 192, 128
     dev = "cuda"
     shapes = []
-    for hidden, in_dim in ((128, 64), (4, 256)):
+    for hidden, in_dim, d in LSTM_SHAPES:
         lim = 1.0 / hidden ** 0.5
         xw = (0.5 * torch.randn(t, d, b, 4 * hidden, generator=gen)).to(dev)
         whh = ((torch.rand(d, hidden, 4 * hidden, generator=gen) * 2 - 1) * lim).to(dev)
@@ -590,7 +617,7 @@ def check_lstm_backward(gen: torch.Generator) -> dict:
         want = torch.autograd.grad(ref_h, (ra, rw), g, retain_graph=True)
         errs = [grad_err(u, v) for u, v in zip(got, want)]
         abs_err = max(float((u - v).abs().max()) for u, v in zip(got, want))
-        log(f"lstm_scan_backward H={hidden}: dxw error {errs[0]:.3e}, dwhh error "
+        log(f"lstm_scan_backward H={hidden}, D={d}: dxw error {errs[0]:.3e}, dwhh error "
             f"{errs[1]:.3e} (tol {LSTM_BWD_TOL:g} x max(1, max|ref|)), max_abs_err {abs_err:.3e}")
         if not max(errs) <= LSTM_BWD_TOL:
             raise AssertionError(f"LSTM backward disagrees with autograd through its twin: {errs}")
@@ -605,23 +632,24 @@ def check_lstm_backward(gen: torch.Generator) -> dict:
         usage = ptxas_usage("bwd", hidden)
         plain_ms = time_ms(lambda: torch.autograd.grad(ref_h, (ra, rw), g, retain_graph=True),
                            reps=5, warmup=1)
-        lib = torch.nn.LSTM(in_dim, hidden, batch_first=True, bidirectional=True, device=dev)
+        lib = torch.nn.LSTM(in_dim, hidden, batch_first=True, bidirectional=d == 2,
+                            device=dev)
         xl = torch.randn(b, t, in_dim, generator=gen).to(dev).requires_grad_()
         lib_leaves = [xl] + list(lib.parameters())
         lib_out, _ = lib(xl)
-        g_lib = torch.randn(b, t, 2 * hidden, generator=gen).to(dev)
+        g_lib = torch.randn(b, t, d * hidden, generator=gen).to(dev)
         library_ms = time_ms(lambda: torch.autograd.grad(lib_out, lib_leaves, g_lib,
                                                          retain_graph=True))
         rows = t * d * b
         flops = 2 * rows * 4 * hidden * hidden * 2  # dpre whh^T and h_prev^T dpre
         nbytes = 4 * (2 * rows * 4 * hidden + 3 * rows * hidden + 2 * whh.numel())
         bound_ms, bound_by = bound(flops, nbytes)
-        log(f"  H={hidden}: kernel {ms:.4f} ms ({ms / t * 1e3:.3f} us/step): recurrence "
+        log(f"  H={hidden}, D={d}: kernel {ms:.4f} ms ({ms / t * 1e3:.3f} us/step): recurrence "
             f"{recurrence_ms:.4f} ms ({recurrence_ms / t * 1e3:.3f} us/step), dwhh "
             f"{dwhh_ms:.4f} ms ({dwhh_tflops:.2f} TFLOP/s, two launches); plain {plain_ms:.4f} ms, nn.LSTM backward {library_ms:.4f} "
             f"ms, bound {bound_ms:.4f} ms ({bound_by}); {plan_text(plan)}; ptxas {usage}")
         shape = {
-            "hidden": hidden, "xw": list(xw.shape), "max_abs_err": abs_err,
+            "hidden": hidden, "directions": d, "xw": list(xw.shape), "max_abs_err": abs_err,
             "max_grad_err": max(errs), "ms": ms, "us_per_step": ms / t * 1e3,
             "recurrence_ms": recurrence_ms, "recurrence_us_per_step": recurrence_ms / t * 1e3,
             "dwhh_ms": dwhh_ms, "dwhh_tflops": dwhh_tflops, "plain_ms": plain_ms,
@@ -630,7 +658,8 @@ def check_lstm_backward(gen: torch.Generator) -> dict:
             "ptxas": usage,
         }
         shapes.append(shape)
-    total = lambda key: sum(s[key] for s in shapes)  # noqa: E731
+    flagship = [s for s in shapes if s["directions"] == 2]
+    total = lambda key: sum(s[key] for s in flagship)  # noqa: E731
     return {
         "name": "lstm_scan_backward", "route": "cuda",
         "source": "transformer_clip_eeg_tpu_torch/csrc/lstm_scan_bwd.cu",
@@ -643,8 +672,9 @@ def check_lstm_backward(gen: torch.Generator) -> dict:
         "library_call": "backward of torch.nn.LSTM(bidirectional=True), input "
                         "projection's gradients included",
         "bound_ms": total("bound_ms"),
-        "bound_by": max(shapes, key=lambda s: s["bound_ms"])["bound_by"],
-        "times_are": "sums over the two recurrences of one train step",
+        "bound_by": max(flagship, key=lambda s: s["bound_ms"])["bound_by"],
+        "times_are": "sums over the two recurrences of one flagship train step (D=2); "
+                     "shapes also holds D=1",
         "shapes": shapes,
     }
 
@@ -977,8 +1007,7 @@ def serve_path() -> dict:
     npy_headers = {"Content-Type": NPY_CONTENT_TYPE, "Accept": NPY_CONTENT_TYPE}
     timings = {}
     try:
-        for f in COUNTERS:
-            f.launches = 0
+        zero_counts()
         t0 = time.perf_counter()
         with urllib.request.urlopen(f"{url}/healthz", timeout=60) as resp:
             health = json.loads(resp.read())
@@ -1132,55 +1161,81 @@ def set_fused(model, on: bool = True) -> int:
     return n
 
 
-def card_vs_cpu_step(cfg, host_batch, fused: bool = False) -> dict:
+def step_grads(cfg, host_batch, dev: str, dtype=torch.float32, fused: bool = False) -> dict:
     """One training step's forward and gradients at batch 8, dropout on, on
-    the card and on the CPU: same weights (seed 0), same batch, same step
-    seed, so the same masks.  Compares the losses, every gradient and the
-    bank's rows after the step's EMA update.  ``fused`` sets ``fused`` on the
-    BasicBlocks of both models."""
-    out = {}
-    ids = host_batch["ids"][:8]
-    for dev in ("cuda", "cpu"):
-        model = build_model(cfg, cfg.bank_size, device=dev, seed=0).train()
-        set_fused(model, fused)
-        set_dropout_seeds(model, fold_seed(99, 0))
-        batch = [torch.from_numpy(host_batch[k][:8]).to(dev) for k in ("eeg", "speech", "ids")]
-        losses = model(*batch)
-        params = list(model.parameters())
-        grads = torch.autograd.grad(losses[2], params, allow_unused=True)
-        out[dev] = {
-            "losses": [float(v.detach()) for v in losses],
-            "grads": [torch.zeros_like(p) if g is None else g.detach().cpu()
-                      for g, p in zip(grads, params)],
-            "names": [n for n, _ in model.named_parameters()],
-            "bank": model.eegMemoryBank.memory[torch.from_numpy(ids).to(dev)].cpu(),
-        }
-    gpu, cpu = out["cuda"], out["cpu"]
-    loss_err = max(abs(a - b) / max(1.0, abs(b)) for a, b in zip(gpu["losses"], cpu["losses"]))
-    # each leaf relative to its own largest gradient; the floor only keeps a
-    # leaf that is zero in exact arithmetic (each block's key bias) finite
-    top = max(float(g.abs().max()) for g in cpu["grads"])
-    errs = {n: float((a - b).abs().max()) / max(float(b.abs().max()), STEP_GRAD_FLOOR * top)
-            for n, a, b in zip(cpu["names"], gpu["grads"], cpu["grads"])}
-    grad_err = max(errs.values())
-    worst = sorted(errs.items(), key=lambda kv: -kv[1])[:6]
-    bank_err = float((gpu["bank"] - cpu["bank"]).abs().max())
-    log(f"one train step at batch 8, dropout on{', conv blocks fused' if fused else ''}, "
-        f"card vs CPU: losses {gpu['losses']} vs "
-        f"{cpu['losses']} (err {loss_err:.2e}); worst gradient error {grad_err:.2e} "
-        f"(max abs error over max(leaf max, {STEP_GRAD_FLOOR:g} x largest gradient)), worst "
-        f"leaves {[(n, f'{v:.1e}') for n, v in worst]}; bank rows {bank_err:.2e} "
+    ``dev`` in ``dtype``: weights from seed 0, the step seed's masks.  The
+    losses (named as the trainer names them), every gradient and every
+    buffer after the step (the memory bank after its EMA update, the batch
+    norms' running statistics), on the CPU."""
+    model = build_model(cfg, cfg.bank_size, device=dev, seed=0).to(dtype).train()
+    set_fused(model, fused)
+    set_dropout_seeds(model, fold_seed(99, 0))
+    batch = [torch.from_numpy(host_batch[k][:8]).to(dev) for k in ("eeg", "speech", "ids")]
+    batch[:2] = [x.to(dtype) for x in batch[:2]]
+    losses = split_outputs(cfg.model_arch, model(*batch))
+    params = list(model.parameters())
+    grads = torch.autograd.grad(losses["loss_total"], params, allow_unused=True)
+    return {
+        "losses": {k: float(v.detach()) for k, v in losses.items()},
+        "grads": [(torch.zeros_like(p) if g is None else g).detach().cpu().double()
+                  for g, p in zip(grads, params)],
+        "names": [n for n, _ in model.named_parameters()],
+        "buffers": {n: b.detach().cpu().double() for n, b in model.named_buffers()},
+    }
+
+
+def step_errors(got: dict, want: dict) -> dict:
+    """``got`` against ``want`` (two ``step_grads``): the losses relative to
+    max(1, |want|); each gradient relative to its own largest value, the
+    floor only keeping a leaf that is zero in exact arithmetic (each block's
+    key bias) finite; the bank's rows (in [0, 1]) absolutely and the running
+    statistics relative to max(1, their largest value)."""
+    loss_err = max(abs(got["losses"][k] - v) / max(1.0, abs(v)) for k, v in want["losses"].items())
+    top = max(float(g.abs().max()) for g in want["grads"])
+    grad_errs = {n: float((a - b).abs().max()) / max(float(b.abs().max()), STEP_GRAD_FLOOR * top)
+                 for n, a, b in zip(want["names"], got["grads"], want["grads"])}
+    buffer_errs = {n: float((got["buffers"][n] - b).abs().max()) / max(1.0, float(b.abs().max()))
+                   for n, b in want["buffers"].items()}
+    stats = [v for n, v in buffer_errs.items() if n.endswith(("running_mean", "running_var"))]
+    return {"loss_err": loss_err, "grad_err": max(grad_errs.values()),
+            "bank_err": buffer_errs.get("eegMemoryBank.memory", 0.0),
+            "batch_stats_err": max(stats, default=0.0), "buffer_errs": buffer_errs,
+            "grad_floor": STEP_GRAD_FLOOR * top, "grad_err_by_leaf": grad_errs}
+
+
+def card_vs_cpu_step(cfg, host_batch, fused: bool = False, name: str = "",
+                     dtype=torch.float32) -> dict:
+    """One training step at batch 8, dropout on, on the card and on the CPU
+    in ``dtype``: same weights (seed 0), same batch, same step seed, so the
+    same masks.  The losses, every gradient, the bank's rows and the running
+    statistics must agree within ``STEP_TOL`` (``step_errors``).  ``fused``
+    sets ``fused`` on the BasicBlocks of both models."""
+    gpu, cpu = (step_grads(cfg, host_batch, dev, dtype, fused) for dev in ("cuda", "cpu"))
+    errs = step_errors(gpu, cpu)
+    worst = sorted(errs["grad_err_by_leaf"].items(), key=lambda kv: -kv[1])[:6]
+    n_norms = sum(n.endswith("running_var") for n in errs["buffer_errs"])
+    log(f"one train step at batch 8, dropout on{', conv blocks fused' if fused else ''}"
+        f"{', ' + name if name else ''}{', float64' if dtype == torch.float64 else ''}, "
+        f"card vs CPU: losses {gpu['losses']} vs {cpu['losses']} (err {errs['loss_err']:.2e}); "
+        f"worst gradient error {errs['grad_err']:.2e} (max abs error over max(leaf max, "
+        f"{STEP_GRAD_FLOOR:g} x largest gradient)) over {len(errs['grad_err_by_leaf'])} "
+        f"leaves, worst {[(n, f'{v:.1e}') for n, v in worst]}; bank rows {errs['bank_err']:.2e}; "
+        f"running statistics of {n_norms} batch norms {errs['batch_stats_err']:.2e} "
         f"(tol {STEP_TOL:g})")
-    if not (loss_err <= STEP_TOL and grad_err <= STEP_TOL and bank_err <= STEP_TOL):
+    if not max(errs["loss_err"], errs["grad_err"],
+               max(errs["buffer_errs"].values(), default=0.0)) <= STEP_TOL:
         raise AssertionError("the card's train step disagrees with the CPU's")
-    return {"loss_err": loss_err, "grad_err": grad_err, "bank_err": bank_err,
-            "grad_floor": STEP_GRAD_FLOOR * top, "grad_err_by_leaf": errs,
-            "n_grads": len(gpu["grads"]), "losses_card": gpu["losses"],
-            "losses_cpu": cpu["losses"]}
+    return {**errs, "dtype": str(dtype), "n_grads": len(gpu["grads"]),
+            "losses_card": gpu["losses"], "losses_cpu": cpu["losses"]}
 
 
 def counts() -> dict:
     return {f.__name__: f.launches for f in COUNTERS}
+
+
+def zero_counts() -> None:
+    for f in COUNTERS:
+        f.launches = 0
 
 
 def read_loss_txt(path: str, mode: str):
@@ -1228,13 +1283,15 @@ def check_eval_files(results_dir: str) -> dict:
     return out
 
 
-def train_path() -> dict:
-    """The reference's default run on the card through the port's CLI
-    (``cli.main``): train on the device-resident chunk store, keep the best
-    checkpoint, run the evaluation suite; the same training on the host
-    path; then ``--only_evaluate yes`` on the first run's results."""
-    shutil.rmtree(RUN_DIR, ignore_errors=True)
-    data_dir = os.path.join(RUN_DIR, "data")
+@contextlib.contextmanager
+def instrumented():
+    """``Trainer.fit``, ``Trainer.release_host_data`` and
+    ``cli.run_eval_suite`` wrapped for the runs inside: yields ``seen``, which
+    collects each trainer, the counts of training's kernel launches (read
+    where training ends, at ``release_host_data``), the chunks, steps and
+    resident bytes of the stores then, the device memory that call gave
+    back, and per evaluation suite its wall time, kernel launches and
+    encoder calls."""
     seen: dict = {"trainers": [], "eval": []}
     real = (Trainer.fit, Trainer.release_host_data, cli.run_eval_suite)
 
@@ -1248,8 +1305,7 @@ def train_path() -> dict:
         seen["train_launches"] = counts()
         seen["chunks"] = [sum("eeg" in c for c in ds.chunks.values())
                           for ds in (self.train_dataset, self.val_dataset)]
-        seen["steps"] = [sum(c["eeg"].shape[0] for c in ds.chunks.values() if "eeg" in c)
-                         for ds in (self.train_dataset, self.val_dataset)]
+        seen["steps"] = steps_per_epoch(self)
         seen["resident_bytes"] = sum(s._resident_bytes
                                      for s in (self.chunk_store, self.val_chunk_store))
         before = torch.cuda.memory_allocated()
@@ -1258,8 +1314,7 @@ def train_path() -> dict:
         seen["memory_allocated"] = (before, torch.cuda.memory_allocated())
 
     def run_eval_suite(model, *args, **kw):
-        for f in COUNTERS:
-            f.launches = 0
+        zero_counts()
         calls = {"eeg": 0, "speech": 0}
 
         def hook(name):
@@ -1280,17 +1335,60 @@ def train_path() -> dict:
     Trainer.fit, Trainer.release_host_data, cli.run_eval_suite = (
         fit, release_host_data, run_eval_suite)
     try:
-        t0 = time.perf_counter()
-        # 6 stories: the default --run 4 validates on fold 4, which the
-        # fixture's round robin over stories[:-1] fills only from 5 stories
-        # on; 400 s per story is one chunk of 133 windows at batch 128.  The
-        # fixture also writes the icassp/ tree the evaluation suite reads
-        make_fixture(data_dir, n_stories=6, n_subjects=3, story_seconds=400, speech_dim=1024)
-        log(f"fixture written in {time.perf_counter() - t0:.1f} s")
+        yield seen
+    finally:
+        Trainer.fit, Trainer.release_host_data, cli.run_eval_suite = real
 
+
+@contextlib.contextmanager
+def deterministic_cudnn():
+    """cuDNN's deterministic algorithms inside (several times slower at the
+    flagship's convolutions, so no timed run uses them).  The two data
+    paths are held to each other loss for loss (``HOST_DEVICE_TOL``); with
+    cuDNN's default algorithms a convolution's backward may sum in another
+    order in each run, and 24 AdamW steps amplify that past the limit on
+    some cards."""
+    before = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    try:
+        yield
+    finally:
+        torch.backends.cudnn.deterministic = before
+
+
+def steps_per_epoch(trainer) -> list:
+    """Train and validation steps of one epoch: a step per subject row of
+    each chunk."""
+    return [sum(c["eeg"].shape[0] for c in ds.chunks.values() if "eeg" in c)
+            for ds in (trainer.train_dataset, trainer.val_dataset)]
+
+
+def write_fixture() -> str:
+    """The synthetic SparrKULee fixture the training phases share, under
+    ``RUN_DIR`` (which ``main`` deletes at the end)."""
+    shutil.rmtree(RUN_DIR, ignore_errors=True)
+    data_dir = os.path.join(RUN_DIR, "data")
+    t0 = time.perf_counter()
+    # 6 stories: the default --run 4 validates on fold 4, which the fixture's
+    # round robin over stories[:-1] fills only from 5 stories on; 400 s per
+    # story is one chunk of 133 windows at batch 128.  The fixture also
+    # writes the icassp/ tree the evaluation suite reads, and wav2vec-19,
+    # mel and envelope features for every story
+    make_fixture(data_dir, n_stories=6, n_subjects=3, story_seconds=400, speech_dim=1024)
+    log(f"fixture written in {time.perf_counter() - t0:.1f} s")
+    return data_dir
+
+
+def train_path(data_dir: str) -> dict:
+    """The reference's default run on the card through the port's CLI
+    (``cli.main``): train on the device-resident chunk store, keep the best
+    checkpoint, run the evaluation suite; the same training on the host
+    path, and both paths again on cuDNN's deterministic algorithms, their
+    losses held to each other; then ``--only_evaluate yes`` on the first
+    run's results."""
+    with instrumented() as seen:
         # 1. the default command line: training, then the evaluation suite
-        for f in COUNTERS:
-            f.launches = 0
+        zero_counts()
         t0 = time.perf_counter()
         if cli.main(["--data_dir", data_dir, "--epochs", "2", "--results_folder",
                      os.path.join(RUN_DIR, "device")], device="cuda") != 0:
@@ -1350,8 +1448,7 @@ def train_path() -> dict:
             raise AssertionError("training left the memory bank as it was")
 
         # 2. the same training on the host path, same seed
-        for f in COUNTERS:
-            f.launches = 0
+        zero_counts()
         if cli.main(["--data_dir", data_dir, "--epochs", "2", "--data_mode", "host",
                      "--skip_eval", "yes", "--results_folder", os.path.join(RUN_DIR, "host")],
                     device="cuda") != 0:
@@ -1361,11 +1458,29 @@ def train_path() -> dict:
             raise AssertionError(f"host mode: device_data {host.device_data}, launches "
                                  f"{counts()}, want {want}")
         host_values, _ = read_loss_txt(host.loss_file, "host")
-        loss_rel = max(abs(a - b) / max(abs(b), 1e-30) for a, b in zip(dev_values, host_values))
-        log(f"device vs host data path, {len(dev_values)} losses of loss.txt: max relative "
-            f"difference {loss_rel:.3e} (tol {HOST_DEVICE_TOL:g})")
+
+        # the two data paths against each other, loss for loss: the same
+        # training in each mode again, both on cuDNN's deterministic
+        # algorithms, so that only the batches could make them differ
+        paired = {}
+        with deterministic_cudnn():
+            for mode in ("device", "host"):
+                if cli.main(["--data_dir", data_dir, "--epochs", "2", "--data_mode", mode,
+                             "--skip_eval", "yes", "--results_folder",
+                             os.path.join(RUN_DIR, f"paired_{mode}")], device="cuda") != 0:
+                    raise AssertionError(f"the paired {mode}-mode run returned non-zero")
+                paired[mode], _ = read_loss_txt(seen["trainers"][-1].loss_file, mode)
+
+        def rel(a, b):
+            return max(abs(x - y) / max(abs(y), 1e-30) for x, y in zip(a, b))
+
+        loss_rel, timed_rel = rel(paired["device"], paired["host"]), rel(dev_values, host_values)
+        log(f"device vs host data path, {len(paired['device'])} losses of loss.txt, both on "
+            f"cuDNN's deterministic algorithms: max relative difference {loss_rel:.3e} (tol "
+            f"{HOST_DEVICE_TOL:g}); the timed runs above differ by {timed_rel:.3e}")
         if not loss_rel <= HOST_DEVICE_TOL:
-            raise AssertionError(f"losses differ: device {dev_values}, host {host_values}")
+            raise AssertionError(f"losses differ: device {paired['device']}, host "
+                                 f"{paired['host']}")
 
         # 3. --only_evaluate yes on the default run's results
         mm = {}
@@ -1435,7 +1550,7 @@ def train_path() -> dict:
                         for name, t in (("device", dev), ("host", host))},
             "phases_device": phases,
             "val_loss_ce": [h["val_loss_ce"] for h in history],
-            "host_vs_device_loss_rel": loss_rel,
+            "host_vs_device_loss_rel": loss_rel, "host_vs_device_loss_rel_timed": timed_rel,
             "launches": launches, "launches_train": train_launches,
             "launches_eval": suite["launches"], "eval_encoder_calls": calls,
             "eval_files": eval_files,
@@ -1446,9 +1561,184 @@ def train_path() -> dict:
         }
         log(json.dumps({"train": train}))
         return train, cfg, host_batch
-    finally:
-        Trainer.fit, Trainer.release_host_data, cli.run_eval_suite = real
-        shutil.rmtree(RUN_DIR, ignore_errors=True)
+
+
+# the model zoo's configurations (PERF.md §4): every encoder and head of the
+# JAX registry at full width, each on the kernels the table there puts it on
+ZOO = {
+    "Z1": dict(eeg_encoder="conformer", speech_encoder="convLSTM", model_arch="clip_sim"),
+    "Z2": dict(eeg_encoder="convLSTM", speech_encoder="smallConv", model_arch="clip_mp"),
+    "Z3": dict(eeg_encoder="convLSTMnew", speech_encoder="convLSTM", model_arch="clip_kld"),
+    "Z4": dict(eeg_encoder="lstm", speech_encoder="lstm", stimulus_features="mel",
+               model_arch="no_contrastive_learning"),
+    "Z5": dict(eeg_encoder="double_lstm", speech_encoder="double_lstm",
+               model_arch="clip_kld_latent_proj"),
+    "Z6": dict(eeg_encoder="vlaai", speech_encoder="Wav2vecSmallModel", model_arch="clip_sim"),
+}
+# launches per train step of kernels #1 (block forward), #2 (its backward),
+# #3 (LSTM forward: one per LSTM layer, both directions packed) and #4; a
+# validation step launches the forwards alone
+ZOO_STEP_LAUNCHES = {
+    "Z1": (10, 10, 2, 2),  # conformer: one depth-10 stack; convLSTM: two biLSTMs
+    "Z2": (0, 0, 2, 2),    # convLSTM EEG encoder; smallConv has no recurrence
+    "Z3": (0, 0, 3, 3),    # convLSTMnew: one biLSTM (H=4); convLSTM: two
+    "Z4": (0, 0, 1, 1),    # lstm speech (MelModel): one LSTM, D=1, H=128
+    "Z5": (0, 0, 4, 4),    # double_lstm both sides: two LSTMs each, D=1, H=128
+    "Z6": (0, 0, 0, 0),    # VLAAI and Wav2vecSmallModel reach no kernel
+}
+KERNEL_NAMES = ("fused_transformer_block", "fused_block_backward", "lstm_scan_packed",
+                "lstm_scan_backward")
+# Z6 reaches no float32-only kernel, and its full-width gradient is too
+# ill-conditioned in float32 for the step limit to mean anything there: the
+# CPU's own float32 gradient is as far from its float64 one as the card's.
+# Its card-vs-CPU step is held to STEP_TOL in float64, and the float32
+# spread (card and CPU against the CPU's float64) is reported beside it
+ZOO_STEP_DTYPE = {"Z6": torch.float64}
+
+
+def float32_spread(cfg, batch, ref_dtype) -> dict:
+    """The float32 step on the card and on the CPU, each against the CPU's
+    step in ``ref_dtype``, and against each other: the worst gradient and
+    loss errors, reported (not held to a limit)."""
+    ref = step_grads(cfg, batch, "cpu", ref_dtype)
+    card, cpu = (step_grads(cfg, batch, dev) for dev in ("cuda", "cpu"))
+    out = {}
+    for what, got, want in (("card_vs_reference", card, ref), ("cpu_vs_reference", cpu, ref),
+                            ("card_vs_cpu", card, cpu)):
+        e = step_errors(got, want)
+        out[what] = {"grad_err": e["grad_err"], "loss_err": e["loss_err"],
+                     "worst_leaf": max(e["grad_err_by_leaf"], key=e["grad_err_by_leaf"].get)}
+    log(f"  float32 spread of that step (worst gradient error, against the CPU in {ref_dtype}): "
+        f"{json.dumps(out)}")
+    return out
+
+
+def zoo_launches(z: str, n_train: int, n_val: int) -> dict:
+    """The exact kernel launches of one epoch of ``z``."""
+    fwd, bwd, lstm_fwd, lstm_bwd = ZOO_STEP_LAUNCHES[z]
+    want = dict.fromkeys(counts(), 0)
+    want.update(fused_transformer_block=fwd * (n_train + n_val),
+                fused_block_backward=bwd * n_train,
+                lstm_scan_packed=lstm_fwd * (n_train + n_val),
+                lstm_scan_backward=lstm_bwd * n_train)
+    return want
+
+
+def zoo_path(data_dir: str) -> dict:
+    """Each zoo configuration at full width (batch 128, T=192, depth 10,
+    latent 8, --lstm_units 128): (a) one train step at batch 8, dropout on,
+    card against CPU (losses, every gradient, bank rows, running
+    statistics); (b) ``cli.main`` on the fixture on the card with the device
+    store, ``--epochs 1 --skip_eval yes`` (Z1: the whole default run, eval
+    suite included), with the exact launches of kernels #1-#4 and the
+    median step time; (c) the Z3 run (a head without a bank) served by
+    ``from_results_dir``, one 128-window chunk card against CPU."""
+    t_start = time.perf_counter()
+    out = {}
+    rng = np.random.default_rng(7)
+    with instrumented() as seen:
+        for z, flags in ZOO.items():
+            cfg = TrainConfig(**flags, bank_size=BANK_SIZE)
+            t = cfg.window_length
+            batch = {"eeg": rng.standard_normal((8, t, 64)).astype(np.float32),
+                     "speech": rng.standard_normal((8, t, cfg.speech_dimension)).astype(
+                         np.float32),
+                     "ids": np.arange(1, 9, dtype=np.int64)}
+            dtype = ZOO_STEP_DTYPE.get(z, torch.float32)
+            step = card_vs_cpu_step(cfg, batch, name=f"{z} {flags}", dtype=dtype)
+            del step["grad_err_by_leaf"]  # the log line names the worst leaves
+            if dtype != torch.float32:
+                step["float32_spread"] = float32_spread(cfg, batch, dtype)
+
+            argv = ["--data_dir", data_dir, "--epochs", "1", "--results_folder",
+                    os.path.join(RUN_DIR, "zoo", z)]
+            for k, v in flags.items():
+                argv += [f"--{k}", v]
+            if z != "Z1":
+                argv += ["--skip_eval", "yes"]
+            zero_counts()
+            t0 = time.perf_counter()
+            if cli.main(argv, device="cuda") != 0:
+                raise AssertionError(f"{z}: cli.main returned non-zero")
+            run_s = time.perf_counter() - t0
+            torch.cuda.synchronize()
+            trainer = seen["trainers"][-1]
+            if not trainer.device_data:
+                raise AssertionError(f"{z}: the run did not take the device store")
+            if z == "Z1":
+                n_train, n_val = seen["steps"]
+                launches, suite = seen["train_launches"], seen["eval"][-1]
+                calls = suite["encoder_calls"]
+                want_eval = dict.fromkeys(launches, 0)
+                want_eval.update(fused_transformer_block=10 * calls["eeg"],
+                                 lstm_scan_packed=2 * calls["speech"])
+                eval_files = check_eval_files(trainer.results_dir)
+                log(f"{z}: evaluation suite in {suite['wall_s']:.1f} s, {calls} encoder "
+                    f"calls, kernel launches {suite['launches']}; evaluation files finite")
+                if suite["launches"] != want_eval or not (calls["eeg"] and calls["speech"]):
+                    raise AssertionError(f"{z}: launches in the evaluation suite "
+                                         f"{suite['launches']}, want {want_eval}")
+            else:
+                n_train, n_val = steps_per_epoch(trainer)
+                launches, suite, eval_files = counts(), None, None
+            want = zoo_launches(z, n_train, n_val)
+            step_s = trainer.history[0]["step_s"]
+            if launches != want or len(step_s) != n_train:
+                raise AssertionError(f"{z}: launches in training {launches}, want {want} "
+                                     f"({n_train} train and {n_val} validation steps)")
+            # a validation step launches the forwards alone
+            val_fwd = zoo_launches(z, 0, 1)
+            per_step = {k: (launches[k] - val_fwd[k] * n_val) / n_train for k in KERNEL_NAMES}
+            val = trainer.history[0]["val_loss_ce"]
+            if not np.isfinite(val):
+                raise AssertionError(f"{z}: validation loss_ce {val}")
+            step_ms = statistics.median(step_s) * 1e3
+            log(f"{z} {flags}: cli.main in {run_s:.1f} s, {n_train} train and {n_val} "
+                f"validation steps on the device store, median train step {step_ms:.2f} ms "
+                f"(epoch 1, host clock), kernel launches {launches}, per train step {per_step}; "
+                f"validation loss_ce {val:.4f}")
+            out[z] = {"flags": flags, "card_vs_cpu_step": step, "cli_s": run_s,
+                      "train_steps": n_train, "val_steps": n_val, "launches": launches,
+                      "launches_per_train_step": per_step, "step_ms_median": step_ms,
+                      "step_ms_all": [v * 1e3 for v in step_s], "val_loss_ce": val,
+                      "eval_suite_s": suite and suite["wall_s"], "eval_files": eval_files,
+                      "results_dir": trainer.results_dir}
+            if z != "Z1":  # the default run released its data before the suite
+                trainer.release_host_data()
+
+    # (c) a head without a memory bank, served from its results directory
+    results_dir = out["Z3"]["results_dir"]
+    cfg = TrainConfig.load(os.path.join(results_dir, "args.txt"))
+    eeg = rng.standard_normal((128, cfg.window_length, 64)).astype(np.float32)
+    speech = rng.standard_normal((128, cfg.window_length, cfg.speech_dimension)).astype(
+        np.float32)
+    sessions = {dev: InferenceSession.from_results_dir(results_dir, device=dev)
+                for dev in ("cuda", "cpu")}
+    if hasattr(sessions["cuda"].model, "eegMemoryBank"):
+        raise AssertionError("the clip_kld head holds a memory bank")
+    zero_counts()
+    emb = {dev: (s.embed_eeg(eeg), s.embed_speech(speech)) for dev, s in sessions.items()}
+    served_launches = counts()
+    errs = {name: float(np.abs(emb["cuda"][i] - emb["cpu"][i]).max())
+            for i, name in enumerate(("eeg", "speech"))}
+    want = dict.fromkeys(served_launches, 0)
+    want["lstm_scan_packed"] = 3  # convLSTMnew's biLSTM, convLSTM's two
+    log(f"Z3 (clip_kld, no bank, bank_size {cfg.bank_size} from args.txt) served by "
+        f"from_results_dir, one 128-window chunk, card vs CPU: max_abs_err {errs} (tol "
+        f"{SERVE_TOL:g}); launches {served_launches}")
+    if not max(errs.values()) <= SERVE_TOL or served_launches != want:
+        raise AssertionError(f"Z3 serving: errors {errs}, launches {served_launches}, "
+                             f"want {want}")
+    del sessions
+    for z in out:
+        del out[z]["results_dir"]
+    out["Z3"]["served_err"] = errs
+    out["Z3"]["served_launches"] = served_launches
+    zoo_s = time.perf_counter() - t_start
+    log(f"zoo phase: {zoo_s:.1f} s")
+    out["seconds"] = zoo_s
+    log(json.dumps({"zoo": out}))
+    return out
 
 
 def fused_path(cfg, host_batch) -> dict:
@@ -1481,8 +1771,7 @@ def fused_path(cfg, host_batch) -> dict:
     launches = {}
     for what, fn, x in (("eeg_chunk", sessions["fused"].embed_eeg, eeg),
                         ("speech_chunk", sessions["fused"].embed_speech, speech)):
-        for f in COUNTERS:
-            f.launches = 0
+        zero_counts()
         fn(x)
         torch.cuda.synchronize()
         launches[what] = {f.__name__: f.launches for f in COUNTERS}
@@ -1496,8 +1785,7 @@ def fused_path(cfg, host_batch) -> dict:
                              cfg.beta2, cfg.weight_decay, cfg.amsgrad_b)
         runs[name] = lambda model=model, opt=opt: train_step(model, opt, batch, cfg.seed,
                                                              False)
-    for f in COUNTERS:
-        f.launches = 0
+    zero_counts()
     runs["fused"]()
     torch.cuda.synchronize()
     launches["train_step"] = {f.__name__: f.launches for f in COUNTERS}
@@ -1557,8 +1845,7 @@ def long_window_path() -> dict:
     sessions = {dev: InferenceSession(build_model(cfg, cfg.bank_size, device=dev, seed=0),
                                       chunk=8, device=dev) for dev in ("cuda", "cpu")}
     launches = {}
-    for f in COUNTERS:
-        f.launches = 0
+    zero_counts()
     emb = {dev: (s.embed_eeg(batch["eeg"]), s.embed_speech(batch["speech"]))
            for dev, s in sessions.items()}
     torch.cuda.synchronize()
@@ -1572,8 +1859,7 @@ def long_window_path() -> dict:
     if not max(errs.values()) <= SERVE_TOL:
         raise AssertionError("card and CPU embeddings disagree at T=256")
     del sessions
-    for f in COUNTERS:
-        f.launches = 0
+    zero_counts()
     step = card_vs_cpu_step(cfg, batch)
     launches["train_step"] = {f.__name__: f.launches for f in COUNTERS}
     want = {"embed": {"fused_transformer_block": 10, "lstm_scan_packed": 2},
@@ -1620,7 +1906,12 @@ def main() -> int:
     torch.cuda.empty_cache()
     serve = serve_path()
     log(json.dumps({"serve": serve}))
-    train, cfg, host_batch = train_path()
+    data_dir = write_fixture()
+    try:
+        train, cfg, host_batch = train_path(data_dir)
+        zoo = zoo_path(data_dir)
+    finally:
+        shutil.rmtree(RUN_DIR, ignore_errors=True)
     fused = fused_path(cfg, host_batch)
     long_window = long_window_path()
     kernels = [block, block_bwd, lstm, lstm_bwd]
@@ -1630,14 +1921,16 @@ def main() -> int:
             "serve": serve["launches"][k["name"]], "train": train["launches_train"][k["name"]],
             "eval_suite": train["launches_eval"][k["name"]],
             **{f"t256_{what}": counts[k["name"]]
-               for what, counts in long_window["launches"].items()}}
+               for what, counts in long_window["launches"].items()},
+            **{f"zoo_{z}": zoo[z]["launches"][k["name"]] for z in ZOO}}
     # #5-#7 run on the fused path; the default paths launch none of them
     for k in convs:
         k["launches"] = fused["launches"]["train_step"][k["name"]]
         k["launches_by_path"] = {
             "serve": serve["launches"][k["name"]], "train": train["launches"][k["name"]],
             **{f"fused_{what}": counts[k["name"]]
-               for what, counts in fused["launches"].items()}}
+               for what, counts in fused["launches"].items()},
+            **{f"zoo_{z}": zoo[z]["launches"][k["name"]] for z in ZOO}}
     kernels += convs
     log(f"chip_smoke finished in {time.perf_counter() - t_start:.1f} s")
     log(json.dumps({"kernels": kernels}))

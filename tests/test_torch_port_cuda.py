@@ -271,7 +271,18 @@ LSTM_IDS = ["T40D2B37", "T40D2B5", "T40D2B1", "T40D1B37", "T1D2B37", "T7D2B5"]
 def test_lstm_cluster_kernels_match_twin(cuda, hidden, t, d, b):
     """Kernels #3 and #4 (the clusters of every H) against the twin: h and
     c, then dxw and dwhh against autograd through the twin."""
-    xw, whh, g = _lstm_inputs(t, d, b, hidden, 14, cuda)
+    _assert_lstm_kernels_match_twin(*_lstm_inputs(t, d, b, hidden, 14, cuda))
+
+
+def test_lstm_kernels_match_twin_at_the_zoos_unidirectional_shape(cuda):
+    """Kernels #3 and #4 at D=1, B=128, T=192, H=128: one recurrence of the
+    double_lstm and lstm encoders at --lstm_units 128 and the full batch."""
+    _assert_lstm_kernels_match_twin(*_lstm_inputs(192, 1, 128, 128, 21, cuda))
+
+
+def _assert_lstm_kernels_match_twin(xw, whh, g):
+    """h and c against the twin, then dxw and dwhh against autograd through
+    it, with one launch of each kernel."""
     with torch.no_grad():
         h, c = lstm_scan_packed(xw, whh, return_c=True)
         torch.cuda.synchronize()

@@ -9,6 +9,7 @@ import pytest
 import torch
 
 from transformer_clip_eeg_tpu.models import encoders as je
+from transformer_clip_eeg_tpu.models import registry as j_registry
 from transformer_clip_eeg_tpu.models.heads import (
     flatten_maybe_transposed as j_flatten_maybe_transposed,
 )
@@ -16,11 +17,7 @@ from transformer_clip_eeg_tpu.serve import build_model_from_config as j_build
 from transformer_clip_eeg_tpu.train.config import TrainConfig as JConfig
 from transformer_clip_eeg_tpu_torch.models import encoders as te
 from transformer_clip_eeg_tpu_torch.models.heads import flatten_maybe_transposed
-from transformer_clip_eeg_tpu_torch.models.registry import (
-    build_model,
-    load_eeg_encoder,
-    load_speech_encoder,
-)
+from transformer_clip_eeg_tpu_torch.models import registry
 from transformer_clip_eeg_tpu_torch.serve import build_model_from_config
 from transformer_clip_eeg_tpu_torch.train.config import TrainConfig
 from transformer_clip_eeg_tpu_torch.utils.convert import state_dict_from_jax
@@ -153,16 +150,29 @@ def test_flatten_maybe_transposed_matches_jax(shape):
     np.testing.assert_array_equal(flatten_maybe_transposed(torch.from_numpy(x)).numpy(), want)
 
 
-def test_registry_names_the_roadmap_for_unported_choices():
-    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-        load_eeg_encoder("vlaai", 128, 128, 1, T, 4, 2)
-    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-        load_speech_encoder("lstm", 128, 128, 1, T, 3, SP_D, 4)
-    eeg = load_eeg_encoder("EEGConformerInterleaved", 128, 128, 1, T, 4, 1)
-    speech = load_speech_encoder("convLSTM", 128, 128, 1, T, 3, SP_D, 4)
-    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-        build_model("clip_kld", eeg, speech, window_length=T, temperature=1.0,
-                    latent_dim=4, bank_size=8)
+def _registry_call(registry, kind, name):
+    """Ask ``registry`` (JAX's or the port's) for ``name`` of ``kind``."""
+    if kind == "eeg":
+        return registry.load_eeg_encoder(name, 128, 128, 1, T, 4, 1)
+    if kind == "speech":
+        return registry.load_speech_encoder(name, 128, 128, 1, T, 3, SP_D, 4)
+    eeg = registry.load_eeg_encoder("EEGConformerInterleaved", 128, 128, 1, T, 4, 1)
+    speech = registry.load_speech_encoder("convLSTM", 128, 128, 1, T, 3, SP_D, 4)
+    return registry.build_model(name, eeg, speech, window_length=T, temperature=1.0,
+                                latent_dim=4, bank_size=8)
+
+
+@pytest.mark.parametrize("kind,name", [("eeg", "eegnet"), ("speech", "conformer"),
+                                       ("speech", "no"), ("speech", "melnet"),
+                                       ("arch", "clip_unknown")])
+def test_registry_refuses_what_the_jax_registry_refuses(kind, name):
+    """Unknown names, and the speech choices 'conformer' and 'no' that the
+    JAX CLI offers but its registry refuses, raise JAX's ValueError."""
+    with pytest.raises(ValueError) as theirs:
+        _registry_call(j_registry, kind, name)
+    with pytest.raises(ValueError) as mine:
+        _registry_call(registry, kind, name)
+    assert str(mine.value) == str(theirs.value)
 
 
 def test_train_config_round_trips_with_the_jax_copy(tmp_path):

@@ -29,6 +29,7 @@ import numpy as np
 import torch
 
 from transformer_clip_eeg_tpu_torch.eval.labels import load_labels_match_mismatch_2023
+from transformer_clip_eeg_tpu_torch.models.heads import embedding_width
 
 
 def embed_in_chunks(
@@ -90,7 +91,7 @@ def evaluate_model_challenge_2023_mm(
         if len(keys) >= 2 and data[keys[-1]].shape != data[keys[-2]].shape:
             keys = keys[:-1]
         segments = np.stack([data[key] for key in keys]).astype(np.float32)
-        dim = model.speechModel.get_output_dim(segments.shape[1])
+        dim = embedding_width(model.speechModel, segments.shape[1])
         embeddings = embed_in_chunks(embed_speech, segments, chunk, device, dim)
         test_stimuli_embeddings.update({key: embeddings[i] for i, key in enumerate(keys)})
 
@@ -126,7 +127,7 @@ def evaluate_model_challenge_2023_mm(
             sub_stimulus_mapping[key][all_groundtruth_labels[key] + 1].split(".")[0]
             for key in id_list
         ]
-        dim = model.eegModel.get_output_dim(data_eeg_mvn.shape[1])
+        dim = embedding_width(model.eegModel, data_eeg_mvn.shape[1])
         eeg_embeddings = embed_in_chunks(embed_eeg, data_eeg_mvn, chunk, device, dim)
 
         # 2-candidate accuracy (ref :153-164): diag(eeg @ candidate_j.T)

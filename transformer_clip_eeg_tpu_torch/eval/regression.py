@@ -95,9 +95,7 @@ def _encode_in_chunks(model, windows: np.ndarray, chunk: int = 128) -> np.ndarra
     on the model's device."""
     from transformer_clip_eeg_tpu_torch.train.steps import make_encode_fn
 
-    enc = model.eegModel
-    t = windows.shape[1]
-    out_shape = (enc.get_output_dim(t) // enc.output_dim, enc.output_dim)
+    out_shape = model.eegModel.output_shape(windows.shape[1])
     device = next(model.parameters()).device
     return embed_in_chunks(make_encode_fn(model), windows, chunk, device, out_shape)
 

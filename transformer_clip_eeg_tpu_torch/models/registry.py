@@ -1,10 +1,12 @@
-"""Encoder and head factories for the flagship configuration.
+"""Encoder and head factories, and the whole model from a ``TrainConfig``.
 
 Counterpart of ``transformer_clip_eeg_tpu/models/registry.py``, with the
-same flag values and defaults.  Only the default run's branches are ported:
-the ``EEGConformerInterleaved`` EEG encoder, the ``convLSTM`` speech encoder
-and the ``clip_sim_no_latent_proj`` head.  Any other name raises
-``NotImplementedError``; ROADMAP.md lists what is still to port.
+same flag values, defaults and errors: every ``--eeg_encoder``,
+``--speech_encoder`` and ``--model_arch`` the JAX registry builds, and the
+same ``ValueError`` for a name it refuses (the JAX CLI also offers the
+speech encoders 'conformer' and 'no', which its registry refuses).  The
+port's layers need their input widths at construction, which flax infers:
+the EEG encoders take 64 channels, the speech encoders ``speech_dimension``.
 :func:`build_model_from_config` assembles the whole model from a
 ``TrainConfig`` with seeded weights, for the trainer and for serving.
 """
@@ -15,18 +17,26 @@ import torch
 from torch import nn
 
 from transformer_clip_eeg_tpu_torch.models.encoders import (
+    EEGConformer,
     EEGConformerInterleaved,
     EEGConvLSTM,
+    EEGConvLSTMNew,
+    EEGLstm,
+    EEGModel,
+    MelModel,
+    SpeechSmallConv,
+    Wav2vecSmallModel,
 )
-from transformer_clip_eeg_tpu_torch.models.heads import CLIPSimNoLatentProj
+from transformer_clip_eeg_tpu_torch.models.heads import (
+    CLIPKLDNoLatentProj,
+    CLIPKLDWithLatentProj,
+    CLIPNoContrastiveLearning,
+    CLIPSim,
+    CLIPSimMultiplePositives,
+    CLIPSimNoLatentProj,
+)
+from transformer_clip_eeg_tpu_torch.models.vlaai import VLAAI
 from transformer_clip_eeg_tpu_torch.ops.layers import init_parameters
-
-
-def _not_ported(kind: str, name: str) -> NotImplementedError:
-    return NotImplementedError(
-        f"{kind} {name!r} is not ported to the torch package yet (see "
-        "ROADMAP.md for the modules still to port)"
-    )
 
 
 def load_eeg_encoder(
@@ -38,8 +48,45 @@ def load_eeg_encoder(
     latent_dim: int,
     attention_depth: int,
 ) -> nn.Module:
-    if eeg_encoder == "EEGConformerInterleaved":
-        return EEGConformerInterleaved(
+    if eeg_encoder == "lstm":
+        return EEGModel(
+            spatial_filters_eeg=32,
+            filters_cnn_eeg=16,
+            kernel_size_temporal=9,
+            stride_temporal=3,
+            units_hidden=128,
+            units_lstm=units_lstm,
+            activation="leaky_relu",
+        )
+    if eeg_encoder == "double_lstm":
+        return EEGLstm(speech_dim=64, units_lstm=units_lstm, spatial_filters=spatial_filters)
+    if eeg_encoder == "vlaai":
+        # the LayerNorms take the run's window, as the JAX registry wires them
+        return VLAAI(time_dimension=window_length)
+    if eeg_encoder == "convLSTM":
+        return EEGConvLSTM(
+            units_lstm=128,
+            output_dim=latent_dim,
+            dropout_rate=0.4,
+            eeg_dim=64,
+            filters=(64,) * number_conv_layers,
+            kernels=(32,) * number_conv_layers,
+            dilation_rate=1,
+            time_dimension=window_length,
+        )
+    if eeg_encoder == "convLSTMnew":
+        return EEGConvLSTMNew(
+            output_dim=latent_dim,
+            dropout_rate=0.4,
+            eeg_dim=64,
+            filters=(64,) * number_conv_layers,
+            kernels=(64,) * number_conv_layers,
+            dilation_rate=1,
+            time_dimension=window_length,
+        )
+    if eeg_encoder in ("conformer", "EEGConformerInterleaved"):
+        cls = EEGConformer if eeg_encoder == "conformer" else EEGConformerInterleaved
+        return cls(
             output_dim=latent_dim,
             conformer_input_dim=64,
             dropout_rate=0.2,
@@ -50,7 +97,7 @@ def load_eeg_encoder(
             time_dimension=window_length,
             depth=attention_depth,
         )
-    raise _not_ported("eeg_encoder", eeg_encoder)
+    raise ValueError(f"unknown eeg_encoder {eeg_encoder!r}")
 
 
 def load_speech_encoder(
@@ -63,6 +110,30 @@ def load_speech_encoder(
     speech_dimension: int,
     latent_dim: int,
 ) -> nn.Module:
+    if speech_encoder == "lstm":
+        return MelModel(
+            spatial_filters=spatial_filters,
+            filters_cnn=16,
+            kernel_size_temporal=9,
+            stride_temporal=stride_temporal,
+            units_lstm=units_lstm,
+            speech_dim=speech_dimension,
+            activation="leaky_relu",
+        )
+    if speech_encoder == "double_lstm":
+        return EEGLstm(speech_dim=speech_dimension, units_lstm=units_lstm,
+                       spatial_filters=spatial_filters)
+    if speech_encoder == "Wav2vecSmallModel":
+        return Wav2vecSmallModel(speech_dim=speech_dimension, spatial_filters=units_lstm,
+                                 stride_temporal=stride_temporal)
+    if speech_encoder == "smallConv":
+        return SpeechSmallConv(
+            output_dim=latent_dim,
+            kernel_size_temporal=16,
+            dropout_rate=0.4,
+            speech_dim=speech_dimension,
+            time_dimension=window_length,
+        )
     if speech_encoder == "convLSTM":
         return EEGConvLSTM(
             units_lstm=128,
@@ -74,7 +145,7 @@ def load_speech_encoder(
             dilation_rate=1,
             time_dimension=window_length,
         )
-    raise _not_ported("speech_encoder", speech_encoder)
+    raise ValueError(f"unknown speech_encoder {speech_encoder!r}")
 
 
 def build_model(
@@ -90,21 +161,33 @@ def build_model(
     lambda_sim_loss: float = 0.0,
     momentum_membank: float = 0.90,
 ) -> nn.Module:
-    """For 'clip_sim_no_latent_proj' the memory-bank row width is the speech
-    encoder's output dim, as in the reference."""
+    """The head around the two encoders.  For 'clip_sim_no_latent_proj' and
+    'clip_kld' the latent width is re-derived from the speech encoder's
+    ``get_output_dim``, as in the reference; the KLD heads take ``bank_size``
+    as their number of classes."""
+    if model_arch in ("clip_sim_no_latent_proj", "clip_kld"):
+        latent_dim = speech.get_output_dim(window_length)
+    common = dict(eegModel=eeg, speechModel=speech, temperature=temperature,
+                  window_length=window_length, lambda_clip=lambda_clip_loss)
+    if model_arch == "clip_sim":
+        return CLIPSim(bank_size=bank_size, latent_dim=latent_dim,
+                       lambda_average=lambda_sim_loss, momentum_membank=momentum_membank,
+                       **common)
     if model_arch == "clip_sim_no_latent_proj":
-        return CLIPSimNoLatentProj(
-            eegModel=eeg,
-            speechModel=speech,
-            bank_size=bank_size,
-            latent_dim=speech.get_output_dim(window_length),
-            temperature=temperature,
-            window_length=window_length,
-            lambda_clip=lambda_clip_loss,
-            lambda_average=lambda_sim_loss,
-            momentum_membank=momentum_membank,
-        )
-    raise _not_ported("model_arch", model_arch)
+        return CLIPSimNoLatentProj(bank_size=bank_size, latent_dim=latent_dim,
+                                   lambda_average=lambda_sim_loss,
+                                   momentum_membank=momentum_membank, **common)
+    if model_arch == "clip_mp":
+        return CLIPSimMultiplePositives(lambda_average=lambda_sim_loss, **common)
+    if model_arch in ("clip_kld", "clip_kld_latent_proj"):
+        cls = CLIPKLDNoLatentProj if model_arch == "clip_kld" else CLIPKLDWithLatentProj
+        # JAX also passes lambda_discriminative, which neither head reads
+        return cls(latent_dimension=latent_dim, number_of_classes=bank_size,
+                   lambda_lower_bound=lambda_sim_loss, **common)
+    if model_arch == "no_contrastive_learning":
+        return CLIPNoContrastiveLearning(eegModel=eeg, speechModel=speech,
+                                         window_length=window_length)
+    raise ValueError(f"unknown model_arch {model_arch!r}")
 
 
 def resolve_device(device) -> torch.device:

@@ -11,7 +11,9 @@ Numerics kept from the reference:
 * :class:`LayerNormTC` normalises jointly over time *and* channels, with an
   elementwise affine stored ``[T, C]`` (the JAX package's layout; the
   reference's ``nn.LayerNorm([C, T])`` holds the transpose);
-* exact (erf) GELU;
+* exact (erf) GELU; LeakyReLU with torch's slope 0.01;
+* :class:`BatchNorm1d` normalises with the biased batch variance and keeps
+  the unbiased one in ``running_var`` (torch's rule);
 * torch's default init ``U(-1/sqrt(fan_in), 1/sqrt(fan_in))`` for weights and
   biases of linear and conv layers.
 
@@ -54,6 +56,25 @@ def gelu_exact(x: torch.Tensor) -> torch.Tensor:
     return F.gelu(x)
 
 
+def leaky_relu(x: torch.Tensor, negative_slope: float = 0.01) -> torch.Tensor:
+    """torch ``nn.LeakyReLU`` default (slope 0.01)."""
+    return F.leaky_relu(x, negative_slope)
+
+
+def elu(x: torch.Tensor) -> torch.Tensor:
+    return F.elu(x)
+
+
+ACTIVATIONS = {
+    "relu": F.relu,
+    "leaky_relu": leaky_relu,
+    "gelu": gelu_exact,
+    "elu": elu,
+    "tanh": torch.tanh,
+    "identity": lambda x: x,
+}
+
+
 def l2_normalize(x: torch.Tensor, dim: int = -1, eps: float = 1e-12) -> torch.Tensor:
     """torch ``F.normalize(p=2)``: x / max(||x||, eps)."""
     norm = torch.sqrt(torch.sum(x * x, dim=dim, keepdim=True))
@@ -61,17 +82,19 @@ def l2_normalize(x: torch.Tensor, dim: int = -1, eps: float = 1e-12) -> torch.Te
 
 
 class Dense(nn.Module):
-    """Linear layer on the last axis; weight ``[out, in]``."""
+    """Linear layer on the last axis; weight ``[out, in]``, bias unless
+    ``bias=False``."""
 
-    def __init__(self, in_features: int, out_features: int):
+    def __init__(self, in_features: int, out_features: int, bias: bool = True):
         super().__init__()
         self.in_features = in_features
         self.weight = nn.Parameter(torch.empty(out_features, in_features))
-        self.bias = nn.Parameter(torch.empty(out_features))
+        self.bias = nn.Parameter(torch.empty(out_features)) if bias else None
 
     def reset_parameters(self, generator: Optional[torch.Generator] = None) -> None:
         torch_uniform_init(self.weight, self.in_features, generator)
-        torch_uniform_init(self.bias, self.in_features, generator)
+        if self.bias is not None:
+            torch_uniform_init(self.bias, self.in_features, generator)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         return F.linear(x, self.weight, self.bias)
@@ -84,18 +107,22 @@ def same_padding(kernel_size: int, dilation: int) -> Tuple[int, int]:
 
 
 class Conv1d(nn.Module):
-    """1-D 'same' convolution over the time axis of ``[B, T, C]`` input.
+    """1-D convolution over the time axis of ``[B, T, C]`` input, ``padding``
+    'same' (torch's split of an even kernel's padding, then ``stride``, as
+    the JAX layer pads) or 'valid'.
 
     Weight ``[C_out, C_in, K]`` as torch stores it; the input is permuted to
     ``[B, C, T]`` for ``F.conv1d`` and back.
     """
 
     def __init__(self, in_channels: int, out_channels: int, kernel_size: int,
-                 dilation: int = 1):
+                 dilation: int = 1, stride: int = 1, padding: str = "same"):
         super().__init__()
+        if padding not in ("same", "valid"):
+            raise ValueError(f"unsupported padding {padding!r}")
         self.fan_in = in_channels * kernel_size
-        self.padding = same_padding(kernel_size, dilation)
-        self.dilation = dilation
+        self.padding = same_padding(kernel_size, dilation) if padding == "same" else (0, 0)
+        self.dilation, self.stride = dilation, stride
         self.weight = nn.Parameter(torch.empty(out_channels, in_channels, kernel_size))
         self.bias = nn.Parameter(torch.empty(out_channels))
 
@@ -105,8 +132,42 @@ class Conv1d(nn.Module):
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         xc = F.pad(x.transpose(1, 2), self.padding)
-        y = F.conv1d(xc, self.weight, self.bias, dilation=self.dilation)
+        y = F.conv1d(xc, self.weight, self.bias, stride=self.stride, dilation=self.dilation)
         return y.transpose(1, 2)
+
+
+class Conv2dValidTime(nn.Module):
+    """The reference's ``Conv2d(1, F, (kT, 1), stride=(sT, 1), 'valid')``: a
+    temporal conv applied to each spatial channel alone, ``F`` filters each.
+
+    ``[B, T, S]`` → ``[B, T', F * S]`` with the feature axis flattened
+    filter-major and spatial-minor, as the reference reshapes it;
+    ``T' = (T - kT) // sT + 1``.  Weight ``[F, 1, kT]``.
+    """
+
+    def __init__(self, filters: int, kernel_size: int, stride: int):
+        super().__init__()
+        self.filters, self.kernel_size, self.stride = filters, kernel_size, stride
+        self.weight = nn.Parameter(torch.empty(filters, 1, kernel_size))
+        self.bias = nn.Parameter(torch.empty(filters))
+
+    def reset_parameters(self, generator: Optional[torch.Generator] = None) -> None:
+        torch_uniform_init(self.weight, self.kernel_size, generator)
+        torch_uniform_init(self.bias, self.kernel_size, generator)
+
+    @staticmethod
+    def output_length(t: int, kernel_size: int, stride: int) -> int:
+        return (t - kernel_size) // stride + 1
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        b, t, s = x.shape
+        # spatial channels folded into the batch, a valid strided conv1d over time
+        y = F.conv1d(x.transpose(1, 2).reshape(b * s, 1, t), self.weight, self.bias,
+                     stride=self.stride)
+        t_out = y.shape[-1]
+        # [B*S, F, T'] -> [B, T', F, S] -> flatten (F, S)
+        return y.reshape(b, s, self.filters, t_out).permute(0, 3, 2, 1).reshape(
+            b, t_out, self.filters * s)
 
 
 class LayerNorm(nn.Module):
@@ -143,6 +204,35 @@ class LayerNormTC(nn.Module):
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         return F.layer_norm(x, self.weight.shape, self.weight, self.bias, self.eps)
+
+
+class BatchNorm1d(nn.Module):
+    """torch ``nn.BatchNorm1d(C)`` over the channel axis of ``[B, T, C]``:
+    each channel normalised over (batch, time).  In training mode with the
+    biased batch variance, and ``running_var`` updated with the unbiased one
+    (momentum 0.1: ``new = 0.9 * old + 0.1 * batch``); in eval mode with the
+    running statistics.  These are buffers, so ``state_dict`` and the
+    checkpoint carry them (the JAX layer's ``batch_stats``)."""
+
+    def __init__(self, num_features: int, momentum: float = 0.1, eps: float = 1e-5):
+        super().__init__()
+        self.momentum, self.eps = momentum, eps
+        self.weight = nn.Parameter(torch.ones(num_features))
+        self.bias = nn.Parameter(torch.zeros(num_features))
+        self.register_buffer("running_mean", torch.zeros(num_features))
+        self.register_buffer("running_var", torch.ones(num_features))
+
+    def reset_parameters(self, generator: Optional[torch.Generator] = None) -> None:
+        with torch.no_grad():
+            self.weight.fill_(1.0)
+            self.bias.zero_()
+            self.running_mean.zero_()
+            self.running_var.fill_(1.0)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        y = F.batch_norm(x.reshape(-1, x.shape[-1]), self.running_mean, self.running_var,
+                         self.weight, self.bias, self.training, self.momentum, self.eps)
+        return y.reshape(x.shape)
 
 
 class Dropout(nn.Module):

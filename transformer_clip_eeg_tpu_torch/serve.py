@@ -28,6 +28,7 @@ import numpy as np
 import torch
 
 from transformer_clip_eeg_tpu_torch.eval.match_mismatch import embed_in_chunks
+from transformer_clip_eeg_tpu_torch.models.heads import embedding_width
 from transformer_clip_eeg_tpu_torch.models.registry import (
     build_model_from_config,
     resolve_device,
@@ -56,8 +57,9 @@ class InferenceSession:
     def from_results_dir(cls, results_dir: str, chunk: int = 128,
                          device="cuda") -> "InferenceSession":
         """Serve a training run: the model built from its ``args.txt``
-        (the memory bank sized by the ``bank_size`` the trainer persisted
-        there) with the weights of ``checkpoints/model_ckpt.pt``."""
+        with the weights of ``checkpoints/model_ckpt.pt``.  The head is sized
+        by the ``bank_size`` the trainer persisted in ``args.txt``, else by
+        the checkpoint's memory bank; with neither it raises ``ValueError``."""
         from transformer_clip_eeg_tpu_torch.train.checkpoint import (
             checkpoint_path,
             load_checkpoint,
@@ -69,7 +71,18 @@ class InferenceSession:
         payload = load_checkpoint(ckpt_dir)
         if payload is None:
             raise FileNotFoundError(f"no checkpoint at {checkpoint_path(ckpt_dir)}")
-        bank_size = int(cfg.bank_size) or payload["model"]["eegMemoryBank.memory"].shape[0] - 1
+        bank = payload["model"].get("eegMemoryBank.memory")
+        if cfg.bank_size:
+            # the trainer persists its sizing in args.txt: the only source
+            # for the heads without a bank (clip_kld*, no_contrastive_learning)
+            bank_size = int(cfg.bank_size)
+        elif bank is not None:
+            bank_size = bank.shape[0] - 1
+        else:
+            raise ValueError(
+                f"cannot size the {cfg.model_arch!r} head: args.txt has no bank_size and "
+                "the checkpoint holds no memory bank to infer it from; add "
+                "\"bank_size\": <number of stimulus segments> to args.txt")
         model = build_model_from_config(cfg, bank_size, device="cpu", seed=cfg.seed)
         session = cls(model, payload["model"], chunk=chunk, device=device)
         session.cfg = cfg  # the run's config, for callers that surface model info
@@ -86,13 +99,13 @@ class InferenceSession:
             mu = windows.mean(axis=(0, 1), keepdims=True)
             sd = windows.std(axis=(0, 1), keepdims=True)
             windows = (windows - mu) / np.where(sd == 0, 1.0, sd)
-        dim = self.model.eegModel.get_output_dim(windows.shape[1])
+        dim = embedding_width(self.model.eegModel, windows.shape[1])
         return embed_in_chunks(self._embed_eeg, windows, self.chunk, self.device, dim)
 
     def embed_speech(self, windows: np.ndarray) -> np.ndarray:
         """``[N, T, F]`` speech-feature windows → ``[N, D]`` embeddings."""
         windows = np.asarray(windows, np.float32)
-        dim = self.model.speechModel.get_output_dim(windows.shape[1])
+        dim = embedding_width(self.model.speechModel, windows.shape[1])
         return embed_in_chunks(self._embed_speech, windows, self.chunk, self.device, dim)
 
 

@@ -320,7 +320,15 @@ class Trainer:
         self.optimizer.load_state_dict(snap["optimizer"])
 
     def _format_loss_line(self, epoch: int, n_batches: int, losses) -> str:
-        """The reference's per-100-batch loss line (ref :494-500)."""
+        """The reference's per-100-batch loss line (ref :494-500); the KLD
+        heads report their prior and KL terms."""
+        if self.cfg.is_kld:
+            return (
+                f"train epoch {epoch} batch {n_batches} loss_ce "
+                f"{float(losses['loss_ce'])} loss pmu2 "
+                f"{float(losses['log_pmu2'])}, log z2: "
+                f"{float(losses['kld_z2'])}"
+            )
         return (
             f"train epoch {epoch} batch {n_batches} loss_ce "
             f"{float(losses['loss_ce'])} loss average eeg "
@@ -437,7 +445,7 @@ class Trainer:
             printf(
                 f"validation epoch {epoch}: mean loss ce : "
                 f"{val_metrics['loss_ce']}, mean loss average: "
-                f"{val_metrics.get('loss_avg', 0.0)},"
+                f"{val_metrics.get('loss_avg', val_metrics.get('log_pmu2', 0.0))},"
                 f" mean loss total: {val_metrics['loss_total']}",
                 self.loss_file,
             )

@@ -12,7 +12,11 @@ names and layouts change:
   transposed; ``bias_ih``/``bias_hh`` → ``bias_ih_l0``/``bias_hh_l0``; the
   ``_reverse`` set likewise
 * ``membank`` ``eegMemoryBank/memory`` → the ``eegMemoryBank.memory`` buffer
-* root scalars (``temperature``, ``temperature_eeg``) keep their names.
+* ``batch_stats`` ``mean``/``var``    → the ``running_mean``/``running_var``
+  buffers of the port's ``BatchNorm1d``
+* root leaves (``temperature``, ``temperature_eeg``, ``mu_eeg_lookup``) keep
+  their names; a submodule applied several times (VLAAI's shared stack)
+  holds one set of leaves in both trees.
 
 The functions take numpy arrays (anything ``np.asarray`` reads) and import
 nothing of JAX.  :func:`probe_state_dict_from_jax` carries an envelope
@@ -46,10 +50,15 @@ def _leaves(tree: Mapping, prefix: Tuple[str, ...] = ()) -> Iterator[Tuple[Tuple
             yield prefix + (str(k),), v
 
 
-def _torch_leaf(path: Tuple[str, ...], value) -> Tuple[str, np.ndarray]:
+_BATCH_STATS = {"mean": "running_mean", "var": "running_var"}
+
+
+def _torch_leaf(coll: str, path: Tuple[str, ...], value) -> Tuple[str, np.ndarray]:
     *modules, leaf = path
     arr = np.asarray(value)
-    if leaf in _LSTM_LEAVES:
+    if coll == "batch_stats":
+        name = _BATCH_STATS.get(leaf, leaf)
+    elif leaf in _LSTM_LEAVES:
         name = _LSTM_LEAVES[leaf]
         arr = arr.T if arr.ndim == 2 else arr
     elif leaf == "kernel" and arr.ndim == 2:
@@ -64,7 +73,8 @@ def _torch_leaf(path: Tuple[str, ...], value) -> Tuple[str, np.ndarray]:
 
 
 def state_dict_from_jax(variables: Mapping, model: nn.Module) -> Dict[str, torch.Tensor]:
-    """JAX ``{"params": ..., "membank": ...}`` → ``model``'s ``state_dict``.
+    """JAX ``{"params": ..., "membank": ..., "batch_stats": ...}`` →
+    ``model``'s ``state_dict``.
 
     Raises ``ValueError`` if a JAX leaf finds no port tensor, if a port
     tensor is left unfilled, or if a shape disagrees.
@@ -73,11 +83,11 @@ def state_dict_from_jax(variables: Mapping, model: nn.Module) -> Dict[str, torch
     out: Dict[str, torch.Tensor] = {}
     unused = []
     for coll, tree in variables.items():
-        if coll not in ("params", "membank"):
+        if coll not in ("params", "membank", "batch_stats"):
             unused.extend("/".join((coll,) + p) for p, _ in _leaves(tree))
             continue
         for path, value in _leaves(tree):
-            key, arr = _torch_leaf(path, value)
+            key, arr = _torch_leaf(coll, path, value)
             if key not in template:
                 unused.append("/".join((coll,) + path))
                 continue
