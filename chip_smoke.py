@@ -94,7 +94,34 @@ GPU, end to end.
    step at batch 8 with dropout on, card against CPU, and the exact launches
    of each (10 block forwards and 2 LSTM recurrences per embedding; 10, 10,
    2 and 2 forwards and backwards per step).
-10. Prints one JSON line of per-kernel numbers, then, last, the
+10. The augmentations (``augment_phase``, after the serving path): the
+    eight transforms of ``ops/augment.py``, the train step's batch mixup and
+    the chunk mixup at the flagship batch [128, 192, 64], at p=1 and p=0.5,
+    run on the card under ``torch.cuda.set_sync_debug_mode("error")`` (a
+    host sync fails the phase); card against CPU on the same seeds (1e-5 of
+    max |x|, SignFlip, ChannelsDropout and ChannelsShuffle exact, the masks
+    equal), the augmented share within 5 sigma of p, device ms of each.
+11. The augmented run (``augmented_train_path``, after the default run): one
+    train step at batch 8 with each transform and mixup on, card against
+    CPU; ``cli.main`` with ``--data_augmentation FTSurrogate --addEEG yes
+    --epochs 2 --skip_eval yes --profile_dir``, once on the device store
+    (timed: its epoch-2 median step beside the default run's) and once more
+    in each data mode on cuDNN's deterministic algorithms (losses held to
+    each other): exact launches of #1-#4 (10/10/2/2 a train step), the
+    profiler's ``loss.txt`` line, and a trace that names #1-#4's kernels.
+12. The serve CLI (``serve_cli_path``) on the default run's results
+    directory: ``serve.main`` for 256 EEG windows, 128 speech windows and
+    top-5 retrieval over 130 candidates, against an ``InferenceSession`` of
+    the run on the card (1e-6) and on the CPU (8 windows, 1e-3), its wall
+    time (the run loaded each call) and exact launches.
+13. The server CLI (``server_cli_path``): the server's ``main`` in a
+    subprocess on the card (``--port 0 --candidates``), its URL read from its
+    output within 120 s, five rounds of /healthz, both embed routes, top-k
+    and match_mismatch whose answers equal the serve CLI's, SIGINT and exit
+    code 0; the time to the first /healthz, the median request times and
+    the subprocess's exact launches.
+14. Prints one JSON line of per-kernel numbers (``launches_by_path`` with
+    ``train_augmented``, ``serve_cli`` and ``server_cli``), then, last, the
     ``{"ok": true, "device": ...}`` line.
 
 Any failure raises and exits non-zero.  Imports nothing of JAX.
@@ -108,6 +135,7 @@ import json
 import os
 import re
 import shutil
+import signal
 import statistics
 import subprocess
 import sys
@@ -128,6 +156,17 @@ from transformer_clip_eeg_tpu_torch.data.fixtures import make_fixture  # noqa: E
 from transformer_clip_eeg_tpu_torch.models.encoders import BasicBlock  # noqa: E402
 from transformer_clip_eeg_tpu_torch.models.registry import (  # noqa: E402
     build_model_from_config as build_model,
+)
+from transformer_clip_eeg_tpu_torch.ops.augment import (  # noqa: E402
+    AUGMENT_STREAM,
+    BEST_AUG_PARAMS,
+    DRAWS,
+    MIXUP_STREAM,
+    TRANSFORMS,
+    draw_batch_mixup,
+    draw_mixup_eeg,
+    make_augmentation_fn,
+    mixup_eeg,
 )
 from transformer_clip_eeg_tpu_torch.ops.dropout import (  # noqa: E402
     fold_seed,
@@ -164,6 +203,7 @@ from transformer_clip_eeg_tpu_torch.serve import (  # noqa: E402
     build_model_from_config,
     match_mismatch_decide,
 )
+from transformer_clip_eeg_tpu_torch.serve import main as serve_main  # noqa: E402
 from transformer_clip_eeg_tpu_torch.server import (  # noqa: E402
     NPY_CONTENT_TYPE,
     EmbeddingService,
@@ -174,9 +214,14 @@ from transformer_clip_eeg_tpu_torch.train.device_data import (  # noqa: E402
     DeviceChunkStore,
     gather_batch,
 )
-from transformer_clip_eeg_tpu_torch.train.loop import Trainer, batch_iterator  # noqa: E402
+from transformer_clip_eeg_tpu_torch.train.loop import (  # noqa: E402
+    PROFILE_TRACE,
+    Trainer,
+    batch_iterator,
+)
 from transformer_clip_eeg_tpu_torch.train.state import make_optimizer  # noqa: E402
 from transformer_clip_eeg_tpu_torch.train.steps import (  # noqa: E402
+    _apply_mixup,
     _split_outputs as split_outputs,
     chunk_train_step,
     train_step,
@@ -1123,12 +1168,16 @@ PHASES = {
 }
 
 
-def loss_lines(mode: str) -> list:
+def loss_lines(mode: str, profile_dir: str = "") -> list:
+    """The line formats of a 2-epoch run's ``loss.txt``; with ``profile_dir``
+    the profiler's line follows epoch 0's phases."""
+    traced = [re.escape(f"profiler trace written to {profile_dir}")] if profile_dir else []
     return [r"number of parameters \d+", r"no model found at .*, training from scratch"] + [
         line.replace("{e}", str(e)) for e in range(2) for line in (
             r"train epoch {e} batch 0 loss_ce (\S+) loss average eeg (\S+)",
             r"epoch {e} done in \d+\.\ds \(\d+ pairs/s\)",
             r"epoch {e} phases " + PHASES[mode],
+            *(traced if e == 0 else []),
             r"validation epoch {e}: mean loss ce : (\S+), mean loss average: (\S+), "
             r"mean loss total: (\S+)",
         )] + [r"training done: best val loss_ce \S+ at epoch \d"]
@@ -1161,17 +1210,27 @@ def set_fused(model, on: bool = True) -> int:
     return n
 
 
-def step_grads(cfg, host_batch, dev: str, dtype=torch.float32, fused: bool = False) -> dict:
+def step_grads(cfg, host_batch, dev: str, dtype=torch.float32, fused: bool = False,
+               augmentations=(), add_eeg: bool = False) -> dict:
     """One training step's forward and gradients at batch 8, dropout on, on
-    ``dev`` in ``dtype``: weights from seed 0, the step seed's masks.  The
-    losses (named as the trainer names them), every gradient and every
-    buffer after the step (the memory bank after its EMA update, the batch
-    norms' running statistics), on the CPU."""
+    ``dev`` in ``dtype``: weights from seed 0, the step seed's masks; with
+    ``add_eeg`` the EEG mixed with rows 8-15 of the batch and with
+    ``augmentations`` augmented, at p=0.5, from the train step's streams of
+    the step seed.  The losses (named as the trainer names them), every
+    gradient and every buffer after the step (the memory bank after its EMA
+    update, the batch norms' running statistics), on the CPU."""
     model = build_model(cfg, cfg.bank_size, device=dev, seed=0).to(dtype).train()
     set_fused(model, fused)
-    set_dropout_seeds(model, fold_seed(99, 0))
+    step_seed = fold_seed(99, 0)
+    set_dropout_seeds(model, step_seed)
     batch = [torch.from_numpy(host_batch[k][:8]).to(dev) for k in ("eeg", "speech", "ids")]
     batch[:2] = [x.to(dtype) for x in batch[:2]]
+    if add_eeg:
+        partner = torch.from_numpy(host_batch["eeg"][8:16]).to(dev).to(dtype)
+        batch[0] = _apply_mixup(fold_seed(step_seed, MIXUP_STREAM), batch[0], partner, 0.5)
+    if augmentations:
+        batch[0] = make_augmentation_fn(augmentations, 0.5)(
+            fold_seed(step_seed, AUGMENT_STREAM), batch[0])
     losses = split_outputs(cfg.model_arch, model(*batch))
     params = list(model.parameters())
     grads = torch.autograd.grad(losses["loss_total"], params, allow_unused=True)
@@ -1204,13 +1263,15 @@ def step_errors(got: dict, want: dict) -> dict:
 
 
 def card_vs_cpu_step(cfg, host_batch, fused: bool = False, name: str = "",
-                     dtype=torch.float32) -> dict:
+                     dtype=torch.float32, augmentations=(), add_eeg: bool = False) -> dict:
     """One training step at batch 8, dropout on, on the card and on the CPU
     in ``dtype``: same weights (seed 0), same batch, same step seed, so the
     same masks.  The losses, every gradient, the bank's rows and the running
     statistics must agree within ``STEP_TOL`` (``step_errors``).  ``fused``
-    sets ``fused`` on the BasicBlocks of both models."""
-    gpu, cpu = (step_grads(cfg, host_batch, dev, dtype, fused) for dev in ("cuda", "cpu"))
+    sets ``fused`` on the BasicBlocks of both models; ``augmentations`` and
+    ``add_eeg`` mix and augment the batch on each device (``step_grads``)."""
+    gpu, cpu = (step_grads(cfg, host_batch, dev, dtype, fused, augmentations, add_eeg)
+                for dev in ("cuda", "cpu"))
     errs = step_errors(gpu, cpu)
     worst = sorted(errs["grad_err_by_leaf"].items(), key=lambda kv: -kv[1])[:6]
     n_norms = sum(n.endswith("running_var") for n in errs["buffer_errs"])
@@ -1238,10 +1299,10 @@ def zero_counts() -> None:
         f.launches = 0
 
 
-def read_loss_txt(path: str, mode: str):
+def read_loss_txt(path: str, mode: str, profile_dir: str = ""):
     """The losses of a 2-epoch run's ``loss.txt`` (every line in the JAX
     trainer's format for ``mode``, every loss finite) and its phases records."""
-    lines, fmts = open(path).read().splitlines(), loss_lines(mode)
+    lines, fmts = open(path).read().splitlines(), loss_lines(mode, profile_dir)
     if len(lines) != len(fmts):
         raise AssertionError(f"{path}: {len(lines)} lines, want {len(fmts)}: {lines}")
     values, phases = [], []
@@ -1363,6 +1424,17 @@ def steps_per_epoch(trainer) -> list:
             for ds in (trainer.train_dataset, trainer.val_dataset)]
 
 
+def two_epoch_launches(n_train: int, n_val: int) -> dict:
+    """The flagship's kernel launches in 2 epochs of ``n_train`` train and
+    ``n_val`` validation steps: 10 block forwards and 2 LSTM forwards a step,
+    10 block backwards and 2 LSTM backwards a train step, no conv kernel."""
+    return {"fused_transformer_block": 2 * 10 * (n_train + n_val),
+            "fused_block_backward": 2 * 10 * n_train,
+            "lstm_scan_packed": 2 * 2 * (n_train + n_val),
+            "lstm_scan_backward": 2 * 2 * n_train,
+            "fused_basic_block": 0, "fused_conv_backward": 0, "conv1d_same": 0}
+
+
 def write_fixture() -> str:
     """The synthetic SparrKULee fixture the training phases share, under
     ``RUN_DIR`` (which ``main`` deletes at the end)."""
@@ -1400,11 +1472,7 @@ def train_path(data_dir: str) -> dict:
                 and isinstance(dev.chunk_store, DeviceChunkStore)):
             raise AssertionError("--data_mode auto did not resolve to the device store on CUDA")
         n_train, n_val = seen["steps"]
-        want = {"fused_transformer_block": 2 * 10 * (n_train + n_val),
-                "fused_block_backward": 2 * 10 * n_train,
-                "lstm_scan_packed": 2 * 2 * (n_train + n_val),
-                "lstm_scan_backward": 2 * 2 * n_train,
-                "fused_basic_block": 0, "fused_conv_backward": 0, "conv1d_same": 0}
+        want = two_epoch_launches(n_train, n_val)
         train_launches = seen["train_launches"]
         log(f"default run: trained 2 epochs ({n_train} train and {n_val} validation steps "
             f"each, {seen['chunks']} train and validation chunks) on the device store; "
@@ -1555,7 +1623,7 @@ def train_path(data_dir: str) -> dict:
             "launches_eval": suite["launches"], "eval_encoder_calls": calls,
             "eval_files": eval_files,
             "memory_allocated_release": seen["memory_allocated"],
-            "card_vs_cpu_step": step, "serve_err": serve_err,
+            "card_vs_cpu_step": step, "serve_err": serve_err, "results_dir": dev.results_dir,
             "gather_ms": gather_ms, "gather_bytes": gather_bytes,
             "profile_3_device_steps": profile,
         }
@@ -1877,6 +1945,382 @@ def long_window_path() -> dict:
     return result
 
 
+# -- augmentations, the augmented run, the serving command lines --------------
+
+AUG_TOL = 1e-5  # of max |x|: cuFFT and the card's f32 math against the CPU's
+AUG_EXACT = ("SignFlip", "ChannelsDropout", "ChannelsShuffle")  # no arithmetic on the values
+AUG_KEY = 20240917
+
+
+def _share_ok(mask: torch.Tensor, p: float) -> tuple:
+    """The augmented share of ``mask`` and whether it lies within 5 sigma of
+    ``p`` (exactly 1 at p=1)."""
+    share = float(mask.float().mean())
+    return share, abs(share - p) <= 5 * (p * (1 - p) / mask.numel()) ** 0.5
+
+
+def augment_phase() -> dict:
+    """The eight transforms, the train step's batch mixup and the host
+    iterator's chunk mixup at the flagship batch ``[128, 192, 64]`` (a chunk
+    of 3 subjects x 133 windows for the chunk mixup), at p=1 and p=0.5, on
+    the card under ``torch.cuda.set_sync_debug_mode("error")`` (a host sync
+    raises); then card against CPU on the same seeds, the augmented share,
+    and the ms of each by CUDA events beside its device busy time and
+    launches under ``torch.profiler`` and the bytes it must move."""
+    gen = torch.Generator().manual_seed(9)
+    host = {"x": torch.randn(128, 192, 64, generator=gen),
+            "partner": torch.randn(128, 192, 64, generator=gen),
+            "chunk": torch.randn(3, 133, 192, 64, generator=gen)}
+    card = {k: v.cuda() for k, v in host.items()}
+    torch.cuda.synchronize()
+
+    def transform(name, p, t):
+        if name == "batch_mixup":
+            return _apply_mixup(AUG_KEY, t["x"], t["partner"], p)
+        if name == "chunk_mixup":
+            return mixup_eeg(AUG_KEY, t["chunk"], p)
+        return TRANSFORMS[name](AUG_KEY, t["x"], p, **BEST_AUG_PARAMS.get(name, {}))
+
+    def changed(name, p, t):
+        """Which samples (rows; subject windows of the chunk) it changes."""
+        if name == "batch_mixup":
+            return draw_batch_mixup(AUG_KEY, 128, p, t["x"].device)["do_aug"]
+        if name == "chunk_mixup":
+            return draw_mixup_eeg(AUG_KEY, t["chunk"], p)["do_aug"]
+        return DRAWS[name](AUG_KEY, t["x"], p, **BEST_AUG_PARAMS.get(name, {}))["mask"]
+
+    def run(name, p, t):
+        return transform(name, p, t), changed(name, p, t)
+
+    names = list(TRANSFORMS) + ["batch_mixup", "chunk_mixup"]
+    out = {}
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        for name in names:
+            for p in (1.0, 0.5):
+                out[(name, p)] = run(name, p, card)
+        composed = make_augmentation_fn(list(TRANSFORMS), 0.5)(AUG_KEY, card["x"])
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    torch.cuda.synchronize()
+    log("augmentations: the 8 transforms, both mixups and the 8 composed ran on the card "
+        "with set_sync_debug_mode('error'): no host sync")
+    rows = {}
+    for (name, p), (y, on_card) in out.items():
+        y_cpu, on_cpu = run(name, p, host)
+        inp = host["chunk" if name == "chunk_mixup" else "x"]
+        err = float((y.cpu() - y_cpu).abs().max()) / float(inp.abs().max())
+        share, share_ok = _share_ok(on_card, p)
+        row = rows.setdefault(name, {})
+        row[f"p{p:g}"] = {"err": err, "share": share, "masks_equal":
+                          bool(torch.equal(on_card.cpu(), on_cpu))}
+        exact = name in AUG_EXACT
+        if not (row[f"p{p:g}"]["masks_equal"] and share_ok
+                and (err == 0.0 if exact else err <= AUG_TOL)
+                and bool(torch.isfinite(y).all()) and y.shape == inp.shape):
+            raise AssertionError(f"augmentation {name} at p={p}: {row[f'p{p:g}']} (tol "
+                                 f"{0 if exact else AUG_TOL:g} of max |x|, share within 5 sigma)")
+    comp_err = float((composed.cpu() - make_augmentation_fn(list(TRANSFORMS), 0.5)(
+        AUG_KEY, host["x"])).abs().max()) / float(host["x"].abs().max())
+    if not comp_err <= AUG_TOL:
+        raise AssertionError(f"the 8 transforms composed: card vs CPU {comp_err}")
+    for name in names:
+        fn = (lambda name=name: transform(name, 0.5, card))
+        prof = profile_calls(fn, reps=5)
+        nbytes = 2 * card["chunk" if name == "chunk_mixup" else "x"].nbytes  # read + write
+        rows[name].update(ms=time_ms(fn), device_ms=prof["device_ms_per_call"],
+                          host_ms=prof["host_ms_per_call"],
+                          device_launches=prof["device_ops_per_call"],
+                          bound_ms=nbytes / PEAK_BYTES * 1e3)
+    ms_composed = time_ms(lambda: make_augmentation_fn(list(TRANSFORMS), 0.5)(AUG_KEY, card["x"]))
+    result = {"by_name": rows, "composed_err": comp_err, "composed_ms": ms_composed,
+              "tol": AUG_TOL, "exact": list(AUG_EXACT), "batch": [128, 192, 64]}
+    log("augmentations, card vs CPU (error over max |x|), share at p=0.5, ms by CUDA events "
+        "(device busy ms under the profiler, device launches, bytes bound ms): " +
+        "; ".join(f"{n} {max(r['p1']['err'], r['p0.5']['err']):.2e} {r['p0.5']['share']:.3f} "
+                  f"{r['ms']:.4f} ({r['device_ms']:.4f}, {r['device_launches']:.0f}, "
+                  f"{r['bound_ms']:.4f})" for n, r in rows.items())
+        + f"; all 8 composed {comp_err:.2e}, {ms_composed:.4f} ms")
+    log(json.dumps({"augment": result}))
+    return result
+
+
+AUG_FLAGS = ["--data_augmentation", "FTSurrogate", "--addEEG", "yes"]
+# the kernels of the augmented run's trace, by kernel (substrings of the names)
+TRACE_KERNELS = {"fused_transformer_block": ("ln_qkv_kernel", "attn_fwd_kernel",
+                                             "proj_ffn_kernel"),
+                 "fused_block_backward": ("qkv_bwd_kernel", "attn_bwd_kernel",
+                                          "ffn_bwd_kernel"),
+                 "lstm_scan_packed": ("lstm_fwd_cluster",),
+                 "lstm_scan_backward": ("lstm_bwd_cluster",)}
+
+
+def check_trace(profile_dir: str) -> dict:
+    """The Chrome trace ``--profile_dir`` wrote: present, and naming every
+    kernel of #1-#4; returns the kernel events counted by kernel."""
+    path = os.path.join(profile_dir, PROFILE_TRACE)
+    with open(path) as f:
+        events = json.load(f)["traceEvents"]
+    kernels = [e.get("name", "") for e in events if e.get("cat") == "kernel"]
+    found = {k: sum(any(n in name for n in names) for name in kernels)
+             for k, names in TRACE_KERNELS.items()}
+    if not all(found.values()):
+        raise AssertionError(f"{path}: kernel events by kernel {found}")
+    return {"bytes": os.path.getsize(path), "kernel_events": len(kernels),
+            "events_by_kernel": found}
+
+
+def augmented_train_path(data_dir: str, cfg, host_batch, default_step_ms: float) -> dict:
+    """The flagship with augmentation and mixup: one step at batch 8 with
+    each augmentation and mixup on, card against CPU; then ``cli.main`` with
+    ``--data_augmentation FTSurrogate --addEEG yes --epochs 2 --skip_eval yes
+    --profile_dir``: the device store (timed, launches counted), then the
+    device store and the host path on cuDNN's deterministic algorithms, their
+    losses held to each other."""
+    steps = {name: card_vs_cpu_step(cfg, host_batch, name=f"{name} and mixup",
+                                    augmentations=[name], add_eeg=True)
+             for name in TRANSFORMS}
+    runs = {}
+    with instrumented() as seen:
+        for name, mode, determ in (("timed", "device", False), ("paired_device", "device", True),
+                                   ("paired_host", "host", True)):
+            profile_dir = os.path.join(RUN_DIR, f"trace_{name}")
+            zero_counts()
+            with deterministic_cudnn() if determ else contextlib.nullcontext():
+                rc = cli.main(["--data_dir", data_dir, "--epochs", "2", "--skip_eval", "yes",
+                               "--data_mode", mode, *AUG_FLAGS, "--profile_dir", profile_dir,
+                               "--results_folder", os.path.join(RUN_DIR, f"aug_{name}")],
+                              device="cuda")
+            torch.cuda.synchronize()
+            if rc != 0:
+                raise AssertionError(f"the augmented {name} run returned {rc}")
+            trainer = seen["trainers"][-1]
+            n_train, n_val = steps_per_epoch(trainer)
+            want = two_epoch_launches(n_train, n_val)
+            if counts() != want or trainer.device_data != (mode == "device"):
+                raise AssertionError(f"augmented {name} run: launches {counts()}, want {want}")
+            values, _ = read_loss_txt(trainer.loss_file, mode, profile_dir)
+            runs[name] = {"launches": counts(), "losses": values, "trace": check_trace(profile_dir),
+                          "steps_per_epoch": [n_train, n_val],
+                          "step_ms_epoch2": [v * 1e3 for v in trainer.history[1]["step_s"]]}
+    rel = max(abs(x - y) / max(abs(y), 1e-30)
+              for x, y in zip(runs["paired_device"]["losses"], runs["paired_host"]["losses"]))
+    if not rel <= HOST_DEVICE_TOL:
+        raise AssertionError(f"augmented runs, device vs host losses differ by {rel}")
+    step_ms = statistics.median(runs["timed"]["step_ms_epoch2"])
+    n_train, n_val = runs["timed"]["steps_per_epoch"]
+    per_step = {k: v // (2 * n_train) for k, v in runs["timed"]["launches"].items()
+                if k in ("fused_block_backward", "lstm_scan_backward")}
+    log(f"augmented run ({' '.join(AUG_FLAGS)}), 2 epochs of {n_train} train and {n_val} "
+        f"validation steps: launches {runs['timed']['launches']} (a train step: 10/10/2/2 of "
+        f"#1-#4, {per_step}); device vs host losses on cuDNN's deterministic algorithms "
+        f"{rel:.3e} (tol {HOST_DEVICE_TOL:g}); epoch-2 median step {step_ms:.2f} ms against "
+        f"the default run's {default_step_ms:.2f} ms; traces "
+        f"{ {k: r['trace']['events_by_kernel'] for k, r in runs.items()} }")
+    summary = ("loss_err", "grad_err", "bank_err", "batch_stats_err")
+    result = {"flags": AUG_FLAGS, "runs": runs,
+              "card_vs_cpu_steps": {n: {k: st[k] for k in summary} for n, st in steps.items()},
+              "host_vs_device_loss_rel": rel, "step_ms_median_epoch2": step_ms,
+              "default_step_ms_median_epoch2": default_step_ms,
+              "launches": runs["timed"]["launches"]}
+    log(json.dumps({"augmented_train": result}))
+    return result
+
+
+def _get_json(url: str):
+    with urllib.request.urlopen(url, timeout=60) as resp:
+        return json.loads(resp.read())
+
+
+def _wall(fn):
+    t0 = time.perf_counter()
+    out = fn()
+    return out, time.perf_counter() - t0
+
+
+def serve_cli_path(results_dir: str) -> dict:
+    """``serve.main`` on the flagship run's results directory, on the card:
+    EEG embeddings (256 windows), speech embeddings (128) and top-5
+    retrieval of the EEG over 130 candidates, each against an
+    ``InferenceSession`` of the run on the card and, on 8 windows, on the
+    CPU; the wall time of each invocation (loading the run included) and its
+    kernel launches."""
+    cfg = TrainConfig.load(os.path.join(results_dir, "args.txt"))
+    rng = np.random.default_rng(11)
+    arrays = {"eeg": rng.standard_normal((256, cfg.window_length, 64)),
+              "speech": rng.standard_normal((128, cfg.window_length, cfg.speech_dimension)),
+              "cand": rng.standard_normal((130, cfg.window_length, cfg.speech_dimension))}
+    paths = {}
+    for k, v in arrays.items():
+        arrays[k] = v.astype(np.float32)
+        paths[k] = os.path.join(RUN_DIR, f"serve_{k}.npy")
+        np.save(paths[k], arrays[k])
+    outs = {"eeg": os.path.join(RUN_DIR, "serve_eeg_emb.npy"),
+            "speech": os.path.join(RUN_DIR, "serve_speech_emb.npy"),
+            "topk": os.path.join(RUN_DIR, "serve_topk.json")}
+    invocations = {"eeg": ["--eeg", paths["eeg"], "--out", outs["eeg"]],
+                   "speech": ["--speech", paths["speech"], "--out", outs["speech"]],
+                   "topk": ["--eeg", paths["eeg"], "--candidates", paths["cand"], "--topk", "5",
+                            "--out", outs["topk"]]}
+    wall, launches = {}, {}
+    zero_counts()
+    for name, argv in invocations.items():
+        before = counts()
+        rc, wall[name] = _wall(lambda argv=argv: serve_main(["--results_folder", results_dir,
+                                                              *argv]))
+        torch.cuda.synchronize()
+        if rc != 0:
+            raise AssertionError(f"serve CLI {name} returned {rc}")
+        launches[name] = {k: v - before[k] for k, v in counts().items()}
+    total = counts()
+    want = dict.fromkeys(total, 0)
+    want.update(fused_transformer_block=10 * (2 + 2), lstm_scan_packed=2 * (1 + 2))
+    if total != want:
+        raise AssertionError(f"serve CLI launches {launches}, want {want} in all")
+    session = InferenceSession.from_results_dir(results_dir, device="cuda")
+    cpu = InferenceSession.from_results_dir(results_dir, chunk=8, device="cpu")
+    got = {"eeg": np.load(outs["eeg"]), "speech": np.load(outs["speech"])}
+    want_emb = {"eeg": session.embed_eeg(arrays["eeg"]),
+                "speech": session.embed_speech(arrays["speech"])}
+    errs = {f"{k}_vs_session": float(np.abs(got[k] - want_emb[k]).max()) for k in got}
+    errs["eeg_vs_cpu"] = float(np.abs(got["eeg"][:8] - cpu.embed_eeg(arrays["eeg"][:8])).max())
+    errs["speech_vs_cpu"] = float(np.abs(got["speech"][:8]
+                                         - cpu.embed_speech(arrays["speech"][:8])).max())
+    with open(outs["topk"]) as f:
+        topk = json.load(f)
+    index = RetrievalIndex.from_embeddings(session.embed_speech(arrays["cand"]), device="cuda")
+    scores, ids = index.topk(want_emb["eeg"], 5)
+    errs["topk_scores_vs_session"] = float(np.abs(np.asarray(topk["scores"]) - scores).max())
+    ids_equal = topk["indices"] == ids.tolist()
+    log(f"serve CLI on the flagship run: wall s {wall} (run loaded each time), launches "
+        f"{launches}; errors {errs} (tol 1e-6 against the card's session, {SERVE_TOL:g} "
+        f"against the CPU's); top-5 ids equal {ids_equal}")
+    if not (set(topk) == {"indices", "scores"} and ids_equal
+            and max(v for k, v in errs.items() if "cpu" not in k) <= 1e-6
+            and max(errs["eeg_vs_cpu"], errs["speech_vs_cpu"]) <= SERVE_TOL):
+        raise AssertionError("the serve CLI disagrees with the sessions")
+    for k in ("eeg", "speech"):
+        _check_embeddings(f"serve CLI {k}", got[k], len(arrays[k]), got[k].shape[1])
+    result = {"wall_s": wall, "launches_by_invocation": launches, "launches": total,
+              "errors": errs, "paths": paths, "outs": outs}
+    log(json.dumps({"serve_cli": result}))
+    return result
+
+
+SERVER_ROUNDS = 5
+SERVER_WAIT_S = 120
+
+
+def server_cli_path(results_dir: str, serve: dict) -> dict:
+    """``python -m transformer_clip_eeg_tpu_torch.server --port 0
+    --candidates ...`` on the card in a subprocess: its URL read from its
+    standard output within ``SERVER_WAIT_S``; /healthz, both embed routes,
+    top-k and match_mismatch, ``SERVER_ROUNDS`` times, whose answers equal the
+    serve CLI's; SIGINT, after which it must exit 0.  The subprocess prints
+    its kernel launches as its last line (the same ``main`` the module runs,
+    wrapped to read its counters, with TF32 off as in this process)."""
+    paths, outs = serve["paths"], serve["outs"]
+    code = ("import json, sys\n"
+            "import torch\n"
+            "torch.backends.cuda.matmul.allow_tf32 = False\n"
+            "torch.backends.cudnn.allow_tf32 = False\n"
+            "from transformer_clip_eeg_tpu_torch import server\n"
+            "from transformer_clip_eeg_tpu_torch.ops import fused_block, fused_conv, lstm_scan\n"
+            "counters = (fused_block.fused_transformer_block, fused_block.fused_block_backward,"
+            " lstm_scan.lstm_scan_packed, lstm_scan.lstm_scan_backward,"
+            " fused_conv.fused_basic_block, fused_conv.fused_conv_backward,"
+            " fused_conv.conv1d_same)\n"
+            "rc = server.main()\n"
+            "print('launches ' + json.dumps({f.__name__: f.launches for f in counters}),"
+            " flush=True)\n"
+            "sys.exit(rc)\n")
+    t_start = time.perf_counter()
+    proc = subprocess.Popen(
+        [sys.executable, "-c", code, "--results_folder", results_dir, "--port", "0",
+         "--candidates", paths["cand"]],
+        cwd=os.path.dirname(os.path.abspath(__file__)), stdout=subprocess.PIPE,
+        stderr=subprocess.PIPE, text=True)
+    lines: list = []
+    got_url = threading.Event()
+    reader = threading.Thread(target=lambda: [(lines.append(ln), ln.startswith("serving ")
+                                               and got_url.set()) for ln in proc.stdout],
+                              daemon=True)
+    reader.start()
+    try:
+        if not got_url.wait(SERVER_WAIT_S):
+            raise AssertionError(f"the server printed no URL in {SERVER_WAIT_S} s: {lines}")
+        url = next(ln for ln in lines if ln.startswith("serving ")).rsplit(" on ", 1)[1].strip()
+        t_url = time.perf_counter() - t_start
+        health = _get_json(f"{url}/healthz")
+        t_health = time.perf_counter() - t_start
+        eeg, speech = np.load(paths["eeg"]), np.load(paths["speech"])
+        npy = {"Content-Type": NPY_CONTENT_TYPE, "Accept": NPY_CONTENT_TYPE}
+        times = {k: [] for k in ("healthz", "embed_eeg", "embed_speech", "topk",
+                                 "match_mismatch")}
+        answers = {}
+        for _ in range(SERVER_ROUNDS):
+            for route, fn in (
+                    ("healthz", lambda: _get_json(f"{url}/healthz")),
+                    ("embed_eeg", lambda: _post(f"{url}/v1/embed/eeg", body=_npy(eeg),
+                                                headers=npy)),
+                    ("embed_speech", lambda: _post(f"{url}/v1/embed/speech",
+                                                   body=_npy(speech), headers=npy)),
+                    ("topk", lambda: _post(f"{url}/v1/retrieval/topk?k=5",
+                                           body=_npy(eeg[:16]), headers={
+                                               "Content-Type": NPY_CONTENT_TYPE})),
+                    ("match_mismatch", lambda: _post(f"{url}/v1/match_mismatch", {
+                        "eeg": eeg[:4].tolist(), "cand_a": speech[:4].tolist(),
+                        "cand_b": speech[4:8].tolist()}))):
+                answers[route], dt = _wall(fn)
+                times[route].append(dt)
+        proc.send_signal(signal.SIGINT)
+        rc = proc.wait(timeout=60)
+        reader.join(timeout=60)
+    finally:
+        if proc.poll() is None:
+            proc.kill()
+            proc.wait(timeout=60)
+    err_text = proc.stderr.read()
+    proc.stdout.close()
+    proc.stderr.close()
+    if rc != 0:
+        raise AssertionError(f"the server exited {rc} after SIGINT: {err_text[-2000:]}")
+    launch_line = [ln for ln in lines if ln.startswith("launches ")]
+    launches = json.loads(launch_line[-1].split(" ", 1)[1])
+    # 256 EEG windows are 2 chunks of 128, the 16 top-k queries and the 4
+    # match-mismatch trials 1 each; 130 candidates 2 speech chunks (at start),
+    # 128 speech windows 1, each match-mismatch candidate set 1
+    want = dict.fromkeys(launches, 0)
+    want.update(fused_transformer_block=10 * SERVER_ROUNDS * (2 + 1 + 1),
+                lstm_scan_packed=2 * (2 + SERVER_ROUNDS * (1 + 2)))
+    cli_eeg, cli_speech = np.load(outs["eeg"]), np.load(outs["speech"])
+    with open(outs["topk"]) as f:
+        cli_topk = json.load(f)
+    errs = {"embed_eeg": float(np.abs(answers["embed_eeg"] - cli_eeg).max()),
+            "embed_speech": float(np.abs(answers["embed_speech"] - cli_speech).max()),
+            "topk_scores": float(np.abs(np.asarray(answers["topk"]["scores"])
+                                        - np.asarray(cli_topk["scores"])[:16]).max())}
+    want_mm = match_mismatch_decide(cli_eeg[:4], cli_speech[:4], cli_speech[4:8]).tolist()
+    checks = {"healthz": health.get("status") == "ok" and health.get("index_size") == 130
+              and health.get("window_length") == 192,
+              "topk_ids": answers["topk"]["ids"] == cli_topk["indices"][:16],
+              "match_mismatch": answers["match_mismatch"]["decisions"] == want_mm,
+              "launches": launches == want,
+              "errors": max(errs.values()) <= 1e-6}
+    median_ms = {k: statistics.median(v) * 1e3 for k, v in times.items()}
+    log(f"server CLI (subprocess on the card): URL after {t_url:.1f} s, first /healthz "
+        f"answered after {t_health:.1f} s; median request ms over {SERVER_ROUNDS} rounds "
+        f"{median_ms}; against the serve CLI {errs}; checks {checks}; launches {launches} "
+        f"(want {want}); exit code {rc} after SIGINT")
+    if not all(checks.values()):
+        raise AssertionError(f"server CLI checks failed: {checks}")
+    result = {"url_s": t_url, "first_healthz_s": t_health, "request_ms_median": median_ms,
+              "request_ms_all": {k: [x * 1e3 for x in v] for k, v in times.items()},
+              "errors": errs, "launches": launches, "exit_code": rc, "healthz": health}
+    log(json.dumps({"server_cli": result}))
+    return result
+
+
 def main() -> int:
     t_start = time.perf_counter()
     smi = subprocess.run(
@@ -1906,9 +2350,14 @@ def main() -> int:
     torch.cuda.empty_cache()
     serve = serve_path()
     log(json.dumps({"serve": serve}))
+    augment = augment_phase()
     data_dir = write_fixture()
     try:
         train, cfg, host_batch = train_path(data_dir)
+        augmented = augmented_train_path(data_dir, cfg, host_batch,
+                                         train["step_ms_median_epoch2"]["device"])
+        serve_cli = serve_cli_path(train["results_dir"])
+        server_cli = server_cli_path(train["results_dir"], serve_cli)
         zoo = zoo_path(data_dir)
     finally:
         shutil.rmtree(RUN_DIR, ignore_errors=True)
@@ -1932,6 +2381,18 @@ def main() -> int:
                for what, counts in fused["launches"].items()},
             **{f"zoo_{z}": zoo[z]["launches"][k["name"]] for z in ZOO}}
     kernels += convs
+    for k in kernels:
+        k["launches_by_path"].update(
+            train_augmented=augmented["launches"][k["name"]],
+            serve_cli=serve_cli["launches"][k["name"]],
+            server_cli=server_cli["launches"][k["name"]])
+    log(json.dumps({"augment_and_cli": {
+        "augment_ms": {n: r["ms"] for n, r in augment["by_name"].items()},
+        "augmented_step_ms": augmented["step_ms_median_epoch2"],
+        "default_step_ms": augmented["default_step_ms_median_epoch2"],
+        "serve_cli_wall_s": serve_cli["wall_s"],
+        "server_first_healthz_s": server_cli["first_healthz_s"],
+        "server_request_ms": server_cli["request_ms_median"]}}))
     log(f"chip_smoke finished in {time.perf_counter() - t_start:.1f} s")
     log(json.dumps({"kernels": kernels}))
     log(json.dumps({"ok": True, "device": {

@@ -66,9 +66,9 @@ def _np(x):
 @pytest.mark.parametrize("shuffle", [True, False], ids=["plain", "in_order"])
 def test_epoch_walk_and_padded_chunks_match_jax(root, walk, shuffle):
     """The same draws from ``dataset.rng`` in the same order: equal index
-    matrices and padded chunks of equal shape and content, chunk after chunk
-    over two epochs.  The JAX store's mixup partners (``subs`` again when
-    mixup is off) are not in the port's tuples."""
+    matrices (the mixup partners too, ``subs`` again when mixup is off) and
+    padded chunks of equal shape and content, chunk after chunk over two
+    epochs."""
     mine = DeviceChunkStore(_datasets(root, EEGWindowDataset), device="cpu", prefetch=False)
     theirs = JStore(_datasets(root, JDataset), prefetch=False)
     n = 0
@@ -78,10 +78,10 @@ def test_epoch_walk_and_padded_chunks_match_jax(root, walk, shuffle):
             for x, y in zip(a[:3], b[:3]):
                 assert tuple(x.shape) == tuple(y.shape)
                 np.testing.assert_array_equal(_np(x), _np(y))
-            # idx and subs, then n for a chunk walk; JAX's partners sit between
-            for x, y in zip(a[3:], b[3:5] + b[6:]):
+            # idx, subs and partners, then n for a chunk walk
+            for x, y in zip(a[3:], b[3:], strict=True):
                 np.testing.assert_array_equal(np.asarray(x), np.asarray(y))
-            assert a[3].dtype == np.int64 and len(a) == len(b) - 1
+            assert a[3].dtype == np.int64 and a[5].dtype == np.int64
             n += 1
     assert n > 10
     assert mine.dataset.rng.integers(1 << 30) == theirs.dataset.rng.integers(1 << 30)
@@ -196,7 +196,7 @@ def test_prefetch_on_and_off_give_the_same_batches(root):
                                      prefetch=prefetch)
             out = []
             for _ in range(2):
-                for eeg, sp, ids, idx, subs in store.epoch_batches():
+                for eeg, sp, ids, idx, subs, _partner in store.epoch_batches():
                     b = gather_batch(eeg, sp, ids, torch.from_numpy(idx), torch.from_numpy(subs))
                     out.append({k: v.clone() for k, v in b.items()})
             store.release()

@@ -50,7 +50,7 @@ def test_the_scan_sees_the_port():
     assert {"serve.py", "server.py", "fused_block.py", "lstm_scan.py",
             "convert.py", "chip_smoke.py", "dropout.py", "cli.py", "loop.py",
             "state.py", "checkpoint.py", "dataset.py", "fixtures.py",
-            "fused_conv.py"} <= names
+            "fused_conv.py", "augment.py"} <= names
 
 
 def test_cuda_default_raises_without_a_card():

@@ -275,22 +275,13 @@ def test_warmup_step_follows_loss_ce_alone():
 
 
 @pytest.mark.parametrize("override", [
-    dict(n_data_shards=2), dict(compute_dtype="bfloat16"),
-    dict(addEEG="yes"), dict(profile_dir="trace"), dict(prng_impl="threefry2x32"),
-], ids=["mesh", "bf16", "addEEG", "profile", "prng_impl"])
+    dict(n_data_shards=2), dict(compute_dtype="bfloat16"), dict(prng_impl="threefry2x32"),
+], ids=["mesh", "bf16", "prng_impl"])
 def test_unported_trainer_options_raise(fixture_root, tmp_path, override):
     cfg = _config(fixture_root, **override)
     with pytest.raises(NotImplementedError, match="ROADMAP.md"):
         Trainer(cfg, *_datasets(_config(fixture_root)), results_dir=str(tmp_path),
                 device="cpu")
-
-
-def test_augmentations_raise(fixture_root):
-    cfg = _config(fixture_root)
-    tr, _, _, _, tra, _, _, _ = get_train_val_test_files_final(
-        cfg.data_dir, cfg.run, cfg.stimulus_features, cfg.fold_split_path, 3)
-    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-        EEGWindowDataset(tr, tra, 64, 64, batch_size=4, data_augmentation=["SignFlip"])
 
 
 def test_cli_trains_and_the_run_serves(fixture_root, tmp_path):

@@ -122,8 +122,8 @@ def build_arg_parser() -> argparse.ArgumentParser:
     p.add_argument("--speech_dim_override", type=int, default=None)
     p.add_argument("--skip_eval", type=str, default="no", choices=["yes", "no"])
     p.add_argument("--profile_dir", type=str, default="",
-                   help="a profiler trace of the first epoch (not ported: a "
-                        "non-empty value raises)")
+                   help="write a torch.profiler trace of the first epoch "
+                        "(host and device) into this directory")
     p.add_argument("--data_mode", type=str, default="auto",
                    choices=["auto", "host", "device"],
                    help="batch assembly: device-resident chunk store vs "
@@ -226,7 +226,8 @@ def _train(args, device):
         val_files, val_audio, cfg.window_length, cfg.hop_length,
         batch_size=cfg.batch_size, seed=cfg.seed,
     )
-    trainer = Trainer(cfg, train_ds, val_ds, results_dir=results_dir, device=device)
+    trainer = Trainer(cfg, train_ds, val_ds, results_dir=results_dir, device=device,
+                      profile_dir=cfg.profile_dir or None)
     out = trainer.fit()
     printf(f"training done: best val loss_ce {out['best_loss']} at epoch "
            f"{out['best_epoch']}", trainer.loss_file)

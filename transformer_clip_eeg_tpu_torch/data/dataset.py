@@ -11,12 +11,13 @@ drop-last quirk, EEG zero-pad/crop, globally unique segment identifiers,
 ``transformer_clip_eeg_tpu/ops/windowing.py``, which imports JAX.
 
 The trainer gathers batches itself (``train/loop.batch_iterator``, or the
-device-resident store of ``train/device_data.py``), so the
-reference-compatible ``__iter__`` and its host mixup,
-``sample_epoch_indices`` and the cross-validation file cache are not copied;
-``iter_subject_windows`` feeds the regression evals.  The
-braindecode augmentations run in JAX in the other package and are not
-ported yet: asking for them raises ``NotImplementedError`` (ROADMAP.md).
+device-resident store of ``train/device_data.py``) and mixes and augments
+them in the train step; ``__iter__`` is the reference's own host iterator
+(ref ``dataset_loader.py:392-434``), with its chunk mixup (``_mixup``, numpy
+draws from ``self.rng`` in the JAX package's order) and the augmentations
+of ``ops/augment.py`` per batch.  ``sample_epoch_indices`` and the
+cross-validation file cache are not copied; ``iter_subject_windows`` feeds
+the regression evals.
 """
 
 from __future__ import annotations
@@ -25,6 +26,7 @@ import os
 from typing import Dict, Iterator, List, Optional, Sequence, Tuple
 
 import numpy as np
+import torch
 
 from transformer_clip_eeg_tpu_torch.data.discovery import (
     feature_of_audio_file,
@@ -79,11 +81,7 @@ class EEGWindowDataset:
         self.data_augmentation = list(data_augmentation)
         self.data_augmentation_probability = data_augmentation_probability
         self.rng = np.random.default_rng(seed)
-        if self.data_augmentation:
-            raise NotImplementedError(
-                f"data augmentation {self.data_augmentation} is not ported to the "
-                "torch package yet (ops/augment.py; see ROADMAP.md)"
-            )
+        self._aug_fn = None
 
         self.features_to_load = self.filter_features(self.audio_files)
         if io_workers is None:
@@ -309,3 +307,67 @@ class EEGWindowDataset:
             feats = {f: chunk[f] for f in self.features_to_load if f in chunk}
             for si, sub in enumerate(chunk["sub"]):
                 yield sub, key, chunk["eeg"][si], feats
+
+    # -- host-side iteration (reference-compatible) -------------------------
+
+    def _augment(self, eeg_batch: np.ndarray) -> np.ndarray:
+        """The augmentations on one host batch, keyed by a draw from
+        ``self.rng`` (the JAX package draws its PRNG key there too, so the
+        two streams stay aligned)."""
+        if not self.data_augmentation:
+            return eeg_batch
+        if self._aug_fn is None:
+            from transformer_clip_eeg_tpu_torch.ops.augment import make_augmentation_fn
+
+            self._aug_fn = make_augmentation_fn(
+                self.data_augmentation, self.data_augmentation_probability
+            )
+        key = int(self.rng.integers(0, 2**31 - 1))
+        x = torch.from_numpy(np.asarray(eeg_batch, np.float32))
+        return self._aug_fn(key, x).numpy()
+
+    def _mixup(self, eeg: np.ndarray) -> np.ndarray:
+        """Cross-subject mixup of a chunk ``[n_subs, n_win, wl, 64]`` (ref
+        dataset_loader.py:333-356): per (subject, window), with probability
+        ``data_augmentation_probability``, the convex combination with the
+        same window of a random subject, weight ~ U(0, 1)."""
+        if not self.addEEG:
+            return eeg
+        n_subs, n_win = eeg.shape[0], eeg.shape[1]
+        probabilities = self.rng.random((n_subs, n_win))
+        alphas = self.rng.random((n_subs, n_win))
+        do_aug = probabilities < self.data_augmentation_probability
+        m = 1 - alphas * do_aug
+        partner = self.rng.integers(0, n_subs, (n_subs, n_win))
+        partner_eeg = eeg[partner, np.arange(n_win)[None, :]]
+        return m[..., None, None] * eeg + (1 - m[..., None, None]) * partner_eeg
+
+    def __iter__(self) -> Iterator[Tuple]:
+        """Reference-compatible epoch iterator yielding ``(eeg_batch [bs, wl,
+        64], [speech features...], ids [bs], subs [bs])`` (ref
+        dataset_loader.py:392-422); the chunk order is shuffled for the next
+        epoch when the last chunk starts, as the reference does."""
+        for pos, key in enumerate(list(self.batches_keys)):
+            chunk = self.chunks[key]
+            if "eeg" not in chunk or not self.features_to_load:
+                continue
+            speech = [chunk[f] for f in self.features_to_load if f in chunk]
+            eeg = self._mixup(chunk["eeg"])
+            ids = np.array(chunk["identifiers"])
+            subs = np.array(chunk["sub"])
+            if pos == len(self.batches_keys) - 1:
+                self.on_epoch_end()
+            idx_per_batch, subs_per_batch = self.create_eeg_indices(eeg)
+            for i in range(eeg.shape[0]):
+                idx = idx_per_batch[i, :]
+                eeg_batch = np.squeeze(eeg[subs_per_batch[i], idx, :, :])
+                eeg_batch = self._augment(eeg_batch)
+                speech_batch = [feature[idx, :, :] for feature in speech]
+                yield eeg_batch, speech_batch, ids[idx], subs[subs_per_batch[i]]
+
+    def on_epoch_end(self):
+        self.rng.shuffle(self.batches_keys)
+
+
+# the reference's name for the class
+EEGDatasetSimdata = EEGWindowDataset

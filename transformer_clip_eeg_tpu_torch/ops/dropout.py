@@ -87,8 +87,12 @@ def dropout_mask(key: Union[int, torch.Tensor], shape: Sequence[int], p: float,
 
 def fold_seed(seed: int, n: int) -> int:
     """A 31-bit seed derived from ``seed`` and a counter ``n`` (a step
-    number, a layer's stream id): one draw of the same hash."""
-    return int(hash_bits(int(seed), torch.tensor(int(n) & M32))) & 0x7FFFFFFF
+    number, a layer's stream id): one draw of the same hash, in Python
+    integers (it runs on the host for every layer and draw of a step)."""
+    h = (int(n) + (int(seed) & M32) * GOLDEN) & M32
+    h = ((h ^ (h >> 16)) * MIX1) & M32
+    h = ((h ^ (h >> 13)) * MIX2) & M32
+    return (h ^ (h >> 16)) & 0x7FFFFFFF
 
 
 def set_dropout_seeds(module, seed: int) -> None:

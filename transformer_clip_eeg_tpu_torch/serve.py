@@ -15,12 +15,15 @@ Counterpart of ``transformer_clip_eeg_tpu/serve.py``:
 Every entry point runs on the card (``device="cuda"``) unless the caller
 passes ``device="cpu"``; asking for the card on a host without one raises.
 :meth:`InferenceSession.from_results_dir` serves what the port's trainer
-saved (``args.txt`` and ``checkpoints/model_ckpt.pt``); the serve and
-server CLIs are still to port (ROADMAP.md).
+saved (``args.txt`` and ``checkpoints/model_ckpt.pt``); :func:`main` is
+the batch command line over it (``python -m
+transformer_clip_eeg_tpu_torch.serve``), and ``server.py`` the HTTP one.
 """
 
 from __future__ import annotations
 
+import argparse
+import json
 import os
 from typing import Optional, Tuple
 
@@ -166,3 +169,75 @@ def match_mismatch_decide(
     sim_a = np.sum(eeg_emb * cand_a, axis=1)
     sim_b = np.sum(eeg_emb * cand_b, axis=1)
     return (sim_b > sim_a).astype(np.int32)
+
+
+def main(argv=None, device="cuda") -> int:
+    """Batch serving CLI: embed ``.npy`` EEG/speech windows with a trained
+    run; optionally retrieve top-k candidates for each EEG window.
+
+    Examples::
+
+        python -m transformer_clip_eeg_tpu_torch.serve \\
+            --results_folder results/run_x --eeg windows.npy --out emb.npy
+        python -m transformer_clip_eeg_tpu_torch.serve \\
+            --results_folder results/run_x --eeg windows.npy \\
+            --candidates stim_windows.npy --topk 5 --out retrieval.json
+    """
+    ap = argparse.ArgumentParser(description=main.__doc__)
+    ap.add_argument("--results_folder", required=True,
+                    help="training run directory (args.txt + checkpoints/)")
+    ap.add_argument("--eeg", help=".npy of [N, T, 64] EEG windows")
+    ap.add_argument("--speech", help=".npy of [N, T, F] speech windows")
+    ap.add_argument("--candidates",
+                    help=".npy of [M, T, F] candidate speech windows")
+    ap.add_argument("--topk", type=int, default=0)
+    ap.add_argument("--mvn", action="store_true",
+                    help="apply eval-time MVN normalization to the EEG")
+    ap.add_argument("--chunk", type=int, default=128)
+    ap.add_argument("--shard", type=int, default=0,
+                    help="shard each chunk over N data-parallel devices "
+                         "(0 = single device; more is not ported)")
+    ap.add_argument("--out", required=True)
+    ap.add_argument("--compile_cache_dir", type=str, default="",
+                    help="the JAX package's compilation cache; the port "
+                         "compiles no programs per run, so it is ignored")
+    args = ap.parse_args(argv)
+
+    # retrieval needs the full (--eeg, --candidates, --topk) triple
+    retrieval = (bool(args.topk), bool(args.candidates))
+    if any(retrieval) and not (all(retrieval) and args.eeg):
+        ap.error("retrieval requires --eeg, --candidates AND --topk together")
+    if not args.topk:
+        if args.eeg and args.speech:
+            ap.error("--eeg and --speech are mutually exclusive in embed-only mode "
+                     "(use --topk with --eeg/--candidates for retrieval)")
+        if not (args.eeg or args.speech):
+            ap.error("one of --eeg / --speech is required")
+    if args.shard:
+        raise NotImplementedError(
+            "--shard > 0 (data-parallel serving over several devices) is not ported to "
+            "the torch package yet (ROADMAP.md §2, multi-device)")
+
+    sess = InferenceSession.from_results_dir(args.results_folder, chunk=args.chunk,
+                                             device=device)
+    if args.topk:
+        eeg_emb = sess.embed_eeg(np.load(args.eeg), normalize=args.mvn)
+        cand_emb = sess.embed_speech(np.load(args.candidates))
+        index = RetrievalIndex.from_embeddings(cand_emb, device=device)
+        scores, ids = index.topk(eeg_emb, args.topk)
+        with open(args.out, "w") as f:
+            json.dump({"indices": ids.tolist(),
+                       "scores": [[float(x) for x in row] for row in scores]}, f)
+        print(f"wrote top-{args.topk} retrieval for {len(ids)} queries to {args.out}")
+        return 0
+    if args.eeg:
+        emb = sess.embed_eeg(np.load(args.eeg), normalize=args.mvn)
+    else:
+        emb = sess.embed_speech(np.load(args.speech))
+    np.save(args.out, emb)
+    print(f"wrote {emb.shape} embeddings to {args.out}")
+    return 0
+
+
+if __name__ == "__main__":
+    raise SystemExit(main())

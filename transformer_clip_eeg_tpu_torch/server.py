@@ -22,12 +22,14 @@ to query params, e.g. ``?normalize=1``/``?k=5``) for bulk traffic, and set
 Concurrency: the threaded server parses and encodes requests concurrently;
 one lock serialises the device work.  With ``batch_window_ms > 0`` a
 :class:`MicroBatcher` per embedder coalesces concurrent requests into one
-dispatch.  The command-line ``main`` waits for the port's checkpoint format
-(ROADMAP.md).
+dispatch.  :func:`main` is the command line: ``python -m
+transformer_clip_eeg_tpu_torch.server --results_folder <run dir>`` serves a
+run the port's trainer wrote.
 """
 
 from __future__ import annotations
 
+import argparse
 import io
 import json
 import threading
@@ -441,3 +443,67 @@ def make_server(
     """Bind a threaded HTTP server to ``service`` (``port=0`` → ephemeral)."""
     handler = type("BoundHandler", (_Handler,), {"service": service})
     return ThreadingHTTPServer((host, port), handler)
+
+
+def main(argv=None, device="cuda") -> int:
+    """Serve a trained run directory over HTTP until interrupted (SIGINT)."""
+    ap = argparse.ArgumentParser(description="Serve a trained run directory over HTTP")
+    ap.add_argument("--results_folder", type=str, required=True,
+                    help="run dir with args.txt + checkpoints/")
+    ap.add_argument("--host", type=str, default="127.0.0.1")
+    ap.add_argument("--port", type=int, default=8321, help="0 = any free port")
+    ap.add_argument("--chunk", type=int, default=128,
+                    help="embedder batch (requests are padded up)")
+    ap.add_argument("--candidates", type=str, default="",
+                    help=".npy of [N, T, F] speech windows to pre-embed "
+                         "into the retrieval index")
+    ap.add_argument("--capacity", type=int, default=0,
+                    help="retrieval index capacity; 0 disables retrieval "
+                         "unless --candidates is given")
+    ap.add_argument("--batch_window_ms", type=float, default=0.0,
+                    help="dynamic micro-batching: linger this long after a "
+                         "request arrives and coalesce everything that "
+                         "queued into one device dispatch (0 = off)")
+    ap.add_argument("--compile_cache_dir", type=str, default="",
+                    help="the JAX package's compilation cache; the port "
+                         "compiles no programs per run, so it is ignored")
+    args = ap.parse_args(argv)
+
+    from transformer_clip_eeg_tpu_torch.models.heads import embedding_width
+    from transformer_clip_eeg_tpu_torch.serve import InferenceSession, RetrievalIndex
+
+    session = InferenceSession.from_results_dir(args.results_folder, chunk=args.chunk,
+                                                device=device)
+    index = None
+    if args.candidates:
+        emb = session.embed_speech(np.load(args.candidates).astype(np.float32))
+        capacity = args.capacity or max(1024, 2 * emb.shape[0])
+        index = RetrievalIndex(emb.shape[1], capacity=capacity, device=device)
+        index.add(emb)
+        print(f"retrieval index: {emb.shape[0]} candidates (capacity {capacity})")
+    elif args.capacity:
+        dim = embedding_width(session.model.eegModel, session.cfg.window_length)
+        index = RetrievalIndex(dim, capacity=args.capacity, device=device)
+
+    cfg = session.cfg
+    service = EmbeddingService(
+        session, index,
+        info={"model_arch": cfg.model_arch, "eeg_encoder": cfg.eeg_encoder,
+              "speech_encoder": cfg.speech_encoder, "window_length": cfg.window_length},
+        batch_window_ms=args.batch_window_ms,
+    )
+    httpd = make_server(service, args.host, args.port)
+    print(f"serving {args.results_folder} on http://{args.host}:{httpd.server_address[1]}",
+          flush=True)
+    try:
+        httpd.serve_forever()
+    except KeyboardInterrupt:
+        pass
+    finally:
+        httpd.server_close()
+        service.close()
+    return 0
+
+
+if __name__ == "__main__":
+    raise SystemExit(main())

@@ -12,8 +12,9 @@ Padding is invisible to sampling: chunks are padded to buckets of
 ``SUBS_BUCKET`` subjects × ``WIN_BUCKET`` windows, indices are drawn on the
 host over the real window and subject counts only, so padded rows are never
 read; padded ids map to memory-bank row 0 (the reference's bank has
-``bank_size + 1`` rows and row 0 belongs to no segment).  The JAX store's
-``addEEG`` mixup partners come with the port of ``addEEG`` (ROADMAP.md).
+``bank_size + 1`` rows and row 0 belongs to no segment).  With ``addEEG``
+the mixup partners' subjects are drawn on the host too, per chunk, from the
+real subjects only, and gathered on the card.
 
 The next chunk's upload runs on a background thread while the current chunk
 trains.  On the card it is staged in one pinned host buffer per store
@@ -380,26 +381,38 @@ class DeviceChunkStore:
                 self.prefetch_key(keys[j + 1])
             yield key, idx_m, subs_m, entry
 
+    def _partners(self, rng, subs_m: np.ndarray, n_subs: int, add_eeg: bool) -> np.ndarray:
+        """The mixup partners' subjects ``[n, bs]``, drawn from ``rng`` over
+        the chunk's real subjects, never its padding (``subs_m`` again
+        without mixup), where the JAX store draws them."""
+        if add_eeg:
+            return rng.integers(0, n_subs, subs_m.shape)
+        return subs_m
+
     def epoch_batches(self, rng: Optional[np.random.Generator] = None,
-                      shuffle: bool = True) -> Iterator[Tuple]:
-        """``(eeg_chunk, speech_chunk, ids_chunk, idx, subs)`` per batch:
-        chunk tensors resident on the device, index vectors int64 numpy
-        arrays."""
+                      shuffle: bool = True, add_eeg: bool = False) -> Iterator[Tuple]:
+        """``(eeg_chunk, speech_chunk, ids_chunk, idx, subs, partner)`` per
+        batch: chunk tensors resident on the device, index vectors int64
+        numpy arrays."""
         rng = rng or self.dataset.rng
         for _key, idx_m, subs_m, (eeg_d, speech_d, ids_d, n_subs, _) in self._walk(rng, shuffle):
+            partner_m = self._partners(rng, subs_m, n_subs, add_eeg)
             for i in range(n_subs):
                 yield (eeg_d, speech_d, ids_d, idx_m[i].astype(np.int64),
-                       subs_m[i].astype(np.int64))
+                       subs_m[i].astype(np.int64), partner_m[i].astype(np.int64))
 
     def epoch_chunk_batches(self, rng: Optional[np.random.Generator] = None,
-                            shuffle: bool = True) -> Iterator[Tuple]:
+                            shuffle: bool = True, add_eeg: bool = False) -> Iterator[Tuple]:
         """Per chunk ``(eeg_chunk, speech_chunk, ids_chunk, idx_mat [n, bs],
-        subs_mat [n, bs], n)``: the chunk's whole batch list, which the
-        trainer splits into the bucket-aligned prefix and the tail."""
+        subs_mat [n, bs], partner_mat [n, bs], n)``: the chunk's whole batch
+        list, which the trainer splits into the bucket-aligned prefix and the
+        tail."""
         rng = rng or self.dataset.rng
-        for _key, idx_m, subs_m, (eeg_d, speech_d, ids_d, _, _) in self._walk(rng, shuffle):
+        for _key, idx_m, subs_m, (eeg_d, speech_d, ids_d, n_subs, _) in self._walk(rng, shuffle):
+            partner_m = self._partners(rng, subs_m, n_subs, add_eeg)
             yield (eeg_d, speech_d, ids_d, np.asarray(idx_m, np.int64),
-                   np.asarray(subs_m, np.int64), idx_m.shape[0])
+                   np.asarray(subs_m, np.int64), np.asarray(partner_m, np.int64),
+                   idx_m.shape[0])
 
 
 def gather_batch(
@@ -408,15 +421,21 @@ def gather_batch(
     ids_chunk: torch.Tensor,
     idx: torch.Tensor,
     subs: torch.Tensor,
+    add_eeg: bool = False,
+    partner: Optional[torch.Tensor] = None,
 ) -> Dict[str, torch.Tensor]:
-    """One batch by row gathers on the chunk's device; bf16 chunks are cast
-    back to f32 after the gather, so the cast costs one batch, not one
-    chunk, and everything downstream keeps f32."""
+    """One batch by row gathers on the chunk's device; with ``add_eeg`` also
+    ``partner_eeg``, the same windows of the subjects ``partner``.  bf16
+    chunks are cast back to f32 after the gather, so the cast costs one
+    batch, not one chunk, and everything downstream keeps f32."""
     def f32(x):
         return x if x.dtype == torch.float32 else x.float()
 
-    return {
+    batch = {
         "eeg": f32(eeg_chunk[subs, idx]),
         "speech": f32(speech_chunk[idx]),
         "ids": ids_chunk[idx],
     }
+    if add_eeg:
+        batch["partner_eeg"] = f32(eeg_chunk[partner, idx])
+    return batch

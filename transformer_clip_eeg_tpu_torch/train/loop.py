@@ -12,13 +12,15 @@ chunks resident on the device and gathers each batch there from index
 vectors (``train/device_data.py``); ``"host"`` gathers each batch on the
 host in numpy and copies it to the card from a ring of pinned buffers, two
 batches ahead.  ``"auto"`` is the device store on a CUDA device and the host
-path on the CPU.  Both draw the dataset's ``rng`` in the same order, so
-they train on the same batches.
+path on the CPU.  Both draw the dataset's ``rng`` in the same order (the
+``addEEG`` mixup partners included), so they train on the same batches; the
+train step mixes and augments them on the device (``train/steps.py``).
+With ``profile_dir`` the first epoch runs under ``torch.profiler`` and its
+Chrome trace is written there.
 
 Not ported yet, each raising ``NotImplementedError`` (ROADMAP.md): a
-data-parallel mesh (``n_data_shards``), the bf16 compute mode, augmentations
-and ``addEEG`` mixup, ``profile_dir`` tracing, and a ``prng_impl`` other
-than the default.
+data-parallel mesh (``n_data_shards``), the bf16 compute mode, and a
+``prng_impl`` other than the default.
 """
 
 from __future__ import annotations
@@ -53,6 +55,9 @@ from transformer_clip_eeg_tpu_torch.train.steps import (
     eval_step,
     train_step,
 )
+
+
+PROFILE_TRACE = "epoch0_trace.json"  # the trace's name in profile_dir
 
 
 def printf(statement: str, file: str) -> None:
@@ -159,16 +164,12 @@ def _not_ported(what: str) -> NotImplementedError:
     )
 
 
-def check_supported(cfg: TrainConfig, mesh=None, profile_dir: Optional[str] = None) -> None:
+def check_supported(cfg: TrainConfig, mesh=None) -> None:
     """Raise ``NotImplementedError`` for the options the port does not run yet."""
     if cfg.n_data_shards or mesh is not None:
         raise _not_ported("data-parallel training over several devices (n_data_shards)")
     if cfg.compute_dtype != "float32":
         raise _not_ported(f"compute_dtype={cfg.compute_dtype!r} (the kernels are float32)")
-    if cfg.augmentations or cfg.addEEG_b:
-        raise _not_ported("data augmentation and addEEG mixup (ops/augment.py)")
-    if profile_dir or cfg.profile_dir:
-        raise _not_ported("profile_dir tracing")
     if cfg.prng_impl != "rbg":
         raise _not_ported(f"prng_impl={cfg.prng_impl!r} (the port's dropout masks come "
                           "from ops/dropout.py's counter hash)")
@@ -188,9 +189,10 @@ class Trainer:
         mesh=None,
         profile_dir: Optional[str] = None,
     ):
-        check_supported(config, mesh, profile_dir)
+        check_supported(config, mesh)
         self.cfg = cfg = config
         self.device = resolve_device(device)
+        self.profile_dir = profile_dir  # a torch.profiler trace of epoch 0
         self.train_dataset = train_dataset
         self.val_dataset = val_dataset
         self.results_dir = results_dir or os.path.join(
@@ -241,8 +243,8 @@ class Trainer:
         if self.device.type == "cuda":
             torch.cuda.synchronize(self.device)
 
-    def _batches(self, dataset) -> Iterator[Dict[str, torch.Tensor]]:
-        return prefetch_to_device(batch_iterator(dataset, add_eeg=False), self.device)
+    def _batches(self, dataset, add_eeg: bool = False) -> Iterator[Dict[str, torch.Tensor]]:
+        return prefetch_to_device(batch_iterator(dataset, add_eeg), self.device)
 
     def _indices(self, *mats: np.ndarray) -> List[torch.Tensor]:
         """Index matrices as int64 on the device (from pinned memory on the
@@ -259,17 +261,22 @@ class Trainer:
         bucket-aligned prefix (its mean losses, ``n_scan * bs`` pairs) or one
         batch of its tail, as the JAX trainer's scan and per-batch steps."""
         cfg, phase, seed = self.cfg, self._phase, self._train_seed
+        step_kw = dict(model_arch=cfg.model_arch, augmentations=cfg.augmentations,
+                       augmentation_probability=cfg.data_augmentation_percentage,
+                       add_eeg=cfg.addEEG_b)
         if self.device_data:
-            for eeg_c, sp_c, ids_c, idx_m, subs_m, n in self.chunk_store.epoch_chunk_batches():
+            for eeg_c, sp_c, ids_c, idx_m, subs_m, partner_m, n in \
+                    self.chunk_store.epoch_chunk_batches(add_eeg=cfg.addEEG_b):
                 bs = idx_m.shape[1]
                 n_scan = (n // device_data.SUBS_BUCKET) * device_data.SUBS_BUCKET
-                idx_d, subs_d = self._indices(idx_m, subs_m)
+                idx_d, subs_d, partner_d = self._indices(idx_m, subs_m, partner_m)
 
                 def step(i):
                     t0 = time.perf_counter()
                     self._step_starts.append(t0)
                     losses = chunk_train_step(self.model, self.optimizer, eeg_c, sp_c, ids_c,
-                                              idx_d[i], subs_d[i], seed, warmup, cfg.model_arch)
+                                              idx_d[i], subs_d[i], seed, warmup,
+                                              partner=partner_d[i], **step_kw)
                     phase["dispatch_s"] += time.perf_counter() - t0
                     return losses
 
@@ -280,11 +287,10 @@ class Trainer:
                 for i in range(n_scan, n):
                     yield step(i), bs
         else:
-            for batch in self._batches(self.train_dataset):
+            for batch in self._batches(self.train_dataset, cfg.addEEG_b):
                 t0 = time.perf_counter()
                 self._step_starts.append(t0)
-                losses = train_step(self.model, self.optimizer, batch, seed, warmup,
-                                    cfg.model_arch)
+                losses = train_step(self.model, self.optimizer, batch, seed, warmup, **step_kw)
                 phase["dispatch_s"] += time.perf_counter() - t0
                 yield losses, batch["eeg"].shape[0]
 
@@ -318,6 +324,25 @@ class Trainer:
     def _restore(self, snap: Dict[str, Any]) -> None:
         self.model.load_state_dict(snap["model"])
         self.optimizer.load_state_dict(snap["optimizer"])
+
+    def _start_profile(self):
+        """A running ``torch.profiler`` over the host and, on the card, the
+        device."""
+        from torch.profiler import ProfilerActivity, profile
+
+        activities = [ProfilerActivity.CPU]
+        if self.device.type == "cuda":
+            activities.append(ProfilerActivity.CUDA)
+        prof = profile(activities=activities)
+        prof.start()
+        return prof
+
+    def _stop_profile(self, prof) -> None:
+        """Stop ``prof`` and write its Chrome trace to
+        ``<profile_dir>/epoch0_trace.json``."""
+        prof.stop()
+        os.makedirs(self.profile_dir, exist_ok=True)
+        prof.export_chrome_trace(os.path.join(self.profile_dir, PROFILE_TRACE))
 
     def _format_loss_line(self, epoch: int, n_batches: int, losses) -> str:
         """The reference's per-100-batch loss line (ref :494-500); the KLD
@@ -372,6 +397,7 @@ class Trainer:
                 break
 
             warmup = epoch < cfg.warmup_epochs
+            profiler = self._start_profile() if self.profile_dir and epoch == 0 else None
             t0 = time.time()
             n_batches = n_pairs = next_log = 0
             # dispatch = host time in step calls, fetch = host time turning
@@ -401,6 +427,8 @@ class Trainer:
                     n_batches += max(pairs // cfg.batch_size, 1)
                     n_pairs += pairs
             except BaseException:
+                if profiler is not None:
+                    profiler.stop()
                 # a crash mid-epoch must not eat the deferred loss lines
                 for nb, losses in pending_logs:
                     try:
@@ -434,6 +462,9 @@ class Trainer:
                     upload_wait_s=round(after["wait_s"] - store_before["wait_s"], 1),
                 )
             printf(f"epoch {epoch} phases {json.dumps(phase_rec)}", self.loss_file)
+            if profiler is not None:
+                self._stop_profile(profiler)
+                printf(f"profiler trace written to {self.profile_dir}", self.loss_file)
 
             # scheduler (ref :502-504); plateau consumes the last val loss
             if cfg.lr_scheduler != "no":
@@ -498,7 +529,8 @@ class Trainer:
             # every batch of a chunk in turn (the JAX trainer scans a chunk's
             # bucket-aligned prefix; the sum is the same), summed in the host
             # path's order
-            for eeg_c, sp_c, ids_c, idx_m, subs_m, n in self.val_chunk_store.epoch_chunk_batches():
+            for eeg_c, sp_c, ids_c, idx_m, subs_m, _partner, n in \
+                    self.val_chunk_store.epoch_chunk_batches():
                 idx_d, subs_d = self._indices(idx_m, subs_m)
                 for i in range(n):
                     add(chunk_eval_step(self.model, eeg_c, sp_c, ids_c, idx_d[i], subs_d[i],

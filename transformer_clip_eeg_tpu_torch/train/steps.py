@@ -21,15 +21,29 @@ folded with the step number, as the JAX step folds its key with
 ``state.step``), and every dropout layer and transformer block draws its
 masks from its own stream of it (``ops.dropout.set_dropout_seeds``), so the
 same step on the CPU and on the card drops the same elements.
+
+Mixup and augmentation (``add_eeg``, ``augmentations``; ref
+``dataset_loader.py:333-356,424-434``) run on the batch's device before the
+encoders, mixup first, as in JAX: mixup draws from
+``fold_seed(step_seed, MIXUP_STREAM)`` and the augmentations from
+``fold_seed(step_seed, AUGMENT_STREAM)`` (``ops/augment.py``), streams no
+dropout layer takes.  Validation runs neither.
 """
 
 from __future__ import annotations
 
-from typing import Callable, Dict, Tuple
+from typing import Callable, Dict, Optional, Sequence, Tuple
 
 import torch
 
 from transformer_clip_eeg_tpu_torch.models.heads import flatten_features
+from transformer_clip_eeg_tpu_torch.ops.augment import (
+    AUGMENT_STREAM,
+    MIXUP_STREAM,
+    apply_batch_mixup,
+    draw_batch_mixup,
+    make_augmentation_fn,
+)
 from transformer_clip_eeg_tpu_torch.ops.dropout import fold_seed, set_dropout_seeds
 from transformer_clip_eeg_tpu_torch.ops.layers import l2_normalize
 from transformer_clip_eeg_tpu_torch.train.device_data import gather_batch
@@ -47,16 +61,36 @@ def _split_outputs(model_arch: str, outs) -> Dict[str, torch.Tensor]:
     return {"loss_ce": loss_ce, "loss_avg": loss_avg, "loss_total": loss_total}
 
 
+def _apply_mixup(key: int, eeg: torch.Tensor, partner_eeg: torch.Tensor,
+                 probability: float) -> torch.Tensor:
+    """Batch-level cross-subject mixup: per row, with ``probability``, the
+    convex combination with the same window of a random other subject
+    (``partner_eeg``, gathered by the data path), weight ~ U(0, 1)."""
+    return apply_batch_mixup(eeg, partner_eeg,
+                             **draw_batch_mixup(key, eeg.shape[0], probability, eeg.device))
+
+
 def train_step(model, optimizer, batch: Dict[str, torch.Tensor], seed: int,
-               warmup: bool, model_arch: str = "clip_sim_no_latent_proj"
-               ) -> Dict[str, torch.Tensor]:
-    """One training step on ``batch = {'eeg', 'speech', 'ids'}``: dropout
-    from ``fold_seed(seed, optimizer.step)``, the gradient of ``loss_ce``
-    (``warmup``) or ``loss_total``, one optimizer update (which bumps the
-    step), and the bank's EMA update.  Returns the losses, detached."""
+               warmup: bool, model_arch: str = "clip_sim_no_latent_proj",
+               augmentations: Sequence[str] = (), augmentation_probability: float = 0.5,
+               add_eeg: bool = False) -> Dict[str, torch.Tensor]:
+    """One training step on ``batch = {'eeg', 'speech', 'ids'[,
+    'partner_eeg']}``: mixup (``add_eeg``) and the augmentations on the EEG,
+    dropout from ``fold_seed(seed, optimizer.step)``, the gradient of
+    ``loss_ce`` (``warmup``) or ``loss_total``, one optimizer update (which
+    bumps the step), and the bank's EMA update.  Returns the losses,
+    detached."""
     model.train()
-    set_dropout_seeds(model, fold_seed(seed, optimizer.step))
-    losses = _split_outputs(model_arch, model(batch["eeg"], batch["speech"], batch["ids"]))
+    step_seed = fold_seed(seed, optimizer.step)
+    eeg = batch["eeg"]
+    if add_eeg:
+        eeg = _apply_mixup(fold_seed(step_seed, MIXUP_STREAM), eeg, batch["partner_eeg"],
+                           augmentation_probability)
+    if augmentations:
+        augment = make_augmentation_fn(augmentations, augmentation_probability)
+        eeg = augment(fold_seed(step_seed, AUGMENT_STREAM), eeg)
+    set_dropout_seeds(model, step_seed)
+    losses = _split_outputs(model_arch, model(eeg, batch["speech"], batch["ids"]))
     objective = losses["loss_ce"] if warmup else losses["loss_total"]
     # a parameter the objective does not reach (temperature_eeg in warmup)
     # gets a zero gradient, as jax.grad gives it
@@ -77,11 +111,16 @@ def eval_step(model, batch: Dict[str, torch.Tensor],
 
 def chunk_train_step(model, optimizer, eeg_chunk, speech_chunk, ids_chunk,
                      idx: torch.Tensor, subs: torch.Tensor, seed: int, warmup: bool,
-                     model_arch: str = "clip_sim_no_latent_proj") -> Dict[str, torch.Tensor]:
+                     model_arch: str = "clip_sim_no_latent_proj",
+                     augmentations: Sequence[str] = (), augmentation_probability: float = 0.5,
+                     add_eeg: bool = False, partner: Optional[torch.Tensor] = None
+                     ) -> Dict[str, torch.Tensor]:
     """:func:`train_step` on the batch gathered from a resident chunk;
-    ``idx`` and ``subs`` are int64 index vectors on the chunk's device."""
-    batch = gather_batch(eeg_chunk, speech_chunk, ids_chunk, idx, subs)
-    return train_step(model, optimizer, batch, seed, warmup, model_arch)
+    ``idx``, ``subs`` and (with ``add_eeg``) the mixup partners' subjects
+    ``partner`` are int64 index vectors on the chunk's device."""
+    batch = gather_batch(eeg_chunk, speech_chunk, ids_chunk, idx, subs, add_eeg, partner)
+    return train_step(model, optimizer, batch, seed, warmup, model_arch, augmentations,
+                      augmentation_probability, add_eeg)
 
 
 def chunk_eval_step(model, eeg_chunk, speech_chunk, ids_chunk, idx: torch.Tensor,
