@@ -120,9 +120,31 @@ GPU, end to end.
     and match_mismatch whose answers equal the serve CLI's, SIGINT and exit
     code 0; the time to the first /healthz, the median request times and
     the subprocess's exact launches.
-14. Prints one JSON line of per-kernel numbers (``launches_by_path`` with
-    ``train_augmented``, ``serve_cli`` and ``server_cli``), then, last, the
-    ``{"ok": true, "device": ...}`` line.
+14. The bf16 compute mode (``--compute_dtype bfloat16``): kernels #1 and #2
+    in their bf16 instantiation (``check_block_bf16``) against their plain
+    twins on bf16 input at [128, 192, 64], [128, 256, 64] and [8, 1699, 64],
+    dropout on and off (out and dx within 8e-3 of max |twin|, the parameter
+    gradients within 2.5e-3 of each one's largest), with cuBLAS's bf16 sums
+    in f32 (``f32_sums``); the f32 instantiation on the same bf16-valued
+    inputs must miss the gradients' limit (the control); timed by CUDA events beside their f32 instantiations,
+    the twins and ``nn.TransformerEncoderLayer`` in bf16, forward and
+    backward, with a bit-for-bit repeat, the launches per call and no spill
+    in any instantiation.  The LSTM (H=128, D=2 and D=1) and the fused conv
+    block (K=64) on bf16 input against the same modules on their twins
+    (``check_lstm_conv_bf16``).  Then ``bf16_train_path``: the flagship's
+    command line with ``--compute_dtype bfloat16`` (device store, 2 epochs,
+    evaluation suite): exactly 10/10/2/2 launches of #1-#4 a train step with
+    every #1 and #2 of training in bf16 and none in validation, the suite or
+    ``--only_evaluate``; every loss finite; both data paths on cuDNN's
+    deterministic algorithms within 1e-5; the epoch-2 median step beside the
+    f32 run's and 3 bf16 steps profiled; one bf16 step at batch 8, card
+    against CPU, for the flagship, its fused variant and Z1-Z5 (each loss
+    within 1e-2, each gradient within 5e-2 of its largest value, bank and
+    running statistics within 1e-2).
+15. Prints one JSON line of per-kernel numbers (``launches_by_path`` with
+    ``train_augmented``, ``serve_cli``, ``server_cli`` and ``train_bf16``;
+    the bf16 instantiations of #1 and #2 as entries of their own), then,
+    last, the ``{"ok": true, "device": ...}`` line.
 
 Any failure raises and exits non-zero.  Imports nothing of JAX.
 """
@@ -175,6 +197,7 @@ from transformer_clip_eeg_tpu_torch.ops.dropout import (  # noqa: E402
 from transformer_clip_eeg_tpu_torch.ops.fused_block import (  # noqa: E402
     DropoutConfig,
     fused_block_backward,
+    fused_block_backward_reference,
     fused_block_forward_cuda,
     fused_block_saved_reference,
     fused_transformer_block,
@@ -188,6 +211,7 @@ from transformer_clip_eeg_tpu_torch.ops.fused_conv import (  # noqa: E402
     fused_conv_backward,
     fused_conv_forward_cuda,
 )
+from transformer_clip_eeg_tpu_torch.ops.lstm import LSTM  # noqa: E402
 from transformer_clip_eeg_tpu_torch.ops.lstm_scan import (  # noqa: E402
     _backward_recurrence as lstm_backward_recurrence,
     _dwhh as lstm_dwhh,
@@ -1211,14 +1235,15 @@ def set_fused(model, on: bool = True) -> int:
 
 
 def step_grads(cfg, host_batch, dev: str, dtype=torch.float32, fused: bool = False,
-               augmentations=(), add_eeg: bool = False) -> dict:
+               augmentations=(), add_eeg: bool = False, compute_dtype=None) -> dict:
     """One training step's forward and gradients at batch 8, dropout on, on
     ``dev`` in ``dtype``: weights from seed 0, the step seed's masks; with
     ``add_eeg`` the EEG mixed with rows 8-15 of the batch and with
     ``augmentations`` augmented, at p=0.5, from the train step's streams of
-    the step seed.  The losses (named as the trainer names them), every
-    gradient and every buffer after the step (the memory bank after its EMA
-    update, the batch norms' running statistics), on the CPU."""
+    the step seed; then, with ``compute_dtype``, the EEG and speech cast to
+    it as the train step casts them.  The losses (named as the trainer names
+    them), every gradient and every buffer after the step (the memory bank
+    after its EMA update, the batch norms' running statistics), on the CPU."""
     model = build_model(cfg, cfg.bank_size, device=dev, seed=0).to(dtype).train()
     set_fused(model, fused)
     step_seed = fold_seed(99, 0)
@@ -1231,7 +1256,11 @@ def step_grads(cfg, host_batch, dev: str, dtype=torch.float32, fused: bool = Fal
     if augmentations:
         batch[0] = make_augmentation_fn(augmentations, 0.5)(
             fold_seed(step_seed, AUGMENT_STREAM), batch[0])
+    if compute_dtype is not None:
+        batch[:2] = [x.to(compute_dtype) for x in batch[:2]]
     losses = split_outputs(cfg.model_arch, model(*batch))
+    if losses["loss_ce"].dtype != dtype:
+        raise AssertionError(f"loss_ce is {losses['loss_ce'].dtype}, the parameters {dtype}")
     params = list(model.parameters())
     grads = torch.autograd.grad(losses["loss_total"], params, allow_unused=True)
     return {
@@ -1294,9 +1323,19 @@ def counts() -> dict:
     return {f.__name__: f.launches for f in COUNTERS}
 
 
+# the wrappers that count their bf16 instantiation's launches apart too
+BF16_COUNTERS = (fused_transformer_block, fused_block_backward)
+
+
+def bf16_counts() -> dict:
+    return {f.__name__: f.launches_bf16 for f in BF16_COUNTERS}
+
+
 def zero_counts() -> None:
     for f in COUNTERS:
         f.launches = 0
+    for f in BF16_COUNTERS:
+        f.launches_bf16 = 0
 
 
 def read_loss_txt(path: str, mode: str, profile_dir: str = ""):
@@ -1364,6 +1403,7 @@ def instrumented():
         # training's launches end here; what the stores hold goes next
         torch.cuda.synchronize()
         seen["train_launches"] = counts()
+        seen["train_launches_bf16"] = bf16_counts()
         seen["chunks"] = [sum("eeg" in c for c in ds.chunks.values())
                           for ds in (self.train_dataset, self.val_dataset)]
         seen["steps"] = steps_per_epoch(self)
@@ -1391,7 +1431,7 @@ def instrumented():
             for h in hooks:
                 h.remove()
         seen["eval"].append({"wall_s": time.perf_counter() - t0, "launches": counts(),
-                             "encoder_calls": calls})
+                             "launches_bf16": bf16_counts(), "encoder_calls": calls})
 
     Trainer.fit, Trainer.release_host_data, cli.run_eval_suite = (
         fit, release_host_data, run_eval_suite)
@@ -2321,6 +2361,464 @@ def server_cli_path(results_dir: str, serve: dict) -> dict:
     return result
 
 
+# ---- the bf16 compute mode (--compute_dtype bfloat16) ------------------------------
+# The agreed limits: both sides round the same operands to bf16 and sum in f32
+# in another order, so an intermediate may flip by one bf16 unit (2^-8
+# relative) where the two sums straddle a rounding boundary
+BF16_OUT_TOL = 8e-3    # bf16 outputs (block out, dx, LSTM hs, conv out): of max |ref|
+BF16_GRAD_TOL = 1e-2   # f32 parameter gradients of one module: of each one's largest value
+# #1/#2's 16 parameter gradients against the twin, tightened: the kernels read
+# at most 8.6e-4, and the float32 instantiation on the same bf16-rounded
+# inputs (products on unrounded operands) 3.9e-3 to 6.0e-3 (the twins on the
+# CPU at these shapes), which this limit must tell apart (the control)
+BF16_BLOCK_GRAD_TOL = 2.5e-3
+BF16_STEP_LOSS_TOL = 1e-2   # one whole train step: each loss, relative
+BF16_STEP_GRAD_TOL = 5e-2   # each gradient, of its largest value
+BF16_STEP_STATE_TOL = 1e-2  # the bank's rows and the running statistics
+# a leaf that is zero in exact arithmetic (each block's key bias) holds only
+# rounding noise: in a bf16 step it is held at this share of the largest
+# gradient (one bf16 unit), where the f32 step's floor is STEP_GRAD_FLOOR
+BF16_STEP_GRAD_FLOOR = 4e-3
+BF16_PLANES = 4  # q, k, v and ctx, the saved planes that hold bf16 values
+PEAK_BF16_FLOPS = 989e12  # dense bf16 on the tensor cores
+BF16_WINDOWS = ((128, 192), (128, 256), (8, 1699))  # (B, T): the flagship, 4 s, the longest
+DBK, DBQ = 6, 5  # the key and query biases' places in the block's 16-tuple
+BF16_NAMES = {"fused_transformer_block": "fused_transformer_block (bf16)",
+              "fused_block_backward": "fused_block_backward (bf16)"}
+
+
+def bound_bf16(flops: float, nbytes: float):
+    """The least time of ``flops`` bf16 tensor-core operations and ``nbytes``."""
+    t_ops, t_bytes = flops / PEAK_BF16_FLOPS, nbytes / PEAK_BYTES
+    return max(t_ops, t_bytes) * 1e3, ("operations" if t_ops >= t_bytes else "bytes")
+
+
+def rel_err(got, want) -> float:
+    """max abs error over max |want|, in float32."""
+    got, want = got.float(), want.float()
+    return float((got - want).abs().max()) / float(want.abs().max())
+
+
+def dparam_errs(got, want) -> list:
+    """Each of the block's 16 parameter gradients: max abs error over its own
+    largest value; the key bias's (zero in exact arithmetic: a softmax does
+    not move when one vector is added to every key) over the query bias's."""
+    return [float((a - w).abs().max()) / float(want[DBQ if i == DBK else i].abs().max())
+            for i, (a, w) in enumerate(zip(got, want))]
+
+
+@contextlib.contextmanager
+def f32_sums():
+    """cuBLAS's bf16 products with f32 sums only (PyTorch lets it sum part of
+    a bf16 product in bf16 by default, where JAX sums in f32): on while the
+    card is held against the CPU or a twin, off for the timed runs."""
+    flag = torch.backends.cuda.matmul
+    before = flag.allow_bf16_reduced_precision_reduction
+    flag.allow_bf16_reduced_precision_reduction = False
+    try:
+        yield
+    finally:
+        flag.allow_bf16_reduced_precision_reduction = before
+
+
+def ptxas_spills(*names: str) -> dict:
+    """The registers of every compiled instantiation of each kernel in
+    ``names`` (a list a name, in the order ``ptxas -v`` reported them);
+    raises if one spills."""
+    usage = {m: u for m, u in _build.ptxas_usage().items() if any(n in m for n in names)}
+    spills = {m: u for m, u in usage.items() if u["spill_stores"] or u["spill_loads"]}
+    if spills:
+        raise AssertionError(f"kernels spill registers: {spills} (all: {usage})")
+    return {n: [u["registers"] for m, u in usage.items() if n in m] for n in names}
+
+
+def block_bf16_errors(x, params, g, drop) -> dict:
+    """#1 and #2 in their bf16 instantiations on a bf16 ``x`` and ``g``
+    against the plain twins on the card: out, what the forward saves, dx
+    (all of max |twin|, ``BF16_OUT_TOL``) and the 16 parameter gradients
+    (``dparam_errs``, ``BF16_BLOCK_GRAD_TOL``); then the control: the float32
+    instantiation on the same (bf16-valued) inputs, whose products take
+    unrounded operands, must miss the parameter gradients' limit.  Raises
+    past the limits or if the control passes them."""
+    h, scale = 8, x.shape[-1] ** 0.5
+    with torch.inference_mode():
+        out, saved = fused_block_forward_cuda(x, params, h, scale, drop, save=True)
+        dx, dparams = fused_block_backward(x, params, g, saved, h, scale, drop)
+        torch.cuda.synchronize()
+        if out.dtype != torch.bfloat16 or dx.dtype != torch.bfloat16 or any(
+                d.dtype != torch.float32 for d in dparams):
+            raise AssertionError("the bf16 block's outputs are not bf16 out and dx and f32 "
+                                 "parameter gradients")
+        errs = {"out": rel_err(out, fused_transformer_block_reference(x, params, h, scale,
+                                                                       *drop))}
+        want_saved = fused_block_saved_reference(x, params, h, scale, drop)
+        n = x.numel()
+        for i, name in enumerate(SAVED_NAMES):
+            sl = slice(i * n, (i + 1) * n if i < 5 else None)
+            errs[f"saved_{name}"] = rel_err(saved[sl], want_saved[sl])
+        del want_saved, saved
+        want_dx, want_dp = fused_block_backward_reference(x, params, g, h, scale, drop)
+        errs["dx"] = rel_err(dx, want_dx)
+        grad_errs = dparam_errs(dparams, want_dp)
+        x32, g32 = x.float(), g.float()
+        out32, saved32 = fused_block_forward_cuda(x32, params, h, scale, drop, save=True)
+        dx32, dparams32 = fused_block_backward(x32, params, g32, saved32, h, scale, drop)
+        control = {"out": rel_err(out32, out), "dx": rel_err(dx32, want_dx),
+                   "dparams_worst": max(dparam_errs(dparams32, want_dp))}
+        del saved32
+    errs["dparams_worst"] = max(grad_errs)
+    errs["f32_control"] = control
+    log(f"  bf16 #1/#2 x{tuple(x.shape)}, drop {drop.active}: {json.dumps(errs)} (tol "
+        f"{BF16_OUT_TOL:g} of max|twin|; dparams {BF16_BLOCK_GRAD_TOL:g} of each one's "
+        f"largest, which the f32 control must miss); dparams "
+        f"{[f'{v:.1e}' for v in grad_errs]}")
+    if not (max(v for k, v in errs.items() if k.startswith(("out", "saved_", "dx")))
+            <= BF16_OUT_TOL and errs["dparams_worst"] <= BF16_BLOCK_GRAD_TOL):
+        raise AssertionError(f"the bf16 block disagrees with its twins: {errs}")
+    if control["dparams_worst"] <= BF16_BLOCK_GRAD_TOL:
+        raise AssertionError(f"the f32 block on the same inputs passes the bf16 block's "
+                             f"limits, which cannot tell the modes apart: {control}")
+    return errs
+
+
+def check_block_bf16(gen: torch.Generator, params) -> list:
+    """Kernels #1 and #2 in their bf16 mode: against the twins at the
+    flagship's window, at T=256 and at T=1,699 (batch 8), dropout on and off,
+    with cuBLAS's f32 sums; then timed at the flagship's shape by CUDA events
+    beside their f32 instantiations, the twins and ``nn.TransformerEncoderLayer``
+    in bf16 (forward, and backward), with a bit-for-bit repeat, the launches
+    per call and what ``ptxas -v`` reported for every instantiation.  Returns
+    the two entries of the ``kernels`` line."""
+    h, e = 8, 64
+    scale = e ** 0.5
+    windows = {}
+    with f32_sums():
+        for b, t in BF16_WINDOWS:
+            x = torch.randn(b, t, e, generator=gen).to("cuda").to(torch.bfloat16)
+            g = torch.randn(b, t, e, generator=gen).to("cuda").to(torch.bfloat16)
+            windows[f"B{b}_T{t}"] = {
+                ("dropout" if drop.active else "eval"): block_bf16_errors(x, params, g, drop)
+                for drop in (DropoutConfig(), FLAGSHIP_DROP)}
+            del x, g
+            torch.cuda.empty_cache()
+    worst = {k: max(w[mode][k] for w in windows.values() for mode in w)
+             for k in ("out", "dx", "dparams_worst")}
+    control_worst = min(w[mode]["f32_control"]["dparams_worst"] for w in windows.values()
+                        for mode in w)
+
+    b, t = 128, 192
+    x = torch.randn(b, t, e, generator=gen).to("cuda").to(torch.bfloat16)
+    g = torch.randn(b, t, e, generator=gen).to("cuda").to(torch.bfloat16)
+    x32, g32 = x.float(), g.float()
+    run_eval = lambda: fused_block_forward_cuda(x, params, h, scale)[:1]  # noqa: E731
+    run_tr = lambda: fused_block_forward_cuda(x, params, h, scale, FLAGSHIP_DROP,  # noqa: E731
+                                              save=True)
+    lib = library_layer(params).to(torch.bfloat16).eval()
+    with torch.inference_mode():
+        assert_repeats("fused_transformer_block (bf16, training: out and saved)", run_tr)
+        _, saved = run_tr()
+        _, saved32 = fused_block_forward_cuda(x32, params, h, scale, FLAGSHIP_DROP, save=True)
+
+        def run_bwd():
+            dx, dparams = fused_block_backward(x, params, g, saved, h, scale, FLAGSHIP_DROP)
+            return (dx, *dparams)
+
+        assert_repeats("fused_block_backward (bf16)", run_bwd)
+        fwd_parts = block_forward_parts(run_eval)
+        bwd_parts = kernel_parts(run_bwd, {"rows": ("ffn_bwd_kernel", "qkv_bwd_kernel"),
+                                           "attention": ("attn_bwd_kernel",),
+                                           "dw": ("products_kernel",),
+                                           "sums": ("sums_kernel",)})
+        ms = time_ms(run_eval)
+        ms_tr = time_ms(run_tr)
+        bwd_ms = time_ms(run_bwd)
+        f32_ms = time_ms(lambda: fused_block_forward_cuda(x32, params, h, scale))
+        f32_bwd_ms = time_ms(lambda: fused_block_backward(x32, params, g32, saved32, h, scale,
+                                                          FLAGSHIP_DROP))
+        plain_ms = time_ms(lambda: fused_transformer_block_reference(x, params, h, scale))
+        plain_bwd_ms = time_ms(lambda: fused_block_backward_reference(x, params, g, h, scale,
+                                                                      FLAGSHIP_DROP))
+        library_ms = time_ms(lambda: lib(x))
+    lib.train()
+    xl = x.clone().requires_grad_()
+    lib_leaves = [xl] + list(lib.parameters())
+    lib_out = lib(xl)
+    library_bwd_ms = time_ms(lambda: torch.autograd.grad(lib_out, lib_leaves, g,
+                                                         retain_graph=True))
+    usage = ptxas_spills("ln_qkv_kernel", "attn_fwd_kernel", "proj_ffn_kernel",
+                         "ffn_bwd_kernel", "attn_bwd_kernel", "qkv_bwd_kernel")
+    flops = block_flops(b, t)
+    n_par = sum(p.numel() for p in params)
+    bound_ms, bound_by = bound_bf16(flops, 2 * 2 * x.numel() + 4 * n_par)
+    # backward: x, g (bf16) and what the forward saved in (q, k, v and ctx
+    # hold bf16 values: 2 bytes each, the rest f32), dx (bf16) and the
+    # parameters' gradients out
+    bwd_bound_ms, bwd_bound_by = bound_bf16(
+        2 * flops, 2 * 3 * x.numel() + 2 * BF16_PLANES * x.numel()
+        + 4 * (saved.numel() - BF16_PLANES * x.numel() + 2 * n_par))
+    log(f"  bf16 #1 at [128, 192, 64]: {ms:.4f} ms eval, {ms_tr:.4f} ms training (the f32 "
+        f"kernel {f32_ms:.4f} ms), plain {plain_ms:.4f} ms, TransformerEncoderLayer in bf16 "
+        f"{library_ms:.4f} ms, bound {bound_ms:.4f} ms ({bound_by}); parts "
+        f"{json.dumps(fwd_parts['parts_ms'])}")
+    log(f"  bf16 #2: {bwd_ms:.4f} ms (the f32 kernel {f32_bwd_ms:.4f} ms), plain "
+        f"{plain_bwd_ms:.4f} ms, the layer's backward in bf16 {library_bwd_ms:.4f} ms, bound "
+        f"{bwd_bound_ms:.4f} ms ({bwd_bound_by}); parts {json.dumps(bwd_parts['parts_ms'])}, "
+        f"{bwd_parts['launches_per_call']:g} device launches a call; ptxas {json.dumps(usage)}")
+    common = {"route": "cuda", "tol": BF16_OUT_TOL, "grad_tol": BF16_BLOCK_GRAD_TOL,
+              "f32_control_dparams_least": control_worst,
+              "cublas_bf16_sums": "f32 (reduced-precision reduction off)",
+              "registers_by_instantiation": usage}
+    return [
+        {"name": BF16_NAMES["fused_transformer_block"], **common,
+         "source": "transformer_clip_eeg_tpu_torch/csrc/fused_block.cu",
+         "replaces": "transformer_clip_eeg_tpu/ops/pallas_block.py:458",
+         "max_abs_err": worst["out"], "tol_is": "max abs error / max |twin|",
+         "ms": ms, "training_ms": ms_tr, "f32_ms": f32_ms, "plain_ms": plain_ms,
+         "library_ms": library_ms,
+         "library_call": "torch.nn.TransformerEncoderLayer(norm_first=True) in bf16, eval",
+         "bound_ms": bound_ms, "bound_by": bound_by, "parts_ms": fwd_parts["parts_ms"],
+         "device_launches_per_call": BLOCK_FWD_LAUNCHES, "repeats_bit_for_bit": True,
+         "windows_with_backward": windows},
+        {"name": BF16_NAMES["fused_block_backward"], **common,
+         "source": "transformer_clip_eeg_tpu_torch/csrc/fused_block_bwd.cu",
+         "replaces": "transformer_clip_eeg_tpu/ops/pallas_block.py:498",
+         "max_abs_err": worst["dx"], "max_grad_err": worst["dparams_worst"],
+         "tol_is": "dx: max abs error / max |twin|; dparams: of each one's largest",
+         "ms": bwd_ms, "f32_ms": f32_bwd_ms, "plain_ms": plain_bwd_ms,
+         "library_ms": library_bwd_ms,
+         "library_call": "backward of torch.nn.TransformerEncoderLayer(norm_first=True) "
+                         "in bf16",
+         "bound_ms": bwd_bound_ms, "bound_by": bwd_bound_by, "parts_ms": bwd_parts["parts_ms"],
+         "device_launches_per_call": bwd_parts["launches_per_call"],
+         "repeats_bit_for_bit": True},
+    ]
+
+
+def check_lstm_conv_bf16(gen: torch.Generator) -> dict:
+    """Kernels #3/#4 and #5/#6 under bf16 inputs, through the port's modules
+    on the card, against the same modules computing with the plain twins on
+    the card: the flagship's biLSTM (H=128, D=2) and the zoo's
+    unidirectional one (D=1) on bf16 input [128, 192, 64], and the fused
+    conv block at K=64.  Outputs and dx in bf16 within ``BF16_OUT_TOL``, the
+    weights' gradients in f32 within ``BF16_GRAD_TOL``; ``whh``'s gradient
+    holds bf16 values (JAX rounds it there)."""
+    import transformer_clip_eeg_tpu_torch.ops.lstm as lstm_mod
+
+    out = {}
+    x = torch.randn(128, 192, 64, generator=gen).to("cuda").to(torch.bfloat16)
+    with f32_sums():
+        for d in (2, 1):
+            mod = LSTM(64, 128, bidirectional=d == 2)
+            mod.reset_parameters(torch.Generator().manual_seed(d))
+            mod = mod.to("cuda")
+            g_h = torch.randn(128, 192, 128 * d, generator=gen).to("cuda").to(torch.bfloat16)
+            results = []
+            for twin in (False, True):
+                if twin:  # the recurrence as the plain twin, under autograd
+                    lstm_mod.lstm_scan_packed = lambda xw, whh: lstm_scan_reference(xw, whh)
+                try:
+                    xl = x.clone().requires_grad_()
+                    hs = mod(xl)
+                    grads = torch.autograd.grad(hs, [xl, *mod.parameters()], g_h)
+                    torch.cuda.synchronize()
+                finally:
+                    lstm_mod.lstm_scan_packed = lstm_scan_packed
+                results.append((hs.detach(), grads))
+            (hs, grads), (hs_t, grads_t) = results
+            names = [n for n, _ in mod.named_parameters()]
+            whh_grads = [gr for n, gr in zip(names, grads[1:]) if n.startswith("weight_hh")]
+            if hs.dtype != torch.bfloat16 or grads[0].dtype != torch.bfloat16 or not all(
+                    torch.equal(gr, gr.to(torch.bfloat16).float()) for gr in whh_grads):
+                raise AssertionError("the bf16 LSTM's hs and dx are not bf16, or whh's "
+                                     "gradient holds values bf16 cannot")
+            errs = {"hs": rel_err(hs, hs_t), "dx": rel_err(grads[0], grads_t[0]),
+                    "dweights": max(rel_err(a, w) for a, w in zip(grads[1:], grads_t[1:]))}
+            log(f"  bf16 LSTM H=128 D={d} on x[128, 192, 64]: kernels vs twins {errs}")
+            if not (max(errs["hs"], errs["dx"]) <= BF16_OUT_TOL
+                    and errs["dweights"] <= BF16_GRAD_TOL):
+                raise AssertionError(f"the bf16 LSTM disagrees with its twin: {errs}")
+            out[f"lstm_D{d}"] = errs
+        xc, w, bb, scale, bias, g = conv_case(gen, 64)
+        xc, g = xc.to(torch.bfloat16), g.to(torch.bfloat16)
+        results = []
+        for twin in (False, True):
+            leaves = [xc.clone().requires_grad_()] + [
+                v.clone().requires_grad_() for v in (w, bb, scale, bias)]
+            if twin:
+                y = fused_basic_block_reference(leaves[0].float(), *leaves[1:],
+                                                CONV_DROP.seed, 64, CONV_DROP.drop_p,
+                                                True).to(torch.bfloat16)
+            else:
+                y = fused_basic_block(leaves[0], *leaves[1:], CONV_DROP.seed, 64,
+                                      CONV_DROP.drop_p, True)
+            results.append((y.detach(), torch.autograd.grad(y, leaves, g)))
+        (y, grads), (y_t, grads_t) = results
+        if y.dtype != torch.bfloat16 or grads[0].dtype != torch.bfloat16 or any(
+                gr.dtype != torch.float32 for gr in grads[1:]):
+            raise AssertionError("the bf16 conv block's out and dx are not bf16, or its "
+                                 "weight gradients not f32")
+        errs = {"out": rel_err(y, y_t), "dx": rel_err(grads[0], grads_t[0]),
+                "dweights": max(rel_err(a, w_) for a, w_ in zip(grads[1:], grads_t[1:]))}
+        log(f"  bf16 fused conv block K=64, dropout 0.2: kernels vs twins {errs}")
+        if not (max(errs["out"], errs["dx"]) <= BF16_OUT_TOL
+                and errs["dweights"] <= BF16_GRAD_TOL):
+            raise AssertionError(f"the bf16 conv block disagrees with its twin: {errs}")
+        out["conv_K64"] = errs
+    return out
+
+
+def bf16_step_errors(got: dict, want: dict) -> dict:
+    """``got`` against ``want``, two bf16 ``step_grads`` on two devices, held
+    to the agreed whole-step limits: each loss within ``BF16_STEP_LOSS_TOL``
+    relative; each gradient within ``BF16_STEP_GRAD_TOL`` of max(its largest
+    value, ``BF16_STEP_GRAD_FLOOR`` x the largest gradient); the bank's rows
+    and the running statistics within ``BF16_STEP_STATE_TOL``."""
+    loss_err = max(abs(got["losses"][k] - v) / max(abs(v), 1e-6)
+                   for k, v in want["losses"].items())
+    top = max(float(g.abs().max()) for g in want["grads"])
+    rel = {n: float((a - b).abs().max()) / max(float(b.abs().max()), BF16_STEP_GRAD_FLOOR * top)
+           for n, a, b in zip(want["names"], got["grads"], want["grads"])}
+    buffer_errs = {n: float((got["buffers"][n] - b).abs().max()) / max(1.0, float(b.abs().max()))
+                   for n, b in want["buffers"].items()}
+    return {"loss_err": loss_err, "grad_err": max(rel.values()),
+            "grad_err_leaf": max(rel, key=rel.get),
+            "state_err": max(buffer_errs.values(), default=0.0)}
+
+
+def bf16_card_vs_cpu_step(cfg, host_batch, fused: bool = False, name: str = "") -> dict:
+    """One bf16 train step at batch 8, dropout on, card against CPU (same
+    weights, batch and masks), with cuBLAS's f32 sums, held by
+    ``bf16_step_errors``."""
+    with f32_sums():
+        steps = {dev: step_grads(cfg, host_batch, dev, fused=fused,
+                                 compute_dtype=torch.bfloat16) for dev in ("cuda", "cpu")}
+    errs = bf16_step_errors(steps["cuda"], steps["cpu"])
+    log(f"  bf16 step at batch 8{', fused' if fused else ''}{', ' + name if name else ''}, "
+        f"card vs CPU: {json.dumps(errs)} (losses {BF16_STEP_LOSS_TOL:g}; gradients "
+        f"{BF16_STEP_GRAD_TOL:g} of max(leaf, {BF16_STEP_GRAD_FLOOR:g} x largest); state "
+        f"{BF16_STEP_STATE_TOL:g})")
+    if not (errs["loss_err"] <= BF16_STEP_LOSS_TOL and errs["grad_err"] <= BF16_STEP_GRAD_TOL
+            and errs["state_err"] <= BF16_STEP_STATE_TOL):
+        raise AssertionError(f"the card's bf16 step disagrees with the CPU's: {errs}")
+    return errs
+
+
+BF16_FLAGS = ["--compute_dtype", "bfloat16"]
+
+
+def bf16_train_path(data_dir: str, cfg, host_batch, f32_step_ms: float) -> dict:
+    """The flagship's command line with ``--compute_dtype bfloat16`` on the
+    card: ``cli.main`` on the device store, 2 epochs, then the evaluation
+    suite; exactly 10/10/2/2 launches of #1-#4 a train step with every #1
+    and #2 of training in its bf16 instantiation and none in validation or
+    the suite; every loss finite; ``args.txt`` keeps the mode and
+    ``--only_evaluate`` evaluates float32.  Both data paths again on cuDNN's
+    deterministic algorithms (losses within ``HOST_DEVICE_TOL``); the
+    epoch-2 median step beside the float32 run's (``f32_step_ms``) and 3
+    device-mode steps profiled; then one bf16 step at batch 8, card against
+    CPU, for the flagship, its fused variant and Z1-Z5."""
+    with instrumented() as seen:
+        zero_counts()
+        t0 = time.perf_counter()
+        if cli.main(["--data_dir", data_dir, "--epochs", "2", "--results_folder",
+                     os.path.join(RUN_DIR, "bf16"), *BF16_FLAGS], device="cuda") != 0:
+            raise AssertionError("the bf16 run returned non-zero")
+        run_s = time.perf_counter() - t0
+        dev = seen["trainers"][-1]
+        saved = TrainConfig.load(os.path.join(dev.results_dir, "args.txt"))
+        if not (dev.device_data and dev.cfg.compute_dtype == saved.compute_dtype == "bfloat16"):
+            raise AssertionError("the bf16 run did not train on the device store in bf16")
+        n_train, n_val = seen["steps"]
+        want = two_epoch_launches(n_train, n_val)
+        want_bf16 = dict.fromkeys(bf16_counts(), 0)
+        want_bf16.update(fused_transformer_block=2 * 10 * n_train,
+                         fused_block_backward=2 * 10 * n_train)
+        launches, launches_bf16 = seen["train_launches"], seen["train_launches_bf16"]
+        log(f"bf16 run: {n_train} train and {n_val} validation steps an epoch in {run_s:.1f} s; "
+            f"training's launches {launches}, in the bf16 instantiation {launches_bf16}")
+        if launches != want or launches_bf16 != want_bf16:
+            raise AssertionError(f"bf16 run: launches {launches} / bf16 {launches_bf16}, want "
+                                 f"{want} / {want_bf16}")
+        suite = seen["eval"][-1]
+        calls = suite["encoder_calls"]
+        want_eval = dict.fromkeys(want, 0)
+        want_eval.update(fused_transformer_block=10 * calls["eeg"],
+                         lstm_scan_packed=2 * calls["speech"])
+        if suite["launches"] != want_eval or any(suite["launches_bf16"].values()):
+            raise AssertionError(f"bf16 run's evaluation suite: launches {suite['launches']} "
+                                 f"(bf16 {suite['launches_bf16']}), want {want_eval} in float32")
+        values, phases = read_loss_txt(dev.loss_file, "device")
+        eval_files = check_eval_files(dev.results_dir)
+        step_ms = statistics.median(dev.history[1]["step_s"]) * 1e3
+        log(f"  every loss of loss.txt finite, evaluation suite in {suite['wall_s']:.1f} s in "
+            f"float32 ({calls} encoder calls), files finite; epoch-2 median train step "
+            f"{step_ms:.2f} ms in bf16 against {f32_step_ms:.2f} ms in float32 (host clock, "
+            f"cuBLAS's default bf16 sums)")
+
+        zero_counts()
+        if cli.main(["--only_evaluate", "yes", "--results_folder", dev.results_dir],
+                    device="cuda") != 0:
+            raise AssertionError("--only_evaluate of the bf16 run returned non-zero")
+        if any(bf16_counts().values()) or not fused_transformer_block.launches:
+            raise AssertionError(f"--only_evaluate of the bf16 run launched {counts()}, bf16 "
+                                 f"{bf16_counts()}: want float32 blocks only")
+        check_eval_files(dev.results_dir)
+
+        paired = {}
+        with deterministic_cudnn():
+            for mode in ("device", "host"):
+                if cli.main(["--data_dir", data_dir, "--epochs", "2", "--data_mode", mode,
+                             "--skip_eval", "yes", *BF16_FLAGS, "--results_folder",
+                             os.path.join(RUN_DIR, f"bf16_{mode}")], device="cuda") != 0:
+                    raise AssertionError(f"the bf16 {mode}-mode run returned non-zero")
+                paired[mode], _ = read_loss_txt(seen["trainers"][-1].loss_file, mode)
+        host = seen["trainers"][-1]
+        loss_rel = max(abs(a - b) / max(abs(b), 1e-30)
+                       for a, b in zip(paired["device"], paired["host"]))
+        log(f"  bf16 device vs host data path on cuDNN's deterministic algorithms: max relative "
+            f"difference of {len(paired['device'])} losses {loss_rel:.3e} (tol "
+            f"{HOST_DEVICE_TOL:g})")
+        if not loss_rel <= HOST_DEVICE_TOL:
+            raise AssertionError(f"bf16 losses differ: {paired}")
+
+        # where a bf16 device-mode step's time goes
+        ds = host.train_dataset
+        store = DeviceChunkStore(ds, device="cuda", prefetch=False)
+        key = next(k for k in ds.batches_keys if "eeg" in ds.chunks[k])
+        eeg_c, sp_c, ids_c, _, _ = store.get(key)
+        idx_m, subs_m = ds.create_eeg_indices(ds.chunks[key]["eeg"])
+        idx, subs = (torch.from_numpy(np.asarray(m[0], np.int64)).to("cuda")
+                     for m in (idx_m, subs_m))
+        run_step = lambda: chunk_train_step(host.model, host.optimizer, eeg_c,  # noqa: E731
+                                            sp_c, ids_c, idx, subs, cfg.seed + 1, False,
+                                            compute_dtype="bfloat16")
+        run_step()
+        profile = profile_calls(run_step, reps=3, top=16)
+        store.release()
+        log(f"  3 bf16 device-mode steps profiled: {json.dumps(profile)}")
+
+    steps = {"flagship": bf16_card_vs_cpu_step(cfg, host_batch, name="flagship"),
+             "fused": bf16_card_vs_cpu_step(cfg, host_batch, fused=True, name="flagship")}
+    rng = np.random.default_rng(7)
+    for z in ("Z1", "Z2", "Z3", "Z4", "Z5"):
+        zcfg = TrainConfig(**ZOO[z], bank_size=BANK_SIZE)
+        t = zcfg.window_length
+        batch = {"eeg": rng.standard_normal((8, t, 64)).astype(np.float32),
+                 "speech": rng.standard_normal((8, t, zcfg.speech_dimension)).astype(np.float32),
+                 "ids": np.arange(1, 9, dtype=np.int64)}
+        steps[z] = bf16_card_vs_cpu_step(zcfg, batch, name=z)
+    result = {"run_s": run_s, "train_steps_per_epoch": n_train, "val_steps_per_epoch": n_val,
+              "launches_train": launches, "launches_train_bf16": launches_bf16,
+              "launches_eval": suite["launches"], "eval_suite_s": suite["wall_s"],
+              "eval_files": eval_files, "losses": values, "phases_device": phases,
+              "step_ms_median_epoch2": step_ms, "f32_step_ms_median_epoch2": f32_step_ms,
+              "step_ms_all_epoch2": [v * 1e3 for v in dev.history[1]["step_s"]],
+              "host_vs_device_loss_rel": loss_rel, "profile_3_device_steps": profile,
+              "card_vs_cpu_steps": steps}
+    log(json.dumps({"bf16_train": result}))
+    return result
+
+
 def main() -> int:
     t_start = time.perf_counter()
     smi = subprocess.run(
@@ -2343,10 +2841,15 @@ def main() -> int:
     block = check_block(x, params)
     block_bwd = check_block_backward(x, params, gen)
     block["windows"] = check_block_windows(gen, params)
+    # the bf16 checks draw from a generator of their own: the earlier checks'
+    # inputs stay as they were
+    gen_bf16 = torch.Generator().manual_seed(10)
+    bf16_kernels = check_block_bf16(gen_bf16, params)
     del x, params
     lstm = check_lstm(gen)
     lstm_bwd = check_lstm_backward(gen)
     convs = check_conv(gen)
+    bf16_inputs = check_lstm_conv_bf16(gen_bf16)
     torch.cuda.empty_cache()
     serve = serve_path()
     log(json.dumps({"serve": serve}))
@@ -2354,6 +2857,8 @@ def main() -> int:
     data_dir = write_fixture()
     try:
         train, cfg, host_batch = train_path(data_dir)
+        bf16_train = bf16_train_path(data_dir, cfg, host_batch,
+                                     train["step_ms_median_epoch2"]["device"])
         augmented = augmented_train_path(data_dir, cfg, host_batch,
                                          train["step_ms_median_epoch2"]["device"])
         serve_cli = serve_cli_path(train["results_dir"])
@@ -2385,7 +2890,20 @@ def main() -> int:
         k["launches_by_path"].update(
             train_augmented=augmented["launches"][k["name"]],
             serve_cli=serve_cli["launches"][k["name"]],
-            server_cli=server_cli["launches"][k["name"]])
+            server_cli=server_cli["launches"][k["name"]],
+            train_bf16=bf16_train["launches_train"][k["name"]])
+    # #3-#7 take bf16 at their boundary (the kernels are float32 inside)
+    lstm["bf16_input"] = {d: bf16_inputs[d] for d in ("lstm_D2", "lstm_D1")}
+    lstm_bwd["bf16_input"] = lstm["bf16_input"]
+    for k in convs:
+        k["bf16_input_K64"] = bf16_inputs["conv_K64"]
+    # #1 and #2's bf16 instantiations: launched by the bf16 run's training
+    # alone (its validation, evaluation suite and --only_evaluate run float32)
+    for k in bf16_kernels:
+        base = next(n for n, b in BF16_NAMES.items() if b == k["name"])
+        k["launches"] = bf16_train["launches_train_bf16"][base]
+        k["launches_by_path"] = {"train_bf16": k["launches"], "eval_suite_bf16": 0}
+    kernels += bf16_kernels
     log(json.dumps({"augment_and_cli": {
         "augment_ms": {n: r["ms"] for n, r in augment["by_name"].items()},
         "augmented_step_ms": augmented["step_ms_median_epoch2"],

@@ -275,8 +275,8 @@ def test_warmup_step_follows_loss_ce_alone():
 
 
 @pytest.mark.parametrize("override", [
-    dict(n_data_shards=2), dict(compute_dtype="bfloat16"), dict(prng_impl="threefry2x32"),
-], ids=["mesh", "bf16", "prng_impl"])
+    dict(n_data_shards=2), dict(prng_impl="threefry2x32"),
+], ids=["mesh", "prng_impl"])
 def test_unported_trainer_options_raise(fixture_root, tmp_path, override):
     cfg = _config(fixture_root, **override)
     with pytest.raises(NotImplementedError, match="ROADMAP.md"):

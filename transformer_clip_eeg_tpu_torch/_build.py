@@ -39,12 +39,13 @@ _DROP = [_I, _U, _I, _U, _F, _U, _F]
 # C entry points: name -> (argtypes, restype)
 _SIGNATURES = {
     # x, out, params[16], B, T, E, H, F, inv_scale, dropout, work (q, k, v, ctx,
-    # and when saving x1 and lse), save, stream
-    "tce_fused_block_fwd": ([_P, _P, _P, _I, _I, _I, _I, _I, _F, *_DROP, _P, _I, _P], _I),
+    # and when saving x1 and lse), save, bf16 (x and out bf16, bf16 products), stream
+    "tce_fused_block_fwd": ([_P, _P, _P, _I, _I, _I, _I, _I, _F, *_DROP, _P, _I, _I, _P],
+                            _I),
     # x, g, saved, params[16], dx, dparams[16], workspace, B, T, E, H, F,
-    # inv_scale, dropout, stream
+    # inv_scale, dropout, bf16 (x, g and dx bf16, bf16 products), stream
     "tce_fused_block_bwd": ([_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _F, *_DROP,
-                             _P], _I),
+                             _I, _P], _I),
     "tce_fused_block_bwd_workspace": ([_I, _I], _L),
     # xw, whh, h_out, c_out (may be NULL), gates_out (may be NULL), T, D, B, H,
     # the launch plan (cluster size, batch tile, threads, shared-memory bytes), stream

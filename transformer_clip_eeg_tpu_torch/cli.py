@@ -131,8 +131,8 @@ def build_arg_parser() -> argparse.ArgumentParser:
                         "device, host on the CPU)")
     p.add_argument("--compute_dtype", type=str, default="float32",
                    choices=["float32", "bfloat16"],
-                   help="encoder compute dtype (the port's kernels are "
-                        "float32; bfloat16 raises)")
+                   help="encoder compute dtype of the train steps (params, "
+                        "loss and validation stay float32)")
     p.add_argument("--chunk_store_dtype", type=str, default="float32",
                    choices=["float32", "bfloat16"],
                    help="device chunk-store storage dtype; bfloat16 halves "

@@ -3,10 +3,48 @@
 // weight rows in registers, exact-erf GELU.
 #pragma once
 
+#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <math.h>
 
+#include <type_traits>
+
 namespace {
+
+// ---- the bf16 mode: x, g, out and dx in bf16, products on bf16 operands ----
+using bf16 = __nv_bfloat16;
+
+// whether the block runs in its bf16 mode for activations of type XT
+template <typename XT>
+constexpr bool kBf16 = std::is_same<XT, bf16>::value;
+
+// v rounded to bf16 (nearest even) and held as a float
+__device__ __forceinline__ float round_bf16(float v) {
+  return __bfloat162float(__float2bfloat16_rn(v));
+}
+// a product's operand: rounded in the bf16 mode (R), else as it is
+template <bool R>
+__device__ __forceinline__ float operand(float v) {
+  return R ? round_bf16(v) : v;
+}
+
+__device__ __forceinline__ float to_f32(float v) { return v; }
+__device__ __forceinline__ float to_f32(bf16 v) { return __bfloat162float(v); }
+__device__ __forceinline__ void store_as(float* p, float v) { *p = v; }
+__device__ __forceinline__ void store_as(bf16* p, float v) { *p = __float2bfloat16_rn(v); }
+// two consecutive elements (aligned to their pair) as a float2, and back
+__device__ __forceinline__ float2 load2(const float* p) {
+  return *reinterpret_cast<const float2*>(p);
+}
+__device__ __forceinline__ float2 load2(const bf16* p) {
+  return __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(p));
+}
+__device__ __forceinline__ void store2(float* p, float2 v) {
+  *reinterpret_cast<float2*>(p) = v;
+}
+__device__ __forceinline__ void store2(bf16* p, float2 v) {
+  *reinterpret_cast<__nv_bfloat162*>(p) = __floats2bfloat162_rn(v.x, v.y);
+}
 
 constexpr int E = 64;       // embedding width
 constexpr int H = 8;        // heads
@@ -61,33 +99,36 @@ __device__ __forceinline__ float dot8(const float (&a)[8], const float (&b)[8]) 
   return s0 + s1;
 }
 
-// N consecutive floats of device memory (16-byte aligned) into registers.
-template <int N>
+// N consecutive floats of device memory (16-byte aligned) into registers,
+// rounded to bf16 when R
+template <int N, bool R = false>
 __device__ __forceinline__ void load_row(const float* __restrict__ src,
                                          float (&w)[N]) {
   const float4* s4 = reinterpret_cast<const float4*>(src);
 #pragma unroll
   for (int i = 0; i < N / 4; ++i) {
     const float4 v = __ldg(s4 + i);
-    w[4 * i] = v.x;
-    w[4 * i + 1] = v.y;
-    w[4 * i + 2] = v.z;
-    w[4 * i + 3] = v.w;
+    w[4 * i] = operand<R>(v.x);
+    w[4 * i + 1] = operand<R>(v.y);
+    w[4 * i + 2] = operand<R>(v.z);
+    w[4 * i + 3] = operand<R>(v.w);
   }
 }
 
-// dot product of a 16-byte aligned shared-memory row with a register row
-template <int N>
+// dot product of a 16-byte aligned shared-memory row with a register row;
+// R rounds the row's values to bf16 as they are read (the register row is
+// the caller's to round)
+template <int N, bool R = false>
 __device__ __forceinline__ float dot_row(const float* row, const float (&w)[N]) {
   const float4* r4 = reinterpret_cast<const float4*>(row);
   float a0 = 0.f, a1 = 0.f, a2 = 0.f, a3 = 0.f;
 #pragma unroll
   for (int i = 0; i < N / 4; ++i) {
     const float4 v = r4[i];
-    a0 = fmaf(v.x, w[4 * i], a0);
-    a1 = fmaf(v.y, w[4 * i + 1], a1);
-    a2 = fmaf(v.z, w[4 * i + 2], a2);
-    a3 = fmaf(v.w, w[4 * i + 3], a3);
+    a0 = fmaf(operand<R>(v.x), w[4 * i], a0);
+    a1 = fmaf(operand<R>(v.y), w[4 * i + 1], a1);
+    a2 = fmaf(operand<R>(v.z), w[4 * i + 2], a2);
+    a3 = fmaf(operand<R>(v.w), w[4 * i + 3], a3);
   }
   return (a0 + a1) + (a2 + a3);
 }

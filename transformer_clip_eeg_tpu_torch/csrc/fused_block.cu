@@ -1,4 +1,5 @@
-// Fused pre-LN transformer encoder block, forward, f32, eval or training.
+// Fused pre-LN transformer encoder block, forward, f32 or bf16 mode, eval or
+// training.
 //
 // Replaces: transformer_clip_eeg_tpu/ops/pallas_block.py, _fused_block_fwd
 // (pl.pallas_call at :458; kernel body _fwd_kernel :255 / _forward_core :189).
@@ -67,6 +68,23 @@
 // masked head matmuls, which did eight times the attention arithmetic to
 // suit a 128x128 matrix unit, are not carried over.  No atomics: the outputs
 // repeat bit for bit.
+//
+// The bf16 mode (the JAX kernel's mm_dtype='bfloat16', --compute_dtype
+// bfloat16) is a second instantiation of each kernel, on XT = bf16: x is read
+// and out written in bf16, every product takes operands rounded to bf16 with
+// f32 sums, and everything else (LayerNorms, softmax, GELU, masks, residuals)
+// stays f32.  The row products are one mma.sync m16n8k16 bf16 product each
+// (rowtile.cuh, rounding as the fragments load) in place of split TF32's
+// three.  q, k, v and the context are operands only, so they are rounded
+// where they are made and kept as bf16 values in the f32 planes of `work`
+// (the layout the backward reads).  The attention rounds the probabilities
+// as JAX does, after they are normalised and dropped out; an online softmax
+// would round exp(s - m) before the sum is known, and bf16(e) / l is not
+// bf16(e / l), so the bf16 attention walks the keys twice: once for the
+// row's max and sum, once for the context.  Bound at the flagship shape:
+// 3.62 GFLOP of products at 989 TFLOP/s dense bf16 (3.7 us) against 6.3 MB
+// of bf16 x and out plus 25 MB of f32 planes written and read back by the
+// three launches; the simple version is bound by neither (PERF.md).
 
 #include <cuda_runtime.h>
 #include <math.h>
@@ -80,7 +98,6 @@ namespace {
 
 using rowtile::frag_col;
 using rowtile::frag_row;
-using rowtile::mma_tile;
 using rowtile::stage_rows;
 
 constexpr int QRT = 32;       // rows of the B*T per CTA of ln_qkv_kernel
@@ -102,20 +119,34 @@ static_assert(FFN_NT / 32 == (RT / 32) * (F / 32) && FFN_NT / 32 == (RT / 16) * 
               "a warp: 32 x 32 of the hidden layer, 16 x 16 of the out-projection");
 
 // ---- 1. LN1 and the Q, K, V projections ------------------------------------------
+template <typename XT>
 __global__ void __launch_bounds__(QKV_NT, QKV_CTAS_PER_SM)
-ln_qkv_kernel(const float* __restrict__ x, BlockParams P, int BT, float* __restrict__ q,
+ln_qkv_kernel(const XT* __restrict__ x, BlockParams P, int BT, float* __restrict__ q,
               float* __restrict__ k, float* __restrict__ v) {
+  constexpr bool BF16 = kBf16<XT>;
   extern __shared__ __align__(16) float smem[];
   float* Ws = smem;              // [3 E][LDW]: the rows of Wq, Wk, Wv, staged once
   float* Xs = Ws + 3 * E * LDW;  // [2][QRT][LDW]: this tile's rows and the next one's
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
   const int tiles = (BT + QRT - 1) / QRT;
 
-  // rows of tile `tile` into buffer `buf`, rows past the end zero-filled
+  // rows of tile `tile` into buffer `buf`, rows past the end zero-filled; bf16
+  // rows are widened to float by plain loads (the buffer is free: the barrier
+  // that ends the tile before this one's reader has passed)
   auto stage_tile = [&](int tile, int buf) {
     const int row0 = tile * QRT;
-    stage_rows<E>(Xs + buf * QRT * LDW, x + (size_t)row0 * E, E, QRT,
-                  BT - row0 < QRT ? BT - row0 : QRT, tid, QKV_NT);
+    const int valid = BT - row0 < QRT ? BT - row0 : QRT;
+    if constexpr (BF16) {
+#pragma unroll 1
+      for (int c = tid; c < QRT * E / 2; c += QKV_NT) {
+        const int n = c / (E / 2), e = (c % (E / 2)) * 2;
+        store2(Xs + (buf * QRT + n) * LDW + e,
+               n < valid ? load2(x + (size_t)(row0 + n) * E + e) : make_float2(0.f, 0.f));
+      }
+    } else {
+      stage_rows<E>(Xs + buf * QRT * LDW, reinterpret_cast<const float*>(x) + (size_t)row0 * E,
+                    E, QRT, valid, tid, QKV_NT);
+    }
   };
   stage_rows<E>(Ws, P.p[2], E, E, E, tid, QKV_NT);
   stage_rows<E>(Ws + E * LDW, P.p[3], E, E, E, tid, QKV_NT);
@@ -146,7 +177,7 @@ ln_qkv_kernel(const float* __restrict__ x, BlockParams P, int BT, float* __restr
 
     float acc[2][4][4];
     rowtile::zero(acc);
-    mma_tile<2, 4, E, LDW, LDW>(As, Ws + (m * E + c0) * LDW, acc, lane);
+    rowtile::mma_tile_mode<BF16, 2, 4, E, LDW, LDW>(As, Ws + (m * E + c0) * LDW, acc, lane);
 #pragma unroll
     for (int ni = 0; ni < 4; ++ni) {
       const int n = c0 + frag_col(lane, ni);
@@ -155,9 +186,10 @@ ln_qkv_kernel(const float* __restrict__ x, BlockParams P, int BT, float* __restr
 #pragma unroll
         for (int half = 0; half < 2; ++half) {
           const int r = frag_row(lane, mi, half);
-          if (r < valid)
-            *reinterpret_cast<float2*>(dst + (size_t)(row0 + r) * E + n) = make_float2(
-                acc[mi][ni][2 * half] + b2[ni].x, acc[mi][ni][2 * half + 1] + b2[ni].y);
+          if (r < valid)  // q, k, v: operands only, rounded here in the bf16 mode
+            *reinterpret_cast<float2*>(dst + (size_t)(row0 + r) * E + n) =
+                make_float2(operand<BF16>(acc[mi][ni][2 * half] + b2[ni].x),
+                            operand<BF16>(acc[mi][ni][2 * half + 1] + b2[ni].y));
         }
     }
     __syncthreads();  // the tile after next may land where this one was
@@ -213,10 +245,72 @@ __device__ __forceinline__ void attn_step(const float* Ks, const float* Vs, int 
   }
 }
 
+// The bf16 mode's two passes.  The scores of one tile of KT keys from j0 on
+// for a thread's two queries (-inf past T when RAGGED)
+template <bool RAGGED>
+__device__ __forceinline__ void tile_scores(const float* Ks, int j0, int T,
+                                            const float (&qv)[NQ][D], float (&s)[NQ][KT]) {
+#pragma unroll
+  for (int jj = 0; jj < KT; ++jj) {
+    float kk[D];
+    load8(Ks + (j0 + jj) * D, kk);
+#pragma unroll
+    for (int u = 0; u < NQ; ++u) {
+      s[u][jj] = dot8(qv[u], kk);
+      if (RAGGED && j0 + jj >= T) s[u][jj] = -INFINITY;
+    }
+  }
+}
+
+// pass 1: the running max m and sum l of the clean probabilities
+template <bool RAGGED>
+__device__ __forceinline__ void attn_stats_bf16(const float* Ks, int j0, int T,
+                                                const float (&qv)[NQ][D], float (&m)[NQ],
+                                                float (&l)[NQ]) {
+  float s[NQ][KT];
+  tile_scores<RAGGED>(Ks, j0, T, qv, s);
+#pragma unroll
+  for (int u = 0; u < NQ; ++u) {
+    float tmax = -INFINITY;
+#pragma unroll
+    for (int jj = 0; jj < KT; ++jj) tmax = fmaxf(tmax, s[u][jj]);
+    const float mn = fmaxf(m[u], tmax);
+    l[u] *= exp2f(m[u] - mn);
+    m[u] = mn;
+#pragma unroll
+    for (int jj = 0; jj < KT; ++jj) l[u] += exp2f(s[u][jj] - mn);
+  }
+}
+
+// pass 2: acc += bf16(mask * 2^(s - m) / l) v, the probabilities normalised
+// and dropped out before they are rounded, as JAX rounds p as p.v's operand
+template <bool RAGGED, bool DROP>
+__device__ __forceinline__ void attn_accum_bf16(const float* Ks, const float* Vs, int j0, int T,
+                                                const float (&qv)[NQ][D], const float (&m)[NQ],
+                                                const float (&l)[NQ], float (&acc)[NQ][D],
+                                                uint32_t key, const uint32_t (&idx)[NQ],
+                                                const DropCfg& drop) {
+  float s[NQ][KT];
+  tile_scores<RAGGED>(Ks, j0, T, qv, s);
+#pragma unroll
+  for (int jj = 0; jj < KT; ++jj) {
+    float vv[D];
+    load8(Vs + (j0 + jj) * D, vv);
+#pragma unroll
+    for (int u = 0; u < NQ; ++u) {
+      float p = exp2f(s[u][jj] - m[u]) / l[u];
+      if (DROP) p *= drop_mult(key, idx[u] + (uint32_t)(j0 + jj), drop.thr, drop.keep);
+      p = round_bf16(p);
+#pragma unroll
+      for (int d = 0; d < D; ++d) acc[u][d] = fmaf(p, vv[d], acc[u][d]);
+    }
+  }
+}
+
 // (one CTA an SM is all the bound asks for: the compiler then takes the
 // registers it wants, 104 in eval and 138 with the mask hash, which measured
 // 10% faster in training than the 116-125 it settles on unasked)
-template <bool DROP>
+template <bool DROP, bool BF16>
 __global__ void __launch_bounds__(ATT_NT, 1)
 attn_fwd_kernel(const float* __restrict__ q, const float* __restrict__ k,
                 const float* __restrict__ v, float* __restrict__ ctx,
@@ -266,16 +360,24 @@ attn_fwd_kernel(const float* __restrict__ q, const float* __restrict__ k,
       idx[u] = (uint32_t)(ds.local * T + t[u]) * (uint32_t)T;
     }
     int j0 = 0;
-    for (; j0 + KT <= T; j0 += KT)
-      attn_step<false, DROP>(Ks, Vs, j0, T, qv, m, l, acc, key, idx, drop);
-    if (j0 < T) attn_step<true, DROP>(Ks, Vs, j0, T, qv, m, l, acc, key, idx, drop);
+    if constexpr (BF16) {
+      for (; j0 + KT <= T; j0 += KT) attn_stats_bf16<false>(Ks, j0, T, qv, m, l);
+      if (j0 < T) attn_stats_bf16<true>(Ks, j0, T, qv, m, l);
+      for (j0 = 0; j0 + KT <= T; j0 += KT)
+        attn_accum_bf16<false, DROP>(Ks, Vs, j0, T, qv, m, l, acc, key, idx, drop);
+      if (j0 < T) attn_accum_bf16<true, DROP>(Ks, Vs, j0, T, qv, m, l, acc, key, idx, drop);
+    } else {
+      for (; j0 + KT <= T; j0 += KT)
+        attn_step<false, DROP>(Ks, Vs, j0, T, qv, m, l, acc, key, idx, drop);
+      if (j0 < T) attn_step<true, DROP>(Ks, Vs, j0, T, qv, m, l, acc, key, idx, drop);
+    }
 
 #pragma unroll
     for (int u = 0; u < NQ; ++u) {
       if (!live[u]) continue;
-      const float inv = 1.0f / l[u];
+      const float inv = 1.0f / l[u];  // the bf16 context is normalised already
 #pragma unroll
-      for (int d = 0; d < D; ++d) acc[u][d] *= inv;
+      for (int d = 0; d < D; ++d) acc[u][d] = BF16 ? round_bf16(acc[u][d]) : acc[u][d] * inv;
       store8(ctx + base + (size_t)t[u] * E, acc[u]);
       if (lse != nullptr)  // the row's log-sum-exp: P = exp(s / scale - lse)
         lse[((size_t)b * H + h) * T + t[u]] = m[u] * 0.69314718055994531f + logf(l[u]);
@@ -302,10 +404,12 @@ __device__ __forceinline__ float2 drop2(float2 v, uint32_t key, uint32_t idx, ui
                      v.y * drop_mult(key, idx + 1, thr, keep));
 }
 
+template <typename XT>
 __global__ void __launch_bounds__(FFN_NT, 1)
-proj_ffn_kernel(const float* __restrict__ x, const float* __restrict__ ctx,
-                float* __restrict__ out, BlockParams P, int T, int BT, DropCfg drop,
+proj_ffn_kernel(const XT* __restrict__ x, const float* __restrict__ ctx,
+                XT* __restrict__ out, BlockParams P, int T, int BT, DropCfg drop,
                 float* __restrict__ x1_out) {
+  constexpr bool BF16 = kBf16<XT>;
   extern __shared__ __align__(16) float smem[];
   float* W1s = smem;             // [F][LDW]: W1's rows, one a hidden unit, staged once
   float* W2s = W1s + F * LDW;    // [E][LDW2]: W2's rows, staged once
@@ -335,22 +439,23 @@ proj_ffn_kernel(const float* __restrict__ x, const float* __restrict__ ctx,
     // device memory (16 KB that stay in L1), and x's elements of 3a: both asked
     // for before the wait
     float wo[E / 8][2][2];
+    if constexpr (!BF16) {
 #pragma unroll
-    for (int ks = 0; ks < E / 8; ++ks)
+      for (int ks = 0; ks < E / 8; ++ks)
 #pragma unroll
-      for (int ni = 0; ni < 2; ++ni) {
-        const float* p = P.p[8] + (pc0 + 8 * ni + (lane >> 2)) * E + 8 * ks + (lane & 3);
-        wo[ks][ni][0] = __ldg(p);
-        wo[ks][ni][1] = __ldg(p + 4);
-      }
+        for (int ni = 0; ni < 2; ++ni) {
+          const float* p = P.p[8] + (pc0 + 8 * ni + (lane >> 2)) * E + 8 * ks + (lane & 3);
+          wo[ks][ni][0] = __ldg(p);
+          wo[ks][ni][1] = __ldg(p + 4);
+        }
+    }
     float2 xv[2][2];
 #pragma unroll
     for (int half = 0; half < 2; ++half)
 #pragma unroll
       for (int ni = 0; ni < 2; ++ni) {
         const int r = pr0 + frag_row(lane, 0, half);
-        xv[half][ni] = r < valid ? *reinterpret_cast<const float2*>(
-                                       x + (size_t)(row0 + r) * E + pc0 + frag_col(lane, ni))
+        xv[half][ni] = r < valid ? load2(x + (size_t)(row0 + r) * E + pc0 + frag_col(lane, ni))
                                  : make_float2(0.f, 0.f);
       }
     cp_async_wait<0>();  // this tile's ctx rows (and, the first time, W1 and W2)
@@ -364,22 +469,32 @@ proj_ffn_kernel(const float* __restrict__ x, const float* __restrict__ ctx,
       for (int ni = 0; ni < 2; ++ni)
 #pragma unroll
         for (int c = 0; c < 4; ++c) acc[ni][c] = 0.f;
-      const float* ap = As + (pr0 + (lane >> 2)) * LDW + (lane & 3);
+      if constexpr (BF16) {  // Wo's rows straight from device memory as B fragments
+        float a3[1][2][4];
+        rowtile::zero(a3);
+        rowtile::mma_tile_bf16<1, 2, E, LDW, E>(As + pr0 * LDW, P.p[8] + pc0 * E, a3, lane);
 #pragma unroll
-      for (int ks = 0; ks < E / 8; ++ks) {
-        uint32_t ah[4], al[4];
-        rowtile::split_tf32(ap[8 * ks], ah[0], al[0]);
-        rowtile::split_tf32(ap[8 * LDW + 8 * ks], ah[1], al[1]);
-        rowtile::split_tf32(ap[8 * ks + 4], ah[2], al[2]);
-        rowtile::split_tf32(ap[8 * LDW + 8 * ks + 4], ah[3], al[3]);
+        for (int ni = 0; ni < 2; ++ni)
 #pragma unroll
-        for (int ni = 0; ni < 2; ++ni) {
-          uint32_t bh[2], bl[2];
-          rowtile::split_tf32(wo[ks][ni][0], bh[0], bl[0]);
-          rowtile::split_tf32(wo[ks][ni][1], bh[1], bl[1]);
-          rowtile::mma_tf32(acc[ni], al, bh);
-          rowtile::mma_tf32(acc[ni], ah, bl);
-          rowtile::mma_tf32(acc[ni], ah, bh);
+          for (int c = 0; c < 4; ++c) acc[ni][c] = a3[0][ni][c];
+      } else {
+        const float* ap = As + (pr0 + (lane >> 2)) * LDW + (lane & 3);
+#pragma unroll
+        for (int ks = 0; ks < E / 8; ++ks) {
+          uint32_t ah[4], al[4];
+          rowtile::split_tf32(ap[8 * ks], ah[0], al[0]);
+          rowtile::split_tf32(ap[8 * LDW + 8 * ks], ah[1], al[1]);
+          rowtile::split_tf32(ap[8 * ks + 4], ah[2], al[2]);
+          rowtile::split_tf32(ap[8 * LDW + 8 * ks + 4], ah[3], al[3]);
+#pragma unroll
+          for (int ni = 0; ni < 2; ++ni) {
+            uint32_t bh[2], bl[2];
+            rowtile::split_tf32(wo[ks][ni][0], bh[0], bl[0]);
+            rowtile::split_tf32(wo[ks][ni][1], bh[1], bl[1]);
+            rowtile::mma_tf32(acc[ni], al, bh);
+            rowtile::mma_tf32(acc[ni], ah, bl);
+            rowtile::mma_tf32(acc[ni], ah, bh);
+          }
         }
       }
 #pragma unroll
@@ -419,7 +534,8 @@ proj_ffn_kernel(const float* __restrict__ x, const float* __restrict__ ctx,
       for (int r0 = 32 * (warp >> 3), end = r0 + 32; r0 < end; r0 += 16) {
         float acc[1][4][4];
         rowtile::zero(acc);
-        mma_tile<1, 4, E, LDW, LDW>(As + r0 * LDW, W1s + f0 * LDW, acc, lane);
+        rowtile::mma_tile_mode<BF16, 1, 4, E, LDW, LDW>(As + r0 * LDW, W1s + f0 * LDW, acc,
+                                                        lane);
 #pragma unroll
         for (int half = 0; half < 2; ++half) {
           const int r = r0 + frag_row(lane, 0, half);
@@ -448,7 +564,8 @@ proj_ffn_kernel(const float* __restrict__ x, const float* __restrict__ ctx,
     {
       float fo[1][2][4];
       rowtile::zero(fo);
-      mma_tile<1, 2, F, LDW2, LDW2>(Hs + pr0 * LDW2, W2s + pc0 * LDW2, fo, lane);
+      rowtile::mma_tile_mode<BF16, 1, 2, F, LDW2, LDW2>(Hs + pr0 * LDW2, W2s + pc0 * LDW2, fo,
+                                                        lane);
 #pragma unroll
       for (int half = 0; half < 2; ++half) {
         const int r = pr0 + frag_row(lane, 0, half), row = row0 + r;
@@ -462,8 +579,8 @@ proj_ffn_kernel(const float* __restrict__ x, const float* __restrict__ ctx,
           float2 f2 = make_float2(fo[0][ni][2 * half] + b2.x, fo[0][ni][2 * half + 1] + b2.y);
           if (drop.on)
             f2 = drop2(f2, rd.seed_base + (uint32_t)(H + 2), rd.row * E + n, drop.thr, drop.keep);
-          *reinterpret_cast<float2*>(out + (size_t)row * E + n) =
-              make_float2(x1r[half][ni].x + f2.x, x1r[half][ni].y + f2.y);
+          store2(out + (size_t)row * E + n,
+                 make_float2(x1r[half][ni].x + f2.x, x1r[half][ni].y + f2.y));
         }
       }
     }
@@ -486,66 +603,94 @@ cudaError_t set_smem(const void* fn, size_t bytes, int optin) {
   return cudaFuncSetAttribute(fn, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
 }
 
+// The three launches of one mode on checked arguments.
+template <typename XT>
+cudaError_t launch_forward(const XT* x, XT* out, const BlockParams& P, int B, int T,
+                           float inv_scale, const DropCfg& drop, float* work, int save,
+                           int sms, cudaStream_t st) {
+  constexpr bool BF16 = kBf16<XT>;
+  const int BT = B * T;
+  const size_t plane = (size_t)BT * E;
+  float *q = work, *k = work + plane, *v = work + 2 * plane, *ctx = work + 3 * plane;
+  float* x1 = save ? work + 4 * plane : nullptr;
+  float* lse = save ? work + 5 * plane : nullptr;
+  // the row kernels' CTAs stay on their SMs and walk the tiles of rows
+  const int qkv_tiles = (BT + QRT - 1) / QRT, ffn_tiles = (BT + RT - 1) / RT;
+  const int qkv_ctas = qkv_tiles < QKV_CTAS_PER_SM * sms ? qkv_tiles : QKV_CTAS_PER_SM * sms;
+  const int ffn_ctas = ffn_tiles < sms ? ffn_tiles : sms;
+  cudaError_t err;
+  ln_qkv_kernel<XT><<<qkv_ctas, QKV_NT, QKV_SMEM_FLOATS * sizeof(float), st>>>(x, P, BT, q,
+                                                                               k, v);
+  if ((err = cudaGetLastError()) != cudaSuccess) return err;
+  const float qscale = inv_scale * 1.4426950408889634f;
+  if (drop.on)
+    attn_fwd_kernel<true, BF16><<<B * H, attn_threads(T), attn_smem_bytes(T), st>>>(
+        q, k, v, ctx, lse, T, qscale, drop);
+  else
+    attn_fwd_kernel<false, BF16><<<B * H, attn_threads(T), attn_smem_bytes(T), st>>>(
+        q, k, v, ctx, lse, T, qscale, drop);
+  if ((err = cudaGetLastError()) != cudaSuccess) return err;
+  proj_ffn_kernel<XT><<<ffn_ctas, FFN_NT, FFN_SMEM_FLOATS * sizeof(float), st>>>(
+      x, ctx, out, P, T, BT, drop, x1);
+  return cudaGetLastError();
+}
+
+// every instantiation's shared-memory limit
+cudaError_t configure(int optin) {
+  const size_t qkv_bytes = QKV_SMEM_FLOATS * sizeof(float);
+  const size_t ffn_bytes = FFN_SMEM_FLOATS * sizeof(float);
+  cudaError_t err;
+  if ((err = set_smem((const void*)ln_qkv_kernel<float>, qkv_bytes, optin)) != cudaSuccess ||
+      (err = set_smem((const void*)ln_qkv_kernel<bf16>, qkv_bytes, optin)) != cudaSuccess ||
+      (err = set_smem((const void*)attn_fwd_kernel<true, false>, optin, optin)) != cudaSuccess ||
+      (err = set_smem((const void*)attn_fwd_kernel<false, false>, optin, optin)) != cudaSuccess ||
+      (err = set_smem((const void*)attn_fwd_kernel<true, true>, optin, optin)) != cudaSuccess ||
+      (err = set_smem((const void*)attn_fwd_kernel<false, true>, optin, optin)) != cudaSuccess ||
+      (err = set_smem((const void*)proj_ffn_kernel<float>, ffn_bytes, optin)) != cudaSuccess ||
+      (err = set_smem((const void*)proj_ffn_kernel<bf16>, ffn_bytes, optin)) != cudaSuccess)
+    return err;
+  return cudaSuccess;
+}
+
 }  // namespace
 
 // Launch on `stream`; returns the CUDA error code (0 on success).  The
 // dropout arguments are those of DropCfg (drop.cuh).  `work` holds
 // [4][B][T][E] floats (q, k, v, ctx), and with `save` a fifth plane (x1) and
-// then [B][H][T] (lse): the `saved` tensor of the backward.  Three kernel
-// launches.
-extern "C" int tce_fused_block_fwd(const float* x, float* out,
+// then [B][H][T] (lse): the `saved` tensor of the backward.  `bf16` selects
+// the bf16 mode: x and out are then bf16 [B][T][E], `work` stays float.
+// Three kernel launches.
+extern "C" int tce_fused_block_fwd(const void* x, void* out,
                                    const void* const* params, int B, int T,
                                    int e, int h, int f, float inv_scale,
                                    int drop_on, unsigned seed, int tb,
                                    unsigned thr, float keep, unsigned thr_ffn,
-                                   float keep_ffn, float* work, int save, void* stream) {
+                                   float keep_ffn, float* work, int save, int bf16_mode,
+                                   void* stream) {
   if (e != E || h != H || f != F || B <= 0 || T <= 0 || tb <= 0 || work == nullptr)
     return (int)cudaErrorInvalidValue;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   const DropCfg drop{drop_on, seed, tb, thr, keep, thr_ffn, keep_ffn};
   BlockParams P;
   for (int i = 0; i < 16; ++i) P.p[i] = static_cast<const float*>(params[i]);
-  const int BT = B * T;
-  const size_t plane = (size_t)BT * E;
-  float *q = work, *k = work + plane, *v = work + 2 * plane, *ctx = work + 3 * plane;
-  float* x1 = save ? work + 4 * plane : nullptr;
-  float* lse = save ? work + 5 * plane : nullptr;
   // the kernels' shared-memory limits, set once for each device (a call's
   // host time matters: a train step is bound by its launches)
   static int configured = -1, optin = 0, sms = 0;
   int dev = 0;
   cudaError_t err = cudaGetDevice(&dev);
   if (err != cudaSuccess) return (int)err;
-  const size_t qkv_bytes = QKV_SMEM_FLOATS * sizeof(float);
-  const size_t ffn_bytes = FFN_SMEM_FLOATS * sizeof(float);
   if (dev != configured) {
     err = cudaDeviceGetAttribute(&optin, cudaDevAttrMaxSharedMemoryPerBlockOptin, dev);
     if (err != cudaSuccess) return (int)err;
     err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
     if (err != cudaSuccess) return (int)err;
-    if ((err = set_smem((const void*)ln_qkv_kernel, qkv_bytes, optin)) != cudaSuccess ||
-        (err = set_smem((const void*)attn_fwd_kernel<true>, optin, optin)) != cudaSuccess ||
-        (err = set_smem((const void*)attn_fwd_kernel<false>, optin, optin)) != cudaSuccess ||
-        (err = set_smem((const void*)proj_ffn_kernel, ffn_bytes, optin)) != cudaSuccess)
-      return (int)err;
+    if ((err = configure(optin)) != cudaSuccess) return (int)err;
     configured = dev;
   }
   if (attn_smem_bytes(T) > (size_t)optin) return (int)cudaErrorInvalidValue;
-
-  // the row kernels' CTAs stay on their SMs and walk the tiles of rows
-  const int qkv_tiles = (BT + QRT - 1) / QRT, ffn_tiles = (BT + RT - 1) / RT;
-  const int qkv_ctas = qkv_tiles < QKV_CTAS_PER_SM * sms ? qkv_tiles : QKV_CTAS_PER_SM * sms;
-  const int ffn_ctas = ffn_tiles < sms ? ffn_tiles : sms;
-  ln_qkv_kernel<<<qkv_ctas, QKV_NT, qkv_bytes, st>>>(x, P, BT, q, k, v);
-  if ((err = cudaGetLastError()) != cudaSuccess) return (int)err;
-  const float qscale = inv_scale * 1.4426950408889634f;
-  if (drop_on)
-    attn_fwd_kernel<true><<<B * H, attn_threads(T), attn_smem_bytes(T), st>>>(
-        q, k, v, ctx, lse, T, qscale, drop);
-  else
-    attn_fwd_kernel<false><<<B * H, attn_threads(T), attn_smem_bytes(T), st>>>(
-        q, k, v, ctx, lse, T, qscale, drop);
-  if ((err = cudaGetLastError()) != cudaSuccess) return (int)err;
-  proj_ffn_kernel<<<ffn_ctas, FFN_NT, ffn_bytes, st>>>(x, ctx, out, P, T, BT, drop, x1);
-  return (int)cudaGetLastError();
+  if (bf16_mode)
+    return (int)launch_forward(static_cast<const bf16*>(x), static_cast<bf16*>(out), P, B, T,
+                               inv_scale, drop, work, save, sms, st);
+  return (int)launch_forward(static_cast<const float*>(x), static_cast<float*>(out), P, B, T,
+                             inv_scale, drop, work, save, sms, st);
 }

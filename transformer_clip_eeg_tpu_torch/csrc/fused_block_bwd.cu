@@ -1,4 +1,5 @@
-// Fused pre-LN transformer encoder block, backward, f32, with dropout.
+// Fused pre-LN transformer encoder block, backward, f32 or bf16 mode, with
+// dropout.
 //
 // Replaces: transformer_clip_eeg_tpu/ops/pallas_block.py, _fused_block_bwd
 // (pl.pallas_call at :498; kernel body _bwd_kernel :270-396).
@@ -57,6 +58,17 @@
 // log-sum-exp (about 32 MB at the flagship shape) rather than recomputing
 // them; f1 and the LayerNorms are recomputed.  Plain f32 FMAs, no tensor
 // cores.
+//
+// The bf16 mode (the JAX kernel's mm_dtype='bfloat16'; the forward's bf16
+// instantiation saved q, k, v and the context as bf16 values) is a second
+// instantiation of the three row and attention kernels on XT = bf16: g and x
+// are read as bf16, dx written as bf16, the parameter gradients as f32, and
+// every product's operands are rounded to bf16 where they are staged (the
+// weights as they load into registers, the activations as they are written
+// for the products or read from shared memory), so today's FMA path sums
+// products of bf16 values, which an f32 FMA takes exactly.  What a column
+// sum (a bias or LayerNorm gradient) adds stays unrounded, as in JAX.  The
+// products stay off the tensor cores (a later PR's lever).
 
 #include <cuda_runtime.h>
 #include <math.h>
@@ -94,9 +106,11 @@ struct Scratch {
 };
 
 // ---- 1. FFN, LN2 and out-projection backward ---------------------------------
+template <typename XT>
 __global__ void __launch_bounds__(NT, 2)
-ffn_bwd_kernel(const float* __restrict__ g, const float* __restrict__ x1,
+ffn_bwd_kernel(const XT* __restrict__ g, const float* __restrict__ x1,
                BlockParams P, int T, int BT, DropCfg drop, Scratch S) {
+  constexpr bool R = kBf16<XT>;  // round the products' operands
   extern __shared__ __align__(16) float smem[];
   float* y2s = smem;              // [RB][E] LN2, normalised (before the affine)
   float* y2as = y2s + RB * E;     // [RB][E] LN2 output
@@ -134,16 +148,16 @@ ffn_bwd_kernel(const float* __restrict__ g, const float* __restrict__ x1,
     for (int half = 0; half < 2; ++half) {
       const int e = lane + 32 * half;
       const float y = (half ? d1 : d0) * inv;
-      const float ya = y * __ldg(g2 + e) + __ldg(be2 + e);
+      const float ya = operand<R>(y * __ldg(g2 + e) + __ldg(be2 + e));  // an operand only
       y2s[r * E + e] = y;
       y2as[r * E + e] = ya;
       S.e[kY2a][(size_t)row * E + e] = ya;
-      float d = g[(size_t)row * E + e];
+      float d = to_f32(g[(size_t)row * E + e]);
       if (drop.on)
         d *= drop_mult(ds.seed_base + (uint32_t)(H + 2), (uint32_t)(ds.local * T + t) * E + e,
                        drop.thr, drop.keep);
-      df2s[r * E + e] = d;
-      S.e[kDf2][(size_t)row * E + e] = d;
+      df2s[r * E + e] = operand<R>(d);  // (the bias gradient sums it unrounded, below)
+      S.e[kDf2][(size_t)row * E + e] = operand<R>(d);
     }
   }
   __syncthreads();
@@ -155,13 +169,13 @@ ffn_bwd_kernel(const float* __restrict__ g, const float* __restrict__ x1,
     const int f = tid;
     {
       float w1r[E];  // W1 row f
-      load_row<E>(w1 + f * E, w1r);
+      load_row<E, R>(w1 + f * E, w1r);
       const float b1 = __ldg(bb1 + f);
       for (int r = 0; r < RB; ++r) df1s[r * F + f] = dot_row<E>(y2as + r * E, w1r) + b1;
     }
     float w2c[E];  // W2 column f
 #pragma unroll
-    for (int o = 0; o < E; ++o) w2c[o] = __ldg(w2 + o * F + f);
+    for (int o = 0; o < E; ++o) w2c[o] = operand<R>(__ldg(w2 + o * F + f));
     float sum_df1 = 0.f;
     for (int r = 0; r < RB; ++r) {
       const int row = row0 + r;
@@ -179,9 +193,9 @@ ffn_bwd_kernel(const float* __restrict__ g, const float* __restrict__ x1,
       }
       const float gld = gelu(f1) * m1;
       const float df1 = dot_row<E>(df2s + r * E, w2c) * m1 * gelu_grad(f1);
-      S.gld[(size_t)row * F + f] = gld;
-      S.df1[(size_t)row * F + f] = df1;
-      df1s[r * F + f] = df1;
+      S.gld[(size_t)row * F + f] = operand<R>(gld);
+      S.df1[(size_t)row * F + f] = operand<R>(df1);
+      df1s[r * F + f] = operand<R>(df1);  // an operand of dy2 only
       sum_df1 += df1;
     }
     sums[4 * E + f] = sum_df1;
@@ -193,7 +207,7 @@ ffn_bwd_kernel(const float* __restrict__ g, const float* __restrict__ x1,
     const int e = tid % E, q = tid / E;
     float w1c[F / 4];
 #pragma unroll
-    for (int i = 0; i < F / 4; ++i) w1c[i] = __ldg(w1 + (q * (F / 4) + i) * E + e);
+    for (int i = 0; i < F / 4; ++i) w1c[i] = operand<R>(__ldg(w1 + (q * (F / 4) + i) * E + e));
     for (int r = 0; r < RB; ++r)
       part[(q * RB + r) * E + e] = dot_row<F / 4>(df1s + r * F + q * (F / 4), w1c);
   }
@@ -225,7 +239,7 @@ ffn_bwd_kernel(const float* __restrict__ g, const float* __restrict__ x1,
     for (int half = 0; half < 2; ++half) {
       const int e = lane + 32 * half;
       const size_t o = (size_t)row * E + e;
-      const float dx1 = g[o] + (gh[half] - mean_gh - y[half] * mean_ghy) * inv;
+      const float dx1 = to_f32(g[o]) + (gh[half] - mean_gh - y[half] * mean_ghy) * inv;
       float da = dx1;
       if (drop.on)
         da *= drop_mult(ds.seed_base + (uint32_t)H, (uint32_t)(ds.local * T + t) * E + e,
@@ -233,8 +247,8 @@ ffn_bwd_kernel(const float* __restrict__ g, const float* __restrict__ x1,
       sum_dyy[half] = fmaf(dy[half], y[half], sum_dyy[half]);
       sum_dy[half] += dy[half];
       S.e[kDx1][o] = dx1;
-      S.e[kDa][o] = da;
-      das[r * E + e] = da;
+      S.e[kDa][o] = operand<R>(da);
+      das[r * E + e] = operand<R>(da);  // (the bias gradient sums it unrounded, below)
     }
   }
 #pragma unroll
@@ -244,11 +258,25 @@ ffn_bwd_kernel(const float* __restrict__ g, const float* __restrict__ x1,
   }
   __syncthreads();
 
-  // this CTA's column sums, rows and warps in order: df2, dy2*y2, dy2, da
+  // this CTA's column sums, rows and warps in order: df2, dy2*y2, dy2, da.  In
+  // the bf16 mode df2s and das hold rounded operands, so df2 = g m2 and da =
+  // dx1 m_a are formed again, unrounded, from g and dx1 (JAX sums them so)
   {
     const int which = tid / E, e = tid % E;
     float acc = 0.f;
-    if (which == 0 || which == 3) {
+    if (R && (which == 0 || which == 3)) {
+      for (int r = 0; r < RB && row0 + r < BT; ++r) {
+        const int row = row0 + r, b = row / T, t = row % T;
+        const size_t o = (size_t)row * E + e;
+        float v = which == 0 ? to_f32(g[o]) : S.e[kDx1][o];
+        if (drop.on) {
+          const DropSample ds = drop_sample(drop, b, BLOCK_TILE_MULT);
+          v *= drop_mult(ds.seed_base + (uint32_t)(which == 0 ? H + 2 : H),
+                         (uint32_t)(ds.local * T + t) * E + e, drop.thr, drop.keep);
+        }
+        acc += v;
+      }
+    } else if (which == 0 || which == 3) {
       const float* src = which == 0 ? df2s : das;
       for (int r = 0; r < RB; ++r) acc += src[r * E + e];
     } else {
@@ -262,15 +290,19 @@ ffn_bwd_kernel(const float* __restrict__ g, const float* __restrict__ x1,
     const int i = tid % E, rg = tid / E;
     float woc[E];  // Wo column i
 #pragma unroll
-    for (int o = 0; o < E; ++o) woc[o] = __ldg(wo + o * E + i);
+    for (int o = 0; o < E; ++o) woc[o] = operand<R>(__ldg(wo + o * E + i));
     for (int r = rg; r < RB; r += NT / E) {
       const int row = row0 + r;
-      if (row < BT) S.e[kDctx][(size_t)row * E + i] = dot_row<E>(das + r * E, woc);
+      // dctx is an operand only (of dP and dV): rounded where it is made
+      if (row < BT) S.e[kDctx][(size_t)row * E + i] = operand<R>(dot_row<E>(das + r * E, woc));
     }
   }
 }
 
 // ---- 2. attention backward, one CTA per (sample, head) ------------------------
+// (R: the bf16 mode; q, k, v, ctx and dctx arrive as bf16 values, dS and
+// the dropped-out P are rounded as they become operands)
+template <bool R>
 __global__ void __launch_bounds__(NT)
 attn_bwd_kernel(const float* __restrict__ q, const float* __restrict__ k,
                 const float* __restrict__ v, const float* __restrict__ ctx,
@@ -340,8 +372,8 @@ attn_bwd_kernel(const float* __restrict__ q, const float* __restrict__ k,
           const float4 st = *reinterpret_cast<const float4*>(rec + 2 * D);  // lse, delta
           const float p = live ? expf(dot8(qv, kv) * inv_scale - st.x) : 0.f;
           const float m = drop.on ? drop_mult(key, idx, drop.thr, drop.keep) : 1.f;
-          const float pm = p * m;
-          const float dsv = p * (dot8(cv, vv) * m - st.y) * inv_scale;
+          const float pm = operand<R>(p * m);
+          const float dsv = operand<R>(p * (dot8(cv, vv) * m - st.y) * inv_scale);
 #pragma unroll
           for (int d = 0; d < D; ++d) {
             dk[d] = fmaf(dsv, qv[d], dk[d]);
@@ -382,9 +414,11 @@ attn_bwd_kernel(const float* __restrict__ q, const float* __restrict__ k,
 }
 
 // ---- 3. QKV and LN1 backward ---------------------------------------------------
+template <typename XT>
 __global__ void __launch_bounds__(NT)
-qkv_bwd_kernel(const float* __restrict__ x, BlockParams P, int BT,
-               float* __restrict__ dx, Scratch S) {
+qkv_bwd_kernel(const XT* __restrict__ x, BlockParams P, int BT,
+               XT* __restrict__ dx, Scratch S) {
+  constexpr bool R = kBf16<XT>;  // round the products' operands
   extern __shared__ __align__(16) float smem[];
   float* dqkv = smem;             // [3][RB][E]
   float* part = dqkv + 3 * RB * E;  // [3][RB][E]
@@ -397,7 +431,9 @@ qkv_bwd_kernel(const float* __restrict__ x, BlockParams P, int BT,
   for (int i = tid; i < 3 * RB * E; i += NT) {
     const int m = i / (RB * E), r = (i / E) % RB, e = i % E;
     const int row = row0 + r;
-    dqkv[i] = row < BT ? S.e[kDq + m][(size_t)row * E + e] : 0.f;
+    float* src = S.e[kDq + m] + (size_t)row * E + e;
+    dqkv[i] = row < BT ? *src : 0.f;  // unrounded: the bias gradients sum it
+    if (R && row < BT) *src = round_bf16(*src);  // an operand of dWq, dWk, dWv
   }
   __syncthreads();
 
@@ -407,9 +443,9 @@ qkv_bwd_kernel(const float* __restrict__ x, BlockParams P, int BT,
     const float* W = m == 0 ? P.p[2] : (m == 1 ? P.p[3] : P.p[4]);  // no indexed copy of P
     float wc[E];
 #pragma unroll
-    for (int o = 0; o < E; ++o) wc[o] = __ldg(W + o * E + e);
+    for (int o = 0; o < E; ++o) wc[o] = operand<R>(__ldg(W + o * E + e));
     for (int r = 0; r < RB; ++r)
-      part[(m * RB + r) * E + e] = dot_row<E>(dqkv + (m * RB + r) * E, wc);
+      part[(m * RB + r) * E + e] = dot_row<E, R>(dqkv + (m * RB + r) * E, wc);
   }
   __syncthreads();
 
@@ -418,8 +454,8 @@ qkv_bwd_kernel(const float* __restrict__ x, BlockParams P, int BT,
   for (int r = warp; r < RB; r += NW) {
     const int row = row0 + r;
     if (row >= BT) continue;
-    const float* xr = x + (size_t)row * E;
-    const float a0 = xr[lane], a1 = xr[lane + 32];
+    const XT* xr = x + (size_t)row * E;
+    const float a0 = to_f32(xr[lane]), a1 = to_f32(xr[lane + 32]);
     const float mean = warp_sum(a0 + a1) * (1.0f / E);
     const float d0 = a0 - mean, d1 = a1 - mean;
     const float var = warp_sum(d0 * d0 + d1 * d1) * (1.0f / E);
@@ -438,8 +474,8 @@ qkv_bwd_kernel(const float* __restrict__ x, BlockParams P, int BT,
     for (int half = 0; half < 2; ++half) {
       const int e = lane + 32 * half;
       const size_t o = (size_t)row * E + e;
-      dx[o] = S.e[kDx1][o] + (gh[half] - mean_gh - y[half] * mean_ghy) * inv;
-      S.e[kY1a][o] = y[half] * __ldg(g1 + e) + __ldg(be1 + e);
+      store_as(dx + o, S.e[kDx1][o] + (gh[half] - mean_gh - y[half] * mean_ghy) * inv);
+      S.e[kY1a][o] = operand<R>(y[half] * __ldg(g1 + e) + __ldg(be1 + e));
       sum_dyy[half] = fmaf(dy[half], y[half], sum_dyy[half]);
       sum_dy[half] += dy[half];
     }
@@ -486,6 +522,35 @@ cudaError_t set_smem(const void* fn, size_t floats, int optin) {
   return cudaFuncSetAttribute(fn, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
 }
 
+// The three row and attention launches of one mode (XT = bf16: the bf16
+// instantiations), with their shared-memory limits set first.
+template <typename XT>
+cudaError_t launch_rows(const XT* x, const XT* g, XT* dx, const float* q, const float* k,
+                        const float* v, const float* ctx, const float* x1, const float* lse,
+                        const BlockParams& P, int B, int T, float inv_scale,
+                        const DropCfg& drop, const Scratch& S, cudaStream_t st) {
+  const int BT = B * T, row_ctas = (BT + RB - 1) / RB;
+  int dev = 0, optin = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err != cudaSuccess) return err;
+  err = cudaDeviceGetAttribute(&optin, cudaDevAttrMaxSharedMemoryPerBlockOptin, dev);
+  if (err != cudaSuccess) return err;
+  if ((err = set_smem((const void*)ffn_bwd_kernel<XT>, kFfnSmemFloats, optin)) != cudaSuccess ||
+      (err = set_smem((const void*)attn_bwd_kernel<kBf16<XT>>, attn_smem_floats(T), optin)) !=
+          cudaSuccess ||
+      (err = set_smem((const void*)qkv_bwd_kernel<XT>, kQkvSmemFloats, optin)) != cudaSuccess)
+    return err;
+
+  ffn_bwd_kernel<XT><<<row_ctas, NT, kFfnSmemFloats * sizeof(float), st>>>(g, x1, P, T, BT,
+                                                                           drop, S);
+  if ((err = cudaGetLastError()) != cudaSuccess) return err;
+  attn_bwd_kernel<kBf16<XT>><<<B * H, attn_threads(T), attn_smem_floats(T) * sizeof(float),
+                               st>>>(q, k, v, ctx, lse, T, inv_scale, drop, S);
+  if ((err = cudaGetLastError()) != cudaSuccess) return err;
+  qkv_bwd_kernel<XT><<<row_ctas, NT, kQkvSmemFloats * sizeof(float), st>>>(x, P, BT, dx, S);
+  return cudaGetLastError();
+}
+
 }  // namespace
 
 // Floats of workspace tce_fused_block_bwd needs for B samples of T rows.
@@ -499,13 +564,15 @@ extern "C" long long tce_fused_block_bwd_workspace(int B, int T) {
 //   x, g [B][T][E]; saved: [5][B][T][E] (q, k, v, ctx, x1) then [B][H][T]
 //   (the softmax rows' log-sum-exp), from the training forward; params /
 //   dparams: the 16 tensors of BlockParams and their gradients (written
-//   whole); dx [B][T][E]; ws: the workspace above.  Five kernel launches.
-extern "C" int tce_fused_block_bwd(const float* x, const float* g, const float* saved,
-                                   const void* const* params, float* dx,
+//   whole, f32); dx [B][T][E]; ws: the workspace above.  `bf16` selects the
+//   bf16 mode: x, g and dx are then bf16.  Five kernel launches.
+extern "C" int tce_fused_block_bwd(const void* x, const void* g, const float* saved,
+                                   const void* const* params, void* dx,
                                    void* const* dparams, float* ws, int B, int T,
                                    int e, int h, int f, float inv_scale, int drop_on,
                                    unsigned seed, int tb, unsigned thr, float keep,
-                                   unsigned thr_ffn, float keep_ffn, void* stream) {
+                                   unsigned thr_ffn, float keep_ffn, int bf16_mode,
+                                   void* stream) {
   if (e != E || h != H || f != F || B <= 0 || T <= 0 || tb <= 0)
     return (int)cudaErrorInvalidValue;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
@@ -557,23 +624,14 @@ extern "C" int tce_fused_block_bwd(const float* x, const float* g, const float* 
     ok = ok && plan.add_sum(c.partial, c.stride, row_ctas, c.n, dP[c.out]);
   if (!ok) return (int)cudaErrorInvalidValue;
 
-  int dev = 0, optin = 0;
-  cudaError_t err = cudaGetDevice(&dev);
+  const cudaError_t err =
+      bf16_mode ? launch_rows(static_cast<const bf16*>(x), static_cast<const bf16*>(g),
+                              static_cast<bf16*>(dx), q, k, v, ctx, x1, lse, P, B, T, inv_scale,
+                              drop, S, st)
+                : launch_rows(static_cast<const float*>(x), static_cast<const float*>(g),
+                              static_cast<float*>(dx), q, k, v, ctx, x1, lse, P, B, T,
+                              inv_scale, drop, S, st);
   if (err != cudaSuccess) return (int)err;
-  err = cudaDeviceGetAttribute(&optin, cudaDevAttrMaxSharedMemoryPerBlockOptin, dev);
-  if (err != cudaSuccess) return (int)err;
-  if ((err = set_smem((const void*)ffn_bwd_kernel, kFfnSmemFloats, optin)) != cudaSuccess ||
-      (err = set_smem((const void*)attn_bwd_kernel, attn_smem_floats(T), optin)) != cudaSuccess ||
-      (err = set_smem((const void*)qkv_bwd_kernel, kQkvSmemFloats, optin)) != cudaSuccess)
-    return (int)err;
-
-  ffn_bwd_kernel<<<row_ctas, NT, kFfnSmemFloats * sizeof(float), st>>>(g, x1, P, T, BT, drop, S);
-  if ((err = cudaGetLastError()) != cudaSuccess) return (int)err;
-  attn_bwd_kernel<<<B * H, attn_threads(T), attn_smem_floats(T) * sizeof(float), st>>>(
-      q, k, v, ctx, lse, T, inv_scale, drop, S);
-  if ((err = cudaGetLastError()) != cudaSuccess) return (int)err;
-  qkv_bwd_kernel<<<row_ctas, NT, kQkvSmemFloats * sizeof(float), st>>>(x, P, BT, dx, S);
-  if ((err = cudaGetLastError()) != cudaSuccess) return (int)err;
-  if ((err = plan.launch_products(st)) != cudaSuccess) return (int)err;
+  if (const cudaError_t e2 = plan.launch_products(st); e2 != cudaSuccess) return (int)e2;
   return (int)plan.launch_sums(st);
 }

@@ -1,5 +1,7 @@
 // Row products Y = A W^T of the fused block's forward (fused_block.cu) on the
-// tensor cores, in split TF32: f32-grade results from three TF32 products.
+// tensor cores, in split TF32: f32-grade results from three TF32 products;
+// or, in the block's bf16 mode, one bf16 product (mma.sync m16n8k16) on
+// operands rounded to bf16 (nearest even), f32 sums.
 //
 // What bounds such a product on an H100 outside the tensor cores is not the
 // FMAs but the instructions around them: an outer-product register tile of
@@ -19,6 +21,14 @@
 // or g + 8, at column t, or t + 4, of its block) then hit 32 different banks,
 // 4 g + t.  Weight rows arrive by 16-byte cp.async straight from torch's
 // [out, in] matrix, activation rows likewise, while the CTA normalises.
+//
+// bf16 mode.  The operands stay float rows in shared memory (the layout of
+// the f32 mode), and each pair a lane needs is rounded as it is loaded into
+// its fragment register (cvt.rn.bf16x2.f32): the same numbers as rounding on
+// staging, for one conversion a pair where split TF32 spends two splits and
+// three products.  An m16n8k16 fragment (lane 4 g + t) holds row g, or g + 8,
+// at columns 2 t, 2 t + 1, or + 8: float2 loads, which conflict two ways in
+// rows of K + 4 floats (a later layout in bf16 rows is the fix, not made yet).
 #pragma once
 
 #include <cuda_runtime.h>
@@ -62,6 +72,60 @@ __device__ __forceinline__ void mma_tf32(float (&c)[4], const uint32_t (&a)[4],
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
 }
 
+// two floats rounded to bf16 (nearest even) and packed as one operand
+// register of mma.sync: `lo`, the lower index along k, in the low half
+__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
+  uint32_t r;
+  asm("cvt.rn.bf16x2.f32 %0, %1, %2;" : "=r"(r) : "f"(hi), "f"(lo));
+  return r;
+}
+
+// the two floats at p (8-byte aligned) as a bf16x2 operand register
+__device__ __forceinline__ uint32_t ld_bf16x2(const float* p) {
+  const float2 v = *reinterpret_cast<const float2*>(p);
+  return pack_bf16(v.x, v.y);
+}
+
+// c += a b for one block: a 16 x 16 (row major), b 16 x 8 (column major), bf16
+// operands, f32 sums
+__device__ __forceinline__ void mma_bf16(float (&c)[4], const uint32_t (&a)[4],
+                                         const uint32_t (&b)[2]) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 {%0,%1,%2,%3}, {%4,%5,%6,%7}, "
+      "{%8,%9}, {%0,%1,%2,%3};"
+      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
+}
+
+// acc[mi][ni] += bf16(A) bf16(W)^T over k < K (a multiple of 16): the bf16
+// mode of mma_tile, with its arguments and accumulator layout
+template <int MB, int NB, int K, int LDA, int LDW>
+__device__ __forceinline__ void mma_tile_bf16(const float* a, const float* w,
+                                              float (&acc)[MB][NB][4], int lane) {
+  const int g = lane >> 2, t = lane & 3;
+  const float* ap = a + g * LDA + 2 * t;
+  const float* wp = w + g * LDW + 2 * t;
+#pragma unroll 1  // one k-step's fragments in flight: three CTAs an SM in ln_qkv_kernel
+  for (int k = 0; k < K; k += 16) {
+    uint32_t af[MB][4];
+#pragma unroll
+    for (int mi = 0; mi < MB; ++mi) {
+      const float* p = ap + 16 * mi * LDA + k;
+      af[mi][0] = ld_bf16x2(p);
+      af[mi][1] = ld_bf16x2(p + 8 * LDA);
+      af[mi][2] = ld_bf16x2(p + 8);
+      af[mi][3] = ld_bf16x2(p + 8 * LDA + 8);
+    }
+#pragma unroll
+    for (int ni = 0; ni < NB; ++ni) {
+      const float* p = wp + 8 * ni * LDW + k;
+      const uint32_t bf[2] = {ld_bf16x2(p), ld_bf16x2(p + 8)};
+#pragma unroll
+      for (int mi = 0; mi < MB; ++mi) mma_bf16(acc[mi][ni], af[mi], bf);
+    }
+  }
+}
+
 // acc[mi][ni] += A W^T over k < K for the warp's MB x NB blocks.
 //   a: the warp's first row of A (rows LDA floats apart), w: its first row of
 //   W, i.e. its first output column (rows LDW floats apart); both offset alike
@@ -100,6 +164,16 @@ __device__ __forceinline__ void mma_tile(const float* a, const float* w,
       }
     }
   }
+}
+
+// the product of the mode: bf16 operands (BF16) or split TF32
+template <bool BF16, int MB, int NB, int K, int LDA, int LDW>
+__device__ __forceinline__ void mma_tile_mode(const float* a, const float* w,
+                                              float (&acc)[MB][NB][4], int lane) {
+  if constexpr (BF16)
+    mma_tile_bf16<MB, NB, K, LDA, LDW>(a, w, acc, lane);
+  else
+    mma_tile<MB, NB, K, LDA, LDW>(a, w, acc, lane);
 }
 
 // row and first column, inside the warp's tile, of acc[mi][ni][2 half], [2 half + 1]

@@ -9,8 +9,11 @@ Block structure: pre-LN residual blocks, ``x + Drop(MHA(LN(x)))`` then
 tensor, on the CPU or the card, goes through
 :func:`~transformer_clip_eeg_tpu_torch.ops.fused_block.fused_transformer_block`
 (the fused kernels on CUDA, their plain twin on the CPU), with the four
-dropout masks of the JAX kernel in training mode.  The attention and FFN
-modules below only hold the parameters, under the flax names.
+dropout masks of the JAX kernel in training mode.  A bf16 input selects the
+block's bf16 mode (bf16 operands in every product, float32 sums), as a bf16
+activation selects ``mm_dtype='bfloat16'`` in the JAX block: the input's
+dtype is the only selector.  The attention and FFN modules below only hold
+the parameters, under the flax names.
 """
 
 from __future__ import annotations

@@ -19,6 +19,20 @@ of ``T <= MAX_KERNEL_T`` rows (26 s at 64 Hz): no kernel holds a whole sample
 in shared memory, and the limit that is left is one head's records in the
 attention backward.
 
+The bf16 mode (``--compute_dtype bfloat16``; the JAX kernel's
+``mm_dtype='bfloat16'``) is selected by a bfloat16 ``x`` and by nothing
+else.  Every product of the forward and the backward then takes operands
+rounded to bf16 (round to nearest even) and sums in float32; everything else
+(the LayerNorms, the softmax, GELU, the masks, the residual adds) stays
+float32, the attention probabilities are rounded only as an operand of
+``p v`` (normalised and dropped out first), ``out`` and ``dx`` come back in
+bf16 and the 16 parameter gradients in float32.  The parameters stay
+float32.  On the card the kernels' bf16 instantiations run; on the CPU the
+twins below take the same mode from ``x``'s dtype, and the CPU backward in
+bf16 is :func:`fused_block_backward_reference` (autograd through the twin
+would round the gradients where the casts are, not where JAX's VJP rounds
+its operands).
+
 ``params`` is the JAX kernel's 16-tuple in the same order, with every
 weight in torch's ``[out, in]`` layout (as ``nn.Linear.weight`` holds it)::
 
@@ -58,6 +72,7 @@ from transformer_clip_eeg_tpu_torch.ops.dropout import (
     mask_from_bits,
     threshold,
 )
+from transformer_clip_eeg_tpu_torch.ops.layers import upcast
 
 N_PARAMS = 16
 # the one shape the kernels are compiled for: the flagship's E=64, 8 heads, F=4E
@@ -67,6 +82,18 @@ SMEM_OPTIN_BYTES = 227 * 1024
 # the training forward saves q, k, v, the attention context and x1 for the
 # backward: five [B, T, E] planes, then each softmax row's log-sum-exp [B, H, T]
 N_SAVED = 5
+
+
+def bf16_round(a: torch.Tensor) -> torch.Tensor:
+    """``a`` rounded to bf16 (nearest even, as ``astype`` and the kernels'
+    ``cvt.rn`` round) and held in ``a``'s dtype."""
+    return a.to(torch.bfloat16).to(a.dtype)
+
+
+def _operands(bf16: bool):
+    """What a product's operand goes through: :func:`bf16_round` in the
+    bf16 mode, else nothing."""
+    return bf16_round if bf16 else (lambda a: a)
 
 
 def saved_numel(b: int, t: int, e: int, num_heads: int) -> int:
@@ -169,40 +196,42 @@ def fused_transformer_block_reference(
 ) -> torch.Tensor:
     """The block in eager torch: ``x [B, T, E]`` → ``[B, T, E]``, with the
     JAX kernel's dropout masks in training mode (the arguments of
-    :func:`fused_transformer_block`)."""
+    :func:`fused_transformer_block`); a bf16 ``x`` takes the bf16 mode."""
     (g1, be1, wq, wk, wv, bq, bk, bv, wo, bo,
      g2, be2, w1, bb1, w2, bb2) = params
     b, t, e = x.shape
     d = e // num_heads
+    r = _operands(x.dtype == torch.bfloat16)
+    xf = upcast(x)
     drop = DropoutConfig(bool(training), int(seed), float(drop_p), float(ffn_drop_p))
     m_attn, m_ao, m_fi, m_fo = block_masks(b, t, e, w1.shape[0], num_heads, drop,
                                            x.device)
-    y1 = F.layer_norm(x, (e,), g1, be1, 1e-5)
-    q = F.linear(y1, wq, bq).reshape(b, t, num_heads, d)
-    k = F.linear(y1, wk, bk).reshape(b, t, num_heads, d)
-    v = F.linear(y1, wv, bv).reshape(b, t, num_heads, d)
-    s = torch.einsum("bqhd,bkhd->bhqk", q, k) * (1.0 / scale)
+    y1 = r(F.layer_norm(xf, (e,), g1, be1, 1e-5))
+    q = F.linear(y1, r(wq), bq).reshape(b, t, num_heads, d)
+    k = F.linear(y1, r(wk), bk).reshape(b, t, num_heads, d)
+    v = F.linear(y1, r(wv), bv).reshape(b, t, num_heads, d)
+    s = torch.einsum("bqhd,bkhd->bhqk", r(q), r(k)) * (1.0 / scale)
     p = torch.softmax(s, dim=-1)
     if m_attn is not None:
         p = p * m_attn
-    ctx = torch.einsum("bhqk,bkhd->bqhd", p, v).reshape(b, t, e)
-    a = F.linear(ctx, wo, bo)
+    ctx = torch.einsum("bhqk,bkhd->bqhd", r(p), r(v)).reshape(b, t, e)
+    a = F.linear(r(ctx), r(wo), bo)
     if m_ao is not None:
         a = a * m_ao
-    x1 = x + a
+    x1 = xf + a
     y2 = F.layer_norm(x1, (e,), g2, be2, 1e-5)
-    gl = F.gelu(F.linear(y2, w1, bb1))
+    gl = F.gelu(F.linear(r(y2), r(w1), bb1))
     if m_fi is not None:
         gl = gl * m_fi
-    f2 = F.linear(gl, w2, bb2)
+    f2 = F.linear(r(gl), r(w2), bb2)
     if m_fo is not None:
         f2 = f2 * m_fo
-    return x1 + f2
+    return (x1 + f2).to(x.dtype)
 
 
 def attention_online_reference(
     q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, num_heads: int, scale: float,
-    mask: Optional[torch.Tensor] = None, tile: int = ATTN_KEY_TILE,
+    mask: Optional[torch.Tensor] = None, tile: int = ATTN_KEY_TILE, bf16: bool = False,
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Kernel #1's attention in eager torch, step by step as
     ``attn_fwd_kernel`` walks it: ``(ctx [B, T, E], lse [B, H, T])`` from
@@ -211,12 +240,20 @@ def attention_online_reference(
     ``m`` moves once a tile and rescales the running sum ``l`` and context,
     ``l`` takes the clean probabilities and the context the ones multiplied
     by ``mask`` (the attention mask of :func:`block_masks`), the context is
-    divided by ``l`` at the end and ``lse = m ln 2 + log l``."""
+    divided by ``l`` at the end and ``lse = m ln 2 + log l``.
+
+    ``bf16`` is the kernel's bf16 mode: q, k and v are rounded to bf16 (q
+    before the scale is folded in), and the probabilities are rounded only
+    after they are normalised and dropped out, as JAX rounds them.  So the
+    walk takes two passes: the first only for ``m`` and ``l``, the second
+    for the context, ``bf16(mask 2^(s - m) / l) v``, rounded to bf16 (the
+    forward keeps q, k, v and the context as bf16 values)."""
     b, t, e = q.shape
     d = e // num_heads
+    r = _operands(bf16)
 
     def heads(a):
-        return a.reshape(b, t, num_heads, d).transpose(1, 2)  # [B, H, T, d]
+        return r(a).reshape(b, t, num_heads, d).transpose(1, 2)  # [B, H, T, d]
 
     qh, kh, vh = heads(q) * (math.log2(math.e) / scale), heads(k), heads(v)
     m = q.new_full((b, num_heads, t), -math.inf)
@@ -228,18 +265,28 @@ def attention_online_reference(
         alpha = torch.exp2(m - m_new)
         p = torch.exp2(s - m_new[..., None])
         l = l * alpha + p.sum(-1)
-        if mask is not None:
-            p = p * mask[:, :, :, j0:j0 + tile]
-        acc = acc * alpha[..., None] + p @ vh[:, :, j0:j0 + tile]
+        if not bf16:
+            if mask is not None:
+                p = p * mask[:, :, :, j0:j0 + tile]
+            acc = acc * alpha[..., None] + p @ vh[:, :, j0:j0 + tile]
         m = m_new
-    ctx = (acc / l[..., None]).transpose(1, 2).reshape(b, t, e)
+    if bf16:
+        for j0 in range(0, t, tile):
+            p = torch.exp2(qh @ kh[:, :, j0:j0 + tile].transpose(2, 3) - m[..., None]) \
+                / l[..., None]
+            if mask is not None:
+                p = p * mask[:, :, :, j0:j0 + tile]
+            acc = acc + r(p) @ vh[:, :, j0:j0 + tile]
+        ctx = r(acc.transpose(1, 2).reshape(b, t, e))
+    else:
+        ctx = (acc / l[..., None]).transpose(1, 2).reshape(b, t, e)
     return ctx, m * math.log(2.0) + torch.log(l)
 
 
 def attention_backward_reference(
     q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, ctx: torch.Tensor,
     lse: torch.Tensor, dctx: torch.Tensor, num_heads: int, scale: float,
-    mask: Optional[torch.Tensor] = None,
+    mask: Optional[torch.Tensor] = None, bf16: bool = False,
 ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """Kernel #2's attention backward in eager torch, each (query, key) pair
     once: ``(dq, dk, dv)``, all ``[B, T, E]``, from the forward's ``q``, ``k``,
@@ -248,12 +295,15 @@ def attention_backward_reference(
     replace the softmax's row statistics: ``P = exp(S - lse)`` and
     ``rowsum(dP * P) = dctx . ctx`` per head (``ctx`` was computed with the
     dropped-out ``P``, so it holds with ``mask``, the attention mask of
-    :func:`block_masks`, ``[B, H, T, T]``)."""
+    :func:`block_masks`, ``[B, H, T, T]``).  ``bf16`` rounds every product's
+    operands: q, k, v, ctx and dctx (bf16 values already, as the bf16
+    forward and FFN backward leave them), dS and the dropped-out P."""
     b, t, e = q.shape
     d = e // num_heads
+    r = _operands(bf16)
 
     def heads(a):
-        return a.reshape(b, t, num_heads, d).transpose(1, 2)  # [B, H, T, d]
+        return r(a).reshape(b, t, num_heads, d).transpose(1, 2)  # [B, H, T, d]
 
     qh, kh, vh, ch, dch = map(heads, (q, k, v, ctx, dctx))
     p = torch.exp(qh @ kh.transpose(2, 3) * (1.0 / scale) - lse[..., None])
@@ -262,9 +312,9 @@ def attention_backward_reference(
     pm = p
     if mask is not None:
         dp, pm = dp * mask, p * mask
-    ds = p * (dp - delta) * (1.0 / scale)
+    ds = r(p * (dp - delta) * (1.0 / scale))
     return tuple(a.transpose(1, 2).reshape(b, t, e)
-                 for a in (ds @ kh, ds.transpose(2, 3) @ qh, pm.transpose(2, 3) @ dch))
+                 for a in (ds @ kh, ds.transpose(2, 3) @ qh, r(pm).transpose(2, 3) @ dch))
 
 
 def _layer_norm_backward(dy, y, g, inv):
@@ -288,24 +338,28 @@ def fused_block_saved_reference(
     """What kernel #1's training forward saves for #2, in eager torch: the flat
     tensor of :func:`saved_numel` floats (q, k, v, the dropped-out attention
     context and x1, each ``[B, T, E]``, then the softmax rows' log-sum-exp
-    ``[B, H, T]``)."""
+    ``[B, H, T]``).  For a bf16 ``x`` q, k, v and the context are bf16
+    values: the bf16 forward rounds them where they are made, since they
+    are only ever operands of products."""
     (g1, be1, wq, wk, wv, bq, bk, bv, wo, bo, *_rest) = params
     b, t, e = x.shape
     d = e // num_heads
+    r = _operands(x.dtype == torch.bfloat16)
+    xf = upcast(x)
     m_attn, m_ao, _, _ = block_masks(b, t, e, params[12].shape[0], num_heads, drop, x.device)
-    y1a = _normalise(x)[0] * g1 + be1
-    q, k, v = (F.linear(y1a, w, bias) for w, bias in ((wq, bq), (wk, bk), (wv, bv)))
+    y1a = r(_normalise(xf)[0] * g1 + be1)
+    q, k, v = (r(F.linear(y1a, r(w), bias)) for w, bias in ((wq, bq), (wk, bk), (wv, bv)))
     qh, kh, vh = (a.reshape(b, t, num_heads, d).transpose(1, 2) for a in (q, k, v))
     s = qh @ kh.transpose(2, 3) * (1.0 / scale)
     lse = torch.logsumexp(s, dim=-1)
     p = torch.exp(s - lse[..., None])
     if m_attn is not None:
         p = p * m_attn
-    ctx = (p @ vh).transpose(1, 2).reshape(b, t, e)
-    a = F.linear(ctx, wo, bo)
+    ctx = r((r(p) @ vh).transpose(1, 2).reshape(b, t, e))
+    a = F.linear(ctx, r(wo), bo)
     if m_ao is not None:
         a = a * m_ao
-    return torch.cat([torch.stack([q, k, v, ctx, x + a]).reshape(-1), lse.reshape(-1)])
+    return torch.cat([torch.stack([q, k, v, ctx, xf + a]).reshape(-1), lse.reshape(-1)])
 
 
 def fused_block_backward_reference(
@@ -315,10 +369,16 @@ def fused_block_backward_reference(
     """Kernel #2 in eager torch, formula by formula as ``csrc/fused_block_bwd.cu``
     computes it (no autograd): ``(dx, dparams)``.  The forward's saved values
     (q, k, v, the dropped-out context, x1, the log-sum-exp) are recomputed
-    here; the attention part is :func:`attention_backward_reference`."""
+    here; the attention part is :func:`attention_backward_reference`.  A
+    bf16 ``x`` (and ``g``) takes the bf16 mode, the JAX kernel's VJP: every
+    product's operands rounded to bf16, f32 sums (the bias and LayerNorm
+    gradients sum unrounded values), ``dx`` in bf16, the parameter gradients
+    in float32."""
     (g1, be1, wq, wk, wv, bq, bk, bv, wo, bo,
      g2, be2, w1, bb1, w2, bb2) = params
     b, t, e = x.shape
+    bf16 = x.dtype == torch.bfloat16
+    r = _operands(bf16)
     m_attn, m_ao, m_fi, m_fo = block_masks(b, t, e, w1.shape[0], num_heads, drop, x.device)
 
     def one(m):
@@ -328,40 +388,44 @@ def fused_block_backward_reference(
         return a.reshape(-1, a.shape[-1]).sum(0)
 
     def atb(a, c):  # a^T c over the B*T rows
-        return a.reshape(-1, a.shape[-1]).T @ c.reshape(-1, c.shape[-1])
+        return r(a.reshape(-1, a.shape[-1])).T @ r(c.reshape(-1, c.shape[-1]))
 
     # the forward: what the training forward saves, the rest recomputed
     saved = fused_block_saved_reference(x, params, num_heads, scale, drop)
     q, k, v, ctx, x1 = saved[:N_SAVED * x.numel()].reshape(N_SAVED, b, t, e)
     lse = saved[N_SAVED * x.numel():].reshape(b, num_heads, t)
-    y1, inv1 = _normalise(x)
+    xf, g = upcast(x), upcast(g)
+    y1, inv1 = _normalise(xf)
     y1a = y1 * g1 + be1
     y2, inv2 = _normalise(x1)
     y2a = y2 * g2 + be2
-    f1 = F.linear(y2a, w1, bb1)
+    f1 = F.linear(r(y2a), r(w1), bb1)
     gld = F.gelu(f1) * one(m_fi)
 
     # FFN, LN2 and out-projection backward
     df2 = g * one(m_fo)
     pdf = torch.exp(-0.5 * f1 * f1) * 0.3989422804014327
-    df1 = (df2 @ w2) * one(m_fi) * (0.5 * (1 + torch.erf(f1 * 0.7071067811865476)) + f1 * pdf)
-    dy2 = df1 @ w1
+    df1 = (r(df2) @ r(w2)) * one(m_fi) * (0.5 * (1 + torch.erf(f1 * 0.7071067811865476))
+                                          + f1 * pdf)
+    dy2 = r(df1) @ r(w1)
     dx1 = g + _layer_norm_backward(dy2, y2, g2, inv2)
     da = dx1 * one(m_ao)
-    dctx = da @ wo
-    dq, dk, dv = attention_backward_reference(q, k, v, ctx, lse, dctx, num_heads, scale, m_attn)
-    dy1 = dq @ wq + dk @ wk + dv @ wv
+    dctx = r(r(da) @ r(wo))
+    dq, dk, dv = attention_backward_reference(q, k, v, ctx, lse, dctx, num_heads, scale, m_attn,
+                                              bf16)
+    dy1 = r(dq) @ r(wq) + r(dk) @ r(wk) + r(dv) @ r(wv)
     dx = dx1 + _layer_norm_backward(dy1, y1, g1, inv1)
     dparams = (cols(dy1 * y1), cols(dy1), atb(dq, y1a), atb(dk, y1a), atb(dv, y1a),
                cols(dq), cols(dk), cols(dv), atb(da, ctx), cols(da),
                cols(dy2 * y2), cols(dy2), atb(df1, y2a), cols(df1), atb(df2, gld), cols(df2))
-    return dx, dparams
+    return dx.to(x.dtype), dparams
 
 
 def _check_cuda_inputs(x: torch.Tensor, params: Sequence[torch.Tensor],
                        num_heads: int) -> None:
-    if x.dtype != torch.float32 or x.dim() != 3:
-        raise ValueError(f"x must be float32 [B, T, E], got {x.dtype} {tuple(x.shape)}")
+    if x.dtype not in (torch.float32, torch.bfloat16) or x.dim() != 3:
+        raise ValueError(f"x must be float32 or bfloat16 [B, T, E], got {x.dtype} "
+                         f"{tuple(x.shape)}")
     b, t, e = x.shape
     if (e, num_heads) != (KERNEL_E, KERNEL_H) or b == 0 or t == 0:
         raise ValueError(
@@ -413,25 +477,30 @@ def fused_block_forward_cuda(
     (one flat tensor of :func:`saved_numel` floats: ``[5, B, T, E]`` of q, k,
     v, the dropped-out attention context and x1, then ``[B, H, T]`` of the
     softmax rows' log-sum-exp) is returned only when ``save``, for kernel #2.
-    Counted once per call; it is three kernel launches, which hand q, k, v
-    and the context to each other through device memory (``saved``'s first
-    four planes, or scratch of that size)."""
+    Counted once per call, and in ``launches_bf16`` too for a bf16 ``x``
+    (the bf16 instantiation, ``out`` in bf16); it is three kernel launches,
+    which hand q, k, v and the context to each other through device memory
+    (``saved``'s first four planes, float32 in both modes, or scratch of
+    that size)."""
     _check_cuda_inputs(x, params, num_heads)
     from transformer_clip_eeg_tpu_torch import _build
 
     lib = _build.load()
     b, t, e = x.shape
+    bf16 = x.dtype == torch.bfloat16
     out = torch.empty_like(x)
-    work = x.new_empty((saved_numel(b, t, e, num_heads) if save else 4 * b * t * e,))
+    work = torch.empty((saved_numel(b, t, e, num_heads) if save else 4 * b * t * e,),
+                       dtype=torch.float32, device=x.device)
     with torch.cuda.device(x.device):
         stream = torch.cuda.current_stream(x.device).cuda_stream
         rc = lib.tce_fused_block_fwd(
             x.data_ptr(), out.data_ptr(), _params_array(params), b, t, e, num_heads,
             params[13].shape[0], 1.0 / scale, *drop_args(drop, b),
-            work.data_ptr(), int(save), stream,
+            work.data_ptr(), int(save), int(bf16), stream,
         )
     _build.check(lib, rc, "fused_transformer_block")
     fused_transformer_block.launches += 1
+    fused_transformer_block.launches_bf16 += bf16
     return out, (work if save else None)
 
 
@@ -443,12 +512,16 @@ def fused_block_backward(
     """Kernel #2 on CUDA tensors: ``(dx, dparams)`` for the upstream gradient
     ``g`` of the block's output, from x, the parameters and what the
     training forward saved.  Its plain version is autograd through
-    :func:`fused_transformer_block_reference`.  Counted once per call; it is
-    five kernel launches (``csrc/fused_block_bwd.cu``)."""
+    :func:`fused_transformer_block_reference` (float32) or
+    :func:`fused_block_backward_reference` (bf16: ``x`` and ``g`` bf16,
+    ``dx`` bf16, the parameter gradients float32).  Counted once per call,
+    and in ``launches_bf16`` too for the bf16 instantiation; it is five
+    kernel launches (``csrc/fused_block_bwd.cu``)."""
     _check_cuda_inputs(x, params, num_heads)
     b, t, e = x.shape
-    if g.shape != x.shape or g.dtype != torch.float32 or g.device != x.device:
-        raise ValueError(f"g must be float32 {tuple(x.shape)} on {x.device}")
+    bf16 = x.dtype == torch.bfloat16
+    if g.shape != x.shape or g.dtype != x.dtype or g.device != x.device:
+        raise ValueError(f"g must be {x.dtype} {tuple(x.shape)} on {x.device}")
     if saved is None or saved.shape != (saved_numel(b, t, e, num_heads),) \
             or saved.dtype != torch.float32 or saved.device != x.device \
             or saved.data_ptr() % 16:
@@ -461,22 +534,27 @@ def fused_block_backward(
     g = g.contiguous()
     dx = torch.empty_like(x)
     dparams = [torch.empty_like(p) for p in params]
-    ws = x.new_empty((lib.tce_fused_block_bwd_workspace(b, t),))
+    ws = torch.empty((lib.tce_fused_block_bwd_workspace(b, t),), dtype=torch.float32,
+                     device=x.device)
     with torch.cuda.device(x.device):
         stream = torch.cuda.current_stream(x.device).cuda_stream
         rc = lib.tce_fused_block_bwd(
             x.data_ptr(), g.data_ptr(), saved.data_ptr(), _params_array(params),
             dx.data_ptr(), _params_array(dparams), ws.data_ptr(), b, t, e,
-            num_heads, params[13].shape[0], 1.0 / scale, *drop_args(drop, b), stream,
+            num_heads, params[13].shape[0], 1.0 / scale, *drop_args(drop, b), int(bf16),
+            stream,
         )
     _build.check(lib, rc, "fused_block_backward")
     fused_block_backward.launches += 1
+    fused_block_backward.launches_bf16 += bf16
     return dx, tuple(dparams)
 
 
 class FusedBlockFunction(torch.autograd.Function):
     """The block with its gradient: kernels #1 and #2 for a CUDA tensor; the
-    twin and autograd through the twin for a CPU tensor."""
+    twin and autograd through the twin for a CPU tensor (the plain statement
+    of #2 for a bf16 one).  ``dx`` comes back in ``x``'s dtype, the
+    parameter gradients in float32."""
 
     @staticmethod
     def forward(ctx, x, num_heads, scale, drop, *params):
@@ -494,7 +572,9 @@ class FusedBlockFunction(torch.autograd.Function):
         num_heads, scale, drop = ctx.cfg
         x, *rest = ctx.saved_tensors
         params = rest[:N_PARAMS]
-        if x.device.type == "cpu":
+        if x.device.type == "cpu" and x.dtype == torch.bfloat16:
+            dx, dparams = fused_block_backward_reference(x, params, g, num_heads, scale, drop)
+        elif x.device.type == "cpu":
             with torch.enable_grad():
                 xs = [x.detach().requires_grad_()]
                 ps = [p.detach().requires_grad_() for p in params]
@@ -522,10 +602,11 @@ def fused_transformer_block(
     ``scale`` divides the attention logits (the reference passes
     ``emb_size ** 0.5``).  ``training`` applies the four dropout masks drawn
     from the integer ``seed`` at rates ``drop_p`` and ``ffn_drop_p``.  A CUDA
-    tensor launches the kernels (float32, contiguous, E=64 with 8 heads,
+    tensor launches the kernels (float32 or bfloat16, contiguous, E=64 with 8 heads,
     F=256 and any window of T <= ``MAX_KERNEL_T`` = 1,699 rows, else it
     raises); a CPU tensor runs the plain version.  Under autograd the gradient is kernel #2 on the card and
-    autograd through the twin on the CPU.
+    autograd through the twin on the CPU.  A bfloat16 ``x`` selects the bf16
+    mode (the module docstring); the parameters stay float32.
     """
     drop = DropoutConfig(bool(training), int(seed), float(drop_p), float(ffn_drop_p))
     if x.device.type not in ("cpu", "cuda"):
@@ -540,4 +621,6 @@ def fused_transformer_block(
 
 
 fused_transformer_block.launches = 0
+fused_transformer_block.launches_bf16 = 0
 fused_block_backward.launches = 0
+fused_block_backward.launches_bf16 = 0

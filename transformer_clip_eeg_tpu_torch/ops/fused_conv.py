@@ -51,7 +51,7 @@ from transformer_clip_eeg_tpu_torch.ops.fused_block import (
     drop_args,
     pick_tile,
 )
-from transformer_clip_eeg_tpu_torch.ops.layers import same_padding
+from transformer_clip_eeg_tpu_torch.ops.layers import same_padding, upcast
 
 # the one width the kernels are compiled for: the flagship's square C=64
 KERNEL_C = 64
@@ -325,8 +325,9 @@ def fused_basic_block(
 
     ``x [B, T, C]``; ``w [C, C, K]`` (torch's Conv1d layout, square C);
     ``b [C]``; ``scale``/``bias [T, C]``; ``seed`` the integer dropout
-    stream (``training`` with ``drop_p > 0`` applies the mask).  A CUDA
-    tensor launches the kernels (float32, C=64, K <= 64 and
+    stream (``training`` with ``drop_p > 0`` applies the mask).  A bf16 ``x``
+    is upcast and the output comes back in bf16.  A CUDA
+    tensor launches the kernels (float32 weights, C=64, K <= 64 and
     T <= ``max_kernel_t(K)``, else it raises); a CPU tensor runs the plain
     version.  Under autograd the gradient is kernel #6 on the card and
     autograd through the twin on the CPU.
@@ -335,16 +336,23 @@ def fused_basic_block(
         raise ValueError(f"kernel_size={kernel_size} but w has shape {tuple(w.shape)}")
     if x.device.type not in ("cpu", "cuda"):
         raise ValueError(f"no fused conv block for device {x.device}")
-    x = x.contiguous()  # e.g. the [B, C, T] → [B, T, C] view a torch Conv1d returns
+    dt = x.dtype
+    # a bf16 x (--compute_dtype bfloat16) is upcast and the output rounded
+    # back, the weights staying float32, as the TPU kernel does: the kernels
+    # are float32 inside.  Autograd then returns dx in bf16 and the weight
+    # gradients in float32, as the JAX kernel's VJP does
+    x = upcast(x).contiguous()  # contiguous: e.g. the view a torch Conv1d returns
     drop = DropoutConfig(bool(training), int(seed), float(drop_p))
     wants_grad = torch.is_grad_enabled() and any(
         v.requires_grad for v in (x, w, b, scale, bias))
     if wants_grad:
-        return FusedBasicBlockFunction.apply(x, w, b, scale, bias, drop)
-    if x.device.type == "cpu":
-        return fused_basic_block_reference(x, w, b, scale, bias, drop.seed, kernel_size,
-                                           drop.drop_p, drop.training)
-    return fused_conv_forward_cuda(x, w, b, scale, bias, drop)[0]
+        out = FusedBasicBlockFunction.apply(x, w, b, scale, bias, drop)
+    elif x.device.type == "cpu":
+        out = fused_basic_block_reference(x, w, b, scale, bias, drop.seed, kernel_size,
+                                          drop.drop_p, drop.training)
+    else:
+        out = fused_conv_forward_cuda(x, w, b, scale, bias, drop)[0]
+    return out.to(dt)
 
 
 def conv1d_same(x: torch.Tensor, w: torch.Tensor,

@@ -17,6 +17,16 @@ Numerics kept from the reference:
 * torch's default init ``U(-1/sqrt(fan_in), 1/sqrt(fan_in))`` for weights and
   biases of linear and conv layers.
 
+Every layer follows the dtype of its input, as the JAX layers do under
+``--compute_dtype bfloat16`` (no ``torch.autocast``, whose per-operation
+lists are another function).  A bfloat16 input takes JAX's rounding points:
+Dense and the convolutions cast their weights to the input's dtype and round
+the product before adding the bias in that dtype; the LayerNorms and
+:class:`BatchNorm1d` take their statistics in float32 (running statistics
+stay float32), round the normalised value and apply the affine in the input's
+dtype; :class:`Dropout` divides in it.  A float32 input runs the float32
+code unchanged (and float64 likewise).
+
 Each module with parameters has ``reset_parameters(generator)``, drawing from
 an explicit ``torch.Generator`` (see :func:`init_parameters`).
 """
@@ -97,7 +107,46 @@ class Dense(nn.Module):
             torch_uniform_init(self.bias, self.in_features, generator)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        return F.linear(x, self.weight, self.bias)
+        if not low_precision(x):
+            return F.linear(x, self.weight, self.bias)
+        y = F.linear(x, self.weight.to(x.dtype))  # rounded, then the bias added, as JAX
+        return y if self.bias is None else y + self.bias.to(x.dtype)
+
+
+def low_precision(x: torch.Tensor) -> bool:
+    """Whether ``x`` is a bfloat16 activation, which the layers follow at
+    JAX's rounding points; float32 and float64 run unchanged."""
+    return x.dtype == torch.bfloat16
+
+
+def upcast(x: torch.Tensor) -> torch.Tensor:
+    """A low-precision ``x`` in float32 (the float32 kernels' inputs); any
+    other ``x`` as it is."""
+    return x.float() if low_precision(x) else x
+
+
+def _conv1d_low(x: torch.Tensor, w: torch.Tensor, bias: torch.Tensor,
+                **kw) -> torch.Tensor:
+    """``F.conv1d`` of a low-precision ``x [B, C, T]`` with ``w`` cast to its
+    dtype: products of bf16 values summed in float32 and rounded once, as
+    JAX's bf16 convolution, then the bias added in that dtype.  On the card
+    the product is cuDNN's bf16 convolution; on the CPU it is the float32
+    convolution of the same operands, rounded, because oneDNN's bf16
+    convolution returns wrong values at some shapes (kernel widths that are
+    multiples of 8 at narrow channel counts, off by tens, with PyTorch 2.13)."""
+    wl = w.to(x.dtype)
+    if x.device.type == "cpu":
+        y = F.conv1d(x.float(), wl.float(), **kw).to(x.dtype)
+    else:
+        y = F.conv1d(x, wl, **kw)
+    return y + bias.to(x.dtype)[:, None]
+
+
+def _affine(y: torch.Tensor, x: torch.Tensor, weight: torch.Tensor,
+            bias: torch.Tensor) -> torch.Tensor:
+    """A normalised float32 ``y`` rounded to ``x``'s dtype, then scaled and
+    shifted in that dtype (the JAX norms' low-precision rule)."""
+    return y.to(x.dtype) * weight.to(x.dtype) + bias.to(x.dtype)
 
 
 def same_padding(kernel_size: int, dilation: int) -> Tuple[int, int]:
@@ -132,7 +181,12 @@ class Conv1d(nn.Module):
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         xc = F.pad(x.transpose(1, 2), self.padding)
-        y = F.conv1d(xc, self.weight, self.bias, stride=self.stride, dilation=self.dilation)
+        if not low_precision(x):
+            y = F.conv1d(xc, self.weight, self.bias, stride=self.stride,
+                         dilation=self.dilation)
+        else:
+            y = _conv1d_low(xc, self.weight, self.bias, stride=self.stride,
+                            dilation=self.dilation)
         return y.transpose(1, 2)
 
 
@@ -162,8 +216,11 @@ class Conv2dValidTime(nn.Module):
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         b, t, s = x.shape
         # spatial channels folded into the batch, a valid strided conv1d over time
-        y = F.conv1d(x.transpose(1, 2).reshape(b * s, 1, t), self.weight, self.bias,
-                     stride=self.stride)
+        xb = x.transpose(1, 2).reshape(b * s, 1, t)
+        if not low_precision(x):
+            y = F.conv1d(xb, self.weight, self.bias, stride=self.stride)
+        else:
+            y = _conv1d_low(xb, self.weight, self.bias, stride=self.stride)
         t_out = y.shape[-1]
         # [B*S, F, T'] -> [B, T', F, S] -> flatten (F, S)
         return y.reshape(b, s, self.filters, t_out).permute(0, 3, 2, 1).reshape(
@@ -185,7 +242,10 @@ class LayerNorm(nn.Module):
             self.bias.zero_()
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        return F.layer_norm(x, self.weight.shape, self.weight, self.bias, self.eps)
+        if not low_precision(x):
+            return F.layer_norm(x, self.weight.shape, self.weight, self.bias, self.eps)
+        y = F.layer_norm(x.float(), self.weight.shape, None, None, self.eps)
+        return _affine(y, x, self.weight, self.bias)
 
 
 class LayerNormTC(nn.Module):
@@ -203,7 +263,10 @@ class LayerNormTC(nn.Module):
             self.bias.zero_()
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        return F.layer_norm(x, self.weight.shape, self.weight, self.bias, self.eps)
+        if not low_precision(x):
+            return F.layer_norm(x, self.weight.shape, self.weight, self.bias, self.eps)
+        y = F.layer_norm(x.float(), self.weight.shape, None, None, self.eps)
+        return _affine(y, x, self.weight, self.bias)
 
 
 class BatchNorm1d(nn.Module):
@@ -230,9 +293,14 @@ class BatchNorm1d(nn.Module):
             self.running_var.fill_(1.0)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        y = F.batch_norm(x.reshape(-1, x.shape[-1]), self.running_mean, self.running_var,
-                         self.weight, self.bias, self.training, self.momentum, self.eps)
-        return y.reshape(x.shape)
+        rows = x.reshape(-1, x.shape[-1])
+        if not low_precision(x):
+            y = F.batch_norm(rows, self.running_mean, self.running_var, self.weight,
+                             self.bias, self.training, self.momentum, self.eps)
+            return y.reshape(x.shape)
+        y = F.batch_norm(rows.float(), self.running_mean, self.running_var, None, None,
+                         self.training, self.momentum, self.eps)
+        return _affine(y, x, self.weight, self.bias).reshape(x.shape)
 
 
 class Dropout(nn.Module):
@@ -250,4 +318,10 @@ class Dropout(nn.Module):
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         if not self.training or self.rate == 0.0:
             return x
-        return x * dropout_mask(self.dropout_seed, x.shape, self.rate, x.device)
+        mask = dropout_mask(self.dropout_seed, x.shape, self.rate, x.device)
+        if not low_precision(x):
+            return x * mask
+        # JAX's where(keep, x / keep_prob, 0), the division in x's dtype
+        keep = torch.tensor(1.0 - self.rate, dtype=x.dtype, device=x.device)
+        return torch.where(mask != 0, x / keep, torch.zeros((), dtype=x.dtype,
+                                                             device=x.device))

@@ -12,6 +12,10 @@ matmul; the recurrence of both directions is one call of
 reverse direction running on time-flipped input, with its gradient through
 the recurrence's own backward.  The input projection stays a ``torch.matmul``
 under autograd, as the JAX package leaves it to XLA.
+
+A bfloat16 input (``--compute_dtype bfloat16``) takes JAX's casts: the input
+projection in bf16, ``whh`` rounded to bf16, the recurrence (kernels #3 and
+#4, or the twin) in float32 on upcast operands, ``hs`` rounded back to bf16.
 """
 
 from __future__ import annotations
@@ -21,7 +25,7 @@ from typing import Optional
 import torch
 from torch import nn
 
-from transformer_clip_eeg_tpu_torch.ops.layers import torch_uniform_init
+from transformer_clip_eeg_tpu_torch.ops.layers import torch_uniform_init, upcast
 from transformer_clip_eeg_tpu_torch.ops.lstm_scan import lstm_scan_packed
 
 
@@ -54,12 +58,17 @@ class LSTM(nn.Module):
                                              "bias_ih_l0", "bias_hh_l0")]
              for s in self._suffixes]
         xs = [x] + ([torch.flip(x, dims=(1,))] if self.bidirectional else [])
-        w_ih = torch.stack([w[0].t() for w in p])                 # [D, in, 4H]
-        bias = torch.stack([w[2] + w[3] for w in p])[:, None, :]  # [D, 1, 4H]
+        dt = x.dtype
+        w_ih = torch.stack([w[0].t() for w in p]).to(dt)                 # [D, in, 4H]
+        bias = torch.stack([w[2] + w[3] for w in p])[:, None, :].to(dt)  # [D, 1, 4H]
         xw = torch.matmul(torch.stack(xs).reshape(len(xs), b * t, -1), w_ih) + bias
         xw = xw.reshape(len(xs), b, t, 4 * hidden).permute(2, 0, 1, 3).contiguous()
-        whh = torch.stack([w[1].t() for w in p]).contiguous()     # [D, H, 4H]
-        hs = lstm_scan_packed(xw, whh)                            # [T, D, B, H]
+        whh = torch.stack([w[1].t() for w in p]).to(dt).contiguous()     # [D, H, 4H]
+        # the recurrence is float32 inside for any dtype, as the TPU kernel
+        # upcasts its inputs: no kernel change for bf16.  The casts sit where
+        # JAX's do, so autograd rounds dxw and dwhh to bf16 where its
+        # custom_vjp does
+        hs = lstm_scan_packed(upcast(xw), upcast(whh)).to(dt)            # [T, D, B, H]
         out = hs[:, 0].transpose(0, 1)
         if self.bidirectional:
             rev = torch.flip(hs[:, 1].transpose(0, 1), dims=(1,))

@@ -222,7 +222,10 @@ class LSTMScanFunction(torch.autograd.Function):
     """The recurrence with its gradient: kernels #3 and #4 for a CUDA
     tensor; the twin and autograd through the twin for a CPU tensor.  On
     the card the forward saves ``h``, ``c`` and the gate activations, not
-    ``xw``: the backward reads the gates instead of recomputing ``xw + h whh``."""
+    ``xw``: the backward reads the gates instead of recomputing ``xw + h whh``.
+    It takes float32 only, also in the bf16 compute mode: ``ops/lstm.py``
+    casts around it where JAX casts around its kernel, which upcasts its
+    bf16 inputs and runs the recurrence in float32 too."""
 
     @staticmethod
     def forward(ctx, xw, whh):

@@ -18,9 +18,13 @@ train step mixes and augments them on the device (``train/steps.py``).
 With ``profile_dir`` the first epoch runs under ``torch.profiler`` and its
 Chrome trace is written there.
 
+``compute_dtype="bfloat16"`` trains in bf16 as the JAX trainer does: the
+train steps cast their batch (``train/steps.py``), the validation steps and
+everything after training run float32.
+
 Not ported yet, each raising ``NotImplementedError`` (ROADMAP.md): a
-data-parallel mesh (``n_data_shards``), the bf16 compute mode, and a
-``prng_impl`` other than the default.
+data-parallel mesh (``n_data_shards``) and a ``prng_impl`` other than the
+default.
 """
 
 from __future__ import annotations
@@ -50,6 +54,7 @@ from transformer_clip_eeg_tpu_torch.train.state import (
 from transformer_clip_eeg_tpu_torch.train import device_data
 from transformer_clip_eeg_tpu_torch.train.device_data import DeviceChunkStore
 from transformer_clip_eeg_tpu_torch.train.steps import (
+    COMPUTE_DTYPES,
     chunk_eval_step,
     chunk_train_step,
     eval_step,
@@ -165,11 +170,13 @@ def _not_ported(what: str) -> NotImplementedError:
 
 
 def check_supported(cfg: TrainConfig, mesh=None) -> None:
-    """Raise ``NotImplementedError`` for the options the port does not run yet."""
+    """Raise ``NotImplementedError`` for the options the port does not run yet,
+    and ``ValueError`` for a compute dtype the JAX CLI does not offer."""
     if cfg.n_data_shards or mesh is not None:
         raise _not_ported("data-parallel training over several devices (n_data_shards)")
-    if cfg.compute_dtype != "float32":
-        raise _not_ported(f"compute_dtype={cfg.compute_dtype!r} (the kernels are float32)")
+    if cfg.compute_dtype not in COMPUTE_DTYPES:
+        raise ValueError(f"compute_dtype must be one of {sorted(COMPUTE_DTYPES)}, got "
+                         f"{cfg.compute_dtype!r}")
     if cfg.prng_impl != "rbg":
         raise _not_ported(f"prng_impl={cfg.prng_impl!r} (the port's dropout masks come "
                           "from ops/dropout.py's counter hash)")
@@ -263,7 +270,7 @@ class Trainer:
         cfg, phase, seed = self.cfg, self._phase, self._train_seed
         step_kw = dict(model_arch=cfg.model_arch, augmentations=cfg.augmentations,
                        augmentation_probability=cfg.data_augmentation_percentage,
-                       add_eeg=cfg.addEEG_b)
+                       add_eeg=cfg.addEEG_b, compute_dtype=cfg.compute_dtype)
         if self.device_data:
             for eeg_c, sp_c, ids_c, idx_m, subs_m, partner_m, n in \
                     self.chunk_store.epoch_chunk_batches(add_eeg=cfg.addEEG_b):

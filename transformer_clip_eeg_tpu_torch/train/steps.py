@@ -28,6 +28,14 @@ encoders, mixup first, as in JAX: mixup draws from
 ``fold_seed(step_seed, MIXUP_STREAM)`` and the augmentations from
 ``fold_seed(step_seed, AUGMENT_STREAM)`` (``ops/augment.py``), streams no
 dropout layer takes.  Validation runs neither.
+
+``compute_dtype="bfloat16"`` (``--compute_dtype``) casts the batch's EEG and
+speech to bf16 after mixup and the augmentations, in the train steps only,
+as the JAX train step does: the encoders then run in bf16 (every layer
+follows its input's dtype, the fused blocks take their bf16 mode), the heads
+flatten back to float32, and the parameters, optimizer state, memory bank
+and batch-norm statistics stay float32.  The validation steps, the
+embedding functions, the eval suite and serving run float32.
 """
 
 from __future__ import annotations
@@ -61,6 +69,9 @@ def _split_outputs(model_arch: str, outs) -> Dict[str, torch.Tensor]:
     return {"loss_ce": loss_ce, "loss_avg": loss_avg, "loss_total": loss_total}
 
 
+COMPUTE_DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
+
+
 def _apply_mixup(key: int, eeg: torch.Tensor, partner_eeg: torch.Tensor,
                  probability: float) -> torch.Tensor:
     """Batch-level cross-subject mixup: per row, with ``probability``, the
@@ -73,12 +84,13 @@ def _apply_mixup(key: int, eeg: torch.Tensor, partner_eeg: torch.Tensor,
 def train_step(model, optimizer, batch: Dict[str, torch.Tensor], seed: int,
                warmup: bool, model_arch: str = "clip_sim_no_latent_proj",
                augmentations: Sequence[str] = (), augmentation_probability: float = 0.5,
-               add_eeg: bool = False) -> Dict[str, torch.Tensor]:
+               add_eeg: bool = False, compute_dtype: str = "float32"
+               ) -> Dict[str, torch.Tensor]:
     """One training step on ``batch = {'eeg', 'speech', 'ids'[,
     'partner_eeg']}``: mixup (``add_eeg``) and the augmentations on the EEG,
-    dropout from ``fold_seed(seed, optimizer.step)``, the gradient of
-    ``loss_ce`` (``warmup``) or ``loss_total``, one optimizer update (which
-    bumps the step), and the bank's EMA update.  Returns the losses,
+    the cast to ``compute_dtype`` (a key of :data:`COMPUTE_DTYPES`), dropout from ``fold_seed(seed, optimizer.step)``, the gradient
+    of ``loss_ce`` (``warmup``) or ``loss_total``, one optimizer update
+    (which bumps the step), and the bank's EMA update.  Returns the losses,
     detached."""
     model.train()
     step_seed = fold_seed(seed, optimizer.step)
@@ -89,8 +101,11 @@ def train_step(model, optimizer, batch: Dict[str, torch.Tensor], seed: int,
     if augmentations:
         augment = make_augmentation_fn(augmentations, augmentation_probability)
         eeg = augment(fold_seed(step_seed, AUGMENT_STREAM), eeg)
+    speech = batch["speech"]
+    cast = COMPUTE_DTYPES[compute_dtype]
+    eeg, speech = eeg.to(cast), speech.to(cast)
     set_dropout_seeds(model, step_seed)
-    losses = _split_outputs(model_arch, model(eeg, batch["speech"], batch["ids"]))
+    losses = _split_outputs(model_arch, model(eeg, speech, batch["ids"]))
     objective = losses["loss_ce"] if warmup else losses["loss_total"]
     # a parameter the objective does not reach (temperature_eeg in warmup)
     # gets a zero gradient, as jax.grad gives it
@@ -113,14 +128,16 @@ def chunk_train_step(model, optimizer, eeg_chunk, speech_chunk, ids_chunk,
                      idx: torch.Tensor, subs: torch.Tensor, seed: int, warmup: bool,
                      model_arch: str = "clip_sim_no_latent_proj",
                      augmentations: Sequence[str] = (), augmentation_probability: float = 0.5,
-                     add_eeg: bool = False, partner: Optional[torch.Tensor] = None
-                     ) -> Dict[str, torch.Tensor]:
+                     add_eeg: bool = False, partner: Optional[torch.Tensor] = None,
+                     compute_dtype: str = "float32") -> Dict[str, torch.Tensor]:
     """:func:`train_step` on the batch gathered from a resident chunk;
     ``idx``, ``subs`` and (with ``add_eeg``) the mixup partners' subjects
-    ``partner`` are int64 index vectors on the chunk's device."""
+    ``partner`` are int64 index vectors on the chunk's device.  A bf16 store
+    is gathered, upcast, mixed, augmented and then cast to ``compute_dtype``,
+    in the JAX step's order."""
     batch = gather_batch(eeg_chunk, speech_chunk, ids_chunk, idx, subs, add_eeg, partner)
     return train_step(model, optimizer, batch, seed, warmup, model_arch, augmentations,
-                      augmentation_probability, add_eeg)
+                      augmentation_probability, add_eeg, compute_dtype)
 
 
 def chunk_eval_step(model, eeg_chunk, speech_chunk, ids_chunk, idx: torch.Tensor,
