@@ -28,7 +28,9 @@ GPU, end to end.
    the backward's recurrence and its dwhh reduction timed apart; beside the
    flagship's two biLSTMs (D=2, H=128 and H=4) the zoo's unidirectional
    recurrence (D=1, H=128, B=128), also against a unidirectional
-   ``nn.LSTM``.
+   ``nn.LSTM``; then H=256 (clusters of 8 CTAs; D=2 and D=1) and the widths
+   that run zero-padded, H=100 (to 128) and H=2 (to 4), each against the
+   twin, timed, with its bound, ``nn.LSTM``'s time, registers and spills.
 4. Builds the flagship model (``TrainConfig()``: EEGConformerInterleaved
    depth 10, convLSTM, clip_sim_no_latent_proj) with seeded weights, serves
    it over HTTP on localhost, answers a request on every route, checks the
@@ -138,13 +140,35 @@ GPU, end to end.
     ``--only_evaluate``; every loss finite; both data paths on cuDNN's
     deterministic algorithms within 1e-5; the epoch-2 median step beside the
     f32 run's and 3 bf16 steps profiled; one bf16 step at batch 8, card
-    against CPU, for the flagship, its fused variant and Z1-Z5 (each loss
-    within 1e-2, each gradient within 5e-2 of its largest value, bank and
-    running statistics within 1e-2).
-15. Prints one JSON line of per-kernel numbers (``launches_by_path`` with
-    ``train_augmented``, ``serve_cli``, ``server_cli`` and ``train_bf16``;
-    the bf16 instantiations of #1 and #2 as entries of their own), then,
-    last, the ``{"ok": true, "device": ...}`` line.
+    against CPU, for the flagship and its fused variant on 9 batches and
+    for Z1-Z5 on one (each loss within 1e-2 on every batch, each gradient
+    within 5e-2 of its largest value at the median over the batches, bank
+    and running statistics within 1e-2 on every batch).
+15. The LSTM widths of ``K1`` (``k1_path``): ``--lstm_units 256`` and
+    ``--lstm_units 100`` (the double_lstm encoders, D=1) and the flagship at
+    ``--latent_dim 4`` (H=2): one train step at batch 8, card against CPU
+    (``STEP_TOL``), and one epoch of ``cli.main --skip_eval yes`` with the
+    exact launches of #1-#4.
+16. The cross-validation driver (``cv_path``, ``cv.main`` at the
+    flagship's widths on the same fixture, whose 6 stories put one story in
+    each of folds 0-4): ``--parallel yes --folds 0 1 2 3 4 --epochs 2``
+    with the evaluation suites (``cv_summary.json`` with 5 folds, every
+    number finite; exact launches of training and of each suite; one upload
+    per union chunk in epoch 0 and none in epoch 1, not one per fold; the
+    epoch-2 aggregate pairs/s of ``loss.txt``) and fold 2 alone, timed;
+    then, on cuDNN's deterministic algorithms and each in a process of its
+    own, the 5 folds, fold 2 alone and the 5 folds with
+    ``--fold_group_size 1``: fold 2's train and val CE of
+    every epoch and its best weights, and every fold of the groups against
+    the ungrouped run, bit for bit; ``--parallel no --folds 0 1 --epochs 1``
+    (its summary, its launches); one fold-parallel chunk (3 rows x 5 folds)
+    under ``torch.profiler``; host RSS before and after each heap trim; the
+    phase's seconds.
+17. Prints one JSON line of per-kernel numbers (``launches_by_path`` with
+    ``train_augmented``, ``serve_cli``, ``server_cli``, ``train_bf16``,
+    ``cv_parallel``, ``cv_sequential`` and the ``K1`` runs; the bf16
+    instantiations of #1 and #2 as entries of their own), then, last, the
+    ``{"ok": true, "device": ...}`` line.
 
 Any failure raises and exits non-zero.  Imports nothing of JAX.
 """
@@ -220,6 +244,8 @@ from transformer_clip_eeg_tpu_torch.ops.lstm_scan import (  # noqa: E402
     lstm_scan_backward,
     lstm_scan_packed,
     lstm_scan_reference,
+    pad_hidden,
+    plan_hidden,
 )
 from transformer_clip_eeg_tpu_torch.serve import (  # noqa: E402
     InferenceSession,
@@ -511,13 +537,23 @@ def plan_text(plan) -> str:
 # the recurrences timed in the kernel phase: (H, input width, D).  The
 # flagship's speech encoder packs both directions (D=2) of a biLSTM of H=128
 # (input 64) and one of H=4 (input 256); the zoo's double_lstm and lstm
-# encoders run unidirectional ones (D=1) at H=--lstm_units=128
-LSTM_SHAPES = ((128, 64, 2), (4, 256, 2), (128, 128, 1))
+# encoders run unidirectional ones (D=1) at H=--lstm_units=128.  Then the
+# other hidden sizes the flags give: H=256 (--lstm_units 256, both
+# packings), H=100 (--lstm_units 100, padded to 128) and H=2 (--latent_dim
+# 4's second biLSTM, padded to 4)
+LSTM_SHAPES = ((128, 64, 2), (4, 256, 2), (128, 128, 1),
+               (256, 64, 2), (256, 256, 1), (100, 100, 2), (2, 256, 2))
+FLAGSHIP_LSTMS = ((128, 2), (4, 2))  # (H, D) of the flagship's two recurrences
+
+
+def _flagship_lstm(shape: dict) -> bool:
+    return (shape["hidden"], shape["directions"]) in FLAGSHIP_LSTMS
 
 
 def check_lstm(gen: torch.Generator) -> dict:
-    """The recurrences of ``LSTM_SHAPES`` at batch 128, T=192; the entry's
-    totals are the flagship's two (D=2), the D=1 one is in ``shapes``."""
+    """The recurrences of ``LSTM_SHAPES`` at batch 128, T=192 (an H the
+    kernels are not built for runs padded, ``padded_to``); the entry's
+    totals are the flagship's two, the others are in ``shapes``."""
     t, b = 192, 128
     dev = "cuda"
     shapes = []
@@ -544,20 +580,22 @@ def check_lstm(gen: torch.Generator) -> dict:
             flops = 2 * hidden * 4 * hidden * t * b * d
             nbytes = (xw.numel() + whh.numel() + t * d * b * hidden) * 4
             bound_ms, bound_by = bound(flops, nbytes)
-            plan = lstm_launch_plan(b, d, hidden)
-            usage = ptxas_usage("fwd", hidden)
-            log(f"  H={hidden}, D={d}: kernel {ms:.4f} ms ({ms / t * 1e3:.3f} us/step), plain "
+            hp = plan_hidden(hidden)
+            plan = lstm_launch_plan(b, d, hp)
+            usage = ptxas_usage("fwd", hp)
+            log(f"  H={hidden}{f' (padded to {hp})' if hp != hidden else ''}, D={d}: kernel "
+                f"{ms:.4f} ms ({ms / t * 1e3:.3f} us/step), plain "
                 f"{plain_ms:.4f} ms, nn.LSTM {library_ms:.4f} ms, bound {bound_ms:.4f} ms "
                 f"({bound_by}); {plan_text(plan)}; ptxas {usage}")
             shape = {
-                "hidden": hidden, "directions": d, "xw": list(xw.shape), "max_abs_err": err,
-                "ms": ms,
+                "hidden": hidden, "padded_to": hp, "directions": d, "xw": list(xw.shape),
+                "max_abs_err": err, "ms": ms,
                 "us_per_step": ms / t * 1e3, "plain_ms": plain_ms,
                 "library_ms": library_ms, "bound_ms": bound_ms, "bound_by": bound_by,
                 "plan": plan._asdict(), "ptxas": usage,
             }
             shapes.append(shape)
-    flagship = [s for s in shapes if s["directions"] == 2]
+    flagship = [s for s in shapes if _flagship_lstm(s)]
     total = lambda key: sum(s[key] for s in flagship)  # noqa: E731
     return {
         "name": "lstm_scan_packed", "route": "cuda",
@@ -570,7 +608,7 @@ def check_lstm(gen: torch.Generator) -> dict:
         "bound_ms": total("bound_ms"),
         "bound_by": max(flagship, key=lambda s: s["bound_ms"])["bound_by"],
         "times_are": "sums over the two recurrences of one flagship speech chunk (D=2); "
-                     "shapes also holds D=1",
+                     "shapes also holds D=1, H=256 and the padded H=100 and H=2",
         "shapes": shapes,
     }
 
@@ -668,8 +706,9 @@ def check_block_backward(x, params, gen: torch.Generator) -> dict:
 
 def check_lstm_backward(gen: torch.Generator) -> dict:
     """Kernel #4 through the autograd Function against autograd through the
-    twin, for the recurrences of ``LSTM_SHAPES``; the entry's totals are the
-    flagship's two (D=2)."""
+    twin, for the recurrences of ``LSTM_SHAPES`` (an H the kernels are not
+    built for through the padding, its parts timed on the padded inputs);
+    the entry's totals are the flagship's two."""
     t, b = 192, 128
     dev = "cuda"
     shapes = []
@@ -690,15 +729,19 @@ def check_lstm_backward(gen: torch.Generator) -> dict:
             f"{errs[1]:.3e} (tol {LSTM_BWD_TOL:g} x max(1, max|ref|)), max_abs_err {abs_err:.3e}")
         if not max(errs) <= LSTM_BWD_TOL:
             raise AssertionError(f"LSTM backward disagrees with autograd through its twin: {errs}")
-        h, c, gates = lstm_forward_cuda(xw, whh, return_c=True, save_gates=True)
-        ms = time_ms(lambda: lstm_scan_backward(whh, h, c, gates, g))
-        # its two parts apart: the recurrence (dxw) and the dwhh reduction
-        dxw = lstm_backward_recurrence(whh, c, gates, g)
-        recurrence_ms = time_ms(lambda: lstm_backward_recurrence(whh, c, gates, g))
+        # the kernel alone, and its two parts apart: the recurrence (dxw) and
+        # the dwhh reduction, on the inputs padded to the H the kernel runs
+        hp = plan_hidden(hidden)
+        xw_p, whh_p = pad_hidden(xw, whh, hp)
+        g_p = torch.nn.functional.pad(g, (0, hp - hidden)).contiguous()
+        h, c, gates = lstm_forward_cuda(xw_p, whh_p, return_c=True, save_gates=True)
+        ms = time_ms(lambda: lstm_scan_backward(whh_p, h, c, gates, g_p))
+        dxw = lstm_backward_recurrence(whh_p, c, gates, g_p)
+        recurrence_ms = time_ms(lambda: lstm_backward_recurrence(whh_p, c, gates, g_p))
         dwhh_ms = time_ms(lambda: lstm_dwhh(h, dxw))
-        dwhh_tflops = 2.0 * (t - 1) * d * b * hidden * 4 * hidden / (dwhh_ms * 1e-3) / 1e12
-        plan = lstm_launch_plan(b, d, hidden)
-        usage = ptxas_usage("bwd", hidden)
+        dwhh_tflops = 2.0 * (t - 1) * d * b * hp * 4 * hp / (dwhh_ms * 1e-3) / 1e12
+        plan = lstm_launch_plan(b, d, hp)
+        usage = ptxas_usage("bwd", hp)
         plain_ms = time_ms(lambda: torch.autograd.grad(ref_h, (ra, rw), g, retain_graph=True),
                            reps=5, warmup=1)
         lib = torch.nn.LSTM(in_dim, hidden, batch_first=True, bidirectional=d == 2,
@@ -713,12 +756,14 @@ def check_lstm_backward(gen: torch.Generator) -> dict:
         flops = 2 * rows * 4 * hidden * hidden * 2  # dpre whh^T and h_prev^T dpre
         nbytes = 4 * (2 * rows * 4 * hidden + 3 * rows * hidden + 2 * whh.numel())
         bound_ms, bound_by = bound(flops, nbytes)
-        log(f"  H={hidden}, D={d}: kernel {ms:.4f} ms ({ms / t * 1e3:.3f} us/step): recurrence "
+        log(f"  H={hidden}{f' (padded to {hp})' if hp != hidden else ''}, D={d}: kernel "
+            f"{ms:.4f} ms ({ms / t * 1e3:.3f} us/step): recurrence "
             f"{recurrence_ms:.4f} ms ({recurrence_ms / t * 1e3:.3f} us/step), dwhh "
             f"{dwhh_ms:.4f} ms ({dwhh_tflops:.2f} TFLOP/s, two launches); plain {plain_ms:.4f} ms, nn.LSTM backward {library_ms:.4f} "
             f"ms, bound {bound_ms:.4f} ms ({bound_by}); {plan_text(plan)}; ptxas {usage}")
         shape = {
-            "hidden": hidden, "directions": d, "xw": list(xw.shape), "max_abs_err": abs_err,
+            "hidden": hidden, "padded_to": hp, "directions": d, "xw": list(xw.shape),
+            "max_abs_err": abs_err,
             "max_grad_err": max(errs), "ms": ms, "us_per_step": ms / t * 1e3,
             "recurrence_ms": recurrence_ms, "recurrence_us_per_step": recurrence_ms / t * 1e3,
             "dwhh_ms": dwhh_ms, "dwhh_tflops": dwhh_tflops, "plain_ms": plain_ms,
@@ -727,7 +772,7 @@ def check_lstm_backward(gen: torch.Generator) -> dict:
             "ptxas": usage,
         }
         shapes.append(shape)
-    flagship = [s for s in shapes if s["directions"] == 2]
+    flagship = [s for s in shapes if _flagship_lstm(s)]
     total = lambda key: sum(s[key] for s in flagship)  # noqa: E731
     return {
         "name": "lstm_scan_backward", "route": "cuda",
@@ -743,7 +788,7 @@ def check_lstm_backward(gen: torch.Generator) -> dict:
         "bound_ms": total("bound_ms"),
         "bound_by": max(flagship, key=lambda s: s["bound_ms"])["bound_by"],
         "times_are": "sums over the two recurrences of one flagship train step (D=2); "
-                     "shapes also holds D=1",
+                     "shapes also holds D=1, H=256 and the padded H=100 and H=2",
         "shapes": shapes,
     }
 
@@ -1723,7 +1768,14 @@ def float32_spread(cfg, batch, ref_dtype) -> dict:
 
 def zoo_launches(z: str, n_train: int, n_val: int) -> dict:
     """The exact kernel launches of one epoch of ``z``."""
-    fwd, bwd, lstm_fwd, lstm_bwd = ZOO_STEP_LAUNCHES[z]
+    return step_launches(ZOO_STEP_LAUNCHES[z], n_train, n_val)
+
+
+def step_launches(per_train_step, n_train: int, n_val: int) -> dict:
+    """The exact kernel launches of ``n_train`` train and ``n_val``
+    validation steps, from #1-#4's launches per train step (a validation
+    step launches the forwards alone)."""
+    fwd, bwd, lstm_fwd, lstm_bwd = per_train_step
     want = dict.fromkeys(counts(), 0)
     want.update(fused_transformer_block=fwd * (n_train + n_val),
                 fused_block_backward=bwd * n_train,
@@ -2379,6 +2431,16 @@ BF16_STEP_STATE_TOL = 1e-2  # the bank's rows and the running statistics
 # rounding noise: in a bf16 step it is held at this share of the largest
 # gradient (one bf16 unit), where the f32 step's floor is STEP_GRAD_FLOOR
 BF16_STEP_GRAD_FLOOR = 4e-3
+# The flagship's step is held on this many batches of 8 (rows 8i to 8i+7 of
+# the default run's first batch), each gradient at the median of its error
+# over them, each loss and the state on every batch.  A few of its gradients
+# are sums that cancel most of their terms at the seed's weights (the last
+# EEG bias, the temperature, the speech LSTMs' biases): on some batches a
+# bf16 rounding apart moves them past 5e-2 of their value, the CPU's as far
+# from its float64 step as the card's, and which batch the check gets
+# follows the fixture's file order, a property of the machine.  A wrong
+# product or cast moves a gradient on every batch.
+BF16_STEP_BATCHES = 9
 BF16_PLANES = 4  # q, k, v and ctx, the saved planes that hold bf16 values
 PEAK_BF16_FLOPS = 989e12  # dense bf16 on the tensor cores
 BF16_WINDOWS = ((128, 192), (128, 256), (8, 1699))  # (B, T): the flagship, 4 s, the longest
@@ -2681,22 +2743,47 @@ def bf16_step_errors(got: dict, want: dict) -> dict:
     buffer_errs = {n: float((got["buffers"][n] - b).abs().max()) / max(1.0, float(b.abs().max()))
                    for n, b in want["buffers"].items()}
     return {"loss_err": loss_err, "grad_err": max(rel.values()),
-            "grad_err_leaf": max(rel, key=rel.get),
+            "grad_err_leaf": max(rel, key=rel.get), "grad_err_by_leaf": rel,
             "state_err": max(buffer_errs.values(), default=0.0)}
 
 
-def bf16_card_vs_cpu_step(cfg, host_batch, fused: bool = False, name: str = "") -> dict:
+def bf16_card_vs_cpu_step(cfg, host_batch, fused: bool = False, name: str = "",
+                          n_batches: int = 1) -> dict:
     """One bf16 train step at batch 8, dropout on, card against CPU (same
-    weights, batch and masks), with cuBLAS's f32 sums, held by
-    ``bf16_step_errors``."""
+    weights, batch and masks), with cuBLAS's f32 sums, on each of
+    ``n_batches`` batches of 8 rows of ``host_batch``: every loss and the
+    state held by ``bf16_step_errors`` on every batch, each gradient at the
+    median of its error over the batches (one batch: its error).  For the
+    batch with the largest error, that leaf on both devices against the
+    CPU's float64 step (a record, not a limit)."""
+    runs, worst = [], None
     with f32_sums():
-        steps = {dev: step_grads(cfg, host_batch, dev, fused=fused,
-                                 compute_dtype=torch.bfloat16) for dev in ("cuda", "cpu")}
-    errs = bf16_step_errors(steps["cuda"], steps["cpu"])
+        for i in range(n_batches):
+            rows = {k: v[8 * i:] for k, v in host_batch.items()}
+            steps = {dev: step_grads(cfg, rows, dev, fused=fused, compute_dtype=torch.bfloat16)
+                     for dev in ("cuda", "cpu")}
+            runs.append(bf16_step_errors(steps["cuda"], steps["cpu"]))
+            if worst is None or runs[-1]["grad_err"] > runs[worst[0]]["grad_err"]:
+                worst = (i, rows, steps)
+    by_leaf = {n: statistics.median(r["grad_err_by_leaf"][n] for r in runs)
+               for n in runs[0]["grad_err_by_leaf"]}
+    errs = {"batches": n_batches,
+            "loss_err": max(r["loss_err"] for r in runs),
+            "grad_err": max(by_leaf.values()), "grad_err_leaf": max(by_leaf, key=by_leaf.get),
+            "state_err": max(r["state_err"] for r in runs),
+            "worst_leaf_by_batch": [[r["grad_err_leaf"], r["grad_err"]] for r in runs]}
+    if n_batches > 1:
+        i, rows, steps = worst
+        exact = step_grads(cfg, rows, "cpu", dtype=torch.float64, fused=fused)
+        leaf = runs[i]["grad_err_leaf"]
+        errs["largest_vs_float64"] = {
+            "batch": i, "leaf": leaf,
+            **{f"{dev}_vs_float64": bf16_step_errors(steps[dev], exact)["grad_err_by_leaf"][leaf]
+               for dev in ("cuda", "cpu")}}
     log(f"  bf16 step at batch 8{', fused' if fused else ''}{', ' + name if name else ''}, "
         f"card vs CPU: {json.dumps(errs)} (losses {BF16_STEP_LOSS_TOL:g}; gradients "
-        f"{BF16_STEP_GRAD_TOL:g} of max(leaf, {BF16_STEP_GRAD_FLOOR:g} x largest); state "
-        f"{BF16_STEP_STATE_TOL:g})")
+        f"{BF16_STEP_GRAD_TOL:g} of max(leaf, {BF16_STEP_GRAD_FLOOR:g} x largest), the "
+        f"median over {n_batches} batch(es); state {BF16_STEP_STATE_TOL:g})")
     if not (errs["loss_err"] <= BF16_STEP_LOSS_TOL and errs["grad_err"] <= BF16_STEP_GRAD_TOL
             and errs["state_err"] <= BF16_STEP_STATE_TOL):
         raise AssertionError(f"the card's bf16 step disagrees with the CPU's: {errs}")
@@ -2797,8 +2884,10 @@ def bf16_train_path(data_dir: str, cfg, host_batch, f32_step_ms: float) -> dict:
         store.release()
         log(f"  3 bf16 device-mode steps profiled: {json.dumps(profile)}")
 
-    steps = {"flagship": bf16_card_vs_cpu_step(cfg, host_batch, name="flagship"),
-             "fused": bf16_card_vs_cpu_step(cfg, host_batch, fused=True, name="flagship")}
+    steps = {"flagship": bf16_card_vs_cpu_step(cfg, host_batch, name="flagship",
+                                               n_batches=BF16_STEP_BATCHES),
+             "fused": bf16_card_vs_cpu_step(cfg, host_batch, fused=True, name="flagship",
+                                            n_batches=BF16_STEP_BATCHES)}
     rng = np.random.default_rng(7)
     for z in ("Z1", "Z2", "Z3", "Z4", "Z5"):
         zcfg = TrainConfig(**ZOO[z], bank_size=BANK_SIZE)
@@ -2817,6 +2906,411 @@ def bf16_train_path(data_dir: str, cfg, host_batch, f32_step_ms: float) -> dict:
               "card_vs_cpu_steps": steps}
     log(json.dumps({"bf16_train": result}))
     return result
+
+
+# LSTM widths off the 4 ... 128 the kernels were first built for (ROADMAP §3
+# K1), each at the registry's full widths: the flags, and #1-#4's launches per train step.
+# --lstm_units sizes the double_lstm encoders' LSTMs (D=1): 256 runs the
+# H=256 instantiation, 100 runs padded to 128; --latent_dim 4 gives the
+# flagship's second biLSTM H=2, padded to 4
+K1 = {
+    "lstm_units_256": (dict(eeg_encoder="double_lstm", speech_encoder="double_lstm",
+                            model_arch="clip_kld_latent_proj", lstm_units=256), (0, 0, 4, 4)),
+    "lstm_units_100": (dict(eeg_encoder="double_lstm", speech_encoder="double_lstm",
+                            model_arch="clip_kld_latent_proj", lstm_units=100), (0, 0, 4, 4)),
+    "latent_dim_4": (dict(latent_dim=4), (10, 10, 2, 2)),
+}
+
+
+def k1_path(data_dir: str) -> dict:
+    """Each ``K1`` configuration: one train step at batch 8, dropout on, card
+    against CPU (``STEP_TOL``); then ``cli.main --epochs 1 --skip_eval yes``
+    on the fixture on the card with the exact launches of #1-#4 and a finite
+    validation loss."""
+    t_start = time.perf_counter()
+    out = {}
+    rng = np.random.default_rng(8)
+    with instrumented() as seen:
+        for name, (flags, per_step) in K1.items():
+            cfg = TrainConfig(**flags, bank_size=BANK_SIZE)
+            t = cfg.window_length
+            batch = {"eeg": rng.standard_normal((8, t, 64)).astype(np.float32),
+                     "speech": rng.standard_normal((8, t, cfg.speech_dimension)).astype(
+                         np.float32),
+                     "ids": np.arange(1, 9, dtype=np.int64)}
+            step = card_vs_cpu_step(cfg, batch, name=f"{name} {flags}")
+            del step["grad_err_by_leaf"]
+            argv = ["--data_dir", data_dir, "--epochs", "1", "--skip_eval", "yes",
+                    "--results_folder", os.path.join(RUN_DIR, "k1", name)]
+            for k, v in flags.items():
+                argv += [f"--{k}", str(v)]
+            zero_counts()
+            if cli.main(argv, device="cuda") != 0:
+                raise AssertionError(f"{name}: cli.main returned non-zero")
+            torch.cuda.synchronize()
+            trainer = seen["trainers"][-1]
+            n_train, n_val = steps_per_epoch(trainer)
+            launches, want = counts(), step_launches(per_step, n_train, n_val)
+            val = trainer.history[0]["val_loss_ce"]
+            step_ms = statistics.median(trainer.history[0]["step_s"]) * 1e3
+            log(f"{name} {flags}: trained 1 epoch on the card ({n_train} train, {n_val} "
+                f"validation steps), median step {step_ms:.2f} ms, launches {launches}, "
+                f"validation loss_ce {val:.4f}")
+            if launches != want or not np.isfinite(val):
+                raise AssertionError(f"{name}: launches {launches}, want {want}; val {val}")
+            trainer.release_host_data()
+            out[name] = {"flags": flags, "card_vs_cpu_step": step, "launches": launches,
+                         "step_ms_median": step_ms, "val_loss_ce": val}
+    out["seconds"] = time.perf_counter() - t_start
+    log(f"K1 phase: {out['seconds']:.1f} s")
+    log(json.dumps({"k1": out}))
+    return out
+
+
+CV_FOLDS = ["0", "1", "2", "3", "4"]  # the fixture's 6 stories: one per fold, then the test set
+CV_ISOLATED_FOLD = 2
+
+
+@contextlib.contextmanager
+def phase_launches():
+    """The runs inside, kernel launch counts by phase: ``FoldParallelTrainer``
+    and ``Trainer`` count from 0 at ``fit`` and are read (with each fold's
+    train and validation steps an epoch) at ``release_host_data``; each
+    evaluation suite counts from 0 and is read at its end, with its encoder
+    calls.  Yields ``seen``: ``train`` and ``eval`` records."""
+    from transformer_clip_eeg_tpu_torch.train.fold_parallel import FoldParallelTrainer
+
+    seen: dict = {"train": [], "eval": []}
+    classes = (Trainer, FoldParallelTrainer)
+    real = {c: (c.fit, c.release_host_data) for c in classes}
+    real_suite = cli.run_eval_suite
+
+    def fit(cls):
+        def wrapped(self):
+            zero_counts()
+            return real[cls][0](self)
+        return wrapped
+
+    def release(cls):
+        def wrapped(self):
+            torch.cuda.synchronize()
+            if cls is Trainer:
+                steps = [steps_per_epoch(self)]
+            else:  # a fold's steps: the rows of its train and val chunks
+                chunks = [(k.rsplit("_batch_", 1)[0], c["eeg"].shape[0])
+                          for k, c in self.dataset.chunks.items() if "eeg" in c]
+                steps = [[sum(n for st, n in chunks if st in member[j])
+                          for member in (self.train_stories, self.val_stories)]
+                         for j in range(len(self.folds))]
+            seen["train"].append({"launches": counts(), "launches_bf16": bf16_counts(),
+                                  "steps": steps,
+                                  "chunks": None if cls is Trainer else len(chunks)})
+            real[cls][1](self)
+        return wrapped
+
+    def suite(model, *args, **kw):
+        zero_counts()
+        calls = {"eeg": 0, "speech": 0}
+        hooks = [getattr(model, m).register_forward_pre_hook(
+            lambda *_, k=k: calls.__setitem__(k, calls[k] + 1))
+            for m, k in (("eegModel", "eeg"), ("speechModel", "speech"))]
+        t0 = time.perf_counter()
+        try:
+            real_suite(model, *args, **kw)
+            torch.cuda.synchronize()
+        finally:
+            for h in hooks:
+                h.remove()
+        seen["eval"].append({"wall_s": time.perf_counter() - t0, "launches": counts(),
+                             "launches_bf16": bf16_counts(), "encoder_calls": calls,
+                             "results_dir": args[1]})
+
+    for c in classes:
+        c.fit, c.release_host_data = fit(c), release(c)
+    cli.run_eval_suite = suite
+    try:
+        yield seen
+    finally:
+        for c in classes:
+            c.fit, c.release_host_data = real[c]
+        cli.run_eval_suite = real_suite
+
+
+def _sum_launches(records) -> dict:
+    out = dict.fromkeys(counts(), 0)
+    for r in records:
+        for k, v in r["launches"].items():
+            out[k] += v
+    return out
+
+
+def _check_suites(records, n: int) -> dict:
+    """``n`` evaluation suites, each with 10 block forwards per EEG-encoder
+    call, 2 LSTM forwards per speech-encoder call and nothing else, every
+    evaluation file finite; returns their launches summed."""
+    if len(records) != n:
+        raise AssertionError(f"{len(records)} evaluation suites ran, want {n}")
+    for r in records:
+        calls = r["encoder_calls"]
+        want = dict.fromkeys(counts(), 0)
+        want.update(fused_transformer_block=10 * calls["eeg"],
+                    lstm_scan_packed=2 * calls["speech"])
+        if r["launches"] != want or not (calls["eeg"] and calls["speech"]):
+            raise AssertionError(f"suite in {r['results_dir']}: launches {r['launches']}, "
+                                 f"want {want}")
+        check_eval_files(r["results_dir"])
+    return _sum_launches(records)
+
+
+CV_EPOCH = re.compile(r"^epoch (\d+): train loss_ce \[([^]]+)\] val loss_ce \[([^]]+)\] "
+                      r"\((\d+) pairs/s aggregate\)$")
+
+
+def read_cv_loss_txt(path: str, n_folds: int, epochs: int):
+    """A fold-parallel run's root ``loss.txt``: per epoch the folds' train
+    and val CE (to 4 places, finite), its aggregate pairs/s and its phases."""
+    rows, phases = [], []
+    for line in open(path).read().splitlines():
+        m = CV_EPOCH.match(line)
+        if m:
+            tr, va = (np.array(g.split(), float) for g in (m[2], m[3]))
+            if len(tr) != n_folds or len(va) != n_folds or not np.isfinite([*tr, *va]).all():
+                raise AssertionError(f"{path}: {line!r}")
+            rows.append({"train": tr.tolist(), "val": va.tolist(), "pairs_per_s": int(m[4])})
+        elif " phases " in line:
+            phases.append(json.loads(line.split(" phases ", 1)[1]))
+    if len(rows) != epochs or len(phases) != epochs:
+        raise AssertionError(f"{path}: {len(rows)} epoch lines and {len(phases)} phases, "
+                             f"want {epochs}")
+    return rows, phases
+
+
+def cv_path(data_dir: str) -> dict:
+    """The cross-validation driver on the card (``cv.main``) at the flagship's
+    widths on the fixture (6 stories: folds 0-4 hold one each, the last is
+    the test set): (1) ``--parallel yes`` over folds 0-4, 2 epochs, with the
+    evaluation suites: ``cv_summary.json`` with 5 folds and every number
+    finite, exact launches, one upload per union chunk (not per fold), the
+    aggregate pairs/s; (2) fold 2 alone, timed; (3) on cuDNN's
+    deterministic algorithms, each in a fresh process, the 5 folds, fold 2
+    alone and the 5 folds in groups of one: fold 2's CE every epoch and its
+    best weights equal, and the groups equal the ungrouped run, bit for
+    bit; (4) ``--parallel no
+    --folds 0 1 --epochs 1``; (5) one fold-parallel chunk under the profiler;
+    host RSS around the final heap trim."""
+    from transformer_clip_eeg_tpu_torch import cv
+    from transformer_clip_eeg_tpu_torch.train.fold_parallel import FoldParallelTrainer
+    from transformer_clip_eeg_tpu_torch.utils.platform import host_rss_gb
+
+    t_start = time.perf_counter()
+    root = os.path.join(RUN_DIR, "cv")
+    rss = []
+    real_trim = cv.trim_host_heap
+
+    def trim():
+        before = host_rss_gb()
+        real_trim()
+        rss.append((before, host_rss_gb()))
+
+    def run(name: str, *flags: str):
+        results = os.path.join(root, name)
+        t0 = time.perf_counter()
+        if cv.main(["--data_dir", data_dir, "--results_folder", results, *flags],
+                   device="cuda") != 0:
+            raise AssertionError(f"cv {name}: cv.main returned non-zero")
+        with open(os.path.join(results, "cv_summary.json")) as f:
+            return results, json.load(f), time.perf_counter() - t0
+
+    out = {}
+    cv.trim_host_heap = trim
+    try:
+        with phase_launches() as seen:
+            # (1) the 5 folds in one run, with the evaluation suites
+            results, summary, wall_s = run("parallel", "--parallel", "yes", "--folds",
+                                           *CV_FOLDS, "--epochs", "2")
+            train_rec = seen["train"][-1]
+            nums = _numbers(summary)
+            if set(summary["folds"]) != set(CV_FOLDS) or not nums or \
+                    not all(np.isfinite(nums)) or summary["mm_accuracy_mean_over_folds"] is None:
+                raise AssertionError(f"cv_summary.json: {summary}")
+            for f in CV_FOLDS:
+                if set(summary["folds"][f]) != {"results_dir", "mm_accuracy_mean",
+                                                "regression_loss_mean"}:
+                    raise AssertionError(f"cv_summary.json fold {f}: {summary['folds'][f]}")
+            steps = train_rec["steps"]
+            n_train, n_val = (sum(s[i] for s in steps) for i in (0, 1))
+            want = two_epoch_launches(n_train, n_val)
+            if train_rec["launches"] != want:
+                raise AssertionError(f"cv parallel training launches {train_rec['launches']}, "
+                                     f"want {want} (folds' steps {steps})")
+            eval_launches = _check_suites(seen["eval"], len(CV_FOLDS))
+            rows, phases = read_cv_loss_txt(os.path.join(results, "loss.txt"), 5, 2)
+            uploads, union = [p["uploads"] for p in phases], train_rec["chunks"]
+            log(f"cv --parallel yes, folds {CV_FOLDS}, 2 epochs, suites: {wall_s:.1f} s; folds' "
+                f"train/val steps an epoch {steps}; training launches {train_rec['launches']}; "
+                f"{len(seen['eval'])} suites, launches {eval_launches}; epochs {rows}; "
+                f"uploads per epoch {uploads}; summary {summary['mm_accuracy_mean_over_folds']}")
+            if uploads != [union, 0]:
+                raise AssertionError(f"uploads per epoch {uploads}: want each of the union's "
+                                     f"{union} chunks once in epoch 0 and none in epoch 1 "
+                                     f"(not once per fold)")
+            out["parallel"] = {"wall_s": wall_s, "epochs": rows, "phases": phases,
+                               "fold_steps": steps, "union_chunks": union,
+                               "launches_train": train_rec["launches"],
+                               "launches_eval": eval_launches, "summary": summary}
+            parallel_launches = {k: train_rec["launches"][k] + eval_launches[k]
+                                 for k in eval_launches}
+            parallel_bf16 = train_rec["launches_bf16"]
+
+            # (2) fold 2 alone, timed beside the 5 folds
+            solo_results, _, _ = run("solo", "--parallel", "yes", "--folds",
+                                     str(CV_ISOLATED_FOLD), "--epochs", "2", "--skip_eval",
+                                     "yes")
+            solo_rows, _ = read_cv_loss_txt(os.path.join(solo_results, "loss.txt"), 1, 2)
+            agg, alone = rows[1]["pairs_per_s"], solo_rows[1]["pairs_per_s"]
+            log(f"epoch-2 pairs/s: 5 folds {agg} aggregate, fold {CV_ISOLATED_FOLD} alone "
+                f"{alone} ({agg / alone:.2f}x)")
+            out["pairs_per_s_epoch2"] = {"aggregate_5_folds": agg, "one_fold_alone": alone}
+
+            # (3) isolation and fold groups, bit for bit on deterministic cuDNN,
+            # each run the first of a fresh process (see det_cv_run)
+            det = {name: det_cv_run(os.path.join(root, name), data_dir, folds, *flags)
+                   for name, folds, flags in (
+                       ("det_5", CV_FOLDS, ()),
+                       ("det_solo", [str(CV_ISOLATED_FOLD)], ()),
+                       ("det_g1", CV_FOLDS, ("--fold_group_size", "1")))}
+            j = CV_FOLDS.index(str(CV_ISOLATED_FOLD))
+            iso = fold_differences(det["det_5"], j, det["det_solo"], 0)
+            groups = [fold_differences(det["det_5"], i, det["det_g1"], i)
+                      for i in range(len(CV_FOLDS))]
+            log(f"deterministic cuDNN: fold {CV_ISOLATED_FOLD} among 5 vs alone: {iso}; "
+                f"groups of 1 vs ungrouped, per fold: {groups}")
+            if iso["max_loss_diff"] or iso["max_param_diff"] or \
+                    any(g["max_loss_diff"] or g["max_param_diff"] for g in groups):
+                raise AssertionError("fold isolation or fold groups: not bit for bit")
+            out["isolation"] = iso
+            out["groups"] = groups
+            del det
+
+            # (4) sequential folds
+            _, seq_summary, seq_s = run("sequential", "--parallel", "no", "--folds", "0", "1",
+                                        "--epochs", "1")
+            seq_train = seen["train"][-2:]
+            seq_eval = seen["eval"][-2:]
+            if set(seq_summary["folds"]) != {"0", "1"} or \
+                    not all(np.isfinite(_numbers(seq_summary))):
+                raise AssertionError(f"sequential cv_summary.json: {seq_summary}")
+            for r in seq_train:
+                (n_tr, n_va), = r["steps"]
+                want = {k: v // 2 for k, v in two_epoch_launches(n_tr, n_va).items()}
+                if r["launches"] != want:
+                    raise AssertionError(f"sequential fold: launches {r['launches']}, "
+                                         f"want {want}")
+            seq_eval_launches = _check_suites(seq_eval, 2)
+            sequential_launches = {k: v + seq_eval_launches[k]
+                                   for k, v in _sum_launches(seq_train).items()}
+            log(f"cv --parallel no --folds 0 1 --epochs 1: {seq_s:.1f} s, summary "
+                f"{seq_summary['mm_accuracy_mean_over_folds']}, launches {sequential_launches}")
+            out["sequential"] = {"wall_s": seq_s, "summary": seq_summary,
+                                 "launches": sequential_launches}
+            bf16_total = sum(parallel_bf16.values()) + sum(
+                v for r in seq_train + seq_eval for v in r["launches_bf16"].values())
+            if bf16_total:
+                raise AssertionError(f"the f32 cv runs launched bf16 kernels: {bf16_total}")
+    finally:
+        cv.trim_host_heap = real_trim
+
+    # (5) one fold-parallel chunk under the profiler: its rows for all 5 folds
+    cfg = TrainConfig(data_dir=data_dir)
+    files = cv_split(cfg, 0)
+    trainer = FoldParallelTrainer(cfg, [int(f) for f in CV_FOLDS], sorted(files[0] + files[1]),
+                                  sorted(files[4] + files[5]), os.path.join(root, "profile"),
+                                  device="cuda")
+    key = trainer.dataset.batches_keys[0]
+    member = [{key.rsplit("_batch_", 1)[0]}] * len(CV_FOLDS)
+    active = np.ones(len(CV_FOLDS), bool)
+    one_chunk = lambda: trainer._epoch(member, active, train=True)  # noqa: E731
+    one_chunk()
+    rows_per_chunk = trainer.dataset.chunks[key]["eeg"].shape[0]
+    profile = profile_calls(one_chunk, reps=1)
+    trainer.release_host_data()
+    del trainer
+    log(f"one fold-parallel chunk ({rows_per_chunk} rows x {len(CV_FOLDS)} folds = "
+        f"{rows_per_chunk * len(CV_FOLDS)} steps) under torch.profiler: "
+        f"{json.dumps({k: v for k, v in profile.items() if k != 'top_ops'})}")
+    out["profile_one_chunk"] = {**profile, "steps": rows_per_chunk * len(CV_FOLDS)}
+    out["rss_gb_around_trims"] = rss
+    out["launches"] = {"cv_parallel": parallel_launches, "cv_sequential": sequential_launches}
+    out["seconds"] = time.perf_counter() - t_start
+    log(f"host RSS around the heap trims (GiB, before and after): {rss}")
+    log(f"cv phase: {out['seconds']:.1f} s")
+    log(json.dumps({"cv": out}))
+    return out
+
+
+def cv_split(cfg, fold: int):
+    from transformer_clip_eeg_tpu_torch.data.discovery import get_train_val_test_files_final
+
+    return get_train_val_test_files_final(cfg.data_dir, fold, cfg.stimulus_features,
+                                          cfg.fold_split_path,
+                                          cfg.number_of_training_subjects)
+
+
+# One fold-parallel run of ``cv.main`` on cuDNN's deterministic algorithms
+# in a process of its own, which writes fit()'s history to history.json.
+# Measured on the card: within one process a later run can land on other
+# algorithms of a library than an earlier run (the 4th of four identical
+# runs differed by 1-2 ulps of the loss, with torch's deterministic
+# algorithms on as well), so the runs held to each other bit for bit each
+# start a fresh process.
+_DET_CV_RUN = """
+import json, sys, torch
+torch.backends.cuda.matmul.allow_tf32 = False
+torch.backends.cudnn.allow_tf32 = False
+torch.backends.cudnn.deterministic = True
+from transformer_clip_eeg_tpu_torch import cv
+from transformer_clip_eeg_tpu_torch.train.fold_parallel import FoldParallelTrainer
+fit = FoldParallelTrainer.fit
+def recorded(self):
+    out = fit(self)
+    with open(self.results_root + "/history.json", "w") as f:
+        json.dump(out["history"], f)
+    return out
+FoldParallelTrainer.fit = recorded
+sys.exit(cv.main(sys.argv[1:]))
+"""
+
+
+def det_cv_run(results: str, data_dir: str, folds, *flags: str) -> dict:
+    """``cv --parallel yes --epochs 2 --skip_eval yes`` over ``folds`` in a
+    fresh process on cuDNN's deterministic algorithms: its per-epoch
+    history and each fold's best checkpoint (weights and bank)."""
+    proc = subprocess.run(
+        [sys.executable, "-c", _DET_CV_RUN, "--data_dir", data_dir, "--results_folder",
+         results, "--parallel", "yes", "--folds", *folds, "--epochs", "2", "--skip_eval",
+         "yes", *flags],
+        cwd=os.path.dirname(os.path.abspath(__file__)), capture_output=True, text=True,
+        timeout=600)
+    if proc.returncode != 0:
+        raise AssertionError(f"cv run in {results} exited {proc.returncode}: "
+                             f"{proc.stderr[-3000:]}")
+    with open(os.path.join(results, "history.json")) as f:
+        history = json.load(f)
+    ckpts = [torch.load(os.path.join(results, f"fold_{f}", "checkpoints", "model_ckpt.pt"),
+                        map_location="cpu", weights_only=True)["model"] for f in folds]
+    return {"history": history, "ckpts": ckpts}
+
+
+def fold_differences(a: dict, ja: int, b: dict, jb: int) -> dict:
+    """Fold ``ja`` of run ``a`` against fold ``jb`` of run ``b``
+    (``det_cv_run``): the largest difference of their per-epoch train and
+    val CE and of their best weights and bank."""
+    loss = max(abs(ea[k][ja] - eb[k][jb])
+               for ea, eb in zip(a["history"], b["history"], strict=True)
+               for k in ("train_loss_ce", "val_loss_ce"))
+    sa, sb = a["ckpts"][ja], b["ckpts"][jb]
+    param = max(float((sa[n] - sb[n]).abs().max()) for n in sa)
+    return {"max_loss_diff": loss, "max_param_diff": param, "epochs": len(a["history"])}
 
 
 def main() -> int:
@@ -2864,6 +3358,8 @@ def main() -> int:
         serve_cli = serve_cli_path(train["results_dir"])
         server_cli = server_cli_path(train["results_dir"], serve_cli)
         zoo = zoo_path(data_dir)
+        k1 = k1_path(data_dir)
+        cv_run = cv_path(data_dir)
     finally:
         shutil.rmtree(RUN_DIR, ignore_errors=True)
     fused = fused_path(cfg, host_batch)
@@ -2891,7 +3387,10 @@ def main() -> int:
             train_augmented=augmented["launches"][k["name"]],
             serve_cli=serve_cli["launches"][k["name"]],
             server_cli=server_cli["launches"][k["name"]],
-            train_bf16=bf16_train["launches_train"][k["name"]])
+            train_bf16=bf16_train["launches_train"][k["name"]],
+            cv_parallel=cv_run["launches"]["cv_parallel"][k["name"]],
+            cv_sequential=cv_run["launches"]["cv_sequential"][k["name"]],
+            **{f"k1_{n}": k1[n]["launches"][k["name"]] for n in K1})
     # #3-#7 take bf16 at their boundary (the kernels are float32 inside)
     lstm["bf16_input"] = {d: bf16_inputs[d] for d in ("lstm_D2", "lstm_D1")}
     lstm_bwd["bf16_input"] = lstm["bf16_input"]
@@ -2902,7 +3401,9 @@ def main() -> int:
     for k in bf16_kernels:
         base = next(n for n, b in BF16_NAMES.items() if b == k["name"])
         k["launches"] = bf16_train["launches_train_bf16"][base]
-        k["launches_by_path"] = {"train_bf16": k["launches"], "eval_suite_bf16": 0}
+        # the cv runs are float32: cv_path checks that they launched none
+        k["launches_by_path"] = {"train_bf16": k["launches"], "eval_suite_bf16": 0,
+                                 "cv_parallel": 0, "cv_sequential": 0}
     kernels += bf16_kernels
     log(json.dumps({"augment_and_cli": {
         "augment_ms": {n: r["ms"] for n, r in augment["by_name"].items()},
@@ -2911,6 +3412,15 @@ def main() -> int:
         "serve_cli_wall_s": serve_cli["wall_s"],
         "server_first_healthz_s": server_cli["first_healthz_s"],
         "server_request_ms": server_cli["request_ms_median"]}}))
+    log(json.dumps({"cv_and_k1": {
+        "pairs_per_s_epoch2": cv_run["pairs_per_s_epoch2"],
+        "uploads_per_epoch": [p["uploads"] for p in cv_run["parallel"]["phases"]],
+        "union_chunks": cv_run["parallel"]["union_chunks"],
+        "isolation": cv_run["isolation"], "profile_one_chunk": {
+            k: v for k, v in cv_run["profile_one_chunk"].items() if k != "top_ops"},
+        "rss_gb_around_trims": cv_run["rss_gb_around_trims"], "cv_s": cv_run["seconds"],
+        "k1_s": k1["seconds"], "k1_step_grad_err": {
+            n: k1[n]["card_vs_cpu_step"]["grad_err"] for n in K1}}}))
     log(f"chip_smoke finished in {time.perf_counter() - t_start:.1f} s")
     log(json.dumps({"kernels": kernels}))
     log(json.dumps({"ok": True, "device": {

@@ -267,11 +267,22 @@ LSTM_IDS = ["T40D2B37", "T40D2B5", "T40D2B1", "T40D1B37", "T1D2B37", "T7D2B5"]
 
 
 @pytest.mark.parametrize("t,d,b", LSTM_CASES, ids=LSTM_IDS)
-@pytest.mark.parametrize("hidden", [4, 8, 16, 32, 64, 128])
+@pytest.mark.parametrize("hidden", [4, 8, 16, 32, 64, 128, 256])
 def test_lstm_cluster_kernels_match_twin(cuda, hidden, t, d, b):
     """Kernels #3 and #4 (the clusters of every H) against the twin: h and
     c, then dxw and dwhh against autograd through the twin."""
     _assert_lstm_kernels_match_twin(*_lstm_inputs(t, d, b, hidden, 14, cuda))
+
+
+@pytest.mark.parametrize("t,d,b", [(40, 2, 37), (40, 1, 37), (192, 2, 128)],
+                         ids=["T40D2B37", "T40D1B37", "T192D2B128"])
+@pytest.mark.parametrize("hidden", [2, 100, 200])
+def test_lstm_kernels_take_any_hidden_size_by_padding(cuda, hidden, t, d, b):
+    """An H the kernels are not built for (``--latent_dim 4``'s H=2,
+    ``--lstm_units 100``, 200) runs zero-padded to the next built H (4, 128,
+    256) and sliced back: h, c, dxw and dwhh against the twin at H itself,
+    one launch of each kernel."""
+    _assert_lstm_kernels_match_twin(*_lstm_inputs(t, d, b, hidden, 15, cuda))
 
 
 def test_lstm_kernels_match_twin_at_the_zoos_unidirectional_shape(cuda):

@@ -50,7 +50,8 @@ def test_the_scan_sees_the_port():
     assert {"serve.py", "server.py", "fused_block.py", "lstm_scan.py",
             "convert.py", "chip_smoke.py", "dropout.py", "cli.py", "loop.py",
             "state.py", "checkpoint.py", "dataset.py", "fixtures.py",
-            "fused_conv.py", "augment.py"} <= names
+            "fused_conv.py", "augment.py", "cv.py", "fold_parallel.py",
+            "platform.py"} <= names
 
 
 def test_cuda_default_raises_without_a_card():
@@ -63,6 +64,23 @@ def test_cuda_default_raises_without_a_card():
         InferenceSession(model)
     with pytest.raises(RuntimeError, match="CUDA is not available"):
         RetrievalIndex(8)
+
+
+def test_fold_parallel_and_cv_default_to_the_card(tmp_path):
+    """``FoldParallelTrainer`` and ``cv.main`` run on the card unless the
+    caller passes ``device="cpu"``: without one they raise before reading any
+    data."""
+    if torch.cuda.is_available():
+        pytest.skip("this host has a CUDA card: the default device is usable")
+    from transformer_clip_eeg_tpu_torch import cv
+    from transformer_clip_eeg_tpu_torch.train.fold_parallel import FoldParallelTrainer
+
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        FoldParallelTrainer(TrainConfig(**SMALL), [0], [], [], str(tmp_path))
+    assert not any(tmp_path.iterdir())
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        cv.main(["--folds", "0", "--parallel", "yes", "--data_dir", str(tmp_path / "none"),
+                 "--results_folder", str(tmp_path / "res")])
 
 
 def test_kernel_build_raises_without_nvcc(monkeypatch, tmp_path):

@@ -2,7 +2,11 @@
 plan: ``lstm_scan_packed`` forward and its gradient at H=128 on the CPU
 against JAX's interpret-mode ``lstm_scan_pallas_packed`` and ``jax.vjp``,
 and ``lstm_launch_plan``, which sizes the thread-block clusters of kernels
-#3 and #4 (checked again by ``csrc/lstm_cluster.cuh`` on the card)."""
+#3 and #4 (checked again by ``csrc/lstm_cluster.cuh`` on the card), for
+every H the kernels are built for (4 ... 256), and the zero-padding that
+takes any other H up to 256 to the next of them.  The kernels themselves
+are held at those shapes by the gpu tests of
+``tests/test_torch_port_cuda.py``."""
 
 import re
 from pathlib import Path
@@ -16,7 +20,14 @@ import torch
 from transformer_clip_eeg_tpu.ops.pallas_lstm import lstm_scan_pallas_packed
 from transformer_clip_eeg_tpu_torch.ops.fused_block import SMEM_OPTIN_BYTES
 from transformer_clip_eeg_tpu_torch.ops import lstm_scan as port
-from transformer_clip_eeg_tpu_torch.ops.lstm_scan import lstm_launch_plan, lstm_scan_packed
+from transformer_clip_eeg_tpu_torch.ops.lstm_scan import (
+    PLAN_HIDDEN,
+    lstm_launch_plan,
+    lstm_scan_packed,
+    lstm_scan_reference,
+    pad_hidden,
+    plan_hidden,
+)
 
 LSTM_ATOL = 1e-6       # forward, as tests/test_torch_port_kernels.py
 LSTM_GRAD_ATOL = 1e-5  # gradient, as tests/test_torch_port_training_kernels.py
@@ -74,8 +85,17 @@ def test_h4_plan_is_one_cta_per_recurrence():
     assert plan.smem_bwd <= SMEM_OPTIN_BYTES
 
 
+def test_h256_plan_is_clusters_of_eight():
+    """H=256 (``--lstm_units 256``): clusters of 8 CTAs (the portable
+    size) of 32 units and 8 rows, 512 threads, two waves of 128 clusters'
+    CTAs at B=128, D=2."""
+    plan = lstm_launch_plan(128, 2, 256)
+    assert (plan.cluster, plan.batch_tile, plan.threads, plan.ctas) == (8, 8, 512, 256)
+    assert plan.smem_bwd <= SMEM_OPTIN_BYTES
+
+
 @pytest.mark.parametrize("b", [1, 37, 130])
-@pytest.mark.parametrize("hidden", [4, 8, 16, 32, 64, 128])
+@pytest.mark.parametrize("hidden", [4, 8, 16, 32, 64, 128, 256])
 def test_plan_covers_ragged_batches(hidden, b):
     """Every batch row in some tile, the last tile ragged, for every H."""
     plan = lstm_launch_plan(b, 2, hidden)
@@ -91,10 +111,47 @@ def test_plan_with_one_direction():
     assert one._replace(ctas=two.ctas) == two
 
 
-@pytest.mark.parametrize("hidden", [12, 6, 256, 0, 96])
+@pytest.mark.parametrize("hidden", [12, 6, 512, 0, 96])
 def test_plan_refuses_h_not_dividing_128(hidden):
-    with pytest.raises(ValueError, match="multiple of 4 dividing 128"):
+    """The plan takes only the H the kernels are built for (4, 8, ..., 128
+    and 256); the wrapper pads every other H up to 256 first."""
+    with pytest.raises(ValueError, match=r"takes H in \(4, 8, 16, 32, 64, 128, 256\)"):
         lstm_launch_plan(128, 2, hidden)
+
+
+@pytest.mark.parametrize("hidden,want", [(1, 4), (2, 4), (4, 4), (5, 8), (100, 128),
+                                         (128, 128), (129, 256), (200, 256), (256, 256)])
+def test_plan_hidden_is_the_next_built_size(hidden, want):
+    assert plan_hidden(hidden) == want and want in PLAN_HIDDEN
+
+
+def test_plan_hidden_refuses_past_256():
+    with pytest.raises(ValueError, match="H <= 256"):
+        plan_hidden(257)
+
+
+@pytest.mark.parametrize("hidden", [2, 100, 200, 256])
+def test_zero_padding_is_exact_forward_and_gradients(hidden):
+    """The twin on the inputs padded to ``plan_hidden(H)`` and sliced back
+    to H against the twin on the original inputs (T=6, D=2, B=3): h within
+    1e-6 (f32 products of another blocking), and dxw and dwhh, through the
+    padding's autograd, within 1e-6 of max(1, max |g|); every gradient that
+    reaches a padded unit is dropped by the slice."""
+    xw, whh, g = (torch.from_numpy(a) for a in _case(6, 2, 3, hidden, seed=hidden))
+    hp = plan_hidden(hidden)
+    a, w = xw.clone().requires_grad_(), whh.clone().requires_grad_()
+    xw_p, whh_p = pad_hidden(a, w, hp)
+    assert xw_p.shape == (6, 2, 3, 4 * hp) and whh_p.shape == (2, hp, 4 * hp)
+    got = lstm_scan_reference(xw_p, whh_p)
+    assert not got[..., hidden:].any()  # padded units stay 0
+    got = got[..., :hidden]
+    ra, rw = xw.clone().requires_grad_(), whh.clone().requires_grad_()
+    want = lstm_scan_reference(ra, rw)
+    np.testing.assert_allclose(got.detach().numpy(), want.detach().numpy(), atol=1e-6)
+    for name, u, v in zip(("dxw", "dwhh"), torch.autograd.grad(got, (a, w), g),
+                          torch.autograd.grad(want, (ra, rw), g)):
+        err = float((u - v).abs().max()) / max(1.0, float(v.abs().max()))
+        assert err <= 1e-6, (name, err)
 
 
 def test_plan_constants_match_the_cuda_header():
@@ -106,6 +163,7 @@ def test_plan_constants_match_the_cuda_header():
 
     assert const("OWNERS") == port.OWNERS
     assert const("EG") == port.EXCHANGE_GROUPS
+    assert const("MAX_CLUSTER") * port.MAX_UNITS == port.MAX_HIDDEN
 
 
 def _c_value(expr: str, env: dict) -> int:
@@ -144,7 +202,7 @@ def _header_rules(hidden: int) -> dict:
     return rules
 
 
-@pytest.mark.parametrize("hidden", [4, 8, 16, 32, 64, 128])
+@pytest.mark.parametrize("hidden", [4, 8, 16, 32, 64, 128, 256])
 def test_plan_passes_the_cuda_headers_rules(hidden):
     """The plan the wrapper computes is one the C entry points accept:
     ``plan_units``'s rules with each kernel's threads and rows per product
@@ -158,8 +216,17 @@ def test_plan_passes_the_cuda_headers_rules(hidden):
     assert plan.batch_tile == port.OWNERS // units
     assert plan.threads == rules["threads"]
     for struct in ("Fwd", "Bwd"):
-        assert rules[struct]["NT"] == plan.threads
-        assert plan.batch_tile % (port.EXCHANGE_GROUPS * rules[struct]["RPT"]) == 0, struct
+        consts = rules[struct]
+        assert consts["NT"] == plan.threads
+        assert 1 <= consts["GROUPS"] <= port.EXCHANGE_GROUPS
+        assert plan.batch_tile % (consts["GROUPS"] * consts["RPT"]) == 0, struct
+    # the forward's h stores: SEND units' k groups in one warp, 4 or 2 units
+    fwd = rules["Fwd"]
+    assert fwd["SEND"] in (2, 4) and fwd["SEND"] * fwd["KG"] <= 32
+    # the weight slice a thread holds: at most 64 floats (registers)
+    assert fwd["KPT"] * 4 <= 64
+    bwd = rules["Bwd"]
+    assert bwd["UPT"] * bwd["CPT"] <= 64
     assert plan.smem_fwd == rules["fwd"](plan.batch_tile)
     assert plan.smem_bwd == rules["bwd"](plan.batch_tile)
     assert max(plan.smem_fwd, plan.smem_bwd) <= SMEM_OPTIN_BYTES

@@ -253,11 +253,7 @@ def _restore_run(results_dir: str, device):
     ckpt_dir = os.path.join(results_dir, "checkpoints")
     model = build_model_from_config(cfg, cfg.bank_size, device=device, seed=cfg.seed)
     if ckpt_lib.restore_checkpoint(ckpt_dir, model) is None:
-        if os.path.exists(os.path.join(ckpt_dir, "model.ckpt")):
-            raise NotImplementedError(
-                f"{ckpt_dir} holds only the reference's model.ckpt; resuming from it is "
-                "not ported to the torch package yet (ROADMAP.md §2, resuming from the "
-                "reference's model.ckpt)")
+        ckpt_lib.refuse_reference_checkpoint(ckpt_dir)
         return cfg, None
     return cfg, model.eval()
 

@@ -6,6 +6,7 @@
 // [r U, (r+1) U), U = H / n, and all four gates of each: c (forward) or dc
 // (backward) stays in the registers of the thread that owns (row, unit).
 // A CTA has OWNERS owner threads, one per (row, unit), so bt = OWNERS / U.
+// H = 256 takes clusters of 8 CTAs of 32 units (the portable cluster size).
 //
 // The step's product.  Every thread of the CTA (NT: at H >= 32 twice the
 // owners, so that 16 warps hide the latencies of shared-memory loads and
@@ -21,11 +22,15 @@
 // the shared memory of every CTA of the cluster with 16-byte st.async (h of
 // 4 units gathered in one lane; the 4 gates of one unit's dpre), which
 // counts its bytes on an mbarrier of the receiving CTA.  The batch rows are
-// independent recurrences, so a CTA's threads form EG exchange groups, each
-// with the rows of its own threads and its own mbarriers: a group waits only
-// until its rows of h (or dpre) have arrived from every CTA, and while one
-// group waits for its exchange another computes.  Two buffers and two
-// mbarriers a group, by step parity.  A cluster of one CTA (the H <= 32
+// independent recurrences, so a CTA's threads form GROUPS exchange groups
+// (EG at H <= 128), each with the rows of its own threads and its own
+// mbarriers: a group waits only until its rows of h (or dpre) have arrived
+// from every CTA, and while one group waits for its exchange another
+// computes.  Two buffers and two mbarriers a group, by step parity.  At
+// H = 256 every product thread sums all bt rows (the CTA's slice of whh
+// fills the registers of its threads once, not twice), so there is one
+// group.  The forward sends the h of 4 units in one store where 4 units'
+// k groups share a warp (4 KG <= 32), else of SEND = 32 / KG units.  A cluster of one CTA (the H <= 32
 // layers) stores into its own buffer and crosses one __syncthreads a step:
 // a block barrier costs less than the mbarrier round trip.  There is no cluster
 // barrier and no memory fence in the step loop: a cluster barrier with
@@ -55,7 +60,7 @@ namespace {
 
 constexpr int OWNERS = 256;     // threads that own a (row, unit)
 constexpr int MAX_CLUSTER = 8;  // the portable cluster size
-constexpr int EG = 2;           // exchange groups: threads [g NT / EG, (g+1) NT / EG)
+constexpr int EG = 2;           // exchange groups at most: threads [g NT / G, (g+1) NT / G)
 
 // Threads per CTA at hidden size H.
 template <int H>
@@ -74,19 +79,24 @@ struct Fwd {
   static constexpr int KG = H / KPT;
   static constexpr int RPT = KG * OWNERS / NT;
   static constexpr int NV = 4 * RPT, KEEP = 4;
+  static constexpr int GROUPS = H >= 256 ? 1 : EG;
+  static constexpr int SEND = 4 * KG <= 32 ? 4 : 32 / KG;
 };
 
 // Backward product dpre [bt, 4H] x whh-slice^T [4H, U]: split over the 4H
 // gate columns.  A thread holds UPT units x CPT columns of whh and sums RPT
 // batch rows x UPT units; its group keeps one (row, unit) per owner.
+// At H = 256 a thread holds UPT = 2 units, so that its slice stays 64
+// floats.
 template <int H>
 struct Bwd {
   static constexpr int NT = threads<H>();
-  static constexpr int UPT = 4;
+  static constexpr int UPT = H >= 256 ? 2 : 4;
   static constexpr int CPT = H >= 32 ? H / 8 : 4;
   static constexpr int KG = 4 * H / CPT;
   static constexpr int RPT = KG / UPT * OWNERS / NT;
   static constexpr int NV = RPT * UPT, KEEP = 1;
+  static constexpr int GROUPS = H >= 256 ? 1 : EG;
 };
 
 // Adds the NV values v of the lanes of a group (the lane bits below 2M)
@@ -124,18 +134,19 @@ __device__ __forceinline__ int group_offset(int lane) {
     return 0;
 }
 
-// The plan rules shared by both kernels; nt and rpt are the kernel's
-// threads and rows per product thread.  Returns the units per CTA, or 0 if
-// the plan is refused.
-inline int plan_units(int H, int n, int bt, int threads, int nt, int rpt) {
+// The plan rules shared by both kernels; nt, rpt and groups are the
+// kernel's threads, rows per product thread and exchange groups.  Returns
+// the units per CTA, or 0 if the plan is refused.
+inline int plan_units(int H, int n, int bt, int threads, int nt, int rpt, int groups) {
   if (threads != nt || n < 1 || n > MAX_CLUSTER || H % n != 0) return 0;
   const int units = H / n;
   if (units < 4 || units % 4 != 0 || OWNERS % units != 0) return 0;
-  if (bt != OWNERS / units || bt % (EG * rpt) != 0) return 0;
+  if (bt != OWNERS / units || bt % (groups * rpt) != 0) return 0;
   return units;
 }
 
-// Shared memory: the 2 EG mbarriers, then the two step buffers.
+// Shared memory: 2 EG mbarriers (the most groups a kernel has), then the
+// two step buffers.
 constexpr size_t BARRIER_BYTES = 2 * EG * sizeof(uint64_t);
 
 inline size_t fwd_smem_bytes(int H, int bt) {
@@ -197,10 +208,20 @@ __device__ __forceinline__ void st_async(uint32_t dst, float4 v, uint32_t bar) {
       : "memory");
 }
 
+// The same for 8 bytes (8-byte aligned).
+__device__ __forceinline__ void st_async(uint32_t dst, float2 v, uint32_t bar) {
+  asm volatile(
+      "st.async.shared::cluster.mbarrier::complete_tx::bytes.v2.b32 [%0], {%1, %2}, [%3];\n"
+      ::"r"(dst), "r"(__float_as_uint(v.x)), "r"(__float_as_uint(v.y)), "r"(bar)
+      : "memory");
+}
+
 // Writes v at shared-memory `slot` of every CTA of the cluster, counted on
-// each CTA's mbarrier `bar`.  One 16-byte store per CTA: the receiver's
-// mbarrier counts each store, so fewer and wider stores arrive sooner.
-__device__ __forceinline__ void send_all(float* slot, uint64_t* bar, float4 v, int n) {
+// each CTA's mbarrier `bar`.  One 16-byte (or 8-byte) store per CTA: the
+// receiver's mbarrier counts each store, so fewer and wider stores arrive
+// sooner.
+template <typename V>
+__device__ __forceinline__ void send_all(float* slot, uint64_t* bar, V v, int n) {
   const uint32_t a = smem_addr(slot), m = smem_addr(bar);
   for (int peer = 0; peer < n; ++peer) st_async(map_rank(a, peer), v, map_rank(m, peer));
 }

@@ -30,6 +30,10 @@
 // cluster (16-byte st.async into distributed shared memory, counted on the
 // receiver's mbarrier), double-buffered by step parity.  The next step's xw
 // is loaded a step ahead.  No atomics: the same inputs give the same bits.
+// At H=256 a cluster of 8 CTAs splits the units 32 per CTA; a CTA's
+// [256 k x 128 gate columns] slice fills its 512 threads' registers once
+// (64 floats a thread), so every thread sums all 8 rows, a k group spans 16
+// lanes and an owner sends the h of 2 units (8-byte st.async).
 
 #include <cuda_runtime.h>
 #include <math.h>
@@ -49,8 +53,9 @@ lstm_fwd_cluster(const float* __restrict__ xw, const float* __restrict__ whh,
                  float* __restrict__ gates_out, int T, int D, int B, int U) {
   using S = lstm::Fwd<H>;
   constexpr int NT = S::NT, KPT = S::KPT, KG = S::KG, RPT = S::RPT, G = 4 * H;
+  constexpr int NG = S::GROUPS, SU = S::SEND;
   constexpr int FULL = KG * S::KEEP / S::NV;  // lanes left with the same sums
-  static_assert(S::NV / S::KEEP <= KG && 4 * KG <= 32, "a group's rows fit its lanes");
+  static_assert(S::NV / S::KEEP <= KG && SU * KG <= 32, "a group's rows fit its lanes");
   extern __shared__ float4 smem4[];
   uint64_t* bar = reinterpret_cast<uint64_t*>(smem4);        // [EG][2]: h arrived
   float* hbuf = reinterpret_cast<float*>(smem4 + lstm::EG);  // [2][BT][H]: h_prev, by parity
@@ -61,9 +66,9 @@ lstm_fwd_cluster(const float* __restrict__ xw, const float* __restrict__ whh,
   const int d = blockIdx.y;
   const int tid = threadIdx.x;
   // this thread's exchange group: its rows' h arrive on gbar
-  const int eg = tid / (NT / lstm::EG);
+  const int eg = tid / (NT / NG);
   uint64_t* gbar = bar + 2 * eg;
-  const uint32_t h_bytes = (uint32_t)(BT / lstm::EG * H * sizeof(float));
+  const uint32_t h_bytes = (uint32_t)(BT / NG * H * sizeof(float));
 
   // product role: k group kg (the low lane bits), unit u, rows prg * RPT ..
   const int kg = tid % KG, u = (tid / KG) % U, prg = tid / (KG * U);
@@ -88,7 +93,7 @@ lstm_fwd_cluster(const float* __restrict__ xw, const float* __restrict__ whh,
   for (int i = tid; i < BT * H; i += NT) hbuf[i] = 0.f;  // h of step -1
   // gbar[1] counts the group's h of the steps t = 1, 3, ..., gbar[0] of
   // t = 2, 4, ...; the group's first thread arms them
-  if (N > 1 && tid % (NT / lstm::EG) == 0) {
+  if (N > 1 && tid % (NT / NG) == 0) {
     lstm::mbar_init(&gbar[0]);
     lstm::mbar_init(&gbar[1]);
     lstm::fence_mbar_init();
@@ -114,7 +119,7 @@ lstm_fwd_cluster(const float* __restrict__ xw, const float* __restrict__ whh,
     }
     if (N > 1 && t > 0) {  // the group's h of step t-1 from every CTA of the cluster
       lstm::mbar_wait(&gbar[t & 1], ((t - 1) >> 1) & 1);
-      if (tid % (NT / lstm::EG) == 0 && t + 2 < T) lstm::mbar_expect(&gbar[t & 1], h_bytes);
+      if (tid % (NT / NG) == 0 && t + 2 < T) lstm::mbar_expect(&gbar[t & 1], h_bytes);
     }
     const float* hb = hbuf + (t & 1) * BT * H + prg * RPT * H + 4 * kg;
 
@@ -148,13 +153,19 @@ lstm_fwd_cluster(const float* __restrict__ xw, const float* __restrict__ whh,
       float* slot = hbuf + ((t + 1) & 1) * BT * H + orow * H + j;
       if (N == 1) {
         if (owner) *slot = hv;
-      } else {  // the owner of every 4th unit sends the h of 4 units
+      } else if constexpr (SU == 4) {  // the owner of every 4th unit sends the h of 4 units
         const int lane0 = (tid & 31) - KG * (u & 3);
         const float4 h4 = make_float4(__shfl_sync(0xffffffffu, hv, lane0),
                                       __shfl_sync(0xffffffffu, hv, lane0 + KG),
                                       __shfl_sync(0xffffffffu, hv, lane0 + 2 * KG),
                                       __shfl_sync(0xffffffffu, hv, lane0 + 3 * KG));
         if (owner && (u & 3) == 0) lstm::send_all(slot, &gbar[(t + 1) & 1], h4, N);
+      } else {  // SU == 2: the owner of every 2nd unit sends the h of 2 units
+        static_assert(SU == 2, "a store holds the h of 4 or 2 units");
+        const int lane0 = (tid & 31) - KG * (u & 1);
+        const float2 h2 = make_float2(__shfl_sync(0xffffffffu, hv, lane0),
+                                      __shfl_sync(0xffffffffu, hv, lane0 + KG));
+        if (owner && (u & 1) == 0) lstm::send_all(slot, &gbar[(t + 1) & 1], h2, N);
       }
     }
     if (valid) {
@@ -183,7 +194,7 @@ int launch(const float* xw, const float* whh, float* h_out, float* c_out, float*
            int T, int D, int B, int n, int bt, int threads, long long smem,
            cudaStream_t stream) {
   using S = lstm::Fwd<H>;
-  const int units = lstm::plan_units(H, n, bt, threads, S::NT, S::RPT);
+  const int units = lstm::plan_units(H, n, bt, threads, S::NT, S::RPT, S::GROUPS);
   if (units == 0 || smem < 0) return (int)cudaErrorInvalidValue;
   const dim3 grid(((B + bt - 1) / bt) * n, D);
   return lstm::launch_clusters(lstm_fwd_cluster<H>, grid, S::NT, n, (size_t)smem,
@@ -194,7 +205,7 @@ int launch(const float* xw, const float* whh, float* h_out, float* c_out, float*
 }  // namespace
 
 // Launch on `stream`; returns the CUDA error code (0 on success).  `c_out`
-// and `gates_out` may be NULL.  H is 4, 8, 16, 32, 64 or 128; (n, bt,
+// and `gates_out` may be NULL.  H is 4, 8, 16, 32, 64, 128 or 256; (n, bt,
 // threads, smem) is the plan of lstm_launch_plan in ops/lstm_scan.py:
 // clusters of n CTAs, bt batch rows each, `smem` bytes of shared memory.
 extern "C" int tce_lstm_scan_fwd(const float* xw, const float* whh, float* h_out,
@@ -212,6 +223,7 @@ extern "C" int tce_lstm_scan_fwd(const float* xw, const float* whh, float* h_out
     TCE_LSTM_FWD(32)
     TCE_LSTM_FWD(64)
     TCE_LSTM_FWD(128)
+    TCE_LSTM_FWD(256)
     default:
       return (int)cudaErrorInvalidValue;
   }

@@ -39,7 +39,10 @@
 // registers.  dwhh is a separate reduction over the T*B rows
 // (wgrad.cuh, tce_lstm_dwhh): the directions' products as one launch of
 // per-chunk partial sums, then one launch of fixed-order sums.  No atomics
-// anywhere: the same inputs give the same bits.
+// anywhere: the same inputs give the same bits.  At H=256 a cluster of 8
+// CTAs splits the units 32 per CTA and a thread holds 2 units x 32 columns
+// (64 floats, the slice once across the CTA's 512 threads), so every thread
+// sums all 8 rows and the CTA has one exchange group.
 
 #include <cuda_runtime.h>
 #include <math.h>
@@ -77,6 +80,7 @@ lstm_bwd_cluster(const float* __restrict__ gates, const float* __restrict__ whh,
                  float* __restrict__ dxw, int T, int D, int B, int U) {
   using S = lstm::Bwd<H>;
   constexpr int UPT = S::UPT, CPT = S::CPT, KG = S::KG, RPT = S::RPT, G = 4 * H;
+  constexpr int NG = S::GROUPS;
   constexpr int FULL = KG * S::KEEP / S::NV;  // lanes left with the same sum
   static_assert(S::NV / S::KEEP <= KG && KG <= 32, "a group's values fit its lanes");
   extern __shared__ float4 smem4[];
@@ -92,9 +96,9 @@ lstm_bwd_cluster(const float* __restrict__ gates, const float* __restrict__ whh,
   const int d = blockIdx.y;
   const int tid = threadIdx.x;
   // this thread's exchange group: its rows' dpre arrive on gbar
-  const int eg = tid / (S::NT / lstm::EG);
+  const int eg = tid / (S::NT / NG);
   uint64_t* gbar = bar + 2 * eg;
-  const uint32_t dp_bytes = (uint32_t)(BT / lstm::EG * G * sizeof(float));
+  const uint32_t dp_bytes = (uint32_t)(BT / NG * G * sizeof(float));
 
   // product role: column group kg (the low lane bits), units ug * UPT ..,
   // rows prg * RPT ..
@@ -122,7 +126,7 @@ lstm_bwd_cluster(const float* __restrict__ gates, const float* __restrict__ whh,
   // step it = T-1-t of the loop: gbar[0] counts the group's dpre of it = 0,
   // 2, ..., gbar[1] of it = 1, 3, ...; the last step's dpre is not
   // exchanged.  The group's first thread arms them
-  if (N > 1 && tid % (S::NT / lstm::EG) == 0) {
+  if (N > 1 && tid % (S::NT / NG) == 0) {
     lstm::mbar_init(&gbar[0]);
     lstm::mbar_init(&gbar[1]);
     lstm::fence_mbar_init();
@@ -171,7 +175,7 @@ lstm_bwd_cluster(const float* __restrict__ gates, const float* __restrict__ whh,
     if (t == 0) break;  // dh' of step 0 is not needed
     if (N > 1) {
       lstm::mbar_wait(&gbar[it & 1], (it >> 1) & 1);
-      if (tid % (S::NT / lstm::EG) == 0 && it + 3 < T) lstm::mbar_expect(&gbar[it & 1], dp_bytes);
+      if (tid % (S::NT / NG) == 0 && it + 3 < T) lstm::mbar_expect(&gbar[it & 1], dp_bytes);
     } else {
       __syncthreads();  // a cluster of one CTA: the block barrier is the exchange
     }
@@ -209,7 +213,7 @@ int launch(const float* gates, const float* whh, const float* c, const float* g,
            int T, int D, int B, int n, int bt, int threads, long long smem,
            cudaStream_t stream) {
   using S = lstm::Bwd<H>;
-  const int units = lstm::plan_units(H, n, bt, threads, S::NT, S::RPT);
+  const int units = lstm::plan_units(H, n, bt, threads, S::NT, S::RPT, S::GROUPS);
   if (units == 0 || smem < 0) return (int)cudaErrorInvalidValue;
   const dim3 grid(((B + bt - 1) / bt) * n, D);
   return lstm::launch_clusters(lstm_bwd_cluster<H>, grid, S::NT, n, (size_t)smem,
@@ -222,7 +226,7 @@ int launch(const float* gates, const float* whh, const float* c, const float* g,
 // The recurrence: launch on `stream`; returns the CUDA error code (0 on
 // success).  gates [T][D][B][4H] (activated i, f, g, o from the training
 // forward), whh [D][H][4H], c, g [T][D][B][H]; out: dxw [T][D][B][4H].  H
-// is 4, 8, 16, 32, 64 or 128; (n, bt, threads, smem) is the plan of
+// is 4, 8, 16, 32, 64, 128 or 256; (n, bt, threads, smem) is the plan of
 // lstm_launch_plan in ops/lstm_scan.py.
 extern "C" int tce_lstm_scan_bwd(const float* gates, const float* whh, const float* c,
                                  const float* g, float* dxw, int T, int D, int B, int H,
@@ -239,6 +243,7 @@ extern "C" int tce_lstm_scan_bwd(const float* gates, const float* whh, const flo
     TCE_LSTM_BWD(32)
     TCE_LSTM_BWD(64)
     TCE_LSTM_BWD(128)
+    TCE_LSTM_BWD(256)
     default:
       return (int)cudaErrorInvalidValue;
   }

@@ -15,9 +15,13 @@ device-resident store of ``train/device_data.py``) and mixes and augments
 them in the train step; ``__iter__`` is the reference's own host iterator
 (ref ``dataset_loader.py:392-434``), with its chunk mixup (``_mixup``, numpy
 draws from ``self.rng`` in the JAX package's order) and the augmentations
-of ``ops/augment.py`` per batch.  ``sample_epoch_indices`` and the
-cross-validation file cache are not copied; ``iter_subject_windows`` feeds
-the regression evals.
+of ``ops/augment.py`` per batch.  ``sample_epoch_indices`` is not copied;
+``iter_subject_windows`` feeds the regression evals.
+
+The ingest file cache (``set_ingest_file_cache``, ``_cached_load``) is the
+JAX package's: the cross-validation driver installs it around the per-fold
+evaluation suites, which ingest overlapping splits, so that each ``.npy``
+file is read once, as a read-only memmap.
 """
 
 from __future__ import annotations
@@ -34,6 +38,39 @@ from transformer_clip_eeg_tpu_torch.data.discovery import (
     story_of_eeg_file,
     subject_of_eeg_file,
 )
+
+
+# The opt-in, process-wide read cache of ingest: path -> a READ-ONLY MEMMAP
+# of the .npy file (pickled files, which cannot be mapped, as heap arrays).
+# Memmap pages are file-backed: they sit in the kernel's page cache, are
+# evicted under memory pressure and add nothing to the process heap, where
+# cached arrays would interleave with the evaluation suites' churn and fragment
+# it.  Downstream ingest takes views and copies of them as of heap arrays, and
+# an in-place write raises instead of corrupting the cache.  None = off.
+_FILE_CACHE: Optional[dict] = None
+
+
+def set_ingest_file_cache(cache: Optional[dict]) -> None:
+    """Install (or clear, with ``None``) the dict that memoizes raw-file
+    reads during ingest.  The caller owns the dict and its lifetime."""
+    global _FILE_CACHE
+    _FILE_CACHE = cache
+
+
+def _cached_load(path: str):
+    """``np.load(path)``; with a cache installed, the cached read-only
+    memmap of ``path`` (read and cached on first use)."""
+    cache = _FILE_CACHE
+    if cache is None:
+        return np.load(path)
+    arr = cache.get(path)
+    if arr is None:
+        try:
+            arr = np.load(path, mmap_mode="r")
+        except ValueError:  # a pickled .npy cannot be mapped: a heap array
+            arr = np.load(path)
+        cache[path] = arr
+    return arr
 
 
 def split_into_windows_np(x: np.ndarray, window_length: int) -> np.ndarray:
@@ -159,18 +196,18 @@ class EEGWindowDataset:
                 while next_submit < len(all_paths) and len(loaded) < ahead:
                     p = all_paths[next_submit]
                     next_submit += 1
-                    loaded[p] = pool.submit(np.load, p)
+                    loaded[p] = pool.submit(_cached_load, p)
 
             _fill()
 
             def read(path):
                 fut = loaded.pop(path, None)
-                out = fut.result() if fut is not None else np.load(path)
+                out = fut.result() if fut is not None else _cached_load(path)
                 _fill()
                 return out
         else:
             def read(path):
-                return np.load(path)
+                return _cached_load(path)
 
         for story, eeg_files in eeg_dict.items():
             audio_files = audio_dict.get(story, {})
@@ -263,11 +300,15 @@ class EEGWindowDataset:
 
     # -- batch index sampling (exact reference semantics) -------------------
 
-    def create_eeg_indices(self, eeg: np.ndarray):
+    def create_eeg_indices(self, eeg: np.ndarray, rng: Optional[np.random.Generator] = None):
         """Per-chunk sampling (ref dataset_loader.py:436-464): per subject,
         ``bs`` window indices without replacement; optional cross-subject
-        permutation of the first ``bs * shuffle_percentage`` columns."""
-        rng = self.rng
+        permutation of the first ``bs * shuffle_percentage`` columns.
+
+        ``rng``: another numpy Generator to draw from (the fold-parallel
+        trainer keeps one sampling stream per fold); the dataset's own by
+        default."""
+        rng = rng if rng is not None else self.rng
         n_subs, len_batch = eeg.shape[0], eeg.shape[1]
         bs = self.batch_size
         if len_batch < bs:

@@ -13,6 +13,14 @@ launches #3 for a CUDA tensor and runs
 :class:`LSTMScanFunction` (#4 on the card, autograd through the twin on the
 CPU).  There is no other path.
 
+The kernels are built for H in :data:`PLAN_HIDDEN`.  On the card any other
+H up to :data:`MAX_HIDDEN` is zero-padded to the next of them
+(:func:`pad_hidden`) and the result sliced back, as the JAX kernel pads
+(``ops/pallas_lstm.py:180-201``).  The padding is exact: a padded unit has
+zero gate inputs and zero ``whh`` rows and columns, so its gates are i = f
+= o = 1/2 and g = 0, its c and h stay 0 and never reach a real unit's
+gates; the gradients that flow into the padding are dropped by the slice.
+
 Shapes, as in the JAX package: gate inputs ``xw [T, D, B, 4H]`` (the input
 projection with both biases already added; ``D`` independent recurrences,
 e.g. the forward and the time-flipped reverse direction of a biLSTM),
@@ -25,10 +33,13 @@ from __future__ import annotations
 from typing import NamedTuple, Optional, Tuple, Union
 
 import torch
+import torch.nn.functional as F
 
 OWNERS = 256         # threads of a CTA that own a (row, unit) (csrc/lstm_cluster.cuh)
-EXCHANGE_GROUPS = 2  # of a CTA's threads, each waiting only for its own rows
+EXCHANGE_GROUPS = 2  # of a CTA's threads at most, each waiting only for its own rows
 MAX_UNITS = 32       # hidden units per CTA
+PLAN_HIDDEN = (4, 8, 16, 32, 64, 128, 256)  # the hidden sizes the kernels are built for
+MAX_HIDDEN = PLAN_HIDDEN[-1]  # clusters of 8 CTAs, the portable cluster size
 
 
 class LaunchPlan(NamedTuple):
@@ -46,14 +57,14 @@ def lstm_launch_plan(b: int, d: int, hidden: int) -> LaunchPlan:
     """The launch plan of kernels #3 and #4 for ``D=d`` recurrences of batch
     ``b`` and hidden size ``hidden``: one cluster per (batch tile,
     direction), each CTA owning ``min(hidden, 32)`` units (H=128: clusters
-    of 4 CTAs of 8 batch rows, 128 CTAs at B=128, D=2).  The C entry points
-    check the plan against the header's rules, which also hold each product
-    thread's rows; ``tests/test_torch_port_lstm_cluster.py`` holds this
-    function to them.  Raises ``ValueError`` for a shape the kernels cannot
-    run."""
-    if hidden <= 0 or hidden % 4 or 128 % hidden or min(b, d) < 1:
-        raise ValueError(f"the CUDA recurrence takes H a multiple of 4 dividing 128 and "
-                         f"B, D >= 1; got H={hidden}, B={b}, D={d}")
+    of 4 CTAs of 8 batch rows, 128 CTAs at B=128, D=2; H=256: clusters of
+    8).  The C entry points check the plan against the header's rules,
+    which also hold each product thread's rows;
+    ``tests/test_torch_port_lstm_cluster.py`` holds this function to them.
+    Raises ``ValueError`` for a shape the kernels cannot run."""
+    if hidden not in PLAN_HIDDEN or min(b, d) < 1:
+        raise ValueError(f"the CUDA recurrence takes H in {PLAN_HIDDEN} and B, D >= 1; "
+                         f"got H={hidden}, B={b}, D={d}")
     units = min(hidden, MAX_UNITS)
     cluster, bt = hidden // units, OWNERS // units
     threads = 2 * OWNERS if hidden >= 32 else OWNERS
@@ -63,6 +74,30 @@ def lstm_launch_plan(b: int, d: int, hidden: int) -> LaunchPlan:
     smem_fwd = barriers + 4 * 2 * bt * hidden
     smem_bwd = barriers + 4 * 2 * bt * 4 * hidden
     return LaunchPlan(cluster, bt, threads, -(-b // bt) * d * cluster, smem_fwd, smem_bwd)
+
+
+def plan_hidden(hidden: int) -> int:
+    """The hidden size the kernels run ``hidden`` at: the smallest of
+    :data:`PLAN_HIDDEN` that holds it.  Raises ``ValueError`` past
+    :data:`MAX_HIDDEN`."""
+    for h in PLAN_HIDDEN:
+        if hidden <= h:
+            return h
+    raise ValueError(f"the CUDA recurrence takes H <= {MAX_HIDDEN} (clusters of at most 8 "
+                     f"CTAs of 32 units); got H={hidden}")
+
+
+def pad_hidden(xw: torch.Tensor, whh: torch.Tensor, hp: int
+               ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """``xw [T, D, B, 4H]`` and ``whh [D, H, 4H]`` zero-padded to ``hp``
+    units: each gate's block of columns (and ``whh``'s rows) grows from H to
+    ``hp``.  Differentiable; the recurrence on the padded inputs, sliced to
+    ``[..., :H]``, is the recurrence on the original ones."""
+    hidden = whh.shape[1]
+    extra = hp - hidden
+    xw_p = F.pad(xw.unflatten(-1, (4, hidden)), (0, extra)).flatten(-2)
+    whh_p = F.pad(whh.unflatten(-1, (4, hidden)), (0, extra, 0, 0, 0, extra)).flatten(-2)
+    return xw_p.contiguous(), whh_p.contiguous()
 
 
 def lstm_scan_reference(
@@ -75,8 +110,10 @@ def lstm_scan_reference(
     h = xw.new_zeros((d, b, hidden))
     c = xw.new_zeros((d, b, hidden))
     hs, cs = [], []
-    for t in range(t_len):
-        gates = xw[t] + torch.matmul(h, whh)
+    # one unbind, not T selects: each select's backward is a zero tensor of
+    # xw's size
+    for xw_t in xw.unbind(0):
+        gates = xw_t + torch.matmul(h, whh)
         i = torch.sigmoid(gates[..., :hidden])
         f = torch.sigmoid(gates[..., hidden:2 * hidden])
         g = torch.tanh(gates[..., 2 * hidden:3 * hidden])
@@ -97,10 +134,10 @@ def _check_cuda_inputs(xw: torch.Tensor, whh: torch.Tensor) -> None:
     hidden = g4 // 4
     if tuple(whh.shape) != (d, hidden, g4) or g4 % 4:
         raise ValueError(f"whh {tuple(whh.shape)} does not match xw {tuple(xw.shape)}")
-    if hidden % 4 or 128 % hidden or min(t, d, b) == 0:
+    if hidden not in PLAN_HIDDEN or min(t, d, b) == 0:
         raise ValueError(
-            f"the CUDA recurrence takes H a multiple of 4 dividing 128 and "
-            f"non-empty T, D, B; got xw {tuple(xw.shape)}"
+            f"the CUDA recurrence takes H in {PLAN_HIDDEN} and non-empty T, D, B; "
+            f"got xw {tuple(xw.shape)}"
         )
     for name, a in (("xw", xw), ("whh", whh)):
         if a.dtype != torch.float32 or not a.is_contiguous():
@@ -140,12 +177,17 @@ def lstm_scan_packed(
 ) -> Union[torch.Tensor, Tuple[torch.Tensor, torch.Tensor]]:
     """All ``D`` recurrences in one launch: ``h [T, D, B, H]`` (and ``c``
     when ``return_c``).  A CUDA tensor launches the kernel (float32,
-    contiguous, H a multiple of 4 that divides 128, else it raises); a CPU
-    tensor runs the plain version.  Under autograd ``h`` carries its
-    gradient through :class:`LSTMScanFunction`; ``c`` has none, so
-    ``return_c`` is refused there."""
+    contiguous, H <= 256, else it raises), zero-padded to the next H of
+    :data:`PLAN_HIDDEN` and sliced back; a CPU tensor runs the plain
+    version.  Under autograd ``h`` carries its gradient through
+    :class:`LSTMScanFunction`; ``c`` has none, so ``return_c`` is refused
+    there."""
     if xw.device.type not in ("cpu", "cuda"):
         raise ValueError(f"no LSTM recurrence for device {xw.device}")
+    hidden = xw.shape[-1] // 4
+    if xw.device.type == "cuda" and xw.dim() == 4 and hidden not in PLAN_HIDDEN:
+        out = lstm_scan_packed(*pad_hidden(xw, whh, plan_hidden(hidden)), return_c)
+        return (out[0][..., :hidden], out[1][..., :hidden]) if return_c else out[..., :hidden]
     if torch.is_grad_enabled() and (xw.requires_grad or whh.requires_grad):
         if return_c:
             raise ValueError("return_c has no gradient; call it without autograd")

@@ -27,6 +27,7 @@ import torch
 
 CKPT_NAME = "model_ckpt.pt"
 BEST_META_NAME = "best_meta.json"
+REFERENCE_CKPT_NAME = "model.ckpt"  # the reference's torch checkpoint
 
 
 def checkpoint_path(checkpoint_dir: str) -> str:
@@ -46,6 +47,19 @@ def save_checkpoint(checkpoint_dir: str, model, optimizer, scheduler=None) -> st
     torch.save(payload, tmp)
     os.replace(tmp, path)
     return path
+
+
+def refuse_reference_checkpoint(checkpoint_dir: str) -> None:
+    """Raise ``NotImplementedError`` when ``checkpoint_dir`` holds the
+    reference's ``model.ckpt`` and no checkpoint of the port's: the JAX
+    package resumes from (or evaluates) that file, the port cannot read it
+    yet, and training over it from scratch would hide that."""
+    if (os.path.exists(os.path.join(checkpoint_dir, REFERENCE_CKPT_NAME))
+            and not os.path.exists(checkpoint_path(checkpoint_dir))):
+        raise NotImplementedError(
+            f"{checkpoint_dir} holds only the reference's {REFERENCE_CKPT_NAME}; resuming "
+            "from it is not ported to the torch package yet: interop with the reference's "
+            "checkpoints is queued (ROADMAP.md §2 item 3)")
 
 
 def load_checkpoint(checkpoint_dir: str, device="cpu") -> Optional[dict]:

@@ -23,8 +23,10 @@ train steps cast their batch (``train/steps.py``), the validation steps and
 everything after training run float32.
 
 Not ported yet, each raising ``NotImplementedError`` (ROADMAP.md): a
-data-parallel mesh (``n_data_shards``) and a ``prng_impl`` other than the
-default.
+data-parallel mesh (``n_data_shards``), a ``prng_impl`` other than the
+default, and resuming from the reference's ``checkpoints/model.ckpt``
+(``fit`` raises before any step when that file is there and the port's
+own checkpoint is not).
 """
 
 from __future__ import annotations
@@ -162,6 +164,31 @@ def prefetch_to_device(
         yield queue.popleft()
 
 
+def device_indices(device: torch.device, *mats: np.ndarray) -> List[torch.Tensor]:
+    """Index matrices as int64 on ``device`` (from pinned memory on the
+    card, without blocking)."""
+    out = [torch.from_numpy(np.ascontiguousarray(m, np.int64)) for m in mats]
+    if device.type == "cuda":
+        out = [t.pin_memory().to(device, non_blocking=True) for t in out]
+    return out
+
+
+def snapshot(model, optimizer) -> Dict[str, Any]:
+    """A deep copy of the model (parameters and bank) and the optimizer."""
+    def clone(v):
+        return v.detach().clone() if isinstance(v, torch.Tensor) else v
+    return {
+        "model": {k: clone(v) for k, v in model.state_dict().items()},
+        "optimizer": {k: clone(v) for k, v in optimizer.state_dict().items()},
+    }
+
+
+def restore(model, optimizer, snap: Dict[str, Any]) -> None:
+    """Load a :func:`snapshot` back into ``model`` and ``optimizer``."""
+    model.load_state_dict(snap["model"])
+    optimizer.load_state_dict(snap["optimizer"])
+
+
 def _not_ported(what: str) -> NotImplementedError:
     return NotImplementedError(
         f"{what} is not ported to the torch package yet (see ROADMAP.md for "
@@ -253,14 +280,6 @@ class Trainer:
     def _batches(self, dataset, add_eeg: bool = False) -> Iterator[Dict[str, torch.Tensor]]:
         return prefetch_to_device(batch_iterator(dataset, add_eeg), self.device)
 
-    def _indices(self, *mats: np.ndarray) -> List[torch.Tensor]:
-        """Index matrices as int64 on the device (from pinned memory on the
-        card, without blocking)."""
-        out = [torch.from_numpy(np.ascontiguousarray(m, np.int64)) for m in mats]
-        if self.device.type == "cuda":
-            out = [t.pin_memory().to(self.device, non_blocking=True) for t in out]
-        return out
-
     def _train_batches(self, warmup: bool):
         """One training epoch: yields ``(losses, pairs)`` per item and
         appends the host clock at each train step's start to
@@ -276,7 +295,7 @@ class Trainer:
                     self.chunk_store.epoch_chunk_batches(add_eeg=cfg.addEEG_b):
                 bs = idx_m.shape[1]
                 n_scan = (n // device_data.SUBS_BUCKET) * device_data.SUBS_BUCKET
-                idx_d, subs_d, partner_d = self._indices(idx_m, subs_m, partner_m)
+                idx_d, subs_d, partner_d = device_indices(self.device, idx_m, subs_m, partner_m)
 
                 def step(i):
                     t0 = time.perf_counter()
@@ -319,19 +338,6 @@ class Trainer:
         self.train_dataset = None
         self.val_dataset = None
 
-    def _snapshot(self) -> Dict[str, Any]:
-        """A deep copy of the model (parameters and bank) and the optimizer."""
-        def clone(v):
-            return v.detach().clone() if isinstance(v, torch.Tensor) else v
-        return {
-            "model": {k: clone(v) for k, v in self.model.state_dict().items()},
-            "optimizer": {k: clone(v) for k, v in self.optimizer.state_dict().items()},
-        }
-
-    def _restore(self, snap: Dict[str, Any]) -> None:
-        self.model.load_state_dict(snap["model"])
-        self.optimizer.load_state_dict(snap["optimizer"])
-
     def _start_profile(self):
         """A running ``torch.profiler`` over the host and, on the card, the
         device."""
@@ -371,6 +377,9 @@ class Trainer:
 
     def fit(self) -> Dict[str, Any]:
         cfg = self.cfg
+        # the JAX trainer resumes from the reference's model.ckpt; the port
+        # cannot read it yet, so it refuses before any step
+        ckpt_lib.refuse_reference_checkpoint(self.checkpoint_dir)
         # auto-resume (ref train_clip_final.py:443-449)
         restored = ckpt_lib.restore_checkpoint(self.checkpoint_dir, self.model,
                                                self.optimizer, self.scheduler)
@@ -389,7 +398,7 @@ class Trainer:
             if meta is not None:
                 best_loss = meta
         best_epoch = 0
-        best_state = self._snapshot()
+        best_state = snapshot(self.model, self.optimizer)
         history: List[Dict[str, Any]] = []
         self.history = history  # per epoch, filled as the epochs run
         # without a validation set there is no best to track: keep the final
@@ -399,7 +408,7 @@ class Trainer:
         for epoch in range(cfg.epochs):
             # early stopping (ref :463-468)
             if track_best and epoch > best_epoch + cfg.patience and epoch > cfg.warmup_epochs:
-                self._restore(best_state)
+                restore(self.model, self.optimizer, best_state)
                 printf(f"early stopping at epoch {epoch}", self.loss_file)
                 break
 
@@ -504,10 +513,10 @@ class Trainer:
                 ckpt_lib.save_checkpoint(self.checkpoint_dir, self.model, self.optimizer,
                                          self.scheduler)
                 best_epoch = epoch
-                best_state = self._snapshot()
+                best_state = snapshot(self.model, self.optimizer)
         else:
             if track_best:
-                self._restore(best_state)
+                restore(self.model, self.optimizer, best_state)
             else:
                 ckpt_lib.save_checkpoint(self.checkpoint_dir, self.model, self.optimizer,
                                          self.scheduler)
@@ -538,7 +547,7 @@ class Trainer:
             # path's order
             for eeg_c, sp_c, ids_c, idx_m, subs_m, _partner, n in \
                     self.val_chunk_store.epoch_chunk_batches():
-                idx_d, subs_d = self._indices(idx_m, subs_m)
+                idx_d, subs_d = device_indices(self.device, idx_m, subs_m)
                 for i in range(n):
                     add(chunk_eval_step(self.model, eeg_c, sp_c, ids_c, idx_d[i], subs_d[i],
                                         arch))
