@@ -1,5 +1,5 @@
-"""Drive the PyTorch/CUDA port's serving and training paths on one NVIDIA
-GPU, end to end.
+"""Drive the PyTorch/CUDA port's serving, training, checkpoint-interop and
+feature-extraction paths on one NVIDIA GPU, end to end.
 
     python3 chip_smoke.py
 
@@ -164,11 +164,42 @@ GPU, end to end.
     (its summary, its launches); one fold-parallel chunk (3 rows x 5 folds)
     under ``torch.profiler``; host RSS before and after each heap trim; the
     phase's seconds.
-17. Prints one JSON line of per-kernel numbers (``launches_by_path`` with
+17. The reference's ``model.ckpt`` (``reference_ckpt_path``, right after
+    the default run, on its results): the ``torch_export`` CLI in a
+    subprocess writes the run's checkpoint as ``model.ckpt`` in the layout
+    of the flagship's ``reference_layout`` (a template file), imported back
+    bit for bit; ``--only_evaluate yes`` on a directory holding only
+    ``args.txt`` and that ``model.ckpt``, and on one holding the port's own
+    checkpoint, each in a fresh process on deterministic algorithms: the 8
+    JSON files equal number for number, the suite's exact launches;
+    ``cli.main --epochs 1 --skip_eval yes`` into a directory holding only
+    ``model.ckpt``: ``loaded model from``, the model before its first step
+    equal to the export bit for bit, training's exact launches; Z1-Z6 at
+    full width exported and imported on the card bit for bit.
+18. wav2vec2 extraction at XLSR-53 width (``wav2vec_path``): random weights
+    from seed 0 written as an HF checkpoint directory (``pytorch_model.bin``
+    with the ``wav2vec2.`` prefix and the positional conv's weight norm as
+    ``weight_g``/``weight_v``) and two synthetic stories at 48 kHz (60 s,
+    and 24.5 s whose remainder after whole 8 s segments takes the
+    reference's duplicated tail); the extraction CLI in a subprocess writes
+    ``[round(frames * 64 / 50), 1024]`` layer-19 features (frames from the
+    chunk arithmetic), finite, and a second run skips both stories; a slab
+    of 16 chunks of 10 s timed by CUDA events in f32 and bf16, profiled
+    once, its peak memory and bound; a 60 s story through the extractor;
+    two chunks card against CPU in f32 (``W2V_TOL``, beside the CPU's own
+    f32-against-f64 spread); bf16 against f32 at JAX's limit; no kernel of
+    the port launched.
+19. The baselines (``baselines_phase``): ``FCNN``, ``CNN`` and
+    ``ClassificationHead`` at their JAX default widths, batch 128, one
+    forward and backward in training mode with dropout off, card against
+    CPU within ``STEP_TOL``.
+20. Prints one JSON line of per-kernel numbers (``launches_by_path`` with
     ``train_augmented``, ``serve_cli``, ``server_cli``, ``train_bf16``,
-    ``cv_parallel``, ``cv_sequential`` and the ``K1`` runs; the bf16
-    instantiations of #1 and #2 as entries of their own), then, last, the
-    ``{"ok": true, "device": ...}`` line.
+    ``cv_parallel``, ``cv_sequential``, the ``K1`` runs,
+    ``reference_only_evaluate``, ``reference_resume``,
+    ``wav2vec_extraction`` and ``baselines``; the bf16 instantiations of #1
+    and #2 as entries of their own), then, last, the ``{"ok": true,
+    "device": ...}`` line.
 
 Any failure raises and exits non-zero.  Imports nothing of JAX.
 """
@@ -176,6 +207,7 @@ Any failure raises and exits non-zero.  Imports nothing of JAX.
 from __future__ import annotations
 
 import contextlib
+import gzip
 import io
 import json
 import os
@@ -259,6 +291,7 @@ from transformer_clip_eeg_tpu_torch.server import (  # noqa: E402
     EmbeddingService,
     make_server,
 )
+from transformer_clip_eeg_tpu_torch.train import checkpoint as ckpt_lib  # noqa: E402
 from transformer_clip_eeg_tpu_torch.train.config import TrainConfig  # noqa: E402
 from transformer_clip_eeg_tpu_torch.train.device_data import (  # noqa: E402
     DeviceChunkStore,
@@ -276,6 +309,7 @@ from transformer_clip_eeg_tpu_torch.train.steps import (  # noqa: E402
     chunk_train_step,
     train_step,
 )
+from transformer_clip_eeg_tpu_torch.utils import torch_export, torch_import  # noqa: E402
 
 # H100 SXM published peaks (dense): f32 outside the tensor cores, HBM3
 PEAK_F32_FLOPS = 67e12
@@ -2340,7 +2374,10 @@ def server_cli_path(results_dir: str, serve: dict) -> dict:
     reader.start()
     try:
         if not got_url.wait(SERVER_WAIT_S):
-            raise AssertionError(f"the server printed no URL in {SERVER_WAIT_S} s: {lines}")
+            proc.kill()
+            raise AssertionError(f"the server printed no URL in {SERVER_WAIT_S} s: {lines}; "
+                                 f"exit code {proc.wait(timeout=60)}, standard error "
+                                 f"{proc.stderr.read()[-3000:]}")
         url = next(ln for ln in lines if ln.startswith("serving ")).rsplit(" on ", 1)[1].strip()
         t_url = time.perf_counter() - t_start
         health = _get_json(f"{url}/healthz")
@@ -3313,6 +3350,487 @@ def fold_differences(a: dict, ja: int, b: dict, jb: int) -> dict:
     return {"max_loss_diff": loss, "max_param_diff": param, "epochs": len(a["history"])}
 
 
+# --- the reference's model.ckpt (slice 12) -----------------------------------
+
+# ``cli.main --only_evaluate yes`` in a process of its own, on cuDNN's and
+# torch's deterministic algorithms (two suites held to each other number for
+# number: within one process a later run can land on other algorithms of a
+# library), counting the kernels' launches and the encoders' calls of the
+# evaluation suite; its last line is that JSON
+_ONLY_EVALUATE_RUN = """
+import json, sys, torch
+torch.backends.cuda.matmul.allow_tf32 = False
+torch.backends.cudnn.allow_tf32 = False
+torch.backends.cudnn.deterministic = True
+torch.use_deterministic_algorithms(True, warn_only=True)
+from transformer_clip_eeg_tpu_torch import cli
+from transformer_clip_eeg_tpu_torch.ops.fused_block import fused_block_backward, fused_transformer_block
+from transformer_clip_eeg_tpu_torch.ops.fused_conv import conv1d_same, fused_basic_block, fused_conv_backward
+from transformer_clip_eeg_tpu_torch.ops.lstm_scan import lstm_scan_backward, lstm_scan_packed
+counters = (fused_transformer_block, fused_block_backward, lstm_scan_packed, lstm_scan_backward,
+            fused_basic_block, fused_conv_backward, conv1d_same)
+calls = {"eeg": 0, "speech": 0}
+suite = cli.run_eval_suite
+def counted(model, *a, **k):
+    for m, n in (("eegModel", "eeg"), ("speechModel", "speech")):
+        getattr(model, m).register_forward_pre_hook(
+            lambda *_, n=n: calls.__setitem__(n, calls[n] + 1))
+    return suite(model, *a, **k)
+cli.run_eval_suite = counted
+rc = cli.main(["--only_evaluate", "yes", "--results_folder", sys.argv[1]])
+torch.cuda.synchronize()
+print(json.dumps({"rc": rc, "launches": {f.__name__: f.launches for f in counters},
+                  "launches_bf16": {f.__name__: f.launches_bf16 for f in counters[:2]},
+                  "encoder_calls": calls}))
+"""
+
+
+def only_evaluate_run(results_dir: str) -> dict:
+    """``_ONLY_EVALUATE_RUN`` on ``results_dir``: its printed record, the
+    wall time, and the 8 JSON files it wrote."""
+    env = dict(os.environ, CUBLAS_WORKSPACE_CONFIG=":4096:8")
+    t0 = time.perf_counter()
+    proc = subprocess.run([sys.executable, "-c", _ONLY_EVALUATE_RUN, results_dir],
+                          cwd=os.path.dirname(os.path.abspath(__file__)), capture_output=True,
+                          text=True, timeout=600, env=env)
+    wall = time.perf_counter() - t0
+    if proc.returncode != 0:
+        raise AssertionError(f"--only_evaluate on {results_dir} exited {proc.returncode}: "
+                             f"{proc.stderr[-3000:]}")
+    record = json.loads(proc.stdout.strip().splitlines()[-1])
+    if record["rc"] != 0 or "loaded model from" not in proc.stdout:
+        raise AssertionError(f"--only_evaluate on {results_dir}: {proc.stdout[-2000:]}")
+    check_eval_files(results_dir)
+    files = {}
+    for name in EVAL_JSONS:
+        with open(os.path.join(results_dir, name)) as f:
+            files[name] = json.load(f)
+    return {**record, "wall_s": wall, "files": files}
+
+
+def state_on_cpu(model) -> dict:
+    return {k: v.detach().cpu().clone() for k, v in model.state_dict().items()}
+
+
+def equal_states(got: dict, want: dict, what: str) -> None:
+    if got.keys() != want.keys():
+        raise AssertionError(f"{what}: keys differ {sorted(set(got) ^ set(want))[:10]}")
+    bad = [k for k in want if not (got[k].dtype == want[k].dtype
+                                    and torch.equal(got[k].cpu(), want[k].cpu()))]
+    if bad:
+        raise AssertionError(f"{what}: {len(bad)} leaves differ, e.g. {bad[:5]}")
+
+
+def reference_ckpt_path(results_dir: str, data_dir: str) -> dict:
+    """The reference's ``checkpoints/model.ckpt`` on the card (F4 closed),
+    from the default run's results: (1) the flagship's ``reference_layout``
+    written as a template, the ``torch_export`` CLI in a subprocess writes
+    ``model.ckpt`` from the run's checkpoint, imported back every leaf equal
+    bit for bit; (2) a results directory holding only ``args.txt`` and
+    ``model.ckpt`` and another holding ``args.txt`` and the port's own
+    checkpoint, each ``--only_evaluate yes`` in a fresh process on
+    deterministic algorithms: the 8 JSON files equal, number for number, and
+    the suite's exact launches; (3) ``cli.main --epochs 1 --skip_eval yes``
+    into a directory holding only ``model.ckpt``: ``loaded model from``, the
+    parameters, bank and batch-norm statistics before the first step equal
+    the exported ones bit for bit, training's exact launches; (4) Z1-Z6 at
+    full width: export, then import on the card, bit for bit."""
+    t_start = time.perf_counter()
+    work = os.path.join(RUN_DIR, "reference_ckpt")
+    os.makedirs(work)
+    cfg = TrainConfig.load(os.path.join(results_dir, "args.txt"))
+    saved = ckpt_lib.load_checkpoint(os.path.join(results_dir, "checkpoints"))["model"]
+    model = build_model(cfg, cfg.bank_size, device="cuda", seed=cfg.seed)
+    model.load_state_dict(saved)
+    template = os.path.join(work, "template.ckpt")
+    torch.save(torch_export.reference_layout(
+        build_model(cfg, cfg.bank_size, device="cpu", seed=cfg.seed + 1)), template)
+
+    # 1. export through the CLI, import back
+    ref_dir, own_dir = os.path.join(work, "reference_run"), os.path.join(work, "own_run")
+    for d in (ref_dir, own_dir):
+        os.makedirs(os.path.join(d, "checkpoints"))
+        shutil.copy(os.path.join(results_dir, "args.txt"), d)
+    shutil.copy(ckpt_lib.checkpoint_path(os.path.join(results_dir, "checkpoints")),
+                os.path.join(own_dir, "checkpoints"))
+    ref_ckpt = os.path.join(ref_dir, "checkpoints", ckpt_lib.REFERENCE_CKPT_NAME)
+    proc = subprocess.run(
+        [sys.executable, "-m", "transformer_clip_eeg_tpu_torch.utils.torch_export", "--run",
+         results_dir, "--template", template, "--out", ref_ckpt],
+        cwd=os.path.dirname(os.path.abspath(__file__)), capture_output=True, text=True,
+        timeout=300)
+    if proc.returncode != 0 or f"wrote {ref_ckpt}" not in proc.stdout:
+        raise AssertionError(f"torch_export exited {proc.returncode}: {proc.stdout[-1000:]} "
+                             f"{proc.stderr[-2000:]}")
+    exported = torch.load(ref_ckpt, map_location="cpu", weights_only=True)
+    merged, report = torch_import.load_torch_state_dict(exported, model)
+    if report:
+        raise AssertionError(f"importing the exported model.ckpt reported {report}")
+    equal_states(merged, saved, "the exported model.ckpt imported back")
+    log(f"torch_export CLI: {len(exported)} reference keys ({os.path.getsize(ref_ckpt) / 1e6:.1f} "
+        f"MB), imported back: every one of {len(saved)} leaves equal bit for bit")
+
+    # 2. --only_evaluate on the reference directory and on the port's
+    own, ref = only_evaluate_run(own_dir), only_evaluate_run(ref_dir)
+    differ = [n for n in EVAL_JSONS if own["files"][n] != ref["files"][n]]
+    if differ:
+        raise AssertionError(f"--only_evaluate from model.ckpt differs from the run's own "
+                             f"checkpoint in {differ}")
+    calls = ref["encoder_calls"]
+    want_eval = dict.fromkeys(counts(), 0)
+    want_eval.update(fused_transformer_block=10 * calls["eeg"],
+                     lstm_scan_packed=2 * calls["speech"])
+    for name, run in (("own", own), ("reference", ref)):
+        if run["launches"] != want_eval or run["encoder_calls"] != calls \
+                or not (calls["eeg"] and calls["speech"]):
+            raise AssertionError(f"--only_evaluate ({name}): launches {run['launches']}, "
+                                 f"encoder calls {run['encoder_calls']}, want {want_eval}")
+    n_numbers = sum(len(_numbers(f)) for f in ref["files"].values())
+    log(f"--only_evaluate yes, fresh processes on deterministic algorithms: from model.ckpt "
+        f"{ref['wall_s']:.1f} s, from the port's checkpoint {own['wall_s']:.1f} s; the 8 files "
+        f"equal ({n_numbers} numbers); launches {ref['launches']} for {calls} encoder calls")
+
+    # 3. resume from model.ckpt alone, in the run directory cli.main names
+    # (its timestamp fixed for the call)
+    resume_root = os.path.join(work, "resume")
+    resume_dir = os.path.join(resume_root, cfg.results_dir_name("resume"))
+    os.makedirs(os.path.join(resume_dir, "checkpoints"))
+    shutil.copy(ref_ckpt, os.path.join(resume_dir, "checkpoints"))
+    before = {}
+    real, strftime = ckpt_lib.restore_torch_checkpoint, time.strftime
+
+    def restore(checkpoint_dir, m):
+        out = real(checkpoint_dir, m)
+        before["state"] = state_on_cpu(m)
+        return out
+
+    ckpt_lib.restore_torch_checkpoint = restore
+    time.strftime = lambda *a: "resume"
+    out = io.StringIO()
+    try:
+        with instrumented() as seen, contextlib.redirect_stdout(out):
+            zero_counts()
+            rc = cli.main(["--data_dir", data_dir, "--epochs", "1", "--skip_eval", "yes",
+                           "--results_folder", resume_root], device="cuda")
+            torch.cuda.synchronize()
+            resume_launches, resume_bf16 = counts(), bf16_counts()
+    finally:
+        ckpt_lib.restore_torch_checkpoint, time.strftime = real, strftime
+    trainer = seen["trainers"][-1]
+    if rc != 0 or "loaded model from" not in out.getvalue() or trainer.results_dir != resume_dir:
+        raise AssertionError(f"resume from model.ckpt: rc {rc}, {trainer.results_dir}, "
+                             f"{out.getvalue()[-1500:]}")
+    equal_states(before["state"], saved, "the model before the first resumed step")
+    n_train, n_val = steps_per_epoch(trainer)
+    want_resume = step_launches((10, 10, 2, 2), n_train, n_val)
+    if resume_launches != want_resume:
+        raise AssertionError(f"resumed training launched {resume_launches}, want {want_resume}")
+    if not os.path.exists(ckpt_lib.checkpoint_path(trainer.checkpoint_dir)):
+        raise AssertionError("the resumed run wrote no checkpoint of its own")
+    val = trainer.history[0]["val_loss_ce"]
+    trainer.release_host_data()  # --skip_eval left its chunk stores on the card
+    log(f"resume from model.ckpt alone: 'loaded model from', the {len(saved)} leaves before "
+        f"the first step equal the exported ones bit for bit; 1 epoch ({n_train} + {n_val} "
+        f"steps) val loss_ce {val:.4f}; launches {resume_launches}")
+
+    # 4. the zoo: export, then import on the card
+    zoo = {}
+    for z, flags in ZOO.items():
+        zcfg = TrainConfig(**flags)
+        m = build_model(zcfg, BANK_SIZE, device="cuda", seed=3)
+        layout = torch_export.reference_layout(m)
+        sd, kept = torch_export.export_state_dict(m, layout)
+        merged, report = torch_import.load_torch_state_dict(
+            {k: torch.from_numpy(np.array(v)) for k, v in sd.items()}, m)
+        fresh = build_model(zcfg, BANK_SIZE, device="cuda", seed=4)
+        fresh.load_state_dict(merged)
+        if report:
+            raise AssertionError(f"{z}: the import reported {report}")
+        equal_states(state_on_cpu(fresh), state_on_cpu(m), f"{z} exported and imported")
+        zoo[z] = {"reference_keys": len(layout), "leaves": len(merged), "kept": len(kept)}
+    log(f"Z1-Z6 exported and imported on the card, bit for bit: {json.dumps(zoo)}")
+    del model, m, fresh, trainer
+    torch.cuda.empty_cache()
+    seconds = time.perf_counter() - t_start
+    log(f"reference_ckpt_path in {seconds:.1f} s")
+    return {"exported_keys": len(exported), "leaves": len(saved), "eval_numbers": n_numbers,
+            "only_evaluate_s": {"reference": ref["wall_s"], "own": own["wall_s"]},
+            "encoder_calls": calls, "resume_val_loss_ce": val, "zoo": zoo, "seconds": seconds,
+            "launches": {"reference_only_evaluate": ref["launches"],
+                         "reference_resume": resume_launches},
+            "launches_bf16": {"reference_only_evaluate": ref["launches_bf16"],
+                              "reference_resume": resume_bf16}}
+
+
+# --- wav2vec2 extraction at XLSR-53 width (slice 12) --------------------------
+
+W2V_LAYER = 19          # the reference's tap (ref create_wav2vec.py:109)
+W2V_SLAB = 16           # --max_chunk_batch's default
+W2V_CHUNK = 10 * 16000  # segment 8 s + overlap 2 s at 16 kHz
+W2V_STORIES = {"audiobook_1": 60.0, "audiobook_2": 24.5}  # 24.5 mod 8 = 0.5 s: the tail quirk
+W2V_FS = 48000          # the stimuli's rate: the resampler runs
+# card vs CPU on the same weights, float32 (TF32 off), 2 chunks to layer 19,
+# as a fraction of max |CPU|.  Measured on an H100 80GB HBM3 (700 W): card
+# vs CPU 2.01e-6, the CPU's float32 against its float64 6.79e-7, the card's
+# 1.98e-6; the limit is 15x the CPU's spread, 5x the card's (PERF.md §2)
+W2V_TOL = 1e-5
+W2V_BF16_LIMIT = 0.05   # mean |bf16 - f32| / mean |f32|, JAX tests/test_wav2vec_extraction.py:245
+
+
+def wav2vec_flops(cfg, n_samples: int, tap: int) -> float:
+    """Operations of one chunk to ``tap``: the conv stack, the feature
+    projection, the positional conv and ``tap`` layers (4 d x d products,
+    the FFN, q kᵀ and the attention-weighted sum)."""
+    flops, t, c_in = 0.0, n_samples, 1
+    for c, k, s in zip(cfg.conv_dim, cfg.conv_kernel, cfg.conv_stride):
+        t = (t - k) // s + 1
+        flops += 2.0 * c * c_in * k * t
+        c_in = c
+    d, f = cfg.hidden_size, cfg.intermediate_size
+    flops += 2.0 * c_in * d * t
+    flops += 2.0 * d * (d // cfg.num_conv_pos_embedding_groups) * cfg.num_conv_pos_embeddings * t
+    flops += tap * (2.0 * 4 * d * d * t + 2.0 * 2 * d * f * t + 2.0 * 2 * t * t * d)
+    return flops
+
+
+def expected_frames(cfg, n_samples: int, overlap: int = 2, segment: int = 8,
+                    sr: int = 16000, fps: int = 50) -> int:
+    """The extraction's rows before the 50 → 64 Hz resample, from the chunk
+    arithmetic alone: full chunks keep frames - 2 strip + 1, each tail chunk
+    frames - strip, and the loop has no break."""
+    def frames(t):
+        for k, s in zip(cfg.conv_kernel, cfg.conv_stride):
+            t = (t - k) // s + 1
+        return t
+
+    half, seg = overlap // 2, segment * sr
+    padded = n_samples + half * sr
+    strip, rows, tail = half * fps, 0, False
+    for i in range(n_samples // seg + 1):
+        start = i * seg
+        if not tail and start + seg + overlap * sr < padded:
+            rows += frames(seg + overlap * sr) - 2 * strip + 1
+        else:
+            tail = True
+            if padded > start:
+                rows += max(0, frames(padded - start) - strip)
+    return rows
+
+
+def wav2vec_path() -> dict:
+    """The extraction at XLSR-53 width (``Wav2Vec2Config()``: 315 M
+    parameters), random weights from seed 0, written as an HF checkpoint
+    directory (``config.json``, ``pytorch_model.bin`` with the ``wav2vec2.``
+    prefix, the positional conv as ``weight_g``/``weight_v``, an
+    ``lm_head``), and two synthetic stories at 48 kHz: the CLI in a
+    subprocess writes ``{story}_-_wav2vec_19.npy`` of ``[round(frames * 64 /
+    50), 1024]``, finite, frames from the chunk arithmetic; a second run
+    skips both stories.  Then, in this process (TF32 off): one slab of 16
+    chunks of 10 s timed by CUDA events, under the profiler once, its peak
+    memory and bound; one 60 s story through the extractor, host clock; two
+    chunks card against CPU float32 (and the CPU's float32 against its
+    float64, the spread the limit rests on); the bf16 forward against f32 at
+    JAX's limit."""
+    from transformer_clip_eeg_tpu_torch.models.wav2vec2 import (
+        Wav2Vec2Config,
+        Wav2Vec2Model,
+        load_wav2vec2,
+    )
+    from transformer_clip_eeg_tpu_torch.preprocess.wav2vec import Wav2Vec2FeatureExtractor
+
+    t_start = time.perf_counter()
+    root = os.path.join(RUN_DIR, "wav2vec")
+    model_dir, stim = os.path.join(root, "xlsr53_random"), os.path.join(root, "stimuli", "eeg")
+    os.makedirs(model_dir)
+    os.makedirs(stim)
+    cfg = Wav2Vec2Config()
+    gen = torch.Generator().manual_seed(0)
+    src = Wav2Vec2Model(cfg)
+    src.init_random(gen)
+    sd = {f"wav2vec2.{k}": v for k, v in src.state_dict().items()}
+    v = sd.pop("wav2vec2.encoder.pos_conv_embed.conv.weight")
+    sd["wav2vec2.encoder.pos_conv_embed.conv.weight_v"] = v
+    sd["wav2vec2.encoder.pos_conv_embed.conv.weight_g"] = torch.rand(
+        1, 1, v.shape[2], generator=gen) + 0.5
+    sd["lm_head.weight"] = torch.randn(32, cfg.hidden_size, generator=gen) * 0.02
+    sd["lm_head.bias"] = torch.zeros(32)
+    n_params = sum(t.numel() for k, t in src.state_dict().items())
+    del src
+    torch.save(sd, os.path.join(model_dir, "pytorch_model.bin"))
+    with open(os.path.join(model_dir, "config.json"), "w") as f:
+        json.dump(cfg.to_hf_dict(), f)
+    bin_gb = os.path.getsize(os.path.join(model_dir, "pytorch_model.bin")) / 1e9
+    del sd
+    rng = np.random.default_rng(0)
+    for story, seconds in W2V_STORIES.items():
+        raw = os.path.join(root, f"{story}.npz")
+        n = int(seconds * W2V_FS)
+        t = np.arange(n) / W2V_FS
+        audio = (0.1 * rng.standard_normal(n) + 0.3 * np.sin(2 * np.pi * 220 * t)).astype(
+            np.float32)
+        np.savez(raw, audio=audio, fs=W2V_FS)
+        with open(raw, "rb") as f_in, gzip.open(os.path.join(stim, f"{story}.npz.gz"),
+                                                "wb") as f_out:
+            shutil.copyfileobj(f_in, f_out)
+    log(f"wav2vec: XLSR-53 width, {n_params / 1e6:.1f} M parameters, pytorch_model.bin "
+        f"{bin_gb:.2f} GB; stories {W2V_STORIES} s at {W2V_FS} Hz; written in "
+        f"{time.perf_counter() - t_start:.1f} s")
+
+    # the CLI, twice
+    argv = [sys.executable, "-m", "transformer_clip_eeg_tpu_torch.preprocess.wav2vec",
+            "--dataset_root", root, "--model_path", model_dir, "--layers", str(W2V_LAYER)]
+    runs = []
+    for _ in range(2):
+        t0 = time.perf_counter()
+        proc = subprocess.run(argv, cwd=os.path.dirname(os.path.abspath(__file__)),
+                              capture_output=True, text=True, timeout=600)
+        runs.append({"wall_s": time.perf_counter() - t0, "stdout": proc.stdout})
+        if proc.returncode != 0:
+            raise AssertionError(f"the extraction CLI exited {proc.returncode}: "
+                                 f"{proc.stderr[-3000:]}")
+    save_dir = os.path.join(root, "derivatives", "preprocessed_stimuli")
+    shapes = {}
+    for story, seconds in W2V_STORIES.items():
+        path = os.path.join(save_dir, f"{story}_-_wav2vec_{W2V_LAYER}.npy")
+        feats = np.load(path)
+        frames = expected_frames(cfg, int(round(seconds * W2V_FS / 3)))
+        want = (round(frames * 64 / 50), cfg.hidden_size)
+        if feats.shape != want or not np.isfinite(feats).all():
+            raise AssertionError(f"{path}: {feats.shape}, want {want}, finite")
+        shapes[story] = list(feats.shape)
+    if runs[0]["stdout"].count("Saved to") != 2 or "Saved to" in runs[1]["stdout"]:
+        raise AssertionError(f"the CLI's runs: {runs[0]['stdout'][-800:]} / "
+                             f"{runs[1]['stdout'][-800:]}")
+    log(f"extraction CLI: {shapes} at 64 Hz, finite; {runs[0]['wall_s']:.1f} s (model load "
+        f"included), the second run skipped both stories in {runs[1]['wall_s']:.1f} s")
+
+    # timing, card against CPU, bf16
+    zero_counts()
+    model = load_wav2vec2(model_dir, device="cuda")
+    slab = torch.from_numpy(rng.standard_normal((W2V_SLAB, W2V_CHUNK)).astype(np.float32) * 0.1
+                            ).cuda()
+    taps = (W2V_LAYER,)
+    with torch.no_grad():
+        torch.cuda.reset_peak_memory_stats()
+        slab_ms = time_ms(lambda: model.hidden_states(slab, taps), reps=5, warmup=1)
+        peak = torch.cuda.max_memory_allocated()
+        profile = profile_calls(lambda: model.hidden_states(slab, taps), reps=1)
+        model.dtype = torch.bfloat16
+        slab_bf16_ms = time_ms(lambda: model.hidden_states(slab, taps), reps=5, warmup=1)
+        model.dtype = torch.float32
+    flops = wav2vec_flops(cfg, W2V_CHUNK, W2V_LAYER) * W2V_SLAB
+    weight_bytes = 4 * sum(p.numel() for n, p in model.named_parameters()
+                           if not n.startswith("encoder.layers.") or
+                           int(n.split(".")[2]) < W2V_LAYER)
+    slab_bound_ms, slab_bound_by = bound(flops, weight_bytes + slab.numel() * 4
+                                         + W2V_SLAB * 499 * cfg.hidden_size * 4)
+    s_per_min_slab = slab_ms / 1e3 / (W2V_SLAB * 8) * 60
+    story_audio = rng.standard_normal(int(60 * 16000)).astype(np.float32) * 0.1
+    extractor = Wav2Vec2FeatureExtractor(model, [W2V_LAYER])
+    extractor.get_hidden_output(story_audio[:16000 * 12])  # warm
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    extractor.get_hidden_output(story_audio)
+    torch.cuda.synchronize()
+    story_s = time.perf_counter() - t0
+    log(f"wav2vec slab of {W2V_SLAB} x 10 s chunks to layer {W2V_LAYER}: {slab_ms:.2f} ms f32 "
+        f"({slab_ms / W2V_SLAB:.3f} ms a chunk; bound {slab_bound_ms:.2f} ms by {slab_bound_by}, "
+        f"{flops / 1e12:.3f} TFLOP: {flops / slab_ms / 1e9:.1f} TFLOP/s), {slab_bf16_ms:.2f} ms "
+        f"bf16; {s_per_min_slab:.4f} s per audio minute from the slab; a 60 s story through "
+        f"the extractor {story_s:.3f} s host clock; peak memory {peak / 2**30:.2f} GiB; "
+        f"profile {json.dumps({k: v for k, v in profile.items() if k != 'top_ops'})}")
+
+    pair = slab[:2]
+    with torch.no_grad():
+        card = model.hidden_states(pair, taps)[W2V_LAYER].cpu()
+        model.dtype = torch.bfloat16
+        card_bf16 = model.hidden_states(pair, taps)[W2V_LAYER].cpu()
+        model.dtype = torch.float32
+    del model, slab
+    torch.cuda.empty_cache()
+    cpu_model = load_wav2vec2(model_dir, device="cpu")
+    pair = pair.cpu()
+    with torch.no_grad():
+        cpu32 = cpu_model.hidden_states(pair, taps)[W2V_LAYER]
+        cpu_model.double()
+        cpu_model.dtype = torch.float64
+        cpu64 = cpu_model.hidden_states(pair.double(), taps)[W2V_LAYER]
+    del cpu_model
+    scale = float(cpu32.abs().max())
+    err = float((card - cpu32).abs().max()) / scale
+    spread = float((cpu32.double() - cpu64).abs().max()) / float(cpu64.abs().max())
+    card64 = float((card.double() - cpu64).abs().max()) / float(cpu64.abs().max())
+    bf16_err = float((card_bf16 - card).abs().mean() / card.abs().mean())
+    launched, launched_bf16 = counts(), bf16_counts()
+    log(f"wav2vec card vs CPU, 2 chunks at layer {W2V_LAYER}, float32: {err:.3e} of max |CPU| "
+        f"(limit {W2V_TOL:g}); the CPU's float32 against its float64 {spread:.3e}, the card's "
+        f"{card64:.3e}; bf16 against f32 mean |d| {bf16_err:.4f} of mean |f32| (limit "
+        f"{W2V_BF16_LIMIT}); kernels of the port launched {launched}")
+    if not err <= W2V_TOL:
+        raise AssertionError("the card's wav2vec2 forward disagrees with the CPU's")
+    if not 0 < bf16_err < W2V_BF16_LIMIT:
+        raise AssertionError("the bf16 forward is past JAX's limit")
+    if any(launched.values()) or any(launched_bf16.values()):
+        raise AssertionError(f"the extraction launched kernels of the port: {launched}")
+    seconds = time.perf_counter() - t_start
+    log(f"wav2vec_path in {seconds:.1f} s")
+    return {"params_M": n_params / 1e6, "shapes": shapes, "cli_wall_s": [r["wall_s"] for r in runs],
+            "slab_ms": slab_ms, "slab_bf16_ms": slab_bf16_ms, "chunk_ms": slab_ms / W2V_SLAB,
+            "slab_bound_ms": slab_bound_ms, "slab_bound_by": slab_bound_by,
+            "slab_tflop": flops / 1e12, "s_per_audio_minute_slab": s_per_min_slab,
+            "story_60s_s": story_s, "peak_gib": peak / 2**30,
+            "profile_slab": {k: v for k, v in profile.items() if k != "top_ops"},
+            "top_ops": profile["top_ops"][:5], "card_vs_cpu": err, "cpu_f32_vs_f64": spread,
+            "card_vs_f64": card64, "bf16_vs_f32": bf16_err, "seconds": seconds,
+            "launches": launched, "launches_bf16": launched_bf16}
+
+
+# --- the baselines (slice 12) ---------------------------------------------------
+
+def baselines_phase() -> dict:
+    """``FCNN``, ``CNN`` and ``ClassificationHead`` at their JAX default
+    widths, batch 128, random weights from seed 0, training mode (batch
+    norms on batch statistics) with dropout off: one forward and backward on
+    the card against the CPU, the output and every gradient within
+    ``STEP_TOL`` of max(1, the largest), the running statistics likewise."""
+    from transformer_clip_eeg_tpu_torch.models import baselines
+    from transformer_clip_eeg_tpu_torch.ops.layers import Dropout, init_parameters
+
+    rng = np.random.default_rng(12)
+    cases = {"FCNN": (baselines.FCNN, (128, 50, 63)), "CNN": (baselines.CNN, (128, 63, 50)),
+             "ClassificationHead": (baselines.ClassificationHead, (128, 40, 61))}
+    zero_counts()
+    out = {}
+    for name, (cls, shape) in cases.items():
+        x = rng.standard_normal(shape).astype(np.float32)
+        runs = {}
+        for dev in ("cuda", "cpu"):
+            m = cls()
+            init_parameters(m, torch.Generator().manual_seed(0))
+            for mod in m.modules():
+                if isinstance(mod, Dropout):
+                    mod.rate = 0.0
+            m = m.to(dev).train()
+            y = m(torch.from_numpy(x).to(dev))
+            y = y[1] if isinstance(y, tuple) else y
+            torch.sin(y).sum().backward()
+            runs[dev] = (y.detach().cpu(), {n: p.grad.cpu() for n, p in m.named_parameters()},
+                         {n: b.cpu() for n, b in m.named_buffers()})
+        (yg, gg, bg), (yc, gc, bc) = runs["cuda"], runs["cpu"]
+        scale = max(1.0, max(float(g.abs().max()) for g in gc.values()))
+        errs = {"out": float((yg - yc).abs().max()) / max(1.0, float(yc.abs().max())),
+                "grad": max(float((gg[n] - gc[n]).abs().max()) for n in gc) / scale,
+                "buffers": max((float((bg[n] - bc[n]).abs().max()) for n in bc), default=0.0)}
+        out[name] = errs
+        if not max(errs.values()) <= STEP_TOL:
+            raise AssertionError(f"{name}: card vs CPU {errs}")
+    launched, launched_bf16 = counts(), bf16_counts()
+    if any(launched.values()) or any(launched_bf16.values()):
+        raise AssertionError(f"the baselines launched kernels of the port: {launched}")
+    log(f"baselines, batch 128, one forward and backward card vs CPU: {json.dumps(out)}")
+    return {"errors": out, "launches": launched, "launches_bf16": launched_bf16}
+
+
 def main() -> int:
     t_start = time.perf_counter()
     smi = subprocess.run(
@@ -3351,6 +3869,7 @@ def main() -> int:
     data_dir = write_fixture()
     try:
         train, cfg, host_batch = train_path(data_dir)
+        reference = reference_ckpt_path(train["results_dir"], data_dir)
         bf16_train = bf16_train_path(data_dir, cfg, host_batch,
                                      train["step_ms_median_epoch2"]["device"])
         augmented = augmented_train_path(data_dir, cfg, host_batch,
@@ -3360,10 +3879,12 @@ def main() -> int:
         zoo = zoo_path(data_dir)
         k1 = k1_path(data_dir)
         cv_run = cv_path(data_dir)
+        wav2vec = wav2vec_path()
     finally:
         shutil.rmtree(RUN_DIR, ignore_errors=True)
     fused = fused_path(cfg, host_batch)
     long_window = long_window_path()
+    baselines = baselines_phase()
     kernels = [block, block_bwd, lstm, lstm_bwd]
     for k in kernels:
         k["launches"] = train["launches"][k["name"]]
@@ -3390,7 +3911,10 @@ def main() -> int:
             train_bf16=bf16_train["launches_train"][k["name"]],
             cv_parallel=cv_run["launches"]["cv_parallel"][k["name"]],
             cv_sequential=cv_run["launches"]["cv_sequential"][k["name"]],
-            **{f"k1_{n}": k1[n]["launches"][k["name"]] for n in K1})
+            **{f"k1_{n}": k1[n]["launches"][k["name"]] for n in K1},
+            **{path: counts_[k["name"]] for path, counts_ in reference["launches"].items()},
+            wav2vec_extraction=wav2vec["launches"][k["name"]],
+            baselines=baselines["launches"][k["name"]])
     # #3-#7 take bf16 at their boundary (the kernels are float32 inside)
     lstm["bf16_input"] = {d: bf16_inputs[d] for d in ("lstm_D2", "lstm_D1")}
     lstm_bwd["bf16_input"] = lstm["bf16_input"]
@@ -3403,7 +3927,11 @@ def main() -> int:
         k["launches"] = bf16_train["launches_train_bf16"][base]
         # the cv runs are float32: cv_path checks that they launched none
         k["launches_by_path"] = {"train_bf16": k["launches"], "eval_suite_bf16": 0,
-                                 "cv_parallel": 0, "cv_sequential": 0}
+                                 "cv_parallel": 0, "cv_sequential": 0,
+                                 **{path: counts_[base] for path, counts_
+                                    in reference["launches_bf16"].items()},
+                                 "wav2vec_extraction": wav2vec["launches_bf16"][base],
+                                 "baselines": baselines["launches_bf16"][base]}
     kernels += bf16_kernels
     log(json.dumps({"augment_and_cli": {
         "augment_ms": {n: r["ms"] for n, r in augment["by_name"].items()},
@@ -3421,6 +3949,10 @@ def main() -> int:
         "rss_gb_around_trims": cv_run["rss_gb_around_trims"], "cv_s": cv_run["seconds"],
         "k1_s": k1["seconds"], "k1_step_grad_err": {
             n: k1[n]["card_vs_cpu_step"]["grad_err"] for n in K1}}}))
+    log(json.dumps({"reference_wav2vec_baselines": {
+        "reference_ckpt": {k: v for k, v in reference.items() if not k.startswith("launches")},
+        "wav2vec": {k: v for k, v in wav2vec.items() if k not in ("top_ops",)},
+        "baselines": baselines["errors"]}}))
     log(f"chip_smoke finished in {time.perf_counter() - t_start:.1f} s")
     log(json.dumps({"kernels": kernels}))
     log(json.dumps({"ok": True, "device": {

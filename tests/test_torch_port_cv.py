@@ -4,7 +4,8 @@ width on JAX's CV fixture (3 stories, 2 subjects, 45 s): ``cv.main`` with
 suite, ``cv_summary.json``), the summary against the JAX driver's
 aggregation of the same per-fold JSONs, the ingest file cache against JAX
 ``tests/test_ingest_cache.py``, the host-memory helpers against JAX's, and
-the refusal to train over the reference's ``model.ckpt``."""
+training resumed from a fold's weights exported as the reference's
+``model.ckpt``."""
 
 import json
 import os
@@ -12,6 +13,7 @@ import shutil
 
 import numpy as np
 import pytest
+import torch
 
 import transformer_clip_eeg_tpu.cli as j_cli
 from transformer_clip_eeg_tpu import cv as j_cv
@@ -27,10 +29,12 @@ from transformer_clip_eeg_tpu_torch.data.dataset import (
 from transformer_clip_eeg_tpu_torch.data.discovery import get_train_val_test_files_final
 from transformer_clip_eeg_tpu_torch.data.fixtures import make_fixture
 from transformer_clip_eeg_tpu_torch.eval import regression as reg
+from transformer_clip_eeg_tpu_torch.models.registry import build_model_from_config
 from transformer_clip_eeg_tpu_torch.serve import InferenceSession
 from transformer_clip_eeg_tpu_torch.train import checkpoint as ckpt_lib
 from transformer_clip_eeg_tpu_torch.train.config import TrainConfig
-from transformer_clip_eeg_tpu_torch.utils import platform
+from transformer_clip_eeg_tpu_torch.utils import platform, torch_export
+from transformer_clip_eeg_tpu_torch.utils.torch_export import reference_layout
 
 SMALL_FLAGS = ["--epochs", "1", "--batch_size", "4", "--attention_depth", "1",
                "--latent_dim", "4", "--lstm_units", "8", "--speech_dim_override", "8",
@@ -361,21 +365,42 @@ def test_host_memory_helpers_match_jax():
     assert abs(rss - j_platform.host_rss_gb()) < 0.5
 
 
-def test_training_refuses_the_reference_checkpoint(root, tmp_path, monkeypatch):
+def test_training_resumes_from_an_exported_reference_checkpoint(root, runs, tmp_path,
+                                                                 monkeypatch, capsys):
     """A results dir whose ``checkpoints/`` holds only the reference's
-    ``model.ckpt``: ``cli.main`` raises the ``--only_evaluate`` path's
-    ``NotImplementedError`` before any step, and writes no checkpoint of
-    its own."""
+    ``model.ckpt``, written by the ``torch_export`` CLI from the sequential
+    run's fold 0: ``cli.main`` resumes from it (``loaded model from``), the
+    weights and bank before the first step are fold 0's checkpoint bit for
+    bit, and training goes on to write the port's own checkpoint."""
+    fold0 = runs["no"]["summary"]["folds"]["0"]["results_dir"]
+    saved = ckpt_lib.load_checkpoint(os.path.join(fold0, "checkpoints"))["model"]
+    fold_cfg = TrainConfig.load(os.path.join(fold0, "args.txt"))
+    template = str(tmp_path / "template.ckpt")
+    torch.save(reference_layout(build_model_from_config(fold_cfg, fold_cfg.bank_size,
+                                                        device="cpu", seed=9)), template)
     results = tmp_path / "res"
     cfg = TrainConfig(run=0)
     run_dir = results / cfg.results_dir_name("STAMP")
     (run_dir / "checkpoints").mkdir(parents=True)
-    (run_dir / "checkpoints" / "model.ckpt").write_bytes(b"")
+    assert torch_export.main(["--run", fold0, "--template", template, "--out",
+                              str(run_dir / "checkpoints" / "model.ckpt")]) == 0
+    seen = {}
+    real = ckpt_lib.restore_torch_checkpoint
+
+    def restore(checkpoint_dir, model):
+        out = real(checkpoint_dir, model)
+        seen["state"] = {k: v.clone() for k, v in model.state_dict().items()}
+        return out
+
+    monkeypatch.setattr(ckpt_lib, "restore_torch_checkpoint", restore)
     monkeypatch.setattr(cli.time, "strftime", lambda fmt: "STAMP")
-    with pytest.raises(NotImplementedError, match=r"model\.ckpt.*ROADMAP\.md §2 item 3"):
-        cli.main(["--run", "0", "--data_dir", root, "--results_folder", str(results),
-                  *SMALL_FLAGS], device="cpu")
-    assert not os.path.exists(ckpt_lib.checkpoint_path(str(run_dir / "checkpoints")))
-    assert not os.path.exists(os.path.join(run_dir / "checkpoints", ckpt_lib.BEST_META_NAME))
+    assert cli.main(["--run", "0", "--data_dir", root, "--results_folder", str(results),
+                     "--skip_eval", "yes", *SMALL_FLAGS], device="cpu") == 0
+    assert "loaded model from" in capsys.readouterr().out
+    assert seen["state"].keys() == saved.keys()
+    for k, v in saved.items():
+        assert torch.equal(seen["state"][k], v), k
+    assert os.path.exists(ckpt_lib.checkpoint_path(str(run_dir / "checkpoints")))
     with open(run_dir / "loss.txt") as f:
-        assert "epoch 0" not in f.read()
+        log = f.read()
+    assert "loaded model from" in log and "epoch 0" in log

@@ -1,7 +1,7 @@
 """Torch port, the CLI's default run on the CPU: ``cli.main`` trains and
 then runs the evaluation suite, writing every file the JAX package's
 ``run_eval_suite`` writes; ``--only_evaluate yes`` reruns it from the saved
-config and checkpoint."""
+config and checkpoint, the port's or the reference's ``model.ckpt``."""
 
 import json
 import os
@@ -12,6 +12,13 @@ import torch
 from transformer_clip_eeg_tpu_torch import cli
 from transformer_clip_eeg_tpu_torch.data.fixtures import make_fixture
 from transformer_clip_eeg_tpu_torch.eval import regression as reg
+from transformer_clip_eeg_tpu_torch.models.registry import build_model_from_config
+from transformer_clip_eeg_tpu_torch.train.checkpoint import load_checkpoint
+from transformer_clip_eeg_tpu_torch.train.config import TrainConfig
+from transformer_clip_eeg_tpu_torch.utils.torch_export import (
+    reference_layout,
+    save_torch_checkpoint,
+)
 
 
 @pytest.fixture(autouse=True, scope="module")
@@ -86,7 +93,8 @@ def test_cli_only_evaluate_rewrites_the_match_mismatch_files(cli_run):
 
 def test_cli_only_evaluate_without_a_port_checkpoint(cli_run, tmp_path, capsys):
     """No checkpoint: "no checkpoint found" and exit code 1, as in JAX; only
-    the reference's model.ckpt: not ported, named as such."""
+    the reference's model.ckpt (the run's weights exported in the reference
+    layout): it is evaluated, and the match-mismatch files equal the run's."""
     _, rd, _ = cli_run
     empty = tmp_path / "run"
     (empty / "checkpoints").mkdir(parents=True)
@@ -94,6 +102,14 @@ def test_cli_only_evaluate_without_a_port_checkpoint(cli_run, tmp_path, capsys):
         (empty / "args.txt").write_text(src.read())
     assert cli.main(["--only_evaluate", "yes", "--results_folder", str(empty)], device="cpu") == 1
     assert "no checkpoint found" in capsys.readouterr().out
-    (empty / "checkpoints" / "model.ckpt").write_bytes(b"")
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        cli.main(["--only_evaluate", "yes", "--results_folder", str(empty)], device="cpu")
+    weights = load_checkpoint(os.path.join(rd, "checkpoints"))["model"]
+    model = build_model_from_config(TrainConfig.load(os.path.join(rd, "args.txt")),
+                                    weights["eegMemoryBank.memory"].shape[0] - 1, device="cpu")
+    model.load_state_dict(weights)
+    assert save_torch_checkpoint(model, reference_layout(model),
+                                 empty / "checkpoints" / "model.ckpt") == []
+    assert cli.main(["--only_evaluate", "yes", "--results_folder", str(empty)], device="cpu") == 0
+    assert "loaded model from" in capsys.readouterr().out
+    for name in MM_FILES:
+        with open(os.path.join(rd, name)) as a, open(empty / name) as b:
+            assert json.load(b) == json.load(a), name

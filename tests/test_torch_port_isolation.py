@@ -1,6 +1,6 @@
-"""Torch port, isolation: the port and its chip scripts import nothing of JAX
-or of the JAX package, and nothing falls back to the CPU when the card is
-asked for and absent."""
+"""Torch port, isolation: the port and its chip scripts import nothing of JAX,
+of the JAX package or of ``transformers`` (the card's machine has none), and
+nothing falls back to the CPU when the card is asked for and absent."""
 
 import ast
 import os
@@ -18,7 +18,8 @@ from transformer_clip_eeg_tpu_torch.serve import (
 from transformer_clip_eeg_tpu_torch.train.config import TrainConfig
 
 REPO = Path(__file__).resolve().parent.parent
-FORBIDDEN = ("jax", "jaxlib", "flax", "optax", "orbax", "chex", "transformer_clip_eeg_tpu")
+FORBIDDEN = ("jax", "jaxlib", "flax", "optax", "orbax", "chex", "transformer_clip_eeg_tpu",
+             "transformers")
 SMALL = dict(window_length_s=1, fs=16, attention_depth=1, latent_dim=4,
              speech_dim_override=8)
 
@@ -51,7 +52,8 @@ def test_the_scan_sees_the_port():
             "convert.py", "chip_smoke.py", "dropout.py", "cli.py", "loop.py",
             "state.py", "checkpoint.py", "dataset.py", "fixtures.py",
             "fused_conv.py", "augment.py", "cv.py", "fold_parallel.py",
-            "platform.py"} <= names
+            "platform.py", "torch_import.py", "torch_export.py", "wav2vec2.py",
+            "wav2vec.py", "baselines.py"} <= names
 
 
 def test_cuda_default_raises_without_a_card():
@@ -81,6 +83,20 @@ def test_fold_parallel_and_cv_default_to_the_card(tmp_path):
     with pytest.raises(RuntimeError, match="CUDA is not available"):
         cv.main(["--folds", "0", "--parallel", "yes", "--data_dir", str(tmp_path / "none"),
                  "--results_folder", str(tmp_path / "res")])
+
+
+def test_wav2vec_extraction_defaults_to_the_card(tmp_path):
+    """``preprocess/wav2vec.main`` runs on the card unless the caller passes
+    ``device="cpu"``: without one it raises before reading the checkpoint or
+    the tree."""
+    if torch.cuda.is_available():
+        pytest.skip("this host has a CUDA card: the default device is usable")
+    from transformer_clip_eeg_tpu_torch.preprocess import wav2vec
+
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        wav2vec.main(["--dataset_root", str(tmp_path), "--model_path",
+                      str(tmp_path / "no_model")])
+    assert not any(tmp_path.iterdir())
 
 
 def test_kernel_build_raises_without_nvcc(monkeypatch, tmp_path):

@@ -243,8 +243,9 @@ def train(argv=None, device="cuda"):
 
 
 def _restore_run(results_dir: str, device):
-    """The config and the best model of a finished run, or ``(cfg, None)``
-    when its checkpoint is missing."""
+    """The config and the best model of a finished run (the port's
+    checkpoint, else the reference's ``model.ckpt``, as JAX ``cli.py:297-313``),
+    or ``(cfg, None)`` when neither is there."""
     from transformer_clip_eeg_tpu_torch.models.registry import build_model_from_config
     from transformer_clip_eeg_tpu_torch.train import checkpoint as ckpt_lib
     from transformer_clip_eeg_tpu_torch.train.config import TrainConfig
@@ -252,8 +253,8 @@ def _restore_run(results_dir: str, device):
     cfg = TrainConfig.load(os.path.join(results_dir, "args.txt"))
     ckpt_dir = os.path.join(results_dir, "checkpoints")
     model = build_model_from_config(cfg, cfg.bank_size, device=device, seed=cfg.seed)
-    if ckpt_lib.restore_checkpoint(ckpt_dir, model) is None:
-        ckpt_lib.refuse_reference_checkpoint(ckpt_dir)
+    if (ckpt_lib.restore_checkpoint(ckpt_dir, model) is None
+            and ckpt_lib.restore_torch_checkpoint(ckpt_dir, model) is None):
         return cfg, None
     return cfg, model.eval()
 

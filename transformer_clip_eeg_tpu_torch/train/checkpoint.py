@@ -15,6 +15,8 @@ the JAX package's format: the val ``loss_ce`` the best checkpoint was saved
 at, so a resumed run knows the bar to beat.  The regression evals' probes
 are saved bare (:func:`save_params_only`): a ``state_dict`` in one
 ``torch.save`` file at the path where the JAX package writes its orbax tree.
+The reference's own ``checkpoints/model.ckpt`` is read too
+(:func:`restore_torch_checkpoint`), where the port's is missing.
 """
 
 from __future__ import annotations
@@ -49,17 +51,26 @@ def save_checkpoint(checkpoint_dir: str, model, optimizer, scheduler=None) -> st
     return path
 
 
-def refuse_reference_checkpoint(checkpoint_dir: str) -> None:
-    """Raise ``NotImplementedError`` when ``checkpoint_dir`` holds the
-    reference's ``model.ckpt`` and no checkpoint of the port's: the JAX
-    package resumes from (or evaluates) that file, the port cannot read it
-    yet, and training over it from scratch would hide that."""
-    if (os.path.exists(os.path.join(checkpoint_dir, REFERENCE_CKPT_NAME))
-            and not os.path.exists(checkpoint_path(checkpoint_dir))):
-        raise NotImplementedError(
-            f"{checkpoint_dir} holds only the reference's {REFERENCE_CKPT_NAME}; resuming "
-            "from it is not ported to the torch package yet: interop with the reference's "
-            "checkpoints is queued (ROADMAP.md §2 item 3)")
+def restore_torch_checkpoint(checkpoint_dir: str, model) -> Optional[list]:
+    """Load the reference's ``<dir>/model.ckpt`` (a bare ``state_dict``) into
+    ``model``, in place: parameters, batch-norm statistics and the memory
+    bank, converted by ``utils/torch_import`` against the model's own
+    ``state_dict`` with partial-load semantics; each skipped item is printed.
+    The optimizer and scheduler are left as they are: the reference reloads
+    weights alone (ref ``train_clip_final.py:443-449,541-556``), and so does
+    the JAX package.  Returns the report (checkpoint keys that matched
+    nothing, leaves skipped for their shape), or None if there is no such
+    file."""
+    from transformer_clip_eeg_tpu_torch.utils.torch_import import load_torch_state_dict
+
+    path = os.path.join(checkpoint_dir, REFERENCE_CKPT_NAME)
+    if not os.path.exists(path):
+        return None
+    merged, report = load_torch_state_dict(path, model)
+    for item in report:
+        print(f"torch checkpoint: skipped {item}")
+    model.load_state_dict(merged)
+    return report
 
 
 def load_checkpoint(checkpoint_dir: str, device="cpu") -> Optional[dict]:

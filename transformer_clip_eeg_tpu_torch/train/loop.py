@@ -22,11 +22,13 @@ Chrome trace is written there.
 train steps cast their batch (``train/steps.py``), the validation steps and
 everything after training run float32.
 
+``fit`` resumes from the port's checkpoint, else from the reference's
+``checkpoints/model.ckpt`` (its weights, bank and batch-norm statistics; the
+optimizer and scheduler start fresh, as in JAX).
+
 Not ported yet, each raising ``NotImplementedError`` (ROADMAP.md): a
-data-parallel mesh (``n_data_shards``), a ``prng_impl`` other than the
-default, and resuming from the reference's ``checkpoints/model.ckpt``
-(``fit`` raises before any step when that file is there and the port's
-own checkpoint is not).
+data-parallel mesh (``n_data_shards``) and a ``prng_impl`` other than the
+default.
 """
 
 from __future__ import annotations
@@ -377,12 +379,12 @@ class Trainer:
 
     def fit(self) -> Dict[str, Any]:
         cfg = self.cfg
-        # the JAX trainer resumes from the reference's model.ckpt; the port
-        # cannot read it yet, so it refuses before any step
-        ckpt_lib.refuse_reference_checkpoint(self.checkpoint_dir)
-        # auto-resume (ref train_clip_final.py:443-449)
+        # auto-resume (ref train_clip_final.py:443-449): the port's own
+        # checkpoint, else the reference's model.ckpt (weights alone)
         restored = ckpt_lib.restore_checkpoint(self.checkpoint_dir, self.model,
                                                self.optimizer, self.scheduler)
+        if restored is None:
+            restored = ckpt_lib.restore_torch_checkpoint(self.checkpoint_dir, self.model)
         if restored is not None:
             printf(f"loaded model from {self.checkpoint_dir}", self.loss_file)
         else:
