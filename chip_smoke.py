@@ -193,13 +193,31 @@ feature-extraction paths on one NVIDIA GPU, end to end.
     ``ClassificationHead`` at their JAX default widths, batch 128, one
     forward and backward in training mode with dropout off, card against
     CPU within ``STEP_TOL``.
-20. Prints one JSON line of per-kernel numbers (``launches_by_path`` with
+20. Data parallelism (``ddp_path``, after the reference phase): (a)
+    ``--n_data_shards 1`` (one NCCL rank) against the plain run, 1 epoch
+    each in a fresh process on deterministic cuDNN, the loss lines bit for
+    bit; then two ranks sharing the card over gloo, started by the port's
+    ``parallel.launch`` (each re-imports this module): (b) one step at
+    global batch 128, dropout on, for the flagship, Z4 and the fused
+    variant against one process on the same weights, batch and seed (losses,
+    every gradient before AdamW, bank, running statistics; the buffers bit
+    for bit across the ranks; Z4's float32 gradient is ill-conditioned, so
+    it is held against the CPU's float64 step); (c) the default command line
+    with ``--n_data_shards 2`` (2 epochs, the eval suite on deterministic
+    algorithms): exact launches a rank-step (10/10/2/2) and of the suite, the
+    replicas' checksum line, the losses against the one-process run above,
+    a chunk's embeddings and the 8 eval files against a one-process
+    ``--only_evaluate`` on the same checkpoint; (d) each rank's epoch-2
+    median step beside the one process's, the all-gather and the gradient
+    all-reduce, and #1-#4 at a rank's batch of 64 beside their bound there.
+21. Prints one JSON line of per-kernel numbers (``launches_by_path`` with
     ``train_augmented``, ``serve_cli``, ``server_cli``, ``train_bf16``,
     ``cv_parallel``, ``cv_sequential``, the ``K1`` runs,
     ``reference_only_evaluate``, ``reference_resume``,
-    ``wav2vec_extraction`` and ``baselines``; the bf16 instantiations of #1
-    and #2 as entries of their own), then, last, the ``{"ok": true,
-    "device": ...}`` line.
+    ``wav2vec_extraction``, ``baselines``, ``ddp_train`` and ``ddp_eval``
+    (rank 0's); #1-#4 with ``ms_b64`` and ``bound_ms_b64``; the bf16
+    instantiations of #1 and #2 as entries of their own), then, last, the
+    ``{"ok": true, "device": ...}`` line.
 
 Any failure raises and exits non-zero.  Imports nothing of JAX.
 """
@@ -268,6 +286,13 @@ from transformer_clip_eeg_tpu_torch.ops.fused_conv import (  # noqa: E402
     fused_conv_forward_cuda,
 )
 from transformer_clip_eeg_tpu_torch.ops.lstm import LSTM  # noqa: E402
+from transformer_clip_eeg_tpu_torch.parallel import attach, launch, shard_batch  # noqa: E402
+from transformer_clip_eeg_tpu_torch.parallel.collectives import (  # noqa: E402
+    all_gather_rows,
+    checksum,
+    gather_objects,
+    mean_gradients,
+)
 from transformer_clip_eeg_tpu_torch.ops.lstm_scan import (  # noqa: E402
     _backward_recurrence as lstm_backward_recurrence,
     _dwhh as lstm_dwhh,
@@ -307,6 +332,7 @@ from transformer_clip_eeg_tpu_torch.train.steps import (  # noqa: E402
     _apply_mixup,
     _split_outputs as split_outputs,
     chunk_train_step,
+    make_embed_fns,
     train_step,
 )
 from transformer_clip_eeg_tpu_torch.utils import torch_export, torch_import  # noqa: E402
@@ -1552,6 +1578,15 @@ def two_epoch_launches(n_train: int, n_val: int) -> dict:
             "lstm_scan_packed": 2 * 2 * (n_train + n_val),
             "lstm_scan_backward": 2 * 2 * n_train,
             "fused_basic_block": 0, "fused_conv_backward": 0, "conv1d_same": 0}
+
+
+def suite_launches(calls: dict) -> dict:
+    """The flagship's kernel launches in an evaluation suite of ``calls``
+    encoder calls: 10 block forwards an EEG call, 2 LSTM forwards a speech
+    call, nothing else."""
+    out = dict.fromkeys(two_epoch_launches(0, 0), 0)
+    out.update(fused_transformer_block=10 * calls["eeg"], lstm_scan_packed=2 * calls["speech"])
+    return out
 
 
 def write_fixture() -> str:
@@ -3787,6 +3822,434 @@ def wav2vec_path() -> dict:
 
 # --- the baselines (slice 12) ---------------------------------------------------
 
+# --- data parallelism (slice 13) ---------------------------------------------
+
+DDP_RANKS = 2  # on the one card: ranks outnumber cards, so gloo on the CUDA tensors
+DDP_BATCH = 128  # the flagship's global batch: 64 rows a rank
+DDP_SEED = 5  # the step seed of the one-step checks
+DDP_LOSS_RTOL = 1e-5  # the one-step checks' losses, 2 ranks against 1 process
+DDP_GRAD_TOL = 1e-4  # each gradient, of its leaf's largest value (step_errors' floor)
+DDP_STATE_TOL = 1e-6  # the bank's rows and the running statistics after the step
+DDP_EVAL_TOL = 1e-5  # every number of the 8 eval files, 2 ranks against 1 process
+# the 2-epoch run's loss.txt losses against the one-process default run's in
+# the same call: the same batches and masks, only the order of f32 sums
+# differs (split gradients, 64-row convolutions); 4x the largest spread two
+# data paths of the default run ever showed on default cuDNN algorithms
+# (2.67e-5, PERF.md section 2 "data-path agreement")
+DDP_CE_RTOL = 1e-4
+DDP_STEP_CASES = {"flagship": ({}, False), "z4": (ZOO["Z4"], False), "fused": ({}, True)}
+# Z4's float32 gradient at batch 128 is ill-conditioned: on the CPU one
+# process's float32 step is 2.2e-3 of a leaf's largest value from its float64
+# step, and two ranks' differ from one process's by as much (float64: 1e-14).
+# Its two ranks are held against the CPU's float64 step, to be no further from
+# it than the one-process float32 step on the card is (this margin), or
+# within DDP_GRAD_TOL
+DDP_F64_HELD = {"z4": 1.5}
+DDP_DIR = os.path.join(RUN_DIR, "ddp")
+
+# ``cli.main`` in a fresh process on cuDNN's deterministic algorithms, for
+# the one-rank run held to the plain run bit for bit
+_DET_CLI_RUN = """
+import sys, torch
+torch.backends.cuda.matmul.allow_tf32 = False
+torch.backends.cudnn.allow_tf32 = False
+torch.backends.cudnn.deterministic = True
+from transformer_clip_eeg_tpu_torch import cli
+sys.exit(cli.main(sys.argv[1:]))
+"""
+
+
+class _GradCapture:
+    """Stands in for the optimizer: keeps the gradients it is handed (under a
+    mesh, the ranks' mean) and bumps the step."""
+
+    def __init__(self, params):
+        self.params, self.step, self.grads = list(params), 0, None
+
+    def apply(self, grads):
+        self.grads = [g.detach().cpu().double() for g in grads]
+        self.step += 1
+
+
+def ddp_batch(cfg, device) -> dict:
+    """A global batch of ``DDP_BATCH`` seeded windows (the same on every
+    rank): EEG, the config's speech features, distinct bank ids."""
+    gen = torch.Generator().manual_seed(13)
+    t = cfg.window_length
+    return {"eeg": torch.randn(DDP_BATCH, t, 64, generator=gen).to(device),
+            "speech": (1.0 + torch.randn(DDP_BATCH, t, cfg.speech_dimension,
+                                         generator=gen)).to(device),
+            "ids": (torch.randperm(BANK_SIZE, generator=gen)[:DDP_BATCH] + 1).to(device)}
+
+
+def ddp_step(cfg, fused: bool, batch: dict, mesh, dtype=torch.float32) -> dict:
+    """One train step of ``train_step`` at full width, dropout on, weights
+    from seed 0, in ``dtype``: on ``mesh``'s rows, or the whole batch
+    without one.  The losses, the gradients handed to the optimizer and the
+    buffers after (``step_grads``' record, for ``step_errors``)."""
+    model = build_model(cfg, BANK_SIZE, device=batch["eeg"].device, seed=0).to(dtype)
+    batch = {k: v.to(dtype) if v.is_floating_point() else v for k, v in batch.items()}
+    set_fused(model, fused)
+    attach(model, mesh)
+    opt = _GradCapture(model.parameters())
+    local = batch if mesh is None else shard_batch(mesh, batch)
+    losses = train_step(model, opt, local, DDP_SEED, warmup=False, model_arch=cfg.model_arch)
+    return {"losses": {k: float(v) for k, v in losses.items()}, "grads": opt.grads,
+            "names": [n for n, _ in model.named_parameters()],
+            "buffers": {n: b.detach().cpu().double() for n, b in model.named_buffers()}}
+
+
+def ddp_step_checks(mesh) -> dict:
+    """(b) of ``ddp_path``: for the flagship, Z4 (batch norms on global
+    statistics) and the flagship fused (#5/#6's masks by global sample), one
+    step on the two ranks against one process on rank 0, same weights,
+    batch and seed: the losses, every gradient before AdamW, the bank and
+    the running statistics; the buffers bit for bit across the ranks."""
+    out = {}
+    for name, (flags, fused) in DDP_STEP_CASES.items():
+        cfg = TrainConfig(**flags)
+        batch = ddp_batch(cfg, mesh.device)
+        got = ddp_step(cfg, fused, batch, mesh)
+        digests = gather_objects(checksum(list(got["buffers"].values())), mesh)
+        if len(set(digests)) != 1:
+            raise AssertionError(f"{name}: the ranks' banks and statistics differ: {digests}")
+        if mesh.rank != 0:
+            continue
+        want = ddp_step(cfg, fused, batch, None)
+        errs = step_errors(got, want)
+        loss_rel = max(abs(got["losses"][k] - v) / abs(v) for k, v in want["losses"].items())
+        state_err = max(errs["buffer_errs"].values())
+        grad_err, grad_tol = errs["grad_err"], DDP_GRAD_TOL
+        rec = {}
+        if name in DDP_F64_HELD:
+            exact = ddp_step(cfg, fused, {k: v.cpu() for k, v in batch.items()}, None,
+                             torch.float64)
+            one_f32 = step_errors(want, exact)["grad_err"]
+            grad_err = step_errors(got, exact)["grad_err"]
+            grad_tol = max(DDP_GRAD_TOL, DDP_F64_HELD[name] * one_f32)
+            rec = {"two_ranks_vs_one_process_f32": errs["grad_err"],
+                   "one_process_f32_vs_f64": one_f32}
+        worst = sorted(errs["grad_err_by_leaf"].items(), key=lambda kv: -kv[1])[:4]
+        log(f"ddp one step, {name}: losses {got['losses']} vs one process {want['losses']} "
+            f"(rel {loss_rel:.2e}); gradient error {grad_err:.2e} (tol {grad_tol:.2e}{'' if not rec else ', against the CPU float64 step; ' + json.dumps(rec)}) "
+            f"over {len(got['grads'])} leaves, worst against one process "
+            f"{[(n, f'{v:.1e}') for n, v in worst]}; bank {errs['bank_err']:.2e}, running "
+            f"statistics {errs['batch_stats_err']:.2e}; buffers bit-identical across ranks")
+        if not (loss_rel <= DDP_LOSS_RTOL and grad_err <= grad_tol
+                and state_err <= DDP_STATE_TOL):
+            raise AssertionError(f"ddp step {name} disagrees with the one-process step: loss "
+                                 f"{loss_rel:.3e}, gradient {grad_err:.3e} (tol {grad_tol:.3e}), "
+                                 f"state {state_err:.3e}")
+        out[name] = {"loss_rel": loss_rel, "grad_err": grad_err, "grad_tol": grad_tol,
+                     "bank_err": errs["bank_err"], "batch_stats_err": errs["batch_stats_err"],
+                     "n_grads": len(got["grads"]), **rec}
+    return out
+
+
+def ddp_windows(cfg) -> dict:
+    """A chunk of 128 seeded EEG and speech windows."""
+    rng = np.random.default_rng(21)
+    return {"eeg": rng.standard_normal((128, cfg.window_length, 64)).astype(np.float32),
+            "speech": rng.standard_normal((128, cfg.window_length, cfg.speech_dimension)
+                                          ).astype(np.float32)}
+
+
+def ddp_collective_ms(mesh, model, reps: int = 20) -> dict:
+    """Host clock (synchronised) of the step's two collectives at the
+    flagship's sizes: the all-gather of a rank's 64 rows of both flattened
+    embeddings, and the all-reduce of the flat gradient."""
+    width = sum(model.widths())
+    rows = torch.randn(DDP_BATCH // mesh.n_data, width, device=mesh.device)
+    grads = [torch.randn_like(p) for p in model.parameters()]
+
+    def median_ms(fn):
+        fn()
+        times = []
+        for _ in range(reps):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            fn()
+            torch.cuda.synchronize()
+            times.append((time.perf_counter() - t0) * 1e3)
+        return statistics.median(times)
+
+    return {"all_gather_ms": median_ms(lambda: all_gather_rows(rows, mesh)),
+            "all_gather_shape": [DDP_BATCH // mesh.n_data, width],
+            "grad_all_reduce_ms": median_ms(lambda: mean_gradients(grads, mesh)),
+            "grad_floats": sum(g.numel() for g in grads)}
+
+
+@contextlib.contextmanager
+def deterministic_suite():
+    """``cli.run_eval_suite`` on cuDNN's and torch's deterministic algorithms
+    inside, as the one-process ``--only_evaluate`` it is held to runs
+    (``_ONLY_EVALUATE_RUN``): on default algorithms the probes' training may
+    sum in another order each run, and one early stop that moves changes a
+    file by 1e-2 (1.547e-2 in one run on an H100 80GB HBM3)."""
+    real = cli.run_eval_suite
+
+    def suite(*a, **k):
+        torch.use_deterministic_algorithms(True, warn_only=True)
+        try:
+            with deterministic_cudnn():
+                return real(*a, **k)
+        finally:
+            torch.use_deterministic_algorithms(False)
+
+    cli.run_eval_suite = suite
+    try:
+        yield
+    finally:
+        cli.run_eval_suite = real
+
+
+def _ddp_rank(data_dir: str, mesh) -> int:
+    """One of the two ranks of ``ddp_path`` (started by the port's
+    ``parallel.launch``): the one-step checks, then the default command line
+    with ``--n_data_shards 2`` (this rank joins the group; training on the
+    default algorithms, timed, the eval suite on the deterministic ones), its
+    launches and step times, then the collectives timed.  Writes
+    ``rank<r>.json``."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    steps = ddp_step_checks(mesh)
+    zero_counts()
+    with instrumented() as seen, deterministic_suite():
+        rc = cli.main(["--data_dir", data_dir, "--epochs", "2", "--n_data_shards",
+                       str(DDP_RANKS), "--results_folder", os.path.join(DDP_DIR, "run")])
+    trainer = seen["trainers"][-1]
+    # one chunk through the suite's embedding functions (split over the ranks)
+    embed_eeg, embed_speech = make_embed_fns(trainer.model)
+    windows = ddp_windows(trainer.cfg)
+    for kind, fn in (("eeg", embed_eeg), ("speech", embed_speech)):
+        x = torch.from_numpy(windows[kind]).to(mesh.device)
+        np.save(os.path.join(DDP_DIR, f"emb_{kind}.npy"), fn(x).cpu().numpy())
+    record = {
+        "rank": mesh.rank, "device": str(mesh.device), "mesh": mesh.describe(), "rc": rc,
+        "steps": steps, "results_dir": trainer.results_dir, "steps_per_epoch": seen["steps"],
+        "launches_train": seen["train_launches"],
+        "launches_train_bf16": seen["train_launches_bf16"],
+        "eval": seen["eval"][-1],
+        "step_ms_epoch2": [v * 1e3 for v in trainer.history[1]["step_s"]],
+        "collectives": ddp_collective_ms(mesh, trainer.model),
+    }
+    with open(os.path.join(DDP_DIR, f"rank{mesh.rank}.json"), "w") as f:
+        json.dump(record, f)
+    return rc
+
+
+def loss_numbers(path: str) -> list:
+    """A run's train and validation loss lines, as written."""
+    return [line for line in open(path).read().splitlines()
+            if line.startswith(("train epoch", "validation epoch"))]
+
+
+def loss_values(path: str) -> list:
+    """The losses of those lines."""
+    pattern = (r"loss_ce (\S+) loss average eeg (\S+)$|mean loss ce : (\S+), mean loss "
+               r"average: (\S+), mean loss total: (\S+)$")
+    return [float(v) for line in loss_numbers(path)
+            for v in re.search(pattern, line).groups() if v is not None]
+
+
+def ddp_one_rank(data_dir: str) -> dict:
+    """(a) of ``ddp_path``: ``--n_data_shards 1`` (one rank over NCCL, in
+    the process) against the plain run, 1 epoch each in a fresh process on
+    cuDNN's deterministic algorithms: their loss lines equal, bit for bit."""
+    lines = {}
+    for name, extra in (("plain", []), ("one_rank", ["--n_data_shards", "1"])):
+        results = os.path.join(DDP_DIR, name)
+        proc = subprocess.run(
+            [sys.executable, "-c", _DET_CLI_RUN, "--data_dir", data_dir, "--epochs", "1",
+             "--skip_eval", "yes", "--results_folder", results, *extra],
+            cwd=os.path.dirname(os.path.abspath(__file__)), capture_output=True, text=True,
+            timeout=600)
+        if proc.returncode != 0:
+            raise AssertionError(f"{name} run exited {proc.returncode}: {proc.stderr[-3000:]}")
+        (run,) = os.listdir(results)
+        lines[name] = loss_numbers(os.path.join(results, run, "loss.txt"))
+        if name == "one_rank":
+            head = open(os.path.join(results, run, "loss.txt")).readline().strip()
+    if not head.startswith("data parallel: 1 ranks over nccl"):
+        raise AssertionError(f"the one-rank run's first line: {head!r}")
+    if lines["one_rank"] != lines["plain"] or not lines["plain"]:
+        raise AssertionError(f"--n_data_shards 1 differs from the plain run: "
+                             f"{lines['one_rank']} vs {lines['plain']}")
+    log(f"ddp (a): --n_data_shards 1 ({head}) equals the plain run, "
+        f"{len(lines['plain'])} loss lines bit for bit")
+    return {"loss_lines": len(lines["plain"]), "first_line": head}
+
+
+def kernels_at_b64(gen: torch.Generator) -> dict:
+    """Kernels #1-#4 at a rank's batch of 64 (the flagship's shapes
+    otherwise), each timed by CUDA events beside its bound at that batch:
+    #1 in training (dropout on, saving for #2), #2, and #3/#4 summed over
+    the flagship's two recurrences (H=128 and H=4, D=2)."""
+    b, t, e, h = 64, 192, 64, 8
+    x, params = block_case(gen)
+    x = x[:b].contiguous()
+    g = torch.randn(b, t, e, generator=gen).to("cuda")
+    n_par = sum(p.numel() for p in params)
+    with torch.inference_mode():
+        _, saved = fused_block_forward_cuda(x, params, h, e ** 0.5, FLAGSHIP_DROP, save=True)
+        fwd_ms = time_ms(lambda: fused_block_forward_cuda(x, params, h, e ** 0.5, FLAGSHIP_DROP,
+                                                          save=True))
+    bwd_ms = time_ms(lambda: fused_block_backward(x, params, g, saved, h, e ** 0.5,
+                                                  FLAGSHIP_DROP))
+    out = {
+        "fused_transformer_block": (fwd_ms, bound(block_flops(b, t),
+                                                  2 * x.numel() * 4 + n_par * 4)),
+        "fused_block_backward": (bwd_ms, bound(2 * block_flops(b, t), 4 * (
+            3 * x.numel() + saved.numel() + 2 * n_par))),
+    }
+    lstm = {"lstm_scan_packed": [0.0, 0.0, 0.0], "lstm_scan_backward": [0.0, 0.0, 0.0]}
+    for hidden, d in FLAGSHIP_LSTMS:
+        lim = 1.0 / hidden ** 0.5
+        xw = (0.5 * torch.randn(t, d, b, 4 * hidden, generator=gen)).to("cuda")
+        whh = ((torch.rand(d, hidden, 4 * hidden, generator=gen) * 2 - 1) * lim).to("cuda")
+        gh = torch.randn(t, d, b, hidden, generator=gen).to("cuda")
+        hs, c, gates = lstm_forward_cuda(xw, whh, return_c=True, save_gates=True)
+        rows = t * d * b
+        for name, ms, flops, nbytes in (
+                ("lstm_scan_packed", time_ms(lambda: lstm_scan_packed(xw, whh)),
+                 2 * hidden * 4 * hidden * rows, (xw.numel() + whh.numel() + rows * hidden) * 4),
+                ("lstm_scan_backward", time_ms(lambda: lstm_scan_backward(whh, hs, c, gates, gh)),
+                 2 * rows * 4 * hidden * hidden * 2,
+                 4 * (2 * rows * 4 * hidden + 3 * rows * hidden + 2 * whh.numel()))):
+            lstm[name][0] += ms
+            lstm[name][1] += flops
+            lstm[name][2] += nbytes
+    for name, (ms, flops, nbytes) in lstm.items():
+        out[name] = (ms, bound(flops, nbytes))
+    res = {name: {"ms": ms, "bound_ms": bd[0], "bound_by": bd[1]}
+           for name, (ms, bd) in out.items()}
+    log(f"kernels #1-#4 at batch 64 (a rank's rows): {json.dumps(res)}")
+    return res
+
+
+def ddp_path(data_dir: str, train: dict) -> dict:
+    """``--n_data_shards`` on the card: (a) one rank against the plain run;
+    (b)-(c) two ranks sharing the card over gloo (the port's
+    ``parallel.launch``), each running ``_ddp_rank``, then their records
+    checked here: the launches per rank-step, the replicas' checksum, the
+    losses against the one-process default run, and the 8 eval files against
+    a one-process ``--only_evaluate`` on the same checkpoint; (d) the times."""
+    t0 = time.perf_counter()
+    shutil.rmtree(DDP_DIR, ignore_errors=True)
+    os.makedirs(DDP_DIR)
+    one_rank = ddp_one_rank(data_dir)
+    t_ranks = time.perf_counter()
+    # the ranks' deterministic cuBLAS (read when a rank's cuBLAS starts)
+    before = os.environ.get("CUBLAS_WORKSPACE_CONFIG")
+    os.environ["CUBLAS_WORKSPACE_CONFIG"] = ":4096:8"
+    try:
+        if launch(DDP_RANKS, _ddp_rank, (data_dir,), device="cuda") != 0:
+            raise AssertionError("a ddp rank returned non-zero")
+    finally:
+        if before is None:
+            del os.environ["CUBLAS_WORKSPACE_CONFIG"]
+        else:
+            os.environ["CUBLAS_WORKSPACE_CONFIG"] = before
+    ranks_s = time.perf_counter() - t_ranks
+    records = []
+    for r in range(DDP_RANKS):
+        with open(os.path.join(DDP_DIR, f"rank{r}.json")) as f:
+            records.append(json.load(f))
+    run_dir = records[0]["results_dir"]
+    if {rec["results_dir"] for rec in records} != {run_dir}:
+        raise AssertionError(f"the ranks named other results directories: {records}")
+    if not records[0]["mesh"].startswith(f"data parallel: {DDP_RANKS} ranks over gloo"):
+        raise AssertionError(f"backend: {records[0]['mesh']}")
+
+    # (c) launches per rank-step: each rank steps every global batch on its rows
+    for rec in records:
+        n_train, n_val = rec["steps_per_epoch"]
+        want = two_epoch_launches(n_train, n_val)
+        want_eval = suite_launches(rec["eval"]["encoder_calls"])
+        if (rec["launches_train"] != want or rec["eval"]["launches"] != want_eval
+                or any(rec["launches_train_bf16"].values())
+                or any(rec["eval"]["launches_bf16"].values())):
+            raise AssertionError(f"rank {rec['rank']}: train launches {rec['launches_train']} "
+                                 f"(want {want}), eval {rec['eval']['launches']} (want "
+                                 f"{want_eval})")
+    # the replicas' check and the losses against the one-process default run
+    text = open(os.path.join(run_dir, "loss.txt")).read()
+    digest = re.search(rf"replicas identical on {DDP_RANKS} ranks \(checksum (0x[0-9a-f]+)\)",
+                       text)
+    if digest is None:
+        raise AssertionError(f"no replica check in {run_dir}/loss.txt")
+    mine = loss_values(os.path.join(run_dir, "loss.txt"))
+    base = loss_values(os.path.join(train["results_dir"], "loss.txt"))
+    ce_rel = max(abs(a - b) / abs(b) for a, b in zip(mine, base))
+    if len(mine) != len(base) or not ce_rel <= DDP_CE_RTOL:
+        raise AssertionError(f"the 2-rank run's losses {mine} vs one process {base}")
+    # the eval suite of two ranks against one process on the same checkpoint
+    two = {}
+    for name in EVAL_JSONS:
+        with open(os.path.join(run_dir, name)) as f:
+            two[name] = _numbers(json.load(f))
+    single = os.path.join(DDP_DIR, "one_process_eval")
+    shutil.copytree(os.path.join(run_dir, "checkpoints"), os.path.join(single, "checkpoints"))
+    saved = TrainConfig.load(os.path.join(run_dir, "args.txt"))
+    if saved.n_data_shards != DDP_RANKS:
+        raise AssertionError(f"args.txt keeps n_data_shards={saved.n_data_shards}")
+    saved.n_data_shards = 0
+    saved.save(os.path.join(single, "args.txt"))
+    one = only_evaluate_run(single)
+    by_file = {}
+    for name in EVAL_JSONS:
+        ref = np.asarray(_numbers(one["files"][name]))
+        got = np.asarray(two[name])
+        if len(ref) != len(got):
+            raise AssertionError(f"{name}: {len(got)} numbers vs {len(ref)}")
+        diff = np.abs(got - ref)
+        over = np.flatnonzero(diff > DDP_EVAL_TOL)
+        by_file[name] = {"n": len(ref), "max_abs_diff": float(diff.max(initial=0.0)),
+                         "n_over_tol": len(over),
+                         "over": [(int(i), float(got[i]), float(ref[i])) for i in over[:6]]}
+    eval_err = max(f["max_abs_diff"] for f in by_file.values())
+    # the embeddings the suite's chunks give on two ranks against one process
+    emb = {k: np.load(os.path.join(DDP_DIR, f"emb_{k}.npy")) for k in ("eeg", "speech")}
+    served = InferenceSession.from_results_dir(run_dir, device="cuda")
+    windows = ddp_windows(saved)
+    emb_err = max(float(np.abs(emb["eeg"] - served.embed_eeg(windows["eeg"])).max()),
+                  float(np.abs(emb["speech"] - served.embed_speech(windows["speech"])).max()))
+    log(f"ddp (c): the eval files, 2 ranks vs one process: {json.dumps(by_file)}; a chunk's "
+        f"embeddings, 2 ranks vs one process: {emb_err:.3e}")
+    if not eval_err <= DDP_EVAL_TOL:
+        raise AssertionError(f"2-rank eval suite vs one process: {eval_err:.3e}")
+    # (d) times
+    one_ms = train["step_ms_median_epoch2"]["device"]
+    rank_ms = [statistics.median(rec["step_ms_epoch2"]) for rec in records]
+    b64 = kernels_at_b64(torch.Generator().manual_seed(64))
+    out = {
+        "mesh": records[0]["mesh"], "one_rank": one_rank,
+        "steps": records[0]["steps"],
+        "launches_train": records[0]["launches_train"],
+        "launches_train_bf16": records[0]["launches_train_bf16"],
+        "launches_eval": records[0]["eval"]["launches"],
+        "launches_eval_bf16": records[0]["eval"]["launches_bf16"],
+        "eval_encoder_calls": records[0]["eval"]["encoder_calls"],
+        "eval_suite_s": [rec["eval"]["wall_s"] for rec in records],
+        "replica_checksum": digest.group(1), "loss_rel_vs_one_process": ce_rel,
+        "eval_max_abs_diff": eval_err, "eval_numbers": sum(len(v) for v in two.values()),
+        "step_ms_median_epoch2": {"two_ranks": rank_ms, "one_process": one_ms},
+        "pairs_per_s_epoch2": {"two_ranks": DDP_BATCH / max(rank_ms) * 1e3,
+                               "one_process": DDP_BATCH / one_ms * 1e3},
+        "collectives": [rec["collectives"] for rec in records],
+        "kernels_b64": b64, "ranks_s": ranks_s, "seconds": time.perf_counter() - t0,
+    }
+    log(f"ddp (b)-(c): 2 ranks on one card ({out['mesh']}): launches a rank "
+        f"{out['launches_train']} (train) {out['launches_eval']} (eval); replicas "
+        f"{out['replica_checksum']}; losses vs one process {ce_rel:.2e} (tol {DDP_CE_RTOL:g}); "
+        f"eval files vs one process {eval_err:.2e} over {out['eval_numbers']} numbers (tol "
+        f"{DDP_EVAL_TOL:g})")
+    log(f"ddp (d): epoch-2 median step {rank_ms} ms on 2 ranks vs {one_ms:.2f} ms one "
+        f"process; collectives {json.dumps(out['collectives'][0])}")
+    log(json.dumps({"ddp": out}))
+    return out
+
+
 def baselines_phase() -> dict:
     """``FCNN``, ``CNN`` and ``ClassificationHead`` at their JAX default
     widths, batch 128, random weights from seed 0, training mode (batch
@@ -3870,6 +4333,7 @@ def main() -> int:
     try:
         train, cfg, host_batch = train_path(data_dir)
         reference = reference_ckpt_path(train["results_dir"], data_dir)
+        ddp = ddp_path(data_dir, train)
         bf16_train = bf16_train_path(data_dir, cfg, host_batch,
                                      train["step_ms_median_epoch2"]["device"])
         augmented = augmented_train_path(data_dir, cfg, host_batch,
@@ -3914,7 +4378,12 @@ def main() -> int:
             **{f"k1_{n}": k1[n]["launches"][k["name"]] for n in K1},
             **{path: counts_[k["name"]] for path, counts_ in reference["launches"].items()},
             wav2vec_extraction=wav2vec["launches"][k["name"]],
-            baselines=baselines["launches"][k["name"]])
+            baselines=baselines["launches"][k["name"]],
+            ddp_train=ddp["launches_train"][k["name"]],
+            ddp_eval=ddp["launches_eval"][k["name"]])
+    # #1-#4 at a rank's batch of 64 (the 2-rank run's shapes), beside their bound there
+    for k in kernels[:4]:
+        k.update({f"{key}_b64": v for key, v in ddp["kernels_b64"][k["name"]].items()})
     # #3-#7 take bf16 at their boundary (the kernels are float32 inside)
     lstm["bf16_input"] = {d: bf16_inputs[d] for d in ("lstm_D2", "lstm_D1")}
     lstm_bwd["bf16_input"] = lstm["bf16_input"]
@@ -3931,7 +4400,9 @@ def main() -> int:
                                  **{path: counts_[base] for path, counts_
                                     in reference["launches_bf16"].items()},
                                  "wav2vec_extraction": wav2vec["launches_bf16"][base],
-                                 "baselines": baselines["launches_bf16"][base]}
+                                 "baselines": baselines["launches_bf16"][base],
+                                 "ddp_train": ddp["launches_train_bf16"][base],
+                                 "ddp_eval": ddp["launches_eval_bf16"][base]}
     kernels += bf16_kernels
     log(json.dumps({"augment_and_cli": {
         "augment_ms": {n: r["ms"] for n, r in augment["by_name"].items()},

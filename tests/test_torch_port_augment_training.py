@@ -72,18 +72,22 @@ def test_cli_trains_with_each_augmentation(root, tmp_path, flags):
 
 
 def test_check_supported_refuses_only_mesh_bf16_and_prng(root):
-    """The options the port still refuses: a mesh and another prng_impl; the
-    bf16 compute mode, refused until it was ported, now passes, and a
-    compute dtype the JAX CLI does not offer is a ValueError."""
+    """The option the port still refuses: another prng_impl.  The bf16
+    compute mode and a data-parallel mesh (``n_data_shards``), each refused
+    until it was ported, now pass; a compute dtype the JAX CLI does not
+    offer, or a batch that does not divide over the ranks, is a
+    ValueError."""
     base = dict(data_dir=root, data_augmentation="ChannelsShuffle", addEEG="yes",
                 profile_dir="trace")
     check_supported(TrainConfig(**base))
     check_supported(TrainConfig(**base, compute_dtype="bfloat16"))
-    for bad in (dict(n_data_shards=2), dict(prng_impl="unsafe_rbg")):
-        with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-            check_supported(TrainConfig(**base, **bad))
+    check_supported(TrainConfig(**base, n_data_shards=2))
+    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
+        check_supported(TrainConfig(**base, prng_impl="unsafe_rbg"))
     with pytest.raises(ValueError, match="compute_dtype"):
         check_supported(TrainConfig(**base, compute_dtype="float16"))
+    with pytest.raises(ValueError, match="divide over n_data_shards=3"):
+        check_supported(TrainConfig(**base, n_data_shards=3))
 
 
 def _trainer(root, out, mode, **kw):

@@ -42,6 +42,18 @@ SMALL_FLAGS = ["--epochs", "1", "--batch_size", "4", "--attention_depth", "1",
 WL = 192
 
 
+
+@pytest.fixture(autouse=True, scope="module")
+def _two_torch_threads():
+    """Two intra-op threads while these tests run: the suite runs files in
+    parallel processes, and torch's default of one thread per core in each
+    of them oversubscribes the cores many times over."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(2)
+    yield
+    torch.set_num_threads(n)
+
+
 @pytest.fixture(autouse=True)
 def _no_ingest_cache_left():
     """The cache is process-wide: no test leaves it installed."""

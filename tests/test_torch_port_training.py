@@ -146,6 +146,18 @@ def test_schedulers_match_jax(name):
 
 # -- the trainer, its checkpoint and the CLI on a small fixture -----------------
 
+
+@pytest.fixture(autouse=True, scope="module")
+def _two_torch_threads():
+    """Two intra-op threads while these tests run: the suite runs files in
+    parallel processes, and torch's default of one thread per core in each
+    of them oversubscribes the cores many times over."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(2)
+    yield
+    torch.set_num_threads(n)
+
+
 @pytest.fixture(scope="module")
 def fixture_root(tmp_path_factory):
     root = str(tmp_path_factory.mktemp("sparrkulee_torch"))
@@ -274,12 +286,16 @@ def test_warmup_step_follows_loss_ce_alone():
     assert float(losses["loss_total"]) > float(losses["loss_ce"])
 
 
-@pytest.mark.parametrize("override", [
-    dict(n_data_shards=2), dict(prng_impl="threefry2x32"),
+@pytest.mark.parametrize("override,error,match", [
+    (dict(n_data_shards=2), ValueError, "needs a mesh of as many ranks"),
+    (dict(prng_impl="threefry2x32"), NotImplementedError, "ROADMAP.md"),
 ], ids=["mesh", "prng_impl"])
-def test_unported_trainer_options_raise(fixture_root, tmp_path, override):
+def test_unported_trainer_options_raise(fixture_root, tmp_path, override, error, match):
+    """``prng_impl`` other than the default is not ported; ``n_data_shards``
+    is (``parallel/``), and a trainer asked for it without the mesh of its
+    ranks raises."""
     cfg = _config(fixture_root, **override)
-    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
+    with pytest.raises(error, match=match):
         Trainer(cfg, *_datasets(_config(fixture_root)), results_dir=str(tmp_path),
                 device="cpu")
 

@@ -10,16 +10,27 @@ runs the evaluation suite; ``--skip_eval yes`` stops after training.
 ``--only_evaluate yes`` reloads ``args.txt`` and the checkpoint from
 ``--results_folder`` (a run's results directory) and runs the suite again.
 
+``--n_data_shards N`` trains and evaluates N-way data-parallel, one
+``torch.distributed`` rank a process (``parallel/``): :func:`main` spawns
+the N ranks itself, or, started by ``torchrun`` (or in a process that has
+joined a group), joins that group.  The backend is NCCL when each rank has
+a card of its own, gloo on the CUDA tensors when ranks share a card, gloo
+on the CPU; ``loss.txt`` names it.  The eval suite runs on the same ranks,
+each chunk of windows split over them.  ``N`` is saved in ``args.txt``, so
+``--only_evaluate`` runs on as many ranks.  Rank 0 writes every file.
+
 Run: ``python -m transformer_clip_eeg_tpu_torch.cli --data_dir <sparrkulee> ...``
 """
 
 from __future__ import annotations
 
 import argparse
+import contextlib
 import dataclasses
 import json
 import os
 import sys
+import tempfile
 import time
 from typing import Optional
 
@@ -118,7 +129,8 @@ def build_arg_parser() -> argparse.ArgumentParser:
     p.add_argument("--seed", type=int, default=0)
     p.add_argument("--dataset_split_stories", type=str, default="")
     p.add_argument("--n_data_shards", type=int, default=0,
-                   help="0 = single device; N = N-way data-parallel mesh")
+                   help="0 = one process; N = N data-parallel ranks (spawned here, "
+                        "or the torchrun group this process is in)")
     p.add_argument("--speech_dim_override", type=int, default=None)
     p.add_argument("--skip_eval", type=str, default="no", choices=["yes", "no"])
     p.add_argument("--profile_dir", type=str, default="",
@@ -187,21 +199,32 @@ def _split(cfg):
     return files
 
 
-def _train(args, device):
-    """Build the datasets from ``args`` and train; returns the trainer and
-    the file lists."""
-    from transformer_clip_eeg_tpu_torch.data.dataset import EEGWindowDataset
+def _config(args):
+    """The run's ``TrainConfig`` from the parsed flags, checked."""
     from transformer_clip_eeg_tpu_torch.train.config import TrainConfig
-    from transformer_clip_eeg_tpu_torch.train.loop import Trainer, check_supported, printf
+    from transformer_clip_eeg_tpu_torch.train.loop import check_supported
 
     if args.compile_cache_dir is None:
         args.compile_cache_dir = "auto"  # the TrainConfig default
     known = {f.name for f in dataclasses.fields(TrainConfig)}
     cfg = TrainConfig(**{k: v for k, v in vars(args).items() if k in known})
     check_supported(cfg)
+    return cfg
+
+
+def _train(args, device, mesh=None):
+    """Build the datasets from ``args`` and train (on ``mesh``'s ranks, if
+    given); returns the trainer and the file lists."""
+    from transformer_clip_eeg_tpu_torch.data.dataset import EEGWindowDataset
+    from transformer_clip_eeg_tpu_torch.parallel.collectives import broadcast_object
+    from transformer_clip_eeg_tpu_torch.train.loop import Trainer
+
+    cfg = _config(args)
     results_dir = os.path.join(
         cfg.results_folder, cfg.results_dir_name(time.strftime("%Y_%m_%d_%H_%M_%S"))
     )
+    if mesh is not None:  # named by rank 0's clock
+        results_dir = broadcast_object(results_dir, mesh)
     files = _split(cfg)
     train_files, val_files, _, _, train_audio, val_audio, _, _ = files
     if not val_files:
@@ -227,44 +250,97 @@ def _train(args, device):
         batch_size=cfg.batch_size, seed=cfg.seed,
     )
     trainer = Trainer(cfg, train_ds, val_ds, results_dir=results_dir, device=device,
-                      profile_dir=cfg.profile_dir or None)
+                      mesh=mesh, profile_dir=cfg.profile_dir or None)
     out = trainer.fit()
-    printf(f"training done: best val loss_ce {out['best_loss']} at epoch "
-           f"{out['best_epoch']}", trainer.loss_file)
+    trainer.log(f"training done: best val loss_ce {out['best_loss']} at epoch "
+                 f"{out['best_epoch']}")
     return trainer, files
 
 
-def train(argv=None, device="cuda"):
+def train(argv=None, device="cuda", mesh=None):
     """Parse ``argv``, build the datasets and train, without the evaluation
     suite; returns the :class:`~transformer_clip_eeg_tpu_torch.train.loop.
     Trainer` after ``fit`` (its model holds the best state, as the
-    checkpoint does)."""
-    return _train(build_arg_parser().parse_args(argv), device)[0]
+    checkpoint does).  ``--n_data_shards N`` needs this rank's ``mesh`` of
+    N ranks."""
+    return _train(build_arg_parser().parse_args(argv), device, mesh)[0]
 
 
-def _restore_run(results_dir: str, device):
+def _restore_run(results_dir: str, device, mesh=None):
     """The config and the best model of a finished run (the port's
     checkpoint, else the reference's ``model.ckpt``, as JAX ``cli.py:297-313``),
-    or ``(cfg, None)`` when neither is there."""
+    or ``(cfg, None)`` when neither is there.  Under ``mesh`` the model is on
+    the rank's device with rank 0's weights."""
     from transformer_clip_eeg_tpu_torch.models.registry import build_model_from_config
+    from transformer_clip_eeg_tpu_torch.parallel.mesh import attach, replicate
     from transformer_clip_eeg_tpu_torch.train import checkpoint as ckpt_lib
     from transformer_clip_eeg_tpu_torch.train.config import TrainConfig
 
     cfg = TrainConfig.load(os.path.join(results_dir, "args.txt"))
     ckpt_dir = os.path.join(results_dir, "checkpoints")
+    if mesh is not None:
+        device = mesh.device
     model = build_model_from_config(cfg, cfg.bank_size, device=device, seed=cfg.seed)
     if (ckpt_lib.restore_checkpoint(ckpt_dir, model) is None
             and ckpt_lib.restore_torch_checkpoint(ckpt_dir, model) is None):
         return cfg, None
+    if mesh is not None:
+        attach(model, mesh)
+        replicate(mesh, model.state_dict().values())
     return cfg, model.eval()
 
 
+def _data_shards(args) -> int:
+    """The run's data-parallel ranks: ``--n_data_shards``, or under
+    ``--only_evaluate`` the saved run's (JAX rebuilds its mesh from the
+    persisted config too)."""
+    if args.only_evaluate != "yes":
+        return args.n_data_shards
+    from transformer_clip_eeg_tpu_torch.train.config import TrainConfig
+
+    saved = os.path.join(args.results_folder, "args.txt")
+    return TrainConfig.load(saved).n_data_shards if os.path.exists(saved) else 0
+
+
 def main(argv=None, device="cuda") -> int:
+    """The command line; with ``--n_data_shards N`` on N ranks (spawned
+    here unless this process is one of a group already, or ``torchrun``'s
+    environment names one), returning rank 0's exit code."""
+    import torch.distributed as dist
+
+    from transformer_clip_eeg_tpu_torch.parallel import (
+        initialize_distributed,
+        launch,
+        make_mesh,
+    )
+
+    argv = sys.argv[1:] if argv is None else list(argv)
     args = build_arg_parser().parse_args(argv)
+    n = _data_shards(args)
+    if not n:
+        return _main(args, device)
+    if args.only_evaluate != "yes":
+        _config(args)  # a batch that does not divide fails here, before any rank starts
+    if dist.is_initialized():
+        return _main(args, device, make_mesh(n, device=device))
+    if initialize_distributed(device=device):
+        try:
+            return _main(args, device, make_mesh(n, device=device))
+        finally:
+            dist.destroy_process_group()
+    return launch(n, _rank_main, (argv, device), device)
+
+
+def _rank_main(argv, device, mesh) -> int:
+    """One spawned rank of :func:`main`."""
+    return _main(build_arg_parser().parse_args(argv), device, mesh)
+
+
+def _main(args, device, mesh=None) -> int:
     if args.only_evaluate == "yes":
         # the saved config and checkpoint of --results_folder (ref :274-285,541-556)
         results_dir = args.results_folder
-        cfg, model = _restore_run(results_dir, device)
+        cfg, model = _restore_run(results_dir, device, mesh)
         if model is None:
             print(f"no checkpoint found in {os.path.join(results_dir, 'checkpoints')}")
             return 1
@@ -273,7 +349,7 @@ def main(argv=None, device="cuda") -> int:
             return 0
         files = _split(cfg)
     else:
-        trainer, files = _train(args, device)
+        trainer, files = _train(args, device, mesh)
         if args.skip_eval == "yes":
             return 0
         # free the chunk stores' device memory and the training datasets'
@@ -282,7 +358,7 @@ def main(argv=None, device="cuda") -> int:
         cfg, model, results_dir = trainer.cfg, trainer.model, trainer.results_dir
     train_files, val_files, test_files, _, train_audio, val_audio, test_audio, _ = files
     run_eval_suite(model, cfg, results_dir, train_files, val_files, test_files,
-                   train_audio, val_audio, test_audio)
+                   train_audio, val_audio, test_audio, mesh=mesh)
     return 0
 
 
@@ -292,9 +368,23 @@ def _dump(results_dir: str, name: str, obj) -> None:
 
 
 def run_eval_suite(model, cfg, results_dir, train_files, val_files, test_files,
-                   train_audio, val_audio, test_audio) -> None:
+                   train_audio, val_audio, test_audio, mesh=None) -> None:
     """The four post-training evaluation blocks (ref :558-601), each writing
-    the JSON files the reference writes."""
+    the JSON files the reference writes.  Under ``mesh`` every rank runs the
+    suite (its embeddings split over the ranks, ``model`` attached to the
+    mesh); rank 0 writes into ``results_dir``, the others, silent, into a
+    directory of their own that is deleted after."""
+    if mesh is not None and not mesh.is_writer:
+        with tempfile.TemporaryDirectory(prefix="tce_eval_rank") as scratch, \
+                open(os.devnull, "w") as quiet, contextlib.redirect_stdout(quiet):
+            return _eval_suite(model, cfg, scratch, train_files, val_files, test_files,
+                               train_audio, val_audio, test_audio)
+    return _eval_suite(model, cfg, results_dir, train_files, val_files, test_files,
+                       train_audio, val_audio, test_audio)
+
+
+def _eval_suite(model, cfg, results_dir, train_files, val_files, test_files,
+                train_audio, val_audio, test_audio) -> None:
     from transformer_clip_eeg_tpu_torch.eval.match_mismatch import (
         evaluate_model_challenge_2023_mm,
     )

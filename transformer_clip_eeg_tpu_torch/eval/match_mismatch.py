@@ -14,7 +14,11 @@ Counterpart of ``transformer_clip_eeg_tpu/eval/match_mismatch.py`` (ref
 
 The similarities, ``argmax`` and ``argsort`` run in numpy on the host, as in
 the JAX package, so ties break the same way.  ``embed_in_chunks`` also
-serves ``serve.InferenceSession`` and the regression evals.
+serves ``serve.InferenceSession`` and the regression evals.  Under a
+data-parallel mesh (the model's, ``parallel.attach``) the embedding
+functions split each chunk over the ranks and gather the rows back
+(``train/steps.make_embed_fns``, JAX's ``mesh_embed_setup``), so every rank
+gets every embedding and runs the rest of the suite as one process does.
 """
 
 from __future__ import annotations

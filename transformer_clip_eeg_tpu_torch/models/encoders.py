@@ -23,6 +23,7 @@ import torch
 from torch import nn
 
 from transformer_clip_eeg_tpu_torch.ops.attention import TransformerEncoder
+from transformer_clip_eeg_tpu_torch.ops.dropout import mesh_rows
 from transformer_clip_eeg_tpu_torch.ops.fused_conv import fused_basic_block
 from transformer_clip_eeg_tpu_torch.ops.layers import (
     ACTIVATIONS,
@@ -75,9 +76,11 @@ class BasicBlock(nn.Module):
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         if self.takes_fused_path:
             w = self.conv.weight
+            row_offset, global_batch = mesh_rows(self.dropout.mesh, x.shape[0])
             return fused_basic_block(
                 x, w, self.conv.bias, self.normalization.weight, self.normalization.bias,
                 self.dropout.dropout_seed, w.shape[2], self.dropout.rate, self.training,
+                row_offset, global_batch,
             )
         return gelu_exact(self.normalization(self.dropout(self.conv(x))))
 

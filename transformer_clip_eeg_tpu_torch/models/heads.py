@@ -11,6 +11,13 @@ flax sizes a head's Dense layers from the embeddings at init; here they are
 sized at construction from the encoders' real output shapes
 (``output_shape``), and a head whose InfoNCE would multiply embeddings of
 two widths raises a ``ValueError`` there, where JAX fails at its init.
+
+Under a data-parallel mesh (``parallel/mesh.py``; ``mesh`` set by
+``parallel.attach``) the encoders run on this rank's rows, and the flattened
+embeddings and the ids are all-gathered before any of the head's layers and
+losses (``parallel/collectives.all_gather_rows``), as GSPMD gathers them
+before the JAX head's similarity: every rank then computes the global
+batch's losses and applies the same memory-bank update.
 """
 
 from __future__ import annotations
@@ -29,6 +36,7 @@ from transformer_clip_eeg_tpu_torch.ops.layers import (
     l2_normalize,
     leaky_relu,
 )
+from transformer_clip_eeg_tpu_torch.parallel.collectives import all_gather_rows
 
 
 # -- losses ------------------------------------------------------------------
@@ -180,7 +188,8 @@ class ProjectionHeadLinear(nn.Module):
 
 class _Head(nn.Module):
     """The two encoders, the window and the temperatures a head declares
-    (``temperature_eeg`` where JAX declares it, used or not)."""
+    (``temperature_eeg`` where JAX declares it, used or not), and the mesh
+    whose global batch the head's losses take (None: one process)."""
 
     def __init__(self, eegModel: nn.Module, speechModel: nn.Module, window_length: int,
                  temperature: Optional[float] = None, temperature_eeg: bool = False):
@@ -188,6 +197,7 @@ class _Head(nn.Module):
         self.eegModel = eegModel
         self.speechModel = speechModel
         self.window_length = window_length  # read by the challenge regression
+        self.mesh = None
         self.init_temperature = temperature
         if temperature is not None:
             self.temperature = nn.Parameter(torch.tensor(float(temperature)))
@@ -211,10 +221,23 @@ class _Head(nn.Module):
     def encode_speech(self, speech: torch.Tensor) -> torch.Tensor:
         return self.speechModel(speech)
 
-    def _normalised(self, eeg: torch.Tensor, speech: torch.Tensor, transposed: bool = False):
+    def _features(self, eeg: torch.Tensor, speech: torch.Tensor, transposed: bool = False):
+        """Both encoders' flattened outputs; under a mesh every rank's rows,
+        gathered in one all-gather."""
         flatten = flatten_maybe_transposed if transposed else flatten_features
-        return (l2_normalize(flatten(self.eegModel(eeg)), 1),
-                l2_normalize(flatten(self.speechModel(speech)), 1))
+        eeg_f, sp_f = flatten(self.eegModel(eeg)), flatten(self.speechModel(speech))
+        if self.mesh is None:
+            return eeg_f, sp_f
+        both = all_gather_rows(torch.cat([eeg_f, sp_f], 1), self.mesh)
+        return both.split([eeg_f.shape[1], sp_f.shape[1]], 1)
+
+    def _global_ids(self, ids: torch.Tensor) -> torch.Tensor:
+        """The segment ids of the global batch."""
+        return ids if self.mesh is None else all_gather_rows(ids, self.mesh)
+
+    def _normalised(self, eeg: torch.Tensor, speech: torch.Tensor, transposed: bool = False):
+        eeg_f, sp_f = self._features(eeg, speech, transposed)
+        return l2_normalize(eeg_f, 1), l2_normalize(sp_f, 1)
 
     def _require_equal_widths(self) -> None:
         eeg_w, sp_w = self.widths()
@@ -262,10 +285,11 @@ class CLIPSim(_Head):
 
     def forward(self, eeg: torch.Tensor, speech: torch.Tensor, ids: torch.Tensor,
                 update_membank: bool = True):
-        eeg_f = l2_normalize(self.latent_projection_eeg(flatten_features(self.eegModel(eeg))), 1)
-        sp_f = l2_normalize(
-            self.latent_projection_speech(flatten_features(self.speechModel(speech))), 1)
-        averages = l2_normalize(self.eegMemoryBank(ids, eeg_f, update=update_membank), 1)
+        eeg_e, sp_e = self._features(eeg, speech)
+        eeg_f = l2_normalize(self.latent_projection_eeg(eeg_e), 1)
+        sp_f = l2_normalize(self.latent_projection_speech(sp_e), 1)
+        averages = l2_normalize(
+            self.eegMemoryBank(self._global_ids(ids), eeg_f, update=update_membank), 1)
         s_loss, e_loss, _ = _symmetric_infonce(sp_f, eeg_f, self.temperature)
         loss_ce = (s_loss + e_loss) / 2.0
         avg_loss = torch.mean(torch.square(averages - eeg_f))
@@ -304,7 +328,8 @@ class CLIPSimNoLatentProj(_Head):
         global segment ids; the bank's rows ``ids`` are EMA-updated with the
         batch's EEG features when ``update_membank``."""
         eeg_f, sp_f = self._normalised(eeg, speech, transposed=True)
-        averages = l2_normalize(self.eegMemoryBank(ids, eeg_f, update=update_membank), 1)
+        averages = l2_normalize(
+            self.eegMemoryBank(self._global_ids(ids), eeg_f, update=update_membank), 1)
         s_loss, e_loss, _ = _symmetric_infonce(sp_f, eeg_f, self.temperature)
         loss_ce = (s_loss + e_loss) / 2.0
         avg_loss, _, _ = _symmetric_infonce(averages, eeg_f, self.temperature_eeg)
@@ -416,7 +441,7 @@ class _KLDHead(_Head):
             self.mu_eeg_lookup.normal_(0.0, 1.0, generator=generator)
 
     def _losses(self, ids, z_mu, z_logvar, eeg_n, sp_n):
-        mu2_eeg = self.mu_eeg_lookup[ids]
+        mu2_eeg = self.mu_eeg_lookup[self._global_ids(ids)]
         log_pmu2 = torch.mean(log_gauss(mu2_eeg, 0.0, 0.0), dim=1)
         kld_z2 = torch.mean(kld(z_mu, z_logvar, mu2_eeg, math.log(0.5 ** 2)), dim=1)
         lower_bound = torch.mean(-log_pmu2 + kld_z2, dim=0)
@@ -452,8 +477,7 @@ class CLIPKLDNoLatentProj(_KLDHead):
         self.eeg_logvar_linear = Dense(eeg_w, latent_dimension2)
 
     def forward(self, eeg: torch.Tensor, speech: torch.Tensor, ids: torch.Tensor):
-        eeg_f = flatten_features(self.eegModel(eeg))
-        sp_f = flatten_features(self.speechModel(speech))
+        eeg_f, sp_f = self._features(eeg, speech)
         return self._losses(ids, self.eeg_mu_linear(eeg_f), self.eeg_logvar_linear(eeg_f),
                             l2_normalize(eeg_f, 1), l2_normalize(sp_f, 1))
 
@@ -484,8 +508,7 @@ class CLIPKLDWithLatentProj(_KLDHead):
         self.speech_latent_projection = proj(sp_w, latent_dimension)
 
     def forward(self, eeg: torch.Tensor, speech: torch.Tensor, ids: torch.Tensor):
-        eeg_f = flatten_features(self.eegModel(eeg))
-        sp_f = flatten_features(self.speechModel(speech))
+        eeg_f, sp_f = self._features(eeg, speech)
         eeg_mu = self.eeg_mu_linear(eeg_f)
         return self._losses(ids, eeg_mu, self.eeg_logvar_linear(eeg_f),
                             l2_normalize(eeg_mu, 1),

@@ -21,6 +21,7 @@ from __future__ import annotations
 import torch
 from torch import nn
 
+from transformer_clip_eeg_tpu_torch.ops.dropout import mesh_rows
 from transformer_clip_eeg_tpu_torch.ops.fused_block import fused_transformer_block
 from transformer_clip_eeg_tpu_torch.ops.layers import Dense, LayerNorm
 
@@ -50,7 +51,9 @@ class TransformerEncoderBlock(nn.Module):
     """Pre-LN residual block, run by the fused block on every device.
 
     ``dropout_seed`` keys the four masks of the next forward in training
-    mode (set per step by ``ops.dropout.set_dropout_seeds``)."""
+    mode (set per step by ``ops.dropout.set_dropout_seeds``); under a mesh
+    (``parallel.attach``) they are the global batch's masks of this rank's
+    rows."""
 
     def __init__(
         self,
@@ -64,6 +67,7 @@ class TransformerEncoderBlock(nn.Module):
         self.emb_size, self.num_heads = emb_size, num_heads
         self.drop_p, self.forward_drop_p = drop_p, forward_drop_p
         self.dropout_seed = 0
+        self.mesh = None
         self.ln1 = LayerNorm(emb_size)
         self.attn = MultiHeadAttention(emb_size)
         self.ln2 = LayerNorm(emb_size)
@@ -82,10 +86,12 @@ class TransformerEncoderBlock(nn.Module):
         )
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
+        row_offset, global_batch = mesh_rows(self.mesh, x.shape[0])
         return fused_transformer_block(
             x, self.fused_params(), self.num_heads, self.emb_size ** 0.5,
             training=self.training, seed=self.dropout_seed,
             drop_p=self.drop_p, ffn_drop_p=self.forward_drop_p,
+            row_offset=row_offset, global_batch=global_batch,
         )
 
 

@@ -22,6 +22,11 @@ the card therefore draw the same numbers, and nothing here reads a value
 back to the host, so the draws can sit inside a captured CUDA graph.
 ``jax.random``'s streams cannot be matched; the tests hold each application
 against JAX's function fed with JAX's own draws.
+
+Every draw's leading axis is the batch.  ``row0`` says which row of the
+global batch a data-parallel rank's first row is: its draws are then rows
+``[row0, row0 + B)`` of the global batch's (the linear index shifted by
+``row0`` rows), so N ranks augment and mix as one process does.
 """
 
 from __future__ import annotations
@@ -53,23 +58,29 @@ MIXUP_STREAM = 0x80000001
 
 # -- draws ---------------------------------------------------------------------
 
-def uniform(key: int, shape, device, lo: float = 0.0, hi: float = 1.0) -> torch.Tensor:
+def _index(shape, device, row0: int) -> torch.Tensor:
+    """The linear index of ``shape`` as rows ``row0...`` of a larger batch."""
+    return linear_index(shape, device) + row0 * math.prod(shape[1:])
+
+
+def uniform(key: int, shape, device, lo: float = 0.0, hi: float = 1.0,
+            row0: int = 0) -> torch.Tensor:
     """float32 uniforms in ``[lo, hi)``: the top 24 hash bits of each
     element's linear index, scaled."""
-    bits = hash_bits(key, linear_index(shape, device))
+    bits = hash_bits(key, _index(shape, device, row0))
     u = (bits >> 8).to(torch.float32) * (2.0 ** -24)
     return u * (hi - lo) + lo
 
 
-def normal(key: int, shape, device) -> torch.Tensor:
+def normal(key: int, shape, device, row0: int = 0) -> torch.Tensor:
     """Standard normals by Box-Muller from two uniform streams of ``key``."""
-    u1 = 1.0 - uniform(fold_seed(key, 0), shape, device)  # in (0, 1]
-    u2 = uniform(fold_seed(key, 1), shape, device)
+    u1 = 1.0 - uniform(fold_seed(key, 0), shape, device, row0=row0)  # in (0, 1]
+    u2 = uniform(fold_seed(key, 1), shape, device, row0=row0)
     return torch.sqrt(-2.0 * torch.log(u1)) * torch.cos((2.0 * math.pi) * u2)
 
 
-def bernoulli(key: int, p: float, shape, device) -> torch.Tensor:
-    return uniform(key, shape, device) < p
+def bernoulli(key: int, p: float, shape, device, row0: int = 0) -> torch.Tensor:
+    return uniform(key, shape, device, row0=row0) < p
 
 
 def randint(key: int, n: int, shape, device) -> torch.Tensor:
@@ -77,9 +88,9 @@ def randint(key: int, n: int, shape, device) -> torch.Tensor:
     return (hash_bits(key, linear_index(shape, device)) * int(n)) >> 32
 
 
-def _mask(key: int, x: torch.Tensor, p: float) -> torch.Tensor:
+def _mask(key: int, x: torch.Tensor, p: float, row0: int) -> torch.Tensor:
     """[B] booleans: which samples get the transform (stream 0 of ``key``)."""
-    return bernoulli(fold_seed(key, 0), p, (x.shape[0],), x.device)
+    return bernoulli(fold_seed(key, 0), p, (x.shape[0],), x.device, row0)
 
 
 def _apply_masked(mask: torch.Tensor, augmented: torch.Tensor,
@@ -89,17 +100,19 @@ def _apply_masked(mask: torch.Tensor, augmented: torch.Tensor,
 
 # -- the transforms --------------------------------------------------------------
 
-def draw_sign_flip(key: int, x: torch.Tensor, p: float) -> Dict[str, torch.Tensor]:
-    return {"mask": _mask(key, x, p)}
+def draw_sign_flip(key: int, x: torch.Tensor, p: float, row0: int = 0
+                   ) -> Dict[str, torch.Tensor]:
+    return {"mask": _mask(key, x, p, row0)}
 
 
 def apply_sign_flip(x, mask):
     return _apply_masked(mask, -x, x)
 
 
-def draw_gaussian_noise(key: int, x: torch.Tensor, p: float, std: float = 0.16):
-    return {"mask": _mask(key, x, p),
-            "noise": std * normal(fold_seed(key, 1), x.shape, x.device).to(x.dtype)}
+def draw_gaussian_noise(key: int, x: torch.Tensor, p: float, std: float = 0.16,
+                        row0: int = 0):
+    return {"mask": _mask(key, x, p, row0),
+            "noise": std * normal(fold_seed(key, 1), x.shape, x.device, row0).to(x.dtype)}
 
 
 def apply_gaussian_noise(x, mask, noise):
@@ -111,11 +124,11 @@ def _n_half(t: int) -> int:
 
 
 def draw_ft_surrogate(key: int, x: torch.Tensor, p: float,
-                      phase_noise_magnitude: float = 1.0):
+                      phase_noise_magnitude: float = 1.0, row0: int = 0):
     b, t = x.shape[0], x.shape[2]
-    phases = uniform(fold_seed(key, 1), (b, 1, _n_half(t)), x.device) * (
+    phases = uniform(fold_seed(key, 1), (b, 1, _n_half(t)), x.device, row0=row0) * (
         phase_noise_magnitude * 2 * math.pi)
-    return {"mask": _mask(key, x, p), "phases": phases}
+    return {"mask": _mask(key, x, p, row0), "phases": phases}
 
 
 def apply_ft_surrogate(x, mask, phases):
@@ -133,10 +146,10 @@ def apply_ft_surrogate(x, mask, phases):
 
 
 def draw_frequency_shift(key: int, x: torch.Tensor, p: float, max_delta_freq: float = 0.6,
-                         sfreq: float = 100.0):
+                         sfreq: float = 100.0, row0: int = 0):
     delta = uniform(fold_seed(key, 1), (x.shape[0], 1, 1), x.device, -max_delta_freq,
-                    max_delta_freq)
-    return {"mask": _mask(key, x, p), "delta": delta}
+                    max_delta_freq, row0)
+    return {"mask": _mask(key, x, p, row0), "delta": delta}
 
 
 def apply_frequency_shift(x, mask, delta, sfreq: float = 100.0):
@@ -156,10 +169,10 @@ def apply_frequency_shift(x, mask, delta, sfreq: float = 100.0):
 
 
 def draw_bandstop_filter(key: int, x: torch.Tensor, p: float, bandwidth: float = 0.6,
-                         sfreq: float = 100.0):
+                         sfreq: float = 100.0, row0: int = 0):
     hi = max(sfreq / 2.0 - bandwidth - 1.0, 1.0 + 1e-3)
-    f0 = uniform(fold_seed(key, 1), (x.shape[0], 1, 1), x.device, 1.0, hi)
-    return {"mask": _mask(key, x, p), "f0": f0}
+    f0 = uniform(fold_seed(key, 1), (x.shape[0], 1, 1), x.device, 1.0, hi, row0)
+    return {"mask": _mask(key, x, p, row0), "f0": f0}
 
 
 def apply_bandstop_filter(x, mask, f0, bandwidth: float = 0.6, sfreq: float = 100.0):
@@ -173,11 +186,12 @@ def apply_bandstop_filter(x, mask, f0, bandwidth: float = 0.6, sfreq: float = 10
     return _apply_masked(mask, aug.to(x.dtype), x)
 
 
-def draw_smooth_time_mask(key: int, x: torch.Tensor, p: float, mask_len_samples: int = 20):
+def draw_smooth_time_mask(key: int, x: torch.Tensor, p: float, mask_len_samples: int = 20,
+                          row0: int = 0):
     t = x.shape[2]
     start = uniform(fold_seed(key, 1), (x.shape[0], 1, 1), x.device, 0.0,
-                    float(max(t - mask_len_samples, 1)))
-    return {"mask": _mask(key, x, p), "start": start}
+                    float(max(t - mask_len_samples, 1)), row0)
+    return {"mask": _mask(key, x, p, row0), "start": start}
 
 
 def apply_smooth_time_mask(x, mask, start, mask_len_samples: int = 20):
@@ -189,20 +203,23 @@ def apply_smooth_time_mask(x, mask, start, mask_len_samples: int = 20):
     return _apply_masked(mask, x * (1.0 - window).to(x.dtype), x)
 
 
-def draw_channels_dropout(key: int, x: torch.Tensor, p: float, p_drop: float = 0.2):
-    keep = bernoulli(fold_seed(key, 1), 1.0 - p_drop, (x.shape[0], x.shape[1], 1), x.device)
-    return {"mask": _mask(key, x, p), "keep": keep}
+def draw_channels_dropout(key: int, x: torch.Tensor, p: float, p_drop: float = 0.2,
+                          row0: int = 0):
+    keep = bernoulli(fold_seed(key, 1), 1.0 - p_drop, (x.shape[0], x.shape[1], 1), x.device,
+                     row0)
+    return {"mask": _mask(key, x, p, row0), "keep": keep}
 
 
 def apply_channels_dropout(x, mask, keep):
     return _apply_masked(mask, x * keep.to(x.dtype), x)
 
 
-def draw_channels_shuffle(key: int, x: torch.Tensor, p: float, p_shuffle: float = 0.6):
+def draw_channels_shuffle(key: int, x: torch.Tensor, p: float, p_shuffle: float = 0.6,
+                          row0: int = 0):
     b, c = x.shape[0], x.shape[1]
-    return {"mask": _mask(key, x, p),
-            "in_subset": bernoulli(fold_seed(key, 1), p_shuffle, (b, c), x.device),
-            "noise": uniform(fold_seed(key, 2), (b, c), x.device)}
+    return {"mask": _mask(key, x, p, row0),
+            "in_subset": bernoulli(fold_seed(key, 1), p_shuffle, (b, c), x.device, row0),
+            "noise": uniform(fold_seed(key, 2), (b, c), x.device, row0=row0)}
 
 
 def shuffle_permutation(in_subset: torch.Tensor, noise: torch.Tensor) -> torch.Tensor:
@@ -226,9 +243,9 @@ def apply_channels_shuffle(x, mask, in_subset, noise):
 def _compose(draw, apply, shared: Sequence[str] = ()):
     """``fn(key, x, p, **params)``: ``apply(x, **draw(key, x, p, **params))``;
     ``shared`` names the parameters the application takes too."""
-    def fn(key: int, x: torch.Tensor, p: float, **params) -> torch.Tensor:
+    def fn(key: int, x: torch.Tensor, p: float, row0: int = 0, **params) -> torch.Tensor:
         kw = {k: params[k] for k in shared if k in params}
-        return apply(x, **draw(key, x, p, **params), **kw)
+        return apply(x, **draw(key, x, p, row0=row0, **params), **kw)
     return fn
 
 
@@ -267,19 +284,19 @@ DRAWS: Dict[str, Callable] = {
 
 
 def make_augmentation_fn(names: Sequence[str], probability: float
-                         ) -> Callable[[int, torch.Tensor], torch.Tensor]:
+                         ) -> Callable[..., torch.Tensor]:
     """The named transforms with ``BEST_AUG_PARAMS``, composed into ``fn(key,
-    batch) -> batch`` (ref dataset_loader.py:147-165); the i-th transform
-    draws from ``fold_seed(key, i)``."""
+    batch, row0=0) -> batch`` (ref dataset_loader.py:147-165); the i-th
+    transform draws from ``fold_seed(key, i)``."""
     steps = []
     for name in names:
         if name not in TRANSFORMS:
             raise ValueError(f"unknown augmentation {name!r}")
         steps.append(partial(TRANSFORMS[name], p=probability, **BEST_AUG_PARAMS.get(name, {})))
 
-    def apply(key: int, batch: torch.Tensor) -> torch.Tensor:
+    def apply(key: int, batch: torch.Tensor, row0: int = 0) -> torch.Tensor:
         for i, step in enumerate(steps):
-            batch = step(fold_seed(key, i), batch)
+            batch = step(fold_seed(key, i), batch, row0=row0)
         return batch
 
     return apply
@@ -287,11 +304,12 @@ def make_augmentation_fn(names: Sequence[str], probability: float
 
 # -- mixup ---------------------------------------------------------------------
 
-def draw_batch_mixup(key: int, b: int, probability: float, device) -> Dict[str, torch.Tensor]:
+def draw_batch_mixup(key: int, b: int, probability: float, device,
+                     row0: int = 0) -> Dict[str, torch.Tensor]:
     """Per batch row: whether it mixes (``uniform < probability``) and its
     weight ``alpha`` on the partner, ~ U(0, 1)."""
-    return {"do_aug": bernoulli(fold_seed(key, 0), probability, (b,), device),
-            "alphas": uniform(fold_seed(key, 1), (b,), device)}
+    return {"do_aug": bernoulli(fold_seed(key, 0), probability, (b,), device, row0),
+            "alphas": uniform(fold_seed(key, 1), (b,), device, row0=row0)}
 
 
 def apply_batch_mixup(eeg, partner_eeg, do_aug, alphas):

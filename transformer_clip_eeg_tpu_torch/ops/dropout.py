@@ -22,7 +22,7 @@ dropout of the port draws from it: the fused block's four masks and
 
 from __future__ import annotations
 
-from typing import Sequence, Union
+from typing import Optional, Sequence, Tuple, Union
 
 import numpy as np
 import torch
@@ -78,11 +78,21 @@ def linear_index(shape: Sequence[int], device=None) -> torch.Tensor:
 
 
 def dropout_mask(key: Union[int, torch.Tensor], shape: Sequence[int], p: float,
-                 device=None) -> torch.Tensor:
+                 device=None, offset: int = 0) -> torch.Tensor:
     """The multiplier tensor for one mask: ``key`` is ``seed_base + mask_id``
     (an int, or an int64 tensor broadcasting against ``shape``) and the
-    element index is the row-major linear index inside ``shape``."""
-    return mask_from_bits(hash_bits(key, linear_index(shape, device)), p)
+    element index is ``offset`` plus the row-major linear index inside
+    ``shape`` (a slice of rows of a larger tensor takes that tensor's mask
+    with ``offset`` the index of its first element)."""
+    return mask_from_bits(hash_bits(key, linear_index(shape, device) + offset), p)
+
+
+def mesh_rows(mesh, b: int) -> Tuple[int, Optional[int]]:
+    """``(row_offset, global_batch)`` of a rank's ``b`` rows under ``mesh``
+    (``(0, None)``: no mesh), for the fused kernels' masks."""
+    if mesh is None:
+        return 0, None
+    return mesh.rank * b, mesh.n_data * b
 
 
 def fold_seed(seed: int, n: int) -> int:

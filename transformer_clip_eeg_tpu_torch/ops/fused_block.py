@@ -158,6 +158,26 @@ def pick_tile(b: int) -> int:
     return 1
 
 
+def shard_seed(seed: int, b: int, row_offset: int = 0,
+               global_batch: Optional[int] = None) -> int:
+    """The seed whose masks for a batch of ``b`` rows are those of rows
+    ``[row_offset, row_offset + b)`` of a batch of ``global_batch`` under
+    ``seed`` (a data-parallel rank's rows).  Sample ``s`` is keyed by
+    ``seed + s // tb`` and its index inside the tile, so with the same tile
+    ``tb`` and ``row_offset`` a multiple of it, ``seed + row_offset // tb``
+    gives the rank's rows their global masks, in this twin and the kernels
+    alike; other shards raise ``ValueError``."""
+    if global_batch is None or (row_offset == 0 and global_batch == b):
+        return seed
+    tb = pick_tile(global_batch)
+    if pick_tile(b) != tb or row_offset % tb:
+        raise ValueError(
+            f"rows [{row_offset}, {row_offset + b}) of a batch of {global_batch} cannot take "
+            f"their global dropout masks: the batch tile of {b} rows is {pick_tile(b)} and "
+            f"of {global_batch} rows {tb}; choose a batch whose shards keep its tile")
+    return seed + row_offset // tb
+
+
 def block_masks(b: int, t: int, e: int, f: int, num_heads: int,
                 drop: DropoutConfig, device=None):
     """The block's four dropout multipliers for a batch of ``b`` samples:
@@ -596,6 +616,8 @@ def fused_transformer_block(
     seed: int = 0,
     drop_p: float = 0.0,
     ffn_drop_p: float = 0.0,
+    row_offset: int = 0,
+    global_batch: Optional[int] = None,
 ) -> torch.Tensor:
     """Fused pre-LN block, ``x [B, T, E]`` → ``[B, T, E]``.
 
@@ -606,9 +628,14 @@ def fused_transformer_block(
     F=256 and any window of T <= ``MAX_KERNEL_T`` = 1,699 rows, else it
     raises); a CPU tensor runs the plain version.  Under autograd the gradient is kernel #2 on the card and
     autograd through the twin on the CPU.  A bfloat16 ``x`` selects the bf16
-    mode (the module docstring); the parameters stay float32.
+    mode (the module docstring); the parameters stay float32.  ``x`` may be
+    rows ``[row_offset, row_offset + B)`` of a batch of ``global_batch``
+    (a data-parallel rank's): its masks are then that batch's
+    (:func:`shard_seed`).
     """
     drop = DropoutConfig(bool(training), int(seed), float(drop_p), float(ffn_drop_p))
+    if drop.active:
+        drop = drop._replace(seed=shard_seed(drop.seed, x.shape[0], row_offset, global_batch))
     if x.device.type not in ("cpu", "cuda"):
         raise ValueError(f"no fused block for device {x.device}")
     wants_grad = torch.is_grad_enabled() and (

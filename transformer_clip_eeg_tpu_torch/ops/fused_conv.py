@@ -50,6 +50,7 @@ from transformer_clip_eeg_tpu_torch.ops.fused_block import (
     DropoutConfig,
     drop_args,
     pick_tile,
+    shard_seed,
 )
 from transformer_clip_eeg_tpu_torch.ops.layers import same_padding, upcast
 
@@ -320,6 +321,8 @@ def fused_basic_block(
     kernel_size: int,
     drop_p: float,
     training: bool,
+    row_offset: int = 0,
+    global_batch: Optional[int] = None,
 ) -> torch.Tensor:
     """Fused Conv1d(K, same) + b → dropout → LayerNorm[T, C] → GELU.
 
@@ -330,7 +333,10 @@ def fused_basic_block(
     tensor launches the kernels (float32 weights, C=64, K <= 64 and
     T <= ``max_kernel_t(K)``, else it raises); a CPU tensor runs the plain
     version.  Under autograd the gradient is kernel #6 on the card and
-    autograd through the twin on the CPU.
+    autograd through the twin on the CPU.  ``x`` may be rows ``[row_offset,
+    row_offset + B)`` of a batch of ``global_batch`` (a data-parallel
+    rank's): its mask is then that batch's (the block's ``shard_seed``: the
+    mask is keyed by tile as #1's).
     """
     if w.dim() != 3 or w.shape[2] != kernel_size:
         raise ValueError(f"kernel_size={kernel_size} but w has shape {tuple(w.shape)}")
@@ -343,6 +349,8 @@ def fused_basic_block(
     # gradients in float32, as the JAX kernel's VJP does
     x = upcast(x).contiguous()  # contiguous: e.g. the view a torch Conv1d returns
     drop = DropoutConfig(bool(training), int(seed), float(drop_p))
+    if drop.active:
+        drop = drop._replace(seed=shard_seed(drop.seed, x.shape[0], row_offset, global_batch))
     wants_grad = torch.is_grad_enabled() and any(
         v.requires_grad for v in (x, w, b, scale, bias))
     if wants_grad:

@@ -14,6 +14,10 @@ Numerics kept from the reference:
 * exact (erf) GELU; LeakyReLU with torch's slope 0.01;
 * :class:`BatchNorm1d` normalises with the biased batch variance and keeps
   the unbiased one in ``running_var`` (torch's rule);
+* under a data-parallel mesh (``mesh``, set by ``parallel.attach``) the
+  layers see this rank's rows of the global batch: :class:`BatchNorm1d`
+  takes the global batch's statistics and :class:`Dropout` the global
+  batch's masks, as the JAX layers do under GSPMD;
 * torch's default init ``U(-1/sqrt(fan_in), 1/sqrt(fan_in))`` for weights and
   biases of linear and conv layers.
 
@@ -41,6 +45,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from transformer_clip_eeg_tpu_torch.ops.dropout import dropout_mask
+from transformer_clip_eeg_tpu_torch.parallel.collectives import all_reduce_sum
 
 
 def torch_uniform_init(
@@ -275,7 +280,13 @@ class BatchNorm1d(nn.Module):
     biased batch variance, and ``running_var`` updated with the unbiased one
     (momentum 0.1: ``new = 0.9 * old + 0.1 * batch``); in eval mode with the
     running statistics.  These are buffers, so ``state_dict`` and the
-    checkpoint carry them (the JAX layer's ``batch_stats``)."""
+    checkpoint carry them (the JAX layer's ``batch_stats``).
+
+    Under a mesh of several ranks the training statistics are the global
+    batch's, as JAX's under GSPMD: the mean, then the biased variance about
+    it, each a sum all-reduced over the ranks with its gradient (two passes,
+    as the JAX layer takes them), and the unbiased count is the global one.
+    ``nn.SyncBatchNorm`` is not used: it refuses CPU tensors."""
 
     def __init__(self, num_features: int, momentum: float = 0.1, eps: float = 1e-5):
         super().__init__()
@@ -284,6 +295,7 @@ class BatchNorm1d(nn.Module):
         self.bias = nn.Parameter(torch.zeros(num_features))
         self.register_buffer("running_mean", torch.zeros(num_features))
         self.register_buffer("running_var", torch.ones(num_features))
+        self.mesh = None
 
     def reset_parameters(self, generator: Optional[torch.Generator] = None) -> None:
         with torch.no_grad():
@@ -292,8 +304,26 @@ class BatchNorm1d(nn.Module):
             self.running_mean.zero_()
             self.running_var.fill_(1.0)
 
+    def _global_normalise(self, rows: torch.Tensor) -> torch.Tensor:
+        """``rows [n, C]`` (float32) normalised by the global batch's
+        statistics, which also move the running ones."""
+        n = rows.shape[0] * self.mesh.n_data
+        mean = all_reduce_sum(rows.sum(0)) / n
+        centred = rows - mean
+        var = all_reduce_sum((centred * centred).sum(0)) / n
+        with torch.no_grad():
+            m = self.momentum
+            self.running_mean.mul_(1.0 - m).add_(mean.detach(), alpha=m)
+            self.running_var.mul_(1.0 - m).add_(var.detach(), alpha=m * n / max(n - 1, 1))
+        return centred * torch.rsqrt(var + self.eps)
+
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         rows = x.reshape(-1, x.shape[-1])
+        if self.training and self.mesh is not None and self.mesh.n_data > 1:
+            y = self._global_normalise(upcast(rows))
+            if not low_precision(x):
+                return (y * self.weight + self.bias).reshape(x.shape)
+            return _affine(y, x, self.weight, self.bias).reshape(x.shape)
         if not low_precision(x):
             y = F.batch_norm(rows, self.running_mean, self.running_var, self.weight,
                              self.bias, self.training, self.momentum, self.eps)
@@ -308,17 +338,20 @@ class Dropout(nn.Module):
     function (``ops/dropout.py``) keyed by ``dropout_seed``, over the
     row-major index of ``x``, so the CPU and the card drop the same
     elements; ``ops.dropout.set_dropout_seeds`` gives each layer its own
-    seed per step."""
+    seed per step.  Under a mesh the index is the global batch's (this
+    rank's rows start ``rank * x.numel()`` elements in)."""
 
     def __init__(self, rate: float):
         super().__init__()
         self.rate = rate
         self.dropout_seed = 0
+        self.mesh = None
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         if not self.training or self.rate == 0.0:
             return x
-        mask = dropout_mask(self.dropout_seed, x.shape, self.rate, x.device)
+        offset = 0 if self.mesh is None else self.mesh.rank * x.numel()
+        mask = dropout_mask(self.dropout_seed, x.shape, self.rate, x.device, offset)
         if not low_precision(x):
             return x * mask
         # JAX's where(keep, x / keep_prob, 0), the division in x's dtype

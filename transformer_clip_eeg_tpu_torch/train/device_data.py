@@ -59,7 +59,10 @@ class DeviceChunkStore:
     Residency: with ``max_resident=None`` chunks stay resident up to a byte
     budget of ``budget_frac`` of the card's free memory at construction
     (``torch.cuda.mem_get_info``), counted together with every other budgeted
-    store on the same card (the train and validation stores share it).  On
+    store on the same card (the train and validation stores share it); when
+    ``ranks_on_device`` data-parallel ranks share the card, each holding the
+    whole store (replicated, as JAX's chunks are on a mesh), each takes that
+    share of the budget.  On
     the CPU there is no budget and a count cap of 2 applies, as in the JAX
     package on CPU test meshes; ``max_resident=N`` forces a count cap.  When
     a chunk does not fit, the resident chunk whose next use in the epoch walk
@@ -89,6 +92,7 @@ class DeviceChunkStore:
         prefetch: bool = True,
         budget_frac: float = 0.75,
         store_dtype: str = "float32",
+        ranks_on_device: int = 1,
     ):
         self.dataset = dataset
         if not dataset.features_to_load:
@@ -108,7 +112,7 @@ class DeviceChunkStore:
         self._device_key = (self.device.type, self.device.index or 0)
         self.budget_bytes: Optional[int] = None
         if max_resident is None:
-            self.budget_bytes = self._auto_budget(budget_frac)
+            self.budget_bytes = self._auto_budget(budget_frac / ranks_on_device)
             if self.budget_bytes is None:
                 max_resident = 2
         if max_resident is not None and prefetch:

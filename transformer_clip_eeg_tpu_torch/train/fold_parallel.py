@@ -106,8 +106,9 @@ class FoldParallelTrainer:
         fold_group_size=None,
         device="cuda",
     ):
-        if mesh is not None:
-            raise _not_ported("fold-parallel training over a device mesh")
+        if mesh is not None or cfg.n_data_shards:
+            raise _not_ported("fold-parallel training over a device mesh (a mesh or "
+                              f"n_data_shards={cfg.n_data_shards})")
         check_supported(cfg)
         self.cfg = cfg
         self.device = resolve_device(device)

@@ -26,9 +26,19 @@ everything after training run float32.
 ``checkpoints/model.ckpt`` (its weights, bank and batch-norm statistics; the
 optimizer and scheduler start fresh, as in JAX).
 
-Not ported yet, each raising ``NotImplementedError`` (ROADMAP.md): a
-data-parallel mesh (``n_data_shards``) and a ``prng_impl`` other than the
-default.
+Data parallelism (``n_data_shards``, JAX's trainer under a ``'data'``
+mesh): the trainer of each rank takes the rank's :class:`~transformer_clip_
+eeg_tpu_torch.parallel.mesh.Mesh`.  Every rank builds the same datasets and
+draws the same batches; the steps take the rank's rows (``train/steps.py``).
+Each rank holds the whole chunk store (its budget shared with the ranks on
+its card) and a replica of the model and optimizer, made rank 0's at init
+and checked equal by checksum at the end of ``fit``.  The validation losses
+are averaged over the ranks, so every rank keeps the same best state.  Rank
+0 alone names the results directory (broadcast to the others), writes
+``args.txt``, ``loss.txt`` and the checkpoints, and profiles.
+
+Not ported, raising ``NotImplementedError`` (ROADMAP.md): a ``prng_impl``
+other than the default.
 """
 
 from __future__ import annotations
@@ -47,12 +57,19 @@ from transformer_clip_eeg_tpu_torch.models.registry import (
     build_model_from_config,
     resolve_device,
 )
+from transformer_clip_eeg_tpu_torch.parallel.collectives import (
+    all_reduce_mean_,
+    broadcast_object,
+)
+from transformer_clip_eeg_tpu_torch.parallel.mesh import attach, shard_batch
 from transformer_clip_eeg_tpu_torch.train import checkpoint as ckpt_lib
 from transformer_clip_eeg_tpu_torch.train.config import TrainConfig
 from transformer_clip_eeg_tpu_torch.train.schedulers import make_scheduler
 from transformer_clip_eeg_tpu_torch.train.state import (
+    check_replicas,
     count_params,
     make_optimizer,
+    replicate_state,
     set_learning_rate,
 )
 from transformer_clip_eeg_tpu_torch.train import device_data
@@ -198,11 +215,14 @@ def _not_ported(what: str) -> NotImplementedError:
     )
 
 
-def check_supported(cfg: TrainConfig, mesh=None) -> None:
+def check_supported(cfg: TrainConfig) -> None:
     """Raise ``NotImplementedError`` for the options the port does not run yet,
-    and ``ValueError`` for a compute dtype the JAX CLI does not offer."""
-    if cfg.n_data_shards or mesh is not None:
-        raise _not_ported("data-parallel training over several devices (n_data_shards)")
+    and ``ValueError`` for a compute dtype the JAX CLI does not offer or a
+    batch that does not divide over ``n_data_shards`` ranks."""
+    if cfg.n_data_shards < 0 or (cfg.n_data_shards
+                                 and cfg.batch_size % cfg.n_data_shards):
+        raise ValueError(f"batch_size {cfg.batch_size} must divide over n_data_shards="
+                         f"{cfg.n_data_shards} ranks (a non-negative count)")
     if cfg.compute_dtype not in COMPUTE_DTYPES:
         raise ValueError(f"compute_dtype must be one of {sorted(COMPUTE_DTYPES)}, got "
                          f"{cfg.compute_dtype!r}")
@@ -225,17 +245,27 @@ class Trainer:
         mesh=None,
         profile_dir: Optional[str] = None,
     ):
-        check_supported(config, mesh)
+        check_supported(config)
+        if config.n_data_shards != (mesh.n_data if mesh is not None else 0):
+            raise ValueError(
+                f"n_data_shards={config.n_data_shards} needs a mesh of as many ranks (got "
+                f"{mesh}): cli.main starts them, or torchrun with parallel.make_mesh")
         self.cfg = cfg = config
-        self.device = resolve_device(device)
+        self.mesh = mesh
+        self.is_writer = mesh is None or mesh.is_writer  # rank 0 writes every file
+        self.device = mesh.device if mesh is not None else resolve_device(device)
         self.profile_dir = profile_dir  # a torch.profiler trace of epoch 0
         self.train_dataset = train_dataset
         self.val_dataset = val_dataset
-        self.results_dir = results_dir or os.path.join(
-            cfg.results_folder, cfg.results_dir_name(time.strftime("%Y_%m_%d_%H_%M_%S"))
-        )
+        if results_dir is None:
+            results_dir = os.path.join(
+                cfg.results_folder, cfg.results_dir_name(time.strftime("%Y_%m_%d_%H_%M_%S")))
+            if mesh is not None:  # named by rank 0's clock
+                results_dir = broadcast_object(results_dir, mesh)
+        self.results_dir = results_dir
         self.checkpoint_dir = os.path.join(self.results_dir, "checkpoints")
-        os.makedirs(self.checkpoint_dir, exist_ok=True)
+        if self.is_writer:
+            os.makedirs(self.checkpoint_dir, exist_ok=True)
         self.loss_file = os.path.join(self.results_dir, "loss.txt")
 
         # memory-bank sizing (ref train_clip_final.py:367-372); the val set
@@ -244,7 +274,8 @@ class Trainer:
         if val_dataset is not None:
             bank_size = max(bank_size, val_dataset.get_number_of_stimuli_segments())
         cfg.bank_size = bank_size  # persisted so serving rebuilds the head
-        cfg.save(os.path.join(self.results_dir, "args.txt"))
+        if self.is_writer:
+            cfg.save(os.path.join(self.results_dir, "args.txt"))
 
         # the device-resident chunk path (train/device_data.py): on a CUDA
         # device by default, as the JAX package uses it on a TPU.  There is
@@ -255,7 +286,8 @@ class Trainer:
                             or (cfg.data_mode == "auto" and self.device.type == "cuda"))
         if self.device_data:
             store_kw = dict(device=self.device, store_dtype=cfg.chunk_store_dtype,
-                            budget_frac=cfg.chunk_budget_frac)
+                            budget_frac=cfg.chunk_budget_frac,
+                            ranks_on_device=mesh.ranks_on_device if mesh is not None else 1)
             self.chunk_store = DeviceChunkStore(train_dataset, **store_kw)
             if val_dataset is not None:
                 self.val_chunk_store = DeviceChunkStore(val_dataset, **store_kw)
@@ -265,22 +297,36 @@ class Trainer:
         # sampling stream where the JAX trainer leaves it
         next(batch_iterator(train_dataset, cfg.addEEG_b))
         self.model = build_model_from_config(cfg, bank_size, self.device, seed=cfg.seed)
+        attach(self.model, mesh)
         self.optimizer = make_optimizer(
             self.model.parameters(), cfg.optimizer, cfg.learning_rate, cfg.beta1,
             cfg.beta2, cfg.weight_decay, cfg.amsgrad_b,
         )
         self.scheduler = make_scheduler(cfg.lr_scheduler, cfg.learning_rate,
                                         cfg.step_size_scheduler)
-        printf(f"number of parameters {count_params(self.model)}", self.loss_file)
+        if mesh is not None:
+            replicate_state(mesh, self.model, self.optimizer)
+            self.log(mesh.describe())
+        self.log(f"number of parameters {count_params(self.model)}")
 
     # -- helpers ------------------------------------------------------------
+
+    def log(self, statement: str) -> None:
+        """A ``loss.txt`` line, printed and written by rank 0 alone."""
+        if self.is_writer:
+            printf(statement, self.loss_file)
 
     def _sync(self) -> None:
         if self.device.type == "cuda":
             torch.cuda.synchronize(self.device)
 
     def _batches(self, dataset, add_eeg: bool = False) -> Iterator[Dict[str, torch.Tensor]]:
-        return prefetch_to_device(batch_iterator(dataset, add_eeg), self.device)
+        """The host path's batches on the device; under a mesh this rank's
+        rows of each (cut on the host, before the copy)."""
+        batches = batch_iterator(dataset, add_eeg)
+        if self.mesh is not None:
+            batches = (shard_batch(self.mesh, b) for b in batches)
+        return prefetch_to_device(batches, self.device)
 
     def _train_batches(self, warmup: bool):
         """One training epoch: yields ``(losses, pairs)`` per item and
@@ -320,7 +366,7 @@ class Trainer:
                 self._step_starts.append(t0)
                 losses = train_step(self.model, self.optimizer, batch, seed, warmup, **step_kw)
                 phase["dispatch_s"] += time.perf_counter() - t0
-                yield losses, batch["eeg"].shape[0]
+                yield losses, cfg.batch_size
 
     def release_device_data(self) -> None:
         """Drop the chunk stores' resident chunks, so the device memory they
@@ -385,11 +431,12 @@ class Trainer:
                                                self.optimizer, self.scheduler)
         if restored is None:
             restored = ckpt_lib.restore_torch_checkpoint(self.checkpoint_dir, self.model)
+        if self.mesh is not None:  # every rank read the same files; rank 0's wins
+            replicate_state(self.mesh, self.model, self.optimizer)
         if restored is not None:
-            printf(f"loaded model from {self.checkpoint_dir}", self.loss_file)
+            self.log(f"loaded model from {self.checkpoint_dir}")
         else:
-            printf(f"no model found at {self.checkpoint_dir}, training from scratch",
-                   self.loss_file)
+            self.log(f"no model found at {self.checkpoint_dir}, training from scratch")
 
         self._train_seed = cfg.seed + 1  # the JAX trainer's PRNGKey(seed + 1)
         # a resumed run starts from the recorded best val CE, so its first
@@ -411,11 +458,12 @@ class Trainer:
             # early stopping (ref :463-468)
             if track_best and epoch > best_epoch + cfg.patience and epoch > cfg.warmup_epochs:
                 restore(self.model, self.optimizer, best_state)
-                printf(f"early stopping at epoch {epoch}", self.loss_file)
+                self.log(f"early stopping at epoch {epoch}")
                 break
 
             warmup = epoch < cfg.warmup_epochs
-            profiler = self._start_profile() if self.profile_dir and epoch == 0 else None
+            profiler = (self._start_profile()
+                        if self.profile_dir and epoch == 0 and self.is_writer else None)
             t0 = time.time()
             n_batches = n_pairs = next_log = 0
             # dispatch = host time in step calls, fetch = host time turning
@@ -439,7 +487,7 @@ class Trainer:
                             tf = time.perf_counter()
                             msg = self._format_loss_line(epoch, n_batches, losses)
                             phase["fetch_s"] += time.perf_counter() - tf
-                            printf(msg, self.loss_file)
+                            self.log(msg)
                         else:
                             pending_logs.append((n_batches, losses))
                     n_batches += max(pairs // cfg.batch_size, 1)
@@ -450,7 +498,7 @@ class Trainer:
                 # a crash mid-epoch must not eat the deferred loss lines
                 for nb, losses in pending_logs:
                     try:
-                        printf(self._format_loss_line(epoch, nb, losses), self.loss_file)
+                        self.log(self._format_loss_line(epoch, nb, losses))
                     except Exception:
                         break
                 raise
@@ -460,14 +508,11 @@ class Trainer:
             block_s = t_end - tb
             tf = time.perf_counter()
             for nb, losses in pending_logs:
-                printf(self._format_loss_line(epoch, nb, losses), self.loss_file)
+                self.log(self._format_loss_line(epoch, nb, losses))
             phase["fetch_s"] += time.perf_counter() - tf
             epoch_time = time.time() - t0
-            printf(
-                f"epoch {epoch} done in {epoch_time:.1f}s "
-                f"({n_pairs / max(epoch_time, 1e-9):.0f} pairs/s)",
-                self.loss_file,
-            )
+            self.log(f"epoch {epoch} done in {epoch_time:.1f}s "
+                      f"({n_pairs / max(epoch_time, 1e-9):.0f} pairs/s)")
             phase_rec = {k: round(v, 1) for k, v in phase.items()}
             phase_rec["block_s"] = round(block_s, 1)
             if store_before is not None:
@@ -479,10 +524,10 @@ class Trainer:
                     upload_s=round(after["upload_s"] - store_before["upload_s"], 1),
                     upload_wait_s=round(after["wait_s"] - store_before["wait_s"], 1),
                 )
-            printf(f"epoch {epoch} phases {json.dumps(phase_rec)}", self.loss_file)
+            self.log(f"epoch {epoch} phases {json.dumps(phase_rec)}")
             if profiler is not None:
                 self._stop_profile(profiler)
-                printf(f"profiler trace written to {self.profile_dir}", self.loss_file)
+                self.log(f"profiler trace written to {self.profile_dir}")
 
             # scheduler (ref :502-504); plateau consumes the last val loss
             if cfg.lr_scheduler != "no":
@@ -491,12 +536,11 @@ class Trainer:
 
             # validation (ref :506-529)
             val_metrics = self.evaluate()
-            printf(
+            self.log(
                 f"validation epoch {epoch}: mean loss ce : "
                 f"{val_metrics['loss_ce']}, mean loss average: "
                 f"{val_metrics.get('loss_avg', val_metrics.get('log_pmu2', 0.0))},"
-                f" mean loss total: {val_metrics['loss_total']}",
-                self.loss_file,
+                f" mean loss total: {val_metrics['loss_total']}"
             )
             history.append({
                 "epoch": epoch,
@@ -511,17 +555,21 @@ class Trainer:
             # best-on-val-CE checkpoint (ref :531-540); meta first
             if val_metrics["loss_ce"] < best_loss:
                 best_loss = val_metrics["loss_ce"]
-                ckpt_lib.save_best_meta(self.checkpoint_dir, best_loss)
-                ckpt_lib.save_checkpoint(self.checkpoint_dir, self.model, self.optimizer,
-                                         self.scheduler)
+                if self.is_writer:
+                    ckpt_lib.save_best_meta(self.checkpoint_dir, best_loss)
+                    ckpt_lib.save_checkpoint(self.checkpoint_dir, self.model, self.optimizer,
+                                             self.scheduler)
                 best_epoch = epoch
                 best_state = snapshot(self.model, self.optimizer)
         else:
             if track_best:
                 restore(self.model, self.optimizer, best_state)
-            else:
+            elif self.is_writer:
                 ckpt_lib.save_checkpoint(self.checkpoint_dir, self.model, self.optimizer,
                                          self.scheduler)
+        if self.mesh is not None:
+            digest = check_replicas(self.mesh, self.model, self.optimizer)
+            self.log(f"replicas identical on {self.mesh.n_data} ranks (checksum {digest:#x})")
 
         return {
             "best_loss": best_loss,
@@ -558,4 +606,11 @@ class Trainer:
             for batch in self._batches(self.val_dataset):
                 add(eval_step(self.model, batch, arch))
                 count += 1
+        if self.mesh is not None and sums:
+            # each rank's sums are the global batches' already; the mean makes
+            # the best-checkpoint choice the same on every rank whatever
+            # rounding the ranks' cards did
+            names = sorted(sums)
+            mean = all_reduce_mean_(torch.stack([sums[k].float() for k in names]), self.mesh)
+            sums = dict(zip(names, mean))
         return {k: float(v) / max(count, 1) for k, v in sums.items()}

@@ -15,6 +15,11 @@ optax keeps the max of the bias-corrected one.  As ``optax.flatten`` does in
 the JAX package, the moments live in one flat vector, so an update is a few
 large element-wise operations whatever the number of parameters.  The step
 count ``n`` is the train state's step.
+
+Under a data-parallel mesh each rank holds a replica of the model and this
+state: :func:`replicate_state` makes them rank 0's at init, and
+:func:`check_replicas` checks, by an all-gathered checksum of their bits,
+that the ranks' identical updates kept them equal.
 """
 
 from __future__ import annotations
@@ -23,6 +28,12 @@ from typing import Any, Dict, Iterable, List
 
 import torch
 from torch import nn
+
+from transformer_clip_eeg_tpu_torch.parallel.collectives import (
+    broadcast_,
+    checksum,
+    gather_objects,
+)
 
 
 class Optimizer:
@@ -99,3 +110,25 @@ def get_learning_rate(opt: Optimizer) -> float:
 def count_params(model: nn.Module) -> int:
     """Number of parameters (the memory bank is a buffer and not counted)."""
     return sum(p.numel() for p in model.parameters())
+
+
+def _state_tensors(model: nn.Module, opt: Optimizer) -> List[torch.Tensor]:
+    """Every tensor of a replica: parameters and buffers (the memory bank,
+    batch-norm statistics), then the optimizer's moments."""
+    return [*model.state_dict().values(),
+            *(v for v in opt.state_dict().values() if isinstance(v, torch.Tensor))]
+
+
+def replicate_state(mesh, model: nn.Module, opt: Optimizer) -> None:
+    """Rank 0's model and optimizer state on every rank, in place."""
+    broadcast_(_state_tensors(model, opt), mesh)
+
+
+def check_replicas(mesh, model: nn.Module, opt: Optimizer) -> int:
+    """The replicas' common checksum; raises ``RuntimeError`` if any rank's
+    model or optimizer state differs from the others' in any bit."""
+    mine = (checksum(_state_tensors(model, opt)), opt.step)
+    every = gather_objects(mine, mesh)
+    if len(set(every)) != 1:
+        raise RuntimeError(f"the data-parallel replicas differ: (checksum, step) by rank {every}")
+    return mine[0]
