@@ -210,14 +210,40 @@ feature-extraction paths on one NVIDIA GPU, end to end.
     ``--only_evaluate`` on the same checkpoint; (d) each rank's epoch-2
     median step beside the one process's, the all-gather and the gradient
     all-reduce, and #1-#4 at a rank's batch of 64 beside their bound there.
-21. Prints one JSON line of per-kernel numbers (``launches_by_path`` with
+21. The fold-sharded mesh (``cv_mesh_path``, after ``cv_path``): ``cv
+    --parallel yes --n_data_shards 2 --folds 0 1 2 3 --epochs 1`` on two
+    ranks sharing the card over gloo (the port's ``launch``; each rank's
+    ``cv.main`` joins the group), twice in the same ranks: first with
+    ``--skip_eval yes``, cuDNN off and torch's and cuBLAS's deterministic
+    algorithms (cuDNN's deterministic algorithms give other bits in a
+    process that shares the card), then on the default algorithms with its
+    4 suites; beside each the unsharded run of the same folds with
+    ``--skip_eval yes`` in a fresh process on the same algorithms: every
+    fold's train and val CE and best weights bit for bit on the first pair,
+    within ``CV_MESH_DEFAULT_LOSS_TOL`` / ``CV_MESH_DEFAULT_PARAM_TOL`` on the
+    second; exact launches of #1-#4 a rank-step and of each rank's 2 suites,
+    none of the bf16 instantiations; every suite file finite,
+    ``cv_summary.json`` of 4 folds; the aggregate pairs/s of the runs.
+22. Sharded serving (``shard_serve_path``, on the serve CLI phase's files):
+    ``serve.main --shard 2`` on two ranks sharing the card (256 EEG windows,
+    128 speech windows, top-5 of the 256 over 130 candidates) against the
+    one-process CLI (1e-5 of max |x|, the indices equal); exact launches a
+    rank-chunk; the wall time of each call.
+23. DP x TP extraction (``tp_extraction_path``, after ``wav2vec_path``, on
+    its XLSR-53-width weights): one 24.5 s story with ``--n_data_shards 2
+    --n_model_shards 1`` and ``--n_data_shards 1 --n_model_shards 2`` on two
+    ranks sharing the card against the one-process CLI (``W2V_TOL``); the
+    1 x 2 grid's bf16 taps against f32 (JAX's 0.05); ms per slab of 16
+    chunks, the all-reduces' host ms per slab, each rank's peak memory.
+24. Prints one JSON line of per-kernel numbers (``launches_by_path`` with
     ``train_augmented``, ``serve_cli``, ``server_cli``, ``train_bf16``,
     ``cv_parallel``, ``cv_sequential``, the ``K1`` runs,
     ``reference_only_evaluate``, ``reference_resume``,
     ``wav2vec_extraction``, ``baselines``, ``ddp_train`` and ``ddp_eval``
-    (rank 0's); #1-#4 with ``ms_b64`` and ``bound_ms_b64``; the bf16
-    instantiations of #1 and #2 as entries of their own), then, last, the
-    ``{"ok": true, "device": ...}`` line.
+    (rank 0's), ``shard_serve``, ``cv_mesh_train``, ``cv_mesh_eval`` (rank
+    0's) and ``tp_extraction``; #1-#4 with ``ms_b64`` and ``bound_ms_b64``;
+    the bf16 instantiations of #1 and #2 as entries of their own), then,
+    last, the ``{"ok": true, "device": ...}`` line.
 
 Any failure raises and exits non-zero.  Imports nothing of JAX.
 """
@@ -1068,27 +1094,36 @@ def _device_us(evt) -> float:
     return float(val if val is not None else evt.self_cuda_time_total)
 
 
+PROFILE_ATTEMPTS = 3  # an empty trace is taken again (seen once in 16 runs of this script)
+
+
 def profile_calls(fn, reps: int, top: int = 8) -> dict:
     """Where the time of ``reps`` calls of ``fn()`` goes, under
     ``torch.profiler``: host clock per call, device time per call summed
     over every device operation, the device operations (kernels, copies) per
     call, the device's idle share of the window, and the ``top`` operations
-    that took the most device time."""
+    that took the most device time.  A trace with no device record is taken
+    again, up to ``PROFILE_ATTEMPTS`` times in all, then it fails."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
-        for _ in range(reps):
-            fn()
-        torch.cuda.synchronize()
-        wall_s = time.perf_counter() - t0
-    # device-side records only (kernels, copies); the CPU operator that
-    # launched a kernel reports the same time again and is left out
-    rows = [(evt.key, _device_us(evt), evt.count) for evt in prof.key_averages()
-            if evt.device_type == DeviceType.CUDA
-            and not evt.key.startswith("Activity Buffer")]
-    rows = sorted((r for r in rows if r[1] > 0), key=lambda r: -r[1])
+    for attempt in range(1, PROFILE_ATTEMPTS + 1):
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            for _ in range(reps):
+                fn()
+            torch.cuda.synchronize()
+            wall_s = time.perf_counter() - t0
+        # device-side records only (kernels, copies); the CPU operator that
+        # launched a kernel reports the same time again and is left out
+        rows = [(evt.key, _device_us(evt), evt.count) for evt in prof.key_averages()
+                if evt.device_type == DeviceType.CUDA
+                and not evt.key.startswith("Activity Buffer")]
+        rows = sorted((r for r in rows if r[1] > 0), key=lambda r: -r[1])
+        if rows:
+            break
+        log(f"torch.profiler recorded no device time (attempt {attempt} of "
+            f"{PROFILE_ATTEMPTS})")
     if not rows:
         raise AssertionError("the profiler recorded no device time")
     device_us = sum(r[1] for r in rows)
@@ -3353,36 +3388,75 @@ sys.exit(cv.main(sys.argv[1:]))
 """
 
 
-def det_cv_run(results: str, data_dir: str, folds, *flags: str) -> dict:
+# What the cv mesh's runs take to give the same bits in a process that shares
+# the card with another: cuDNN off (PyTorch's own convolutions on cuBLAS),
+# torch's and cuBLAS's deterministic algorithms.  On an H100 80GB HBM3
+# (700 W) cuDNN's deterministic algorithms were not enough there: the
+# sharded fold mesh then differed from the unsharded run in the last bits of
+# its losses and weights, and with cuDNN off the two agree bit for bit
+# (PERF.md section 6)
+DETERMINISTIC_TORCH = ("torch.backends.cudnn.enabled = False\n"
+                       "torch.use_deterministic_algorithms(True, warn_only=True)\n")
+CUBLAS_DETERMINISTIC = ":4096:8"
+
+
+def det_cv_run(results: str, data_dir: str, folds, *flags: str,
+               algorithms: str = "cudnn_deterministic") -> dict:
     """``cv --parallel yes --epochs 2 --skip_eval yes`` over ``folds`` in a
-    fresh process on cuDNN's deterministic algorithms: its per-epoch
-    history and each fold's best checkpoint (weights and bank)."""
+    fresh process on ``algorithms``: ``"cudnn_deterministic"`` (cuDNN's
+    deterministic algorithms), ``"strict"`` (cuDNN off, torch's and cuBLAS's
+    deterministic algorithms, ``DETERMINISTIC_TORCH``) or ``"default"``
+    (what a user's run takes; TF32 off in every mode): its per-epoch history
+    and each fold's best checkpoint (weights and bank)."""
+    script, env = _DET_CV_RUN, None
+    if algorithms == "strict":
+        script = script.replace("from transformer_clip_eeg_tpu_torch import cv\n",
+                                DETERMINISTIC_TORCH + "from transformer_clip_eeg_tpu_torch "
+                                "import cv\n")
+        env = dict(os.environ, CUBLAS_WORKSPACE_CONFIG=CUBLAS_DETERMINISTIC)
+    elif algorithms == "default":
+        script = script.replace("torch.backends.cudnn.deterministic = True\n", "")
+    elif algorithms != "cudnn_deterministic":
+        raise ValueError(f"algorithms {algorithms!r}")
     proc = subprocess.run(
-        [sys.executable, "-c", _DET_CV_RUN, "--data_dir", data_dir, "--results_folder",
+        [sys.executable, "-c", script, "--data_dir", data_dir, "--results_folder",
          results, "--parallel", "yes", "--folds", *folds, "--epochs", "2", "--skip_eval",
          "yes", *flags],
         cwd=os.path.dirname(os.path.abspath(__file__)), capture_output=True, text=True,
-        timeout=600)
+        timeout=600, env=env)
     if proc.returncode != 0:
         raise AssertionError(f"cv run in {results} exited {proc.returncode}: "
                              f"{proc.stderr[-3000:]}")
     with open(os.path.join(results, "history.json")) as f:
         history = json.load(f)
-    ckpts = [torch.load(os.path.join(results, f"fold_{f}", "checkpoints", "model_ckpt.pt"),
-                        map_location="cpu", weights_only=True)["model"] for f in folds]
-    return {"history": history, "ckpts": ckpts}
+    return {"history": history, "ckpts": fold_checkpoints(results, folds)}
+
+
+def fold_checkpoints(results: str, folds) -> list:
+    """Each fold's best checkpoint (weights and bank) of a cv run."""
+    return [torch.load(os.path.join(results, f"fold_{f}", "checkpoints", "model_ckpt.pt"),
+                       map_location="cpu", weights_only=True)["model"] for f in folds]
 
 
 def fold_differences(a: dict, ja: int, b: dict, jb: int) -> dict:
     """Fold ``ja`` of run ``a`` against fold ``jb`` of run ``b``
     (``det_cv_run``): the largest difference of their per-epoch train and
-    val CE and of their best weights and bank."""
+    val CE and of their best weights and bank, the latter also as a share of
+    each tensor's largest value in ``b`` (``max_param_rel``, over tensors
+    whose largest value is at least ``PARAM_REL_FLOOR``)."""
     loss = max(abs(ea[k][ja] - eb[k][jb])
                for ea, eb in zip(a["history"], b["history"], strict=True)
                for k in ("train_loss_ce", "val_loss_ce"))
     sa, sb = a["ckpts"][ja], b["ckpts"][jb]
     param = max(float((sa[n] - sb[n]).abs().max()) for n in sa)
-    return {"max_loss_diff": loss, "max_param_diff": param, "epochs": len(a["history"])}
+    rel = max((float((sa[n] - sb[n]).abs().max()) / max(float(sb[n].abs().max()),
+                                                        PARAM_REL_FLOOR), n)
+              for n in sa if sb[n].is_floating_point() and sb[n].numel())
+    return {"max_loss_diff": loss, "max_param_diff": param, "max_param_rel": rel[0],
+            "max_param_rel_at": rel[1], "epochs": len(a["history"])}
+
+
+PARAM_REL_FLOOR = 1e-6  # a tensor's largest value below this counts as this
 
 
 # --- the reference's model.ckpt (slice 12) -----------------------------------
@@ -4294,6 +4368,456 @@ def baselines_phase() -> dict:
     return {"errors": out, "launches": launched, "launches_bf16": launched_bf16}
 
 
+# --- sharded serving, the fold-sharded mesh, DP x TP extraction (slice 14) ---
+
+SHARD_RANKS = 2  # on the one card: ranks outnumber cards, so gloo on the CUDA tensors
+SHARD_DIR = os.path.join(RUN_DIR, "shard")
+# the sharded serve CLI against the one-process CLI in the same call: each
+# rank's 64 rows of a chunk may take other cuDNN algorithms than 128 rows
+SHARD_SERVE_TOL = 1e-5  # of max |one process|, embeddings and top-k scores
+CV_MESH_FOLDS = ["0", "1", "2", "3"]
+
+
+def _shard_serve_rank(results_dir: str, invocations: dict, mesh) -> int:
+    """One of the two ranks of ``shard_serve_path``: ``serve.main --shard 2``
+    for each invocation, twice (this rank joins the group; rank 0 writes),
+    the wall time of each call (the first pass pays this fresh process's
+    start-up on the card) and this rank's kernel launches in each pass.
+    Writes ``serve_rank<r>.json``."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    passes = []
+    for _ in range(2):
+        wall, launches = {}, {}
+        zero_counts()
+        for name, argv in invocations.items():
+            before = counts()
+            rc, wall[name] = _wall(lambda argv=argv: serve_main(
+                ["--results_folder", results_dir, "--shard", str(SHARD_RANKS), *argv]))
+            torch.cuda.synchronize()
+            if rc != 0:
+                raise AssertionError(f"serve --shard {name} returned {rc} on rank {mesh.rank}")
+            launches[name] = {k: v - before[k] for k, v in counts().items()}
+        passes.append({"wall_s": wall, "launches": counts(), "launches_bf16": bf16_counts(),
+                       "launches_by_invocation": launches})
+    with open(os.path.join(SHARD_DIR, f"serve_rank{mesh.rank}.json"), "w") as f:
+        json.dump({"rank": mesh.rank, "mesh": mesh.describe(), "passes": passes}, f)
+    return 0
+
+
+def shard_serve_path(results_dir: str, serve_cli: dict) -> dict:
+    """``serve --shard 2`` on the default run: two ranks sharing the card
+    over gloo, each running ``serve.main --shard 2`` (joined to the group the
+    port's ``launch`` made) for 256 EEG windows, 128 speech windows and top-5
+    of the 256 over 130 candidates (the serve CLI phase's files); rank 0's
+    outputs against the one-process CLI's in this call (embeddings and
+    scores within ``SHARD_SERVE_TOL`` of max |x|, the indices equal); exact
+    launches a rank-chunk (10 #1 a chunk of EEG, 2 #3 a chunk of speech, each
+    of a rank's 64 rows); wall time of each call."""
+    t0 = time.perf_counter()
+    shutil.rmtree(SHARD_DIR, ignore_errors=True)
+    os.makedirs(SHARD_DIR)
+    paths, one = serve_cli["paths"], serve_cli["outs"]
+    outs = {k: os.path.join(SHARD_DIR, os.path.basename(v)) for k, v in one.items()}
+    invocations = {"eeg": ["--eeg", paths["eeg"], "--out", outs["eeg"]],
+                   "speech": ["--speech", paths["speech"], "--out", outs["speech"]],
+                   "topk": ["--eeg", paths["eeg"], "--candidates", paths["cand"], "--topk", "5",
+                            "--out", outs["topk"]]}
+    if launch(SHARD_RANKS, _shard_serve_rank, (results_dir, invocations), device="cuda") != 0:
+        raise AssertionError("a serve --shard rank returned non-zero")
+    records = []
+    for r in range(SHARD_RANKS):
+        with open(os.path.join(SHARD_DIR, f"serve_rank{r}.json")) as f:
+            records.append(json.load(f))
+    # a chunk is 128 windows, 64 rows a rank: 2 EEG chunks per EEG call, 1 and
+    # 2 speech chunks (128 speech windows, 130 candidates)
+    chunks = {"eeg": {"eeg": 2, "speech": 0}, "speech": {"eeg": 0, "speech": 1},
+              "topk": {"eeg": 2, "speech": 2}}
+    for rec in records:
+        for p in rec["passes"]:
+            for name, c in chunks.items():
+                want = dict.fromkeys(counts(), 0)
+                want.update(fused_transformer_block=10 * c["eeg"],
+                            lstm_scan_packed=2 * c["speech"])
+                if p["launches_by_invocation"][name] != want:
+                    raise AssertionError(f"rank {rec['rank']} serve --shard {name}: launches "
+                                         f"{p['launches_by_invocation'][name]}, want {want}")
+            if any(p["launches_bf16"].values()):
+                raise AssertionError(f"serve --shard launched bf16 kernels: {p['launches_bf16']}")
+    errs = {}
+    for k in ("eeg", "speech"):
+        got, want = np.load(outs[k]), np.load(one[k])
+        _check_embeddings(f"serve --shard {k}", got, want.shape[0], want.shape[1])
+        errs[k] = float(np.abs(got - want).max()) / float(np.abs(want).max())
+    with open(outs["topk"]) as f:
+        topk = json.load(f)
+    with open(one["topk"]) as f:
+        want_topk = json.load(f)
+    scores, want_scores = np.asarray(topk["scores"]), np.asarray(want_topk["scores"])
+    errs["topk_scores"] = float(np.abs(scores - want_scores).max()) / float(
+        np.abs(want_scores).max())
+    ids_equal = topk["indices"] == want_topk["indices"]
+    out = {"mesh": records[0]["mesh"], "errors": errs, "indices_equal": ids_equal,
+           "wall_s": [rec["passes"][1]["wall_s"] for rec in records],
+           "wall_s_first_pass": [rec["passes"][0]["wall_s"] for rec in records],
+           "one_process_wall_s": serve_cli["wall_s"],
+           "launches": records[0]["passes"][0]["launches"],
+           "launches_bf16": records[0]["passes"][0]["launches_bf16"],
+           "seconds": time.perf_counter() - t0}
+    log(f"serve --shard {SHARD_RANKS} ({out['mesh']}): against the one-process CLI {errs} of "
+        f"max |x| (tol {SHARD_SERVE_TOL:g}), top-5 indices equal {ids_equal}; wall s a rank "
+        f"{out['wall_s']} (the first pass {out['wall_s_first_pass']}) vs one process "
+        f"{serve_cli['wall_s']}; launches a rank a pass {out['launches']}")
+    if not (ids_equal and max(errs.values()) <= SHARD_SERVE_TOL):
+        raise AssertionError("serve --shard disagrees with the one-process CLI")
+    log(json.dumps({"shard_serve": out}))
+    return out
+
+
+def _cv_mesh_rank(data_dir: str, results: dict, mesh) -> int:
+    """One of the two ranks of ``cv_mesh_path``: ``cv.main --parallel yes
+    --n_data_shards 2`` over folds 0-3, 1 epoch (this rank joins the group),
+    twice: first (the process's first training) with ``--skip_eval yes``,
+    cuDNN off and torch's deterministic algorithms (``DETERMINISTIC_TORCH``)
+    into ``results["strict"]``, then on the default algorithms with the
+    suites into ``results["default"]``; of each its folds' history and
+    launches by phase.  Writes ``cv_rank<r>.json``."""
+    from transformer_clip_eeg_tpu_torch import cv
+    from transformer_clip_eeg_tpu_torch.train.fold_parallel import (
+        FoldParallelTrainer,
+        local_folds,
+    )
+
+    import warnings
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    fit, record = FoldParallelTrainer.fit, {}
+    mine = local_folds(len(CV_MESH_FOLDS), mesh)
+
+    def recorded(self):
+        out = fit(self)
+        record["history"] = out["history"]
+        return out
+
+    def run(mode: str, *flags: str) -> dict:
+        with phase_launches() as seen:
+            t0 = time.perf_counter()
+            rc = cv.main(["--data_dir", data_dir, "--results_folder", results[mode],
+                          "--parallel", "yes", "--n_data_shards", str(SHARD_RANKS), "--folds",
+                          *CV_MESH_FOLDS, "--epochs", "1", *flags], device="cuda")
+            wall = time.perf_counter() - t0
+        train = seen["train"][-1]
+        n_train, n_val = (sum(train["steps"][j][i] for j in mine) for i in (0, 1))
+        want = {k: v // 2 for k, v in two_epoch_launches(n_train, n_val).items()}
+        if rc != 0 or train["launches"] != want or any(train["launches_bf16"].values()):
+            raise AssertionError(f"cv mesh rank {mesh.rank} ({mode}): rc {rc}, training "
+                                 f"launches {train['launches']} (bf16 {train['launches_bf16']}),"
+                                 f" want {want} (its folds' steps "
+                                 f"{[train['steps'][j] for j in mine]})")
+        return {"rc": rc, "wall_s": wall, "steps": [train["steps"][j] for j in mine],
+                "history": record.pop("history"), "launches_train": train["launches"],
+                "launches_bf16": train["launches_bf16"], "eval": seen["eval"]}
+
+    FoldParallelTrainer.fit = recorded
+    out = {"rank": mesh.rank, "folds": mine}
+    try:
+        torch.backends.cudnn.enabled = False  # as DETERMINISTIC_TORCH
+        torch.use_deterministic_algorithms(True, warn_only=True)
+        with warnings.catch_warnings(record=True) as caught:
+            warnings.simplefilter("always")
+            out["strict"] = run("strict", "--skip_eval", "yes")
+        out["nondeterministic_ops"] = sorted({str(w.message)[:160] for w in caught
+                                              if "deterministic" in str(w.message)})
+        torch.backends.cudnn.enabled = True
+        torch.use_deterministic_algorithms(False)
+        out["default"] = run("default")
+    finally:
+        FoldParallelTrainer.fit = fit
+        torch.use_deterministic_algorithms(False)
+        torch.backends.cudnn.enabled = True
+    if out["strict"]["eval"]:
+        raise AssertionError(f"cv mesh rank {mesh.rank}: --skip_eval yes ran a suite")
+    suites = out["default"].pop("eval")
+    out["strict"].pop("eval")
+    out["default"]["launches_eval"] = _check_suites(suites, len(mine))
+    out["default"]["launches_eval_bf16"] = {
+        k: sum(e["launches_bf16"][k] for e in suites) for k in suites[0]["launches_bf16"]}
+    out["default"]["suite_s"] = [e["wall_s"] for e in suites]
+    with open(os.path.join(SHARD_DIR, f"cv_rank{mesh.rank}.json"), "w") as f:
+        json.dump(out, f)
+    return 0
+
+
+# The fold mesh on cuDNN's default algorithms against the unsharded run on
+# the same algorithms, each fold's train and val CE (absolute) and each best
+# weight and bank (a share of its tensor's largest value): cuDNN's default
+# algorithms are not run-to-run reproducible, so the two are not held bit
+# for bit there.  Measured on an H100 80GB HBM3 (700 W), 4 folds, 1 epoch:
+# two unsharded runs differ by up to 3.2e-7 in CE and 2.5e-4 of a tensor's
+# largest weight, the sharded run and an unsharded one by 4.8e-7 and
+# 2.3e-4 (the phase measures and prints both each run).  The limits are
+# cross-validation's against JAX on the CPU, 1e-4 in CE and 1e-3 of each
+# tensor's largest value: 4x the weights' measured spread
+CV_MESH_DEFAULT_LOSS_TOL = 1e-4
+CV_MESH_DEFAULT_PARAM_TOL = 1e-3
+
+
+def cv_mesh_path(data_dir: str) -> dict:
+    """``cv --parallel yes --n_data_shards 2 --folds 0 1 2 3``, 1 epoch: two
+    ranks sharing the card over gloo (the port's ``launch``; each rank runs
+    ``cv.main``, which joins the group), two folds each, twice
+    (``_cv_mesh_rank``): with cuDNN off and deterministic algorithms
+    (``DETERMINISTIC_TORCH``) and ``--skip_eval yes``, then on the default
+    algorithms with the 4 suites.  Beside each the unsharded fold-parallel
+    run of the same folds with ``--skip_eval yes`` in a fresh process on the
+    same algorithms (``det_cv_run``): every fold's train and val CE and its
+    best weights bit for bit on the first pair, within
+    ``CV_MESH_DEFAULT_LOSS_TOL`` and ``CV_MESH_DEFAULT_PARAM_TOL`` on the
+    second, beside the spread of a second unsharded default run; exact launches of #1-#4 a rank-step and of each rank's suites,
+    none of the bf16 instantiations; every suite file finite and
+    ``cv_summary.json`` of 4 folds; the aggregate pairs/s of every run."""
+    t0 = time.perf_counter()
+    os.makedirs(SHARD_DIR, exist_ok=True)
+    sharded = {mode: os.path.join(SHARD_DIR, f"cv_mesh_{mode}") for mode in ("strict", "default")}
+    plain_dirs = {mode: os.path.join(SHARD_DIR, f"cv_plain_{mode}")
+                  for mode in ("strict", "default")}
+    before = os.environ.get("CUBLAS_WORKSPACE_CONFIG")
+    os.environ["CUBLAS_WORKSPACE_CONFIG"] = CUBLAS_DETERMINISTIC  # read as a rank's cuBLAS starts
+    try:
+        if launch(SHARD_RANKS, _cv_mesh_rank, (data_dir, sharded), device="cuda") != 0:
+            raise AssertionError("a cv --n_data_shards rank returned non-zero")
+    finally:
+        if before is None:
+            del os.environ["CUBLAS_WORKSPACE_CONFIG"]
+        else:
+            os.environ["CUBLAS_WORKSPACE_CONFIG"] = before
+    records = []
+    for r in range(SHARD_RANKS):
+        with open(os.path.join(SHARD_DIR, f"cv_rank{r}.json")) as f:
+            records.append(json.load(f))
+    with open(os.path.join(sharded["default"], "cv_summary.json")) as f:
+        summary = json.load(f)
+    nums = _numbers(summary)
+    if set(summary["folds"]) != set(CV_MESH_FOLDS) or not nums or not all(np.isfinite(nums)):
+        raise AssertionError(f"cv --n_data_shards cv_summary.json: {summary}")
+    plain_s, diffs = {}, {}
+    for mode in ("strict", "default"):
+        t_plain = time.perf_counter()
+        plain = det_cv_run(plain_dirs[mode], data_dir, CV_MESH_FOLDS, "--epochs", "1",
+                           algorithms=mode)
+        plain_s[mode] = time.perf_counter() - t_plain
+        if mode == "default":  # what the default algorithms alone spread, run to run
+            again = det_cv_run(plain_dirs[mode] + "_again", data_dir, CV_MESH_FOLDS,
+                               "--epochs", "1", algorithms=mode)
+            diffs["default_run_to_run"] = [fold_differences(again, j, plain, j)
+                                           for j in range(len(CV_MESH_FOLDS))]
+        if records[1][mode]["history"] != records[0][mode]["history"]:
+            raise AssertionError(f"the two ranks' histories differ ({mode})")
+        mesh_run = {"history": records[0][mode]["history"],
+                    "ckpts": fold_checkpoints(sharded[mode], CV_MESH_FOLDS)}
+        diffs[mode] = [fold_differences(mesh_run, j, plain, j)
+                       for j in range(len(CV_MESH_FOLDS))]
+    pairs = {f"{name}_{mode}": read_cv_loss_txt(os.path.join(d[mode], "loss.txt"),
+                                                 len(CV_MESH_FOLDS), 1)[0][0]["pairs_per_s"]
+             for name, d in (("sharded", sharded), ("plain", plain_dirs))
+             for mode in ("strict", "default")}
+    default = [rec["default"] for rec in records]
+    per_step = []
+    for rec in default:
+        n_train = sum(s[0] for s in rec["steps"])
+        per_step.append({k: v / max(n_train, 1) for k, v in rec["launches_train"].items()
+                         if "backward" in k})
+    out = {"folds_by_rank": [rec["folds"] for rec in records], "fold_diffs": diffs,
+           "limits_default": {"loss": CV_MESH_DEFAULT_LOSS_TOL,
+                              "param_rel": CV_MESH_DEFAULT_PARAM_TOL},
+           "pairs_per_s_epoch1": pairs,
+           "wall_s": {mode: [rec[mode]["wall_s"] for rec in records]
+                      for mode in ("strict", "default")},
+           "plain_wall_s": plain_s, "suite_s": [rec["suite_s"] for rec in default],
+           "uploads_by_rank": default[0]["history"][0].get("uploads_by_rank"),
+           "launches_train": default[0]["launches_train"],
+           "launches_eval": default[0]["launches_eval"],
+           "launches_bf16": default[0]["launches_bf16"],
+           "launches_eval_bf16": default[0]["launches_eval_bf16"],
+           "backward_launches_per_train_step": per_step,
+           "nondeterministic_ops": sorted({m for rec in records
+                                           for m in rec["nondeterministic_ops"]}),
+           "summary": summary["mm_accuracy_mean_over_folds"], "seconds": 0.0}
+    out["seconds"] = time.perf_counter() - t0
+    log(f"cv --parallel yes --n_data_shards {SHARD_RANKS}, folds {CV_MESH_FOLDS}, 1 epoch: "
+        f"folds by rank {out['folds_by_rank']}; against the unsharded run per fold, cuDNN off "
+        f"and deterministic algorithms {diffs['strict']}, the default algorithms "
+        f"{diffs['default']}, two unsharded runs on them {diffs['default_run_to_run']} "
+        f"(limits CE {CV_MESH_DEFAULT_LOSS_TOL:g}, weights "
+        f"{CV_MESH_DEFAULT_PARAM_TOL:g} of each tensor's largest); pairs/s {pairs}; launches "
+        f"rank 0 {out['launches_train']} (train) {out['launches_eval']} (its 2 suites), bf16 "
+        f"{out['launches_bf16']} / {out['launches_eval_bf16']}; uploads by rank "
+        f"{out['uploads_by_rank']}; torch ops without a deterministic algorithm "
+        f"{out['nondeterministic_ops']}")
+    if any(d["max_loss_diff"] or d["max_param_diff"] for d in diffs["strict"]):
+        raise AssertionError("the fold-sharded mesh is not bit for bit the unsharded run")
+    if any(d["max_loss_diff"] > CV_MESH_DEFAULT_LOSS_TOL
+           or d["max_param_rel"] > CV_MESH_DEFAULT_PARAM_TOL for d in diffs["default"]):
+        raise AssertionError("the fold-sharded mesh on the default algorithms is outside its "
+                             "limits against the unsharded run")
+    if any(out["launches_eval_bf16"].values()):
+        raise AssertionError(f"the cv mesh's suites launched bf16 kernels: "
+                             f"{out['launches_eval_bf16']}")
+    log(json.dumps({"cv_mesh": out}))
+    return out
+
+
+def _timed_tp_all_reduce(real, totals: dict):
+    """``real`` (``models.wav2vec2._tp_all_reduce``), its host time
+    (synchronised) and calls summed into ``totals``."""
+    def reduce(y, group):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        real(y, group)
+        torch.cuda.synchronize()
+        totals["s"] += time.perf_counter() - t0
+        totals["calls"] += 1
+    return reduce
+
+
+def _tp_rank(model_dir: str, story: str, mesh) -> int:
+    """One of the two ranks of ``tp_extraction_path``, for each grid of the
+    two ranks (``(2, 1)``: the launch's mesh; ``(1, 2)``): the extraction CLI
+    with that grid's flags on a root holding ``story`` (this rank joins the
+    group; rank 0 writes), a slab of 16 chunks of 10 s timed (host clock,
+    synchronised) with and without the all-reduces timed apart, this rank's
+    peak memory; on ``(1, 2)`` the story's taps in bf16.  Writes
+    ``tp_rank<r>.json`` and, rank 0, the bf16 taps."""
+    from transformer_clip_eeg_tpu_torch.models import wav2vec2 as w2v
+    from transformer_clip_eeg_tpu_torch.parallel import make_mesh
+    from transformer_clip_eeg_tpu_torch.preprocess import wav2vec as extraction
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    rank = mesh.rank  # the launch's mesh is 2 x 1
+    rng = np.random.default_rng(0)
+    slab = (rng.standard_normal((W2V_SLAB, W2V_CHUNK)) * 0.1).astype(np.float32)
+    record = {"rank": rank, "grids": {}}
+    real = w2v._tp_all_reduce
+    for n_data, n_model in ((2, 1), (1, 2)):
+        grid = f"{n_data}x{n_model}"
+        root = os.path.join(SHARD_DIR, f"w2v_{grid}")
+        t0 = time.perf_counter()
+        rc = extraction.main(["--dataset_root", root, "--model_path", model_dir, "--layers",
+                              str(W2V_LAYER), "--n_data_shards", str(n_data),
+                              "--n_model_shards", str(n_model)])
+        cli_s = time.perf_counter() - t0
+        if rc != 0:
+            raise AssertionError(f"extraction --n_data_shards {n_data} --n_model_shards "
+                                 f"{n_model} returned {rc}")
+        grid_mesh = mesh if n_model == 1 else make_mesh(n_data, n_model)
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        model = w2v.load_wav2vec2(model_dir, mesh=grid_mesh)
+        ext = extraction.Wav2Vec2FeatureExtractor(model, [W2V_LAYER], mesh=grid_mesh)
+        times = []
+        for i in range(4):  # one warm-up
+            torch.cuda.synchronize()
+            t1 = time.perf_counter()
+            ext._forward(slab)
+            torch.cuda.synchronize()
+            if i:
+                times.append((time.perf_counter() - t1) * 1e3)
+        peak = torch.cuda.max_memory_allocated()
+        reduces = {"s": 0.0, "calls": 0}
+        w2v._tp_all_reduce = _timed_tp_all_reduce(real, reduces)
+        try:
+            ext._forward(slab)
+        finally:
+            w2v._tp_all_reduce = real
+        record["grids"][grid] = {
+            "cli_s": cli_s, "slab_ms": statistics.median(times), "slab_ms_all": times,
+            "all_reduce_ms_per_slab": reduces["s"] * 1e3,
+            "all_reduces_per_slab": reduces["calls"], "peak_gib": peak / 2**30,
+            "weights_gib": sum(p.numel() * 4 for p in model.parameters()) / 2**30}
+        if n_model == 2:
+            bf16 = w2v.load_wav2vec2(model_dir, dtype=torch.bfloat16, mesh=grid_mesh)
+            taps = extraction.Wav2Vec2FeatureExtractor(bf16, [W2V_LAYER], mesh=grid_mesh
+                                                       ).get_hidden_output(story)[W2V_LAYER]
+            if rank == 0:
+                np.save(os.path.join(SHARD_DIR, "tp_bf16_taps.npy"), taps)
+            del bf16
+        del model, ext
+    record["launches"], record["launches_bf16"] = counts(), bf16_counts()
+    with open(os.path.join(SHARD_DIR, f"tp_rank{rank}.json"), "w") as f:
+        json.dump(record, f)
+    return 0
+
+
+def tp_extraction_path() -> dict:
+    """The extraction at XLSR-53 width (``wav2vec_path``'s random weights)
+    on two ranks sharing the card over gloo: one synthetic story (24.5 s at
+    48 kHz, the reference's tail quirk) with ``--n_data_shards 2
+    --n_model_shards 1`` and with ``--n_data_shards 1 --n_model_shards 2``
+    (Megatron-sharded layers, 2 all-reduces a layer), each file against the
+    one-process CLI's in this call within ``W2V_TOL`` of max |one process|;
+    the story's taps in bf16 on the 1 x 2 grid against the one-process f32
+    taps at JAX's bf16 limit; ms per slab of 16 chunks, the all-reduces' host
+    ms per slab, each rank's peak memory; no kernel of the port launched."""
+    from transformer_clip_eeg_tpu_torch.models.wav2vec2 import load_wav2vec2
+    from transformer_clip_eeg_tpu_torch.preprocess import wav2vec as extraction
+
+    t0 = time.perf_counter()
+    os.makedirs(SHARD_DIR, exist_ok=True)
+    src = os.path.join(RUN_DIR, "wav2vec")
+    model_dir = os.path.join(src, "xlsr53_random")
+    story = "audiobook_2"  # 24.5 s
+    gz = os.path.join(src, "stimuli", "eeg", f"{story}.npz.gz")
+    roots = {g: os.path.join(SHARD_DIR, f"w2v_{g}") for g in ("one", "2x1", "1x2")}
+    for root in roots.values():
+        os.makedirs(os.path.join(root, "stimuli", "eeg"))
+        shutil.copy(gz, os.path.join(root, "stimuli", "eeg"))
+    if extraction.main(["--dataset_root", roots["one"], "--model_path", model_dir, "--layers",
+                        str(W2V_LAYER)]) != 0:
+        raise AssertionError("the one-process extraction CLI failed")
+    unzipped = os.path.join(roots["one"], "stimuli", "eeg", f"{story}.npz")
+    model = load_wav2vec2(model_dir, device="cuda")
+    f32_taps = extraction.Wav2Vec2FeatureExtractor(model, [W2V_LAYER]).get_hidden_output(
+        unzipped)[W2V_LAYER]
+    del model
+    torch.cuda.empty_cache()
+    zero_counts()
+    if launch(SHARD_RANKS, _tp_rank, (model_dir, unzipped), device="cuda") != 0:
+        raise AssertionError("a tensor-parallel extraction rank returned non-zero")
+    records = []
+    for r in range(SHARD_RANKS):
+        with open(os.path.join(SHARD_DIR, f"tp_rank{r}.json")) as f:
+            records.append(json.load(f))
+    name = f"{story}_-_wav2vec_{W2V_LAYER}.npy"
+    want = np.load(os.path.join(roots["one"], "derivatives", "preprocessed_stimuli", name))
+    errs = {}
+    for g in ("2x1", "1x2"):
+        got = np.load(os.path.join(roots[g], "derivatives", "preprocessed_stimuli", name))
+        if got.shape != want.shape or not np.isfinite(got).all():
+            raise AssertionError(f"{g}: {got.shape} vs {want.shape}, finite")
+        errs[g] = float(np.abs(got - want).max()) / float(np.abs(want).max())
+    bf16 = np.load(os.path.join(SHARD_DIR, "tp_bf16_taps.npy"))
+    bf16_err = float(np.abs(bf16 - f32_taps).mean() / np.abs(f32_taps).mean())
+    launched = {k: v for rec in records for k, v in rec["launches"].items() if v}
+    out = {"errors": errs, "bf16_vs_f32": bf16_err, "frames": list(want.shape),
+           "grids": {r["rank"]: r["grids"] for r in records},
+           "launches": records[0]["launches"], "launches_bf16": records[0]["launches_bf16"],
+           "seconds": time.perf_counter() - t0}
+    log(f"extraction on 2 ranks sharing the card, {story} at XLSR-53 width: against the "
+        f"one-process CLI {errs} of max |x| (limit {W2V_TOL:g}); bf16 on 1 x 2 against f32 "
+        f"mean |d| {bf16_err:.4f} of mean |f32| (limit {W2V_BF16_LIMIT}); per rank and grid "
+        f"{json.dumps(out['grids'])}; kernels of the port launched {launched or 'none'}")
+    if not max(errs.values()) <= W2V_TOL:
+        raise AssertionError("the sharded extraction disagrees with the one-process CLI")
+    if not 0 < bf16_err < W2V_BF16_LIMIT:
+        raise AssertionError("the tensor-parallel bf16 extraction is past JAX's limit")
+    if launched or any(v for rec in records for v in rec["launches_bf16"].values()):
+        raise AssertionError(f"the extraction launched kernels of the port: {launched}")
+    log(json.dumps({"tp_extraction": out}))
+    return out
+
+
 def main() -> int:
     t_start = time.perf_counter()
     smi = subprocess.run(
@@ -4343,7 +4867,10 @@ def main() -> int:
         zoo = zoo_path(data_dir)
         k1 = k1_path(data_dir)
         cv_run = cv_path(data_dir)
+        cv_mesh = cv_mesh_path(data_dir)
+        shard_serve = shard_serve_path(train["results_dir"], serve_cli)
         wav2vec = wav2vec_path()
+        tp = tp_extraction_path()
     finally:
         shutil.rmtree(RUN_DIR, ignore_errors=True)
     fused = fused_path(cfg, host_batch)
@@ -4380,7 +4907,11 @@ def main() -> int:
             wav2vec_extraction=wav2vec["launches"][k["name"]],
             baselines=baselines["launches"][k["name"]],
             ddp_train=ddp["launches_train"][k["name"]],
-            ddp_eval=ddp["launches_eval"][k["name"]])
+            ddp_eval=ddp["launches_eval"][k["name"]],
+            shard_serve=shard_serve["launches"][k["name"]],
+            cv_mesh_train=cv_mesh["launches_train"][k["name"]],
+            cv_mesh_eval=cv_mesh["launches_eval"][k["name"]],
+            tp_extraction=tp["launches"][k["name"]])
     # #1-#4 at a rank's batch of 64 (the 2-rank run's shapes), beside their bound there
     for k in kernels[:4]:
         k.update({f"{key}_b64": v for key, v in ddp["kernels_b64"][k["name"]].items()})
@@ -4394,7 +4925,8 @@ def main() -> int:
     for k in bf16_kernels:
         base = next(n for n, b in BF16_NAMES.items() if b == k["name"])
         k["launches"] = bf16_train["launches_train_bf16"][base]
-        # the cv runs are float32: cv_path checks that they launched none
+        # the cv runs are float32: cv_path and cv_mesh_path check that they
+        # launched none
         k["launches_by_path"] = {"train_bf16": k["launches"], "eval_suite_bf16": 0,
                                  "cv_parallel": 0, "cv_sequential": 0,
                                  **{path: counts_[base] for path, counts_
@@ -4402,7 +4934,11 @@ def main() -> int:
                                  "wav2vec_extraction": wav2vec["launches_bf16"][base],
                                  "baselines": baselines["launches_bf16"][base],
                                  "ddp_train": ddp["launches_train_bf16"][base],
-                                 "ddp_eval": ddp["launches_eval_bf16"][base]}
+                                 "ddp_eval": ddp["launches_eval_bf16"][base],
+                                 "shard_serve": shard_serve["launches_bf16"][base],
+                                 "cv_mesh_train": cv_mesh["launches_bf16"][base],
+                                 "cv_mesh_eval": cv_mesh["launches_eval_bf16"][base],
+                                 "tp_extraction": tp["launches_bf16"][base]}
     kernels += bf16_kernels
     log(json.dumps({"augment_and_cli": {
         "augment_ms": {n: r["ms"] for n, r in augment["by_name"].items()},
@@ -4424,6 +4960,13 @@ def main() -> int:
         "reference_ckpt": {k: v for k, v in reference.items() if not k.startswith("launches")},
         "wav2vec": {k: v for k, v in wav2vec.items() if k not in ("top_ops",)},
         "baselines": baselines["errors"]}}))
+    log(json.dumps({"multi_device": {
+        "shard_serve_wall_s": shard_serve["wall_s"], "shard_serve_errors": shard_serve["errors"],
+        "cv_mesh_pairs_per_s": cv_mesh["pairs_per_s_epoch1"],
+        "cv_mesh_fold_diffs": cv_mesh["fold_diffs"], "tp_errors": tp["errors"],
+        "tp_grids": tp["grids"], "seconds": {"shard_serve": shard_serve["seconds"],
+                                            "cv_mesh": cv_mesh["seconds"],
+                                            "tp_extraction": tp["seconds"]}}}))
     log(f"chip_smoke finished in {time.perf_counter() - t_start:.1f} s")
     log(json.dumps({"kernels": kernels}))
     log(json.dumps({"ok": True, "device": {

@@ -265,9 +265,14 @@ def test_a_raising_suite_leaves_no_cache_installed(root, tmp_path, monkeypatch):
 
 
 def test_parallel_refuses_a_mesh(root, tmp_path):
-    with pytest.raises(NotImplementedError, match="n_data_shards"):
+    """``--parallel yes --n_data_shards N`` is ported
+    (``tests/test_torch_port_fold_mesh.py``): folds that do not divide over
+    the N ranks raise JAX's ``ValueError`` before any rank starts."""
+    with pytest.raises(ValueError, match="1 folds do not shard evenly over the mesh's "
+                                         "2-device 'data' axis"):
         cv.main(["--folds", "0", "--parallel", "yes", "--n_data_shards", "2", "--data_dir",
                  root, "--results_folder", str(tmp_path), *SMALL_FLAGS], device="cpu")
+    assert not os.path.exists(os.path.join(str(tmp_path), "cv_summary.json"))
 
 
 # -- the ingest file cache, as JAX tests/test_ingest_cache.py ----------------

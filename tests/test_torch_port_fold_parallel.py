@@ -29,6 +29,7 @@ from transformer_clip_eeg_tpu_torch.data.discovery import get_train_val_test_fil
 from transformer_clip_eeg_tpu_torch.data.fixtures import make_fixture
 from transformer_clip_eeg_tpu_torch.ops.attention import TransformerEncoderBlock
 from transformer_clip_eeg_tpu_torch.ops.layers import Dropout
+from transformer_clip_eeg_tpu_torch.parallel import Mesh
 from transformer_clip_eeg_tpu_torch.serve import InferenceSession
 from transformer_clip_eeg_tpu_torch.train import checkpoint as ckpt_lib
 from transformer_clip_eeg_tpu_torch.train import fold_parallel
@@ -352,17 +353,23 @@ def test_fold_group_chunking_matches_ungrouped(root, jax_run, port_run, tmp_path
 
 
 def test_fold_group_size_validation(root, tmp_path, capsys):
-    """JAX's checks and texts: a size that does not divide F, a mesh (not
-    ported: ``NotImplementedError``), ``n_data_shards`` likewise; ``'auto'``
-    is every fold, with its reason printed."""
+    """JAX's checks and texts: a size that does not divide F, folds that do
+    not divide over a mesh, a group size with a mesh (JAX
+    ``fold_parallel.py:520-523``), ``n_data_shards`` without the mesh of its
+    ranks; ``'auto'`` is every fold, with its reason printed."""
     with pytest.raises(ValueError, match="fold_group_size 2 must be a positive divisor of "
                                          r"the fold count \(3\)"):
         _trainer(root, tmp_path / "bad", folds=(0, 1, 2), fold_group_size=2)
     with pytest.raises(ValueError, match="divisor"):
         _trainer(root, tmp_path / "zero", fold_group_size=-1)
-    with pytest.raises(NotImplementedError, match="mesh"):
-        _trainer(root, tmp_path / "mesh", mesh=object())
-    with pytest.raises(NotImplementedError, match="n_data_shards"):
+    mesh = Mesh(2, 0, torch.device("cpu"), "gloo", 2)
+    with pytest.raises(ValueError, match="3 folds do not shard evenly over the mesh's "
+                                         "2-device 'data' axis"):
+        _trainer(root, tmp_path / "uneven", folds=(0, 1, 2), mesh=mesh)
+    with pytest.raises(ValueError, match="fold_group_size cannot combine with a fold-sharded "
+                                         "mesh"):
+        _trainer(root, tmp_path / "mesh", mesh=mesh, fold_group_size=1)
+    with pytest.raises(ValueError, match="n_data_shards=2 needs a mesh of as many ranks"):
         _trainer(root, tmp_path / "shards", cfg=_cfg(root, n_data_shards=2))
     assert _trainer(root, tmp_path / "auto", fold_group_size="auto").fold_group_size == 2
     assert "auto fold grouping: G=2" in capsys.readouterr().out

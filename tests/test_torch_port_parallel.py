@@ -211,12 +211,15 @@ def test_mesh_rows_and_shard_batch():
 
 
 def test_refusals():
-    """A batch that does not divide over the ranks, a model axis (the
-    extraction's tensor parallelism, not ported), a mesh without a group,
-    and shards whose dropout tiles differ from the global batch's."""
+    """A batch that does not divide over the ranks, an axis of no ranks, a
+    mesh without a group (a ``'model'`` axis too: the extraction's tensor
+    parallelism, ``tests/test_torch_port_wav2vec2_tp.py``), and shards whose
+    dropout tiles differ from the global batch's."""
     with pytest.raises(ValueError, match="does not divide"):
         Mesh(N, 0, torch.device("cpu"), "gloo").rows(7)
-    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
+    with pytest.raises(ValueError, match="both axes need at least one rank"):
+        make_mesh(N, n_model=0, device="cpu")
+    with pytest.raises(ValueError, match="torch.distributed group"):
         make_mesh(N, n_model=2, device="cpu")
     with pytest.raises(ValueError, match="torch.distributed group"):
         make_mesh(N, device="cpu")

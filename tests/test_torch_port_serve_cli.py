@@ -103,8 +103,14 @@ def test_misuse_exits_with_code_2(run, flags, capsys):
 
 
 def test_shard_raises_not_ported(run):
-    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-        _serve(run, "--eeg", run["paths"]["eeg"], "--shard", "2", "--out", "x.npy")
+    """``--shard N`` is ported (``tests/test_torch_port_serve_shard.py``):
+    a chunk that does not divide over the N ranks raises JAX's
+    ``ValueError`` before any rank starts, and a negative count exits 2."""
+    with pytest.raises(ValueError, match=r"chunk 4 must divide by the data axis \(3\)"):
+        _serve(run, "--eeg", run["paths"]["eeg"], "--shard", "3", "--out", "x.npy")
+    with pytest.raises(SystemExit) as exc:
+        _serve(run, "--eeg", run["paths"]["eeg"], "--shard", "-1", "--out", "x.npy")
+    assert exc.value.code == 2
 
 
 def _get(url):

@@ -201,8 +201,11 @@ def test_main_matches_jax(mains, capsys):
 
 def test_flags_without_effect_and_shard_flags(mains, hf_dir, tmp_path):
     """``--split_programs`` / ``--scan_layers`` change nothing, bit for bit
-    (they shape JAX's XLA programs); the shard flags raise
-    ``NotImplementedError`` naming the roadmap's multi-device item."""
+    (they shape JAX's XLA programs); the shard flags (ported:
+    ``tests/test_torch_port_wav2vec2_tp.py``) raise JAX's ``ValueError`` for
+    a degree that does not divide the heads, and ``--n_data_shards 0`` raises
+    one naming both flags when the devices over ``--n_model_shards`` are
+    none (one host), before any rank starts."""
     root = str(tmp_path / "tree")
     _tree(root, str(tmp_path), np.random.default_rng(9))
     assert w.main(["--dataset_root", root, "--model_path", hf_dir, "--layers", "1", "2",
@@ -212,6 +215,9 @@ def test_flags_without_effect_and_shard_flags(mains, hf_dir, tmp_path):
     assert list(got) == list(want)
     for name in want:
         np.testing.assert_array_equal(got[name], want[name], err_msg=name)
-    for flags in (["--n_data_shards", "2"], ["--n_model_shards", "2"]):
-        with pytest.raises(NotImplementedError, match="ROADMAP.md"):
+    for flags, match in ((["--n_model_shards", "3"],
+                          "TP degree 3 must divide num_attention_heads 4"),
+                         (["--n_model_shards", "2"],
+                          "--n_data_shards 0 takes the devices over --n_model_shards 2")):
+        with pytest.raises(ValueError, match=match):
             w.main(["--dataset_root", root, "--model_path", hf_dir, *flags], device="cpu")

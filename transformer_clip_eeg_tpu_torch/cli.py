@@ -306,13 +306,7 @@ def main(argv=None, device="cuda") -> int:
     """The command line; with ``--n_data_shards N`` on N ranks (spawned
     here unless this process is one of a group already, or ``torchrun``'s
     environment names one), returning rank 0's exit code."""
-    import torch.distributed as dist
-
-    from transformer_clip_eeg_tpu_torch.parallel import (
-        initialize_distributed,
-        launch,
-        make_mesh,
-    )
+    from transformer_clip_eeg_tpu_torch.parallel import run_on_ranks
 
     argv = sys.argv[1:] if argv is None else list(argv)
     args = build_arg_parser().parse_args(argv)
@@ -321,14 +315,7 @@ def main(argv=None, device="cuda") -> int:
         return _main(args, device)
     if args.only_evaluate != "yes":
         _config(args)  # a batch that does not divide fails here, before any rank starts
-    if dist.is_initialized():
-        return _main(args, device, make_mesh(n, device=device))
-    if initialize_distributed(device=device):
-        try:
-            return _main(args, device, make_mesh(n, device=device))
-        finally:
-            dist.destroy_process_group()
-    return launch(n, _rank_main, (argv, device), device)
+    return run_on_ranks(n, _rank_main, (argv, device), device)
 
 
 def _rank_main(argv, device, mesh) -> int:

@@ -14,6 +14,12 @@ dataset and one chunk store (``train/fold_parallel.py``), then runs each
 fold's evaluation suite, with the ingest file cache installed around the
 suites (they ingest overlapping splits) and the heap trimmed after them.
 
+``--parallel yes --n_data_shards N`` shards the folds over N ranks (the
+JAX driver's fold-sharded mesh; spawned here, or the group this process or
+``torchrun`` has joined): each rank trains its folds and runs their suites,
+and rank 0 writes ``cv_summary.json`` after a barrier.  ``--parallel no``
+passes ``--n_data_shards`` to each fold's ``cli.main`` (data parallel).
+
 Run: ``python -m transformer_clip_eeg_tpu_torch.cv --data_dir <sparrkulee>
 --folds 0 1 2 3 4 [--parallel yes] [any cli flags]``
 """
@@ -35,15 +41,10 @@ from transformer_clip_eeg_tpu_torch.utils.platform import (
 )
 
 
-def _run_parallel(folds: List[int], results_folder: str, passthrough,
-                  fold_group_size=None, device="cuda") -> Dict[int, str]:
-    """Train all folds in one run, then each fold's evaluation suite;
-    returns ``{fold: run_dir}``."""
+def _parallel_config(results_folder: str, passthrough):
+    """The cli flags of a fold-parallel run as a ``TrainConfig``."""
     from transformer_clip_eeg_tpu_torch import cli
-    from transformer_clip_eeg_tpu_torch.data.dataset import set_ingest_file_cache
-    from transformer_clip_eeg_tpu_torch.data.discovery import get_train_val_test_files_final
     from transformer_clip_eeg_tpu_torch.train.config import TrainConfig
-    from transformer_clip_eeg_tpu_torch.train.fold_parallel import FoldParallelTrainer
 
     targs = cli.build_arg_parser().parse_args(list(passthrough))
     if targs.compile_cache_dir is None:
@@ -51,6 +52,24 @@ def _run_parallel(folds: List[int], results_folder: str, passthrough,
     known = {f.name for f in dataclasses.fields(TrainConfig)}
     cfg = TrainConfig(**{k: v for k, v in vars(targs).items() if k in known})
     cfg.results_folder = results_folder
+    return cfg, targs.skip_eval == "yes"
+
+
+def _run_parallel(folds: List[int], results_folder: str, passthrough,
+                  fold_group_size=None, device="cuda", mesh=None) -> Dict[int, str]:
+    """Train all folds in one run (this rank's share of them under a
+    fold-sharded ``mesh``), then each of those folds' evaluation suite;
+    returns ``{fold: run_dir}`` for every fold."""
+    from transformer_clip_eeg_tpu_torch import cli
+    from transformer_clip_eeg_tpu_torch.data.dataset import set_ingest_file_cache
+    from transformer_clip_eeg_tpu_torch.data.discovery import get_train_val_test_files_final
+    from transformer_clip_eeg_tpu_torch.train.config import TrainConfig
+    from transformer_clip_eeg_tpu_torch.train.fold_parallel import (
+        FoldParallelTrainer,
+        local_folds,
+    )
+
+    cfg, skip_eval = _parallel_config(results_folder, passthrough)
 
     def split(fold):
         return get_train_val_test_files_final(
@@ -65,9 +84,11 @@ def _run_parallel(folds: List[int], results_folder: str, passthrough,
     files0 = split(folds[0])
     trainer = FoldParallelTrainer(cfg, folds, sorted(files0[0] + files0[1]),
                                   sorted(files0[4] + files0[5]), results_folder,
-                                  fold_group_size=fold_group_size, device=device)
+                                  fold_group_size=fold_group_size, device=device, mesh=mesh)
     out = trainer.fit()
     print(f"fold-parallel training done: best val loss_ce {out['best_loss']}")
+    fold_dirs = dict(zip(folds, out["fold_dirs"]))
+    mine = [folds[j] for j in local_folds(len(folds), mesh)]
 
     # the chunk store's device memory and the union's host arrays go before
     # the suites, which ingest their own splits
@@ -76,17 +97,13 @@ def _run_parallel(folds: List[int], results_folder: str, passthrough,
     # read once, as a read-only memmap
     ingest_cache: Dict[str, object] = {}
     set_ingest_file_cache(ingest_cache)
-    fold_dirs: Dict[int, str] = {}
     # a raising suite must not leave the cache installed or skip the trim
     try:
-        for fold, d in zip(folds, out["fold_dirs"]):
-            fold_dirs[fold] = d
-            if targs.skip_eval == "yes":
-                continue
+        for fold in [] if skip_eval else mine:
             files = split(fold)
             fold_cfg = TrainConfig(**{**cfg.to_dict(), "run": fold})
-            cli.run_eval_suite(trainer.fold_state(fold).eval(), fold_cfg, d, files[0],
-                               files[1], files[2], files[4], files[5], files[6])
+            cli.run_eval_suite(trainer.fold_state(fold).eval(), fold_cfg, fold_dirs[fold],
+                               files[0], files[1], files[2], files[4], files[5], files[6])
             # bound what the suites leave on the heap: past half the host,
             # trim (the port keeps no cached programs to release)
             rss, total = host_rss_gb(), host_mem_total_gb()
@@ -100,6 +117,27 @@ def _run_parallel(folds: List[int], results_folder: str, passthrough,
         ingest_cache.clear()
         trim_host_heap()
     return fold_dirs
+
+
+def _parallel_rank(folds, results_folder, passthrough, fold_group_size, device, mesh) -> int:
+    """One rank of a fold-sharded run: its folds, their suites, and, after
+    every rank's, rank 0's ``cv_summary.json``."""
+    import torch.distributed as dist
+
+    fold_dirs = _run_parallel(folds, results_folder, passthrough, fold_group_size, device,
+                              mesh)
+    dist.barrier()  # every fold's suite is on disk
+    if mesh.is_writer:
+        _write_summary(results_folder, fold_dirs)
+    return 0
+
+
+def _write_summary(results_folder: str, fold_dirs: Dict[int, str]) -> None:
+    out_path = os.path.join(results_folder, "cv_summary.json")
+    os.makedirs(results_folder, exist_ok=True)
+    with open(out_path, "w") as f:
+        json.dump(summarize(fold_dirs), f, indent=2)
+    print(f"wrote {out_path}")
 
 
 def _mean(path: str):
@@ -156,6 +194,16 @@ def main(argv=None, device="cuda") -> int:
 
     fold_dirs: Dict[int, str] = {}
     if args.parallel == "yes":
+        n = _parallel_config(args.results_folder, passthrough)[0].n_data_shards
+        if n:
+            if len(args.folds) % n:  # JAX's check, before any rank starts
+                raise ValueError(f"{len(args.folds)} folds do not shard evenly over the "
+                                 f"mesh's {n}-device 'data' axis")
+            from transformer_clip_eeg_tpu_torch.parallel import run_on_ranks
+
+            return run_on_ranks(n, _parallel_rank, (args.folds, args.results_folder,
+                                                    passthrough, fold_group_size, device),
+                                device)
         fold_dirs = _run_parallel(args.folds, args.results_folder, passthrough,
                                   fold_group_size=fold_group_size, device=device)
     else:
@@ -171,12 +219,7 @@ def main(argv=None, device="cuda") -> int:
                          - before)
             if new:
                 fold_dirs[fold] = new[-1]
-
-    out_path = os.path.join(args.results_folder, "cv_summary.json")
-    os.makedirs(args.results_folder, exist_ok=True)
-    with open(out_path, "w") as f:
-        json.dump(summarize(fold_dirs), f, indent=2)
-    print(f"wrote {out_path}")
+    _write_summary(args.results_folder, fold_dirs)
     return 0
 
 

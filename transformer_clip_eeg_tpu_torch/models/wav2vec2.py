@@ -30,6 +30,14 @@ folds the weight norm; :func:`read_hf_directory` reads ``config.json`` and
 ``dtype``: the compute dtype.  In bfloat16 the parameters stay float32 and
 are cast at each use, as flax's ``dtype`` does; LayerNorm statistics and the
 attention scores and softmax run in float32; the output is float32.
+
+``tp_group``: a ``torch.distributed`` group of ``n`` ranks over which the
+encoder layers are Megatron-sharded (``parallel/tp.py``, inference only).
+Each rank's attention holds ``num_attention_heads / n`` heads and its FFN
+``intermediate_size / n`` hidden units; the partial sums of ``out_proj``
+and ``output_dense`` are all-reduced over the group in float32, then the
+bias is added and the result cast to the compute dtype.  Without a group
+the forward is the single-device one.
 """
 
 from __future__ import annotations
@@ -43,6 +51,7 @@ from typing import Any, Dict, Mapping, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
+import torch.distributed as dist
 import torch.nn.functional as F
 from torch import nn
 
@@ -111,6 +120,26 @@ def _linear(x: torch.Tensor, layer: nn.Linear) -> torch.Tensor:
         return F.linear(x, layer.weight, layer.bias)
     y = F.linear(x, layer.weight.to(x.dtype))  # rounded, then the bias added, as flax
     return y if layer.bias is None else y + layer.bias.to(x.dtype)
+
+
+def _tp_all_reduce(y: torch.Tensor, group) -> None:
+    """The sum of ``y`` over the tensor-parallel ``group``, in place."""
+    dist.all_reduce(y, group=group)
+
+
+def _row_parallel_linear(x: torch.Tensor, layer: nn.Linear, group) -> torch.Tensor:
+    """A row-sharded product: this rank's partial sum in float32, summed over
+    ``group``, then the whole bias, cast back to ``x.dtype`` (the plain
+    ``_linear`` without a group)."""
+    if group is None:
+        return _linear(x, layer)
+    y = upcast(F.linear(x, layer.weight.to(x.dtype)))
+    _tp_all_reduce(y, group)
+    return (y + layer.bias).to(x.dtype)
+
+
+def _tp_size(group) -> int:
+    return 1 if group is None else dist.get_world_size(group)
 
 
 def _conv(x: torch.Tensor, conv: nn.Conv1d, padding: int = 0) -> torch.Tensor:
@@ -187,45 +216,56 @@ class PositionalConvEmbedding(nn.Module):
 
 
 class Attention(nn.Module):
-    def __init__(self, cfg: Wav2Vec2Config):
+    """Self-attention; with ``tp_group`` this rank's ``1 / n`` of the heads."""
+
+    def __init__(self, cfg: Wav2Vec2Config, tp_group=None):
         super().__init__()
         d = cfg.hidden_size
-        self.num_heads = cfg.num_attention_heads
-        self.q_proj, self.k_proj = nn.Linear(d, d), nn.Linear(d, d)
-        self.v_proj, self.out_proj = nn.Linear(d, d), nn.Linear(d, d)
+        self.tp_group = tp_group
+        self.num_heads = cfg.num_attention_heads // _tp_size(tp_group)
+        self.head_dim = d // cfg.num_attention_heads
+        local = self.num_heads * self.head_dim
+        self.q_proj, self.k_proj = nn.Linear(d, local), nn.Linear(d, local)
+        self.v_proj, self.out_proj = nn.Linear(d, local), nn.Linear(local, d)
 
     def forward(self, h: torch.Tensor) -> torch.Tensor:
-        b, t, d = h.shape
-        hd = d // self.num_heads
+        b, t, _ = h.shape
+        hd = self.head_dim
         q = _linear(h, self.q_proj) * (hd ** -0.5)
         k, v = _linear(h, self.k_proj), _linear(h, self.v_proj)
         q, k, v = (z.reshape(b, t, self.num_heads, hd).transpose(1, 2) for z in (q, k, v))
         # the scores and the softmax at least float32 (JAX: preferred_element_type)
         scores = torch.matmul(upcast(q), upcast(k).transpose(-1, -2))
         attn = torch.softmax(scores, dim=-1).to(v.dtype)
-        ctx = torch.matmul(attn, v).transpose(1, 2).reshape(b, t, d)
-        return _linear(ctx, self.out_proj)
+        ctx = torch.matmul(attn, v).transpose(1, 2).reshape(b, t, self.num_heads * hd)
+        return _row_parallel_linear(ctx, self.out_proj, self.tp_group)
 
 
 class FeedForward(nn.Module):
-    def __init__(self, cfg: Wav2Vec2Config):
+    """The GELU FFN; with ``tp_group`` this rank's ``1 / n`` of its hidden
+    units."""
+
+    def __init__(self, cfg: Wav2Vec2Config, tp_group=None):
         super().__init__()
-        self.intermediate_dense = nn.Linear(cfg.hidden_size, cfg.intermediate_size)
-        self.output_dense = nn.Linear(cfg.intermediate_size, cfg.hidden_size)
+        self.tp_group = tp_group
+        f = cfg.intermediate_size // _tp_size(tp_group)
+        self.intermediate_dense = nn.Linear(cfg.hidden_size, f)
+        self.output_dense = nn.Linear(f, cfg.hidden_size)
 
     def forward(self, h: torch.Tensor) -> torch.Tensor:
-        return _linear(F.gelu(_linear(h, self.intermediate_dense)), self.output_dense)
+        return _row_parallel_linear(F.gelu(_linear(h, self.intermediate_dense)),
+                                    self.output_dense, self.tp_group)
 
 
 class EncoderLayerStableLayerNorm(nn.Module):
     """Pre-LN transformer layer (``do_stable_layer_norm=True``)."""
 
-    def __init__(self, cfg: Wav2Vec2Config):
+    def __init__(self, cfg: Wav2Vec2Config, tp_group=None):
         super().__init__()
         self.layer_norm = nn.LayerNorm(cfg.hidden_size, eps=cfg.layer_norm_eps)
-        self.attention = Attention(cfg)
+        self.attention = Attention(cfg, tp_group)
         self.final_layer_norm = nn.LayerNorm(cfg.hidden_size, eps=cfg.layer_norm_eps)
-        self.feed_forward = FeedForward(cfg)
+        self.feed_forward = FeedForward(cfg, tp_group)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         x = x + self.attention(_layer_norm(x, self.layer_norm))
@@ -236,11 +276,11 @@ class Wav2Vec2Encoder(nn.Module):
     """The positional conv, the layers up to the deepest tap, and the final
     ``layer_norm`` when the last layer is tapped."""
 
-    def __init__(self, cfg: Wav2Vec2Config):
+    def __init__(self, cfg: Wav2Vec2Config, tp_group=None):
         super().__init__()
         self.pos_conv_embed = PositionalConvEmbedding(cfg)
         self.layer_norm = nn.LayerNorm(cfg.hidden_size, eps=cfg.layer_norm_eps)
-        self.layers = nn.ModuleList(EncoderLayerStableLayerNorm(cfg)
+        self.layers = nn.ModuleList(EncoderLayerStableLayerNorm(cfg, tp_group)
                                     for _ in range(cfg.num_hidden_layers))
 
     def forward(self, x: torch.Tensor, taps: Sequence[int]) -> Dict[int, torch.Tensor]:
@@ -260,15 +300,19 @@ class Wav2Vec2Encoder(nn.Module):
 class Wav2Vec2Model(nn.Module):
     """Raw audio ``[B, T]`` → hidden states ``[B, frames, D]``: float32, or
     float64 for a float64 model (``dtype=torch.float64`` and ``.double()``,
-    a reference for the float32 path)."""
+    a reference for the float32 path).  With ``tp_group`` the encoder layers
+    hold this rank's Megatron slices (``parallel/tp.py``)."""
 
     def __init__(self, config: Wav2Vec2Config = Wav2Vec2Config(),
-                 dtype: torch.dtype = torch.float32):
+                 dtype: torch.dtype = torch.float32, tp_group=None):
         super().__init__()
+        from transformer_clip_eeg_tpu_torch.parallel.tp import validate_tp
+
+        validate_tp(config, _tp_size(tp_group))
         self.config, self.dtype = config, dtype
         self.feature_extractor = FeatureEncoder(config)
         self.feature_projection = FeatureProjection(config)
-        self.encoder = Wav2Vec2Encoder(config)
+        self.encoder = Wav2Vec2Encoder(config, tp_group)
 
     def hidden_states(self, audio: torch.Tensor, taps: Sequence[int]) -> Dict[int, torch.Tensor]:
         """``{tap: hidden_states[tap]}`` for each tap, one pass to the
@@ -423,13 +467,21 @@ def read_hf_directory(path: str) -> Tuple[Wav2Vec2Config, Dict[str, torch.Tensor
     raise FileNotFoundError(f"{path}: no model.safetensors or pytorch_model.bin")
 
 
-def load_wav2vec2(path: str, device="cuda", dtype: torch.dtype = torch.float32) -> Wav2Vec2Model:
-    """The model of an HF checkpoint directory, in eval mode on ``device``."""
+def load_wav2vec2(path: str, device="cuda", dtype: torch.dtype = torch.float32,
+                  mesh=None) -> Wav2Vec2Model:
+    """The model of an HF checkpoint directory, in eval mode on ``device``;
+    under ``mesh`` on the rank's device, with the rank's Megatron slices
+    when the mesh has a ``'model'`` axis."""
     from transformer_clip_eeg_tpu_torch.models.registry import resolve_device
+    from transformer_clip_eeg_tpu_torch.parallel.tp import shard_wav2vec2_state_dict
 
-    dev = resolve_device(device)  # raises before reading when the card is absent
+    # raises before reading when the card is absent
+    dev = mesh.device if mesh is not None else resolve_device(device)
     config, sd = read_hf_directory(path)
+    tp_group = None if mesh is None else mesh.tp_group
+    if tp_group is not None:
+        sd = shard_wav2vec2_state_dict(sd, mesh.n_model, mesh.model_rank)
     with torch.device("meta"):  # no initialisation of weights about to be replaced
-        model = Wav2Vec2Model(config, dtype=dtype)
+        model = Wav2Vec2Model(config, dtype=dtype, tp_group=tp_group)
     model.load_state_dict(sd, assign=True)
     return model.to(dev).eval()

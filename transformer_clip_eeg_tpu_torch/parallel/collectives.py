@@ -32,20 +32,20 @@ class _AllGatherRows(torch.autograd.Function):
     def forward(ctx, x, mesh):
         ctx.mesh, ctx.rows = mesh, x.shape[0]
         parts = [torch.empty_like(x) for _ in range(mesh.n_data)]
-        dist.all_gather(parts, x.contiguous())
+        dist.all_gather(parts, x.contiguous(), group=mesh.data_group)
         return torch.cat(parts)
 
     @staticmethod
     def backward(ctx, g):
         g = g.contiguous().clone()
-        dist.all_reduce(g)
+        dist.all_reduce(g, group=ctx.mesh.data_group)
         r0 = ctx.mesh.rank * ctx.rows
         return g[r0:r0 + ctx.rows], None
 
 
 def all_gather_rows(x: torch.Tensor, mesh) -> torch.Tensor:
-    """Every rank's ``x [b, ...]`` concatenated in rank order, ``[N b, ...]``
-    (differentiable)."""
+    """Every data rank's ``x [b, ...]`` concatenated in rank order, ``[N b,
+    ...]``, over ``mesh``'s data group (differentiable)."""
     return _AllGatherRows.apply(x, mesh)
 
 
@@ -113,9 +113,10 @@ def checksum(tensors: Sequence[torch.Tensor]) -> int:
 
 
 def gather_objects(obj, mesh) -> list:
-    """Every rank's picklable ``obj``, in rank order."""
+    """Every data rank's picklable ``obj``, in rank order, on every rank (over
+    ``mesh``'s data group)."""
     out = [None] * mesh.n_data
-    dist.all_gather_object(out, obj)
+    dist.all_gather_object(out, obj, group=mesh.data_group)
     return out
 
 

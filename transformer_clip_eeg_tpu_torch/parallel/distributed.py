@@ -110,14 +110,14 @@ def initialize_distributed(
 
 
 def _rank_entry(rank: int, n: int, init_method: str, device, target: Callable,
-                args: Sequence) -> int:
+                args: Sequence, n_model: int = 1) -> int:
     """One rank: join the group, run ``target(*args, mesh)``, leave it.  In
     a spawned process a nonzero result becomes its exit code."""
     from transformer_clip_eeg_tpu_torch.parallel.mesh import make_mesh
 
     initialize_distributed(init_method, n, rank, device)
     try:
-        code = target(*args, make_mesh(n, device=device))
+        code = target(*args, make_mesh(n // n_model, n_model, device=device))
     finally:
         dist.destroy_process_group()
     if code and n > 1:
@@ -125,8 +125,10 @@ def _rank_entry(rank: int, n: int, init_method: str, device, target: Callable,
     return code or 0
 
 
-def launch(n: int, target: Callable, args: Sequence = (), device="cuda") -> int:
-    """Run ``target(*args, mesh)`` on ``n`` ranks and return rank 0's code.
+def launch(n: int, target: Callable, args: Sequence = (), device="cuda",
+           n_model: int = 1) -> int:
+    """Run ``target(*args, mesh)`` on ``n`` ranks, a mesh of ``n // n_model``
+    x ``n_model``, and return rank 0's code.
 
     ``n == 1`` runs in this process, in a group of one.  Otherwise the ranks
     are ``n`` processes started with ``spawn`` (``target`` must be a
@@ -139,8 +141,29 @@ def launch(n: int, target: Callable, args: Sequence = (), device="cuda") -> int:
         if n == 1:
             return _rank_entry(0, 1, init_method, device, target, args)
         try:
-            mp.start_processes(_rank_entry, args=(n, init_method, device, target, tuple(args)),
+            mp.start_processes(_rank_entry,
+                               args=(n, init_method, device, target, tuple(args), n_model),
                                nprocs=n, join=True, start_method="spawn")
         except mp.ProcessExitedException as e:
             return e.exit_code or 1
     return 0
+
+
+def run_on_ranks(n: int, target: Callable, args: Sequence = (), device="cuda",
+                 n_model: int = 1) -> int:
+    """``target(*args, mesh)`` on the ``n`` ranks of an ``n // n_model`` x
+    ``n_model`` mesh: in this process when it is a rank of a group already
+    (joined by its caller, or named by ``torchrun``'s environment), else on
+    ``n`` ranks that :func:`launch` starts.  Returns this process's code
+    (rank 0's, when it spawned them).  The entry points' ``--n_data_shards``,
+    ``--n_model_shards`` and ``--shard`` run through it."""
+    from transformer_clip_eeg_tpu_torch.parallel.mesh import make_mesh
+
+    if dist.is_initialized():
+        return target(*args, make_mesh(n // n_model, n_model, device=device))
+    if initialize_distributed(device=device):
+        try:
+            return target(*args, make_mesh(n // n_model, n_model, device=device))
+        finally:
+            dist.destroy_process_group()
+    return launch(n, target, args, device, n_model)

@@ -27,20 +27,30 @@ stops at the deepest requested layer.  Weights come from a local HF
 checkpoint directory, read without ``transformers``
 (``models/wav2vec2.read_hf_directory``).  Runs on the card unless the
 caller passes ``device="cpu"``.  Imports nothing of JAX.
+
+``--n_data_shards`` / ``--n_model_shards`` run the extraction on a
+``('data', 'model')`` mesh of ``torch.distributed`` ranks (JAX's DP x TP
+grid): each slab is padded with zero rows to a multiple of the data axis,
+data row ``d`` takes its rows, the ranks of that row run the encoder
+Megatron-sharded (``parallel/tp.py``), and the hidden states are gathered
+over the data axis with the pad rows stripped.  Rank 0 writes the files.
 """
 
 from __future__ import annotations
 
 import glob
 import gzip
+import json
 import math
 import os
 import shutil
+import sys
 from typing import Dict, List, Optional, Sequence, Union
 
 import numpy as np
 import scipy.signal
 import torch
+import torch.distributed as dist
 
 SR = 16000
 FRAMES_PER_S = 50  # wav2vec2 output rate at 16 kHz (stride 320)
@@ -96,22 +106,42 @@ class Wav2Vec2FeatureExtractor:
     device."""
 
     def __init__(self, model, layers: Sequence[int] = (19,), sr: int = SR,
-                 frames_per_s: int = FRAMES_PER_S, max_chunk_batch: Optional[int] = 16):
+                 frames_per_s: int = FRAMES_PER_S, max_chunk_batch: Optional[int] = 16,
+                 mesh=None):
         """``model``: a ``models.wav2vec2.Wav2Vec2Model`` on its device, in its
-        compute dtype.  ``max_chunk_batch``: the most chunks a forward takes
-        (None: unbounded)."""
+        compute dtype (under a mesh with a ``'model'`` axis, this rank's
+        tensor-parallel slices: ``load_wav2vec2(..., mesh=mesh)``).
+        ``max_chunk_batch``: the most chunks a forward takes (None:
+        unbounded).  ``mesh``: a ``parallel.make_mesh`` grid; every rank of it
+        must extract the same audio."""
         self.model = model
         self.layers = sorted(layers)
         self.sr = sr
         self.frames_per_s = frames_per_s
         self.max_chunk_batch = max_chunk_batch
+        self.mesh = mesh
         self.device = next(model.parameters()).device
 
     @torch.no_grad()
     def _forward(self, audio_batch: np.ndarray) -> Dict[int, np.ndarray]:
-        out = self.model.hidden_states(torch.from_numpy(audio_batch).to(self.device),
-                                       self.layers)
-        return {layer: v.cpu().numpy() for layer, v in out.items()}
+        """The taps of ``audio_batch``; under a mesh the batch is padded to a
+        multiple of the data axis, this data row's rows run here, and the
+        ranks' outputs are gathered over the data axis (JAX ``_forward``)."""
+        if self.mesh is None:
+            out = self.model.hidden_states(torch.from_numpy(audio_batch).to(self.device),
+                                           self.layers)
+            return {layer: v.cpu().numpy() for layer, v in out.items()}
+        from transformer_clip_eeg_tpu_torch.parallel.collectives import all_gather_rows
+
+        n = audio_batch.shape[0]
+        pad = (-n) % self.mesh.n_data
+        if pad:
+            audio_batch = np.concatenate(
+                [audio_batch, np.zeros((pad,) + audio_batch.shape[1:], audio_batch.dtype)])
+        mine = audio_batch[self.mesh.rows(audio_batch.shape[0])]
+        out = self.model.hidden_states(torch.from_numpy(mine).to(self.device), self.layers)
+        return {layer: all_gather_rows(v, self.mesh)[:n].cpu().numpy()
+                for layer, v in out.items()}
 
     def get_hidden_output(self, audio: Union[str, np.ndarray], overlap: int = 2,
                           segment_length: int = 8) -> Dict[int, np.ndarray]:
@@ -173,25 +203,37 @@ def extract_stimulus_features(extractor: Wav2Vec2FeatureExtractor, stimuli_dir: 
                               save_dir: str, overlap: int = 2, segment_length: int = 8,
                               final_rate_hz: int = FINAL_RATE_HZ) -> List[str]:
     """The reference's main loop (ref create_wav2vec.py:128-158); returns the
-    paths saved."""
+    paths saved.  Under the extractor's mesh every rank extracts every story
+    and rank 0 alone unzips, prints and writes."""
+    mesh = extractor.mesh
+    writer = mesh is None or mesh.is_writer
+    say = print if writer else (lambda *a, **k: None)
     os.makedirs(save_dir, exist_ok=True)
     audio_paths = sorted(glob.glob(os.path.join(stimuli_dir, "*.npz.gz")), reverse=True)
     audio_paths = [x for x in audio_paths
                    if not os.path.basename(x).startswith(("noise_", "t_"))]
-    print(f"Found {len(audio_paths)} audio files.")
+    say(f"Found {len(audio_paths)} audio files.")
     saved: List[str] = []
     first_layer = extractor.layers[0]
     for path in audio_paths:
         story = os.path.basename(path).split(".")[0]
-        print("Processing", story)
+        say("Processing", story)
         unzipped_name = path.rsplit(".gz", 1)[0]
-        if not os.path.exists(unzipped_name):
+        if writer and not os.path.exists(unzipped_name):
             with gzip.open(path, "rb") as f_in, open(unzipped_name, "wb") as f_out:
                 shutil.copyfileobj(f_in, f_out)
-        if os.path.exists(os.path.join(save_dir, f"{story}_-_wav2vec_{first_layer}.npy")):
+        # the other ranks read the file rank 0 unzipped, and take the same
+        # skip decision (rank 0 writes a story's files only after every rank
+        # has extracted it)
+        skip = os.path.exists(os.path.join(save_dir, f"{story}_-_wav2vec_{first_layer}.npy"))
+        if mesh is not None:
+            dist.barrier()
+        if skip:
             continue
         features = extractor.get_hidden_output(unzipped_name, overlap=overlap,
                                                segment_length=segment_length)
+        if not writer:
+            continue
         for layer, value in features.items():
             number_of_samples = round(value.shape[0] * float(final_rate_hz)
                                       / extractor.frames_per_s)
@@ -222,11 +264,11 @@ def build_arg_parser():
                    help="max chunks per forward (0 = unbounded); bounds the conv "
                         "encoder's activation memory on long stories")
     p.add_argument("--n_data_shards", type=int, default=0,
-                   help="shard chunk batches over this many devices (not ported: "
-                        "NotImplementedError)")
+                   help="shard chunk batches over a 'data' axis of this many ranks (0 = one "
+                        "process, or the cards over --n_model_shards when that is > 1)")
     p.add_argument("--n_model_shards", type=int, default=1,
-                   help="shard the encoder over this many devices (not ported: "
-                        "NotImplementedError)")
+                   help="Megatron-shard the encoder over a 'model' axis of this many ranks "
+                        "(parallel/tp.py); must divide the head count and FFN width")
     p.add_argument("--split_programs", type=str, default="no", choices=["yes", "no"],
                    help="accepted and without effect: it splits the JAX package's XLA "
                         "program, and the port compiles none")
@@ -236,21 +278,68 @@ def build_arg_parser():
     return p
 
 
+def _grid(args, config, device) -> tuple:
+    """``(n_data, n_model)`` of the flags; ``--n_data_shards 0`` with a
+    ``'model'`` axis is the devices over ``n_model`` (JAX's ``len(devices)
+    // n_model``): the ranks of a joined group, else the cards of a CUDA
+    job, else the one host."""
+    from transformer_clip_eeg_tpu_torch.parallel.tp import validate_tp
+
+    n_model = args.n_model_shards
+    if n_model < 1 or args.n_data_shards < 0:
+        raise ValueError(f"--n_data_shards {args.n_data_shards} / --n_model_shards {n_model}: "
+                         "counts must be >= 0 and >= 1")
+    validate_tp(config, n_model)
+    n_data = args.n_data_shards
+    if not n_data:
+        if dist.is_initialized():
+            devices = dist.get_world_size()
+        elif torch.device(device).type == "cuda":
+            devices = torch.cuda.device_count()
+        else:
+            devices = 1
+        n_data = devices // n_model
+        if not n_data:
+            raise ValueError(f"--n_data_shards 0 takes the devices over --n_model_shards "
+                             f"{n_model}, and {devices} device(s) make none: pass "
+                             "--n_data_shards explicitly")
+    return n_data, n_model
+
+
 def main(argv=None, device="cuda") -> int:
     """CLI: extract wav2vec features for a SparrKULee download tree into
     ``<dataset_root>/derivatives/preprocessed_stimuli``, on the card unless
-    ``device="cpu"``."""
+    ``device="cpu"``; with ``--n_data_shards`` / ``--n_model_shards`` on a
+    mesh of ranks (spawned here, or the group this process or ``torchrun``
+    has joined)."""
+    from transformer_clip_eeg_tpu_torch.models.registry import resolve_device
+    from transformer_clip_eeg_tpu_torch.models.wav2vec2 import Wav2Vec2Config
+    from transformer_clip_eeg_tpu_torch.parallel import run_on_ranks
+
+    argv = sys.argv[1:] if argv is None else list(argv)
+    args = build_arg_parser().parse_args(argv)
+    if not args.n_data_shards and args.n_model_shards == 1:
+        return _extract(args, device)
+    resolve_device(device)  # no card: raise before any rank starts
+    with open(os.path.join(args.model_path, "config.json")) as f:
+        config = Wav2Vec2Config.from_hf(json.load(f))
+    n_data, n_model = _grid(args, config, device)
+    return run_on_ranks(n_data * n_model, _rank_main, (argv, device), device, n_model)
+
+
+def _rank_main(argv, device, mesh) -> int:
+    """One rank of :func:`main`'s mesh."""
+    return _extract(build_arg_parser().parse_args(argv), device, mesh)
+
+
+def _extract(args, device, mesh=None) -> int:
     from transformer_clip_eeg_tpu_torch.models.wav2vec2 import load_wav2vec2
 
-    args = build_arg_parser().parse_args(argv)
-    if args.n_data_shards > 0 or args.n_model_shards > 1:
-        raise NotImplementedError(
-            "--n_data_shards / --n_model_shards: multi-device extraction is not ported "
-            "to the torch package yet (ROADMAP.md §2 item 6, multi-device)")
     dtype = {"float32": torch.float32, "bfloat16": torch.bfloat16}[args.dtype]
-    model = load_wav2vec2(args.model_path, device=device, dtype=dtype)
+    model = load_wav2vec2(args.model_path, device=device, dtype=dtype, mesh=mesh)
     extractor = Wav2Vec2FeatureExtractor(model, args.layers,
-                                         max_chunk_batch=args.max_chunk_batch or None)
+                                         max_chunk_batch=args.max_chunk_batch or None,
+                                         mesh=mesh)
     extract_stimulus_features(
         extractor, os.path.join(args.dataset_root, "stimuli", "eeg"),
         os.path.join(args.dataset_root, "derivatives", "preprocessed_stimuli"),

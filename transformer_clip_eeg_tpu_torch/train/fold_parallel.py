@@ -43,13 +43,24 @@ path numbers train and val datasets independently (ids restart at 1, ref
 ``dataset_loader.py:270-272``), so its val updates collide with train rows,
 a reference quirk this trainer does not reproduce.
 
-Not ported: a fold-sharded mesh (``mesh``, ``n_data_shards``) raises
-``NotImplementedError`` (ROADMAP.md).  A fold axis inside the kernels, one
-launch for F folds, is queued there too.
+A fold-sharded mesh (``mesh``; ``cv --parallel yes --n_data_shards N``)
+puts the fold axis on the ranks, as JAX's ``shard_map`` does: rank ``r``
+trains folds ``[r F/N, (r+1) F/N)`` over its own replica of the union store
+(its share of the card's budget), with no collective in the step, since the
+folds are independent.  Every rank draws every fold's index matrices, so the
+shared streams (the chunk order, the mixup partners) stay those of the
+unsharded run and each fold trains bit for bit as it does there.  One object
+gather per epoch gives every rank every fold's losses (each rank's early
+stopping and schedulers read them); rank 0 writes the root ``loss.txt``, each
+rank its own folds' directories and checkpoints.
+
+A fold axis inside the kernels, one launch for F folds, is queued in
+ROADMAP.md.
 """
 
 from __future__ import annotations
 
+import dataclasses
 import json
 import os
 import time
@@ -66,8 +77,9 @@ from transformer_clip_eeg_tpu_torch.models.registry import (
 from transformer_clip_eeg_tpu_torch.train import checkpoint as ckpt_lib
 from transformer_clip_eeg_tpu_torch.train.config import TrainConfig
 from transformer_clip_eeg_tpu_torch.train.device_data import DeviceChunkStore
+from transformer_clip_eeg_tpu_torch.parallel.collectives import gather_objects
+from transformer_clip_eeg_tpu_torch.parallel.mesh import DATA_AXIS, data_axis_only
 from transformer_clip_eeg_tpu_torch.train.loop import (
-    _not_ported,
     check_supported,
     device_indices,
     printf,
@@ -87,10 +99,20 @@ def _story_of_chunk_key(key: str) -> str:
     return key.rsplit("_batch_", 1)[0]
 
 
+def local_folds(n_folds: int, mesh) -> List[int]:
+    """The indices of the folds a rank of ``mesh`` trains: rank ``r`` of N
+    the ``r``-th contiguous ``n_folds / N`` (all of them without a mesh)."""
+    if mesh is None:
+        return list(range(n_folds))
+    per_rank = n_folds // mesh.n_data
+    return list(range(mesh.rank * per_rank, (mesh.rank + 1) * per_rank))
+
+
 class FoldParallelTrainer:
     """Train the CV folds ``folds`` (their validation fold ids, e.g. ``[0,
     1, 2, 3, 4]``) over one union dataset on ``device`` (the card unless the
-    caller passes ``device="cpu"``).  ``cfg.run`` is ignored;
+    caller passes ``device="cpu"``), or this rank's share of them under a
+    fold-sharded ``mesh``.  ``cfg.run`` is ignored;
     ``union_files``/``union_audio`` must cover every story of CV folds 0-8
     (train and val of any one fold)."""
 
@@ -106,14 +128,23 @@ class FoldParallelTrainer:
         fold_group_size=None,
         device="cuda",
     ):
-        if mesh is not None or cfg.n_data_shards:
-            raise _not_ported("fold-parallel training over a device mesh (a mesh or "
-                              f"n_data_shards={cfg.n_data_shards})")
-        check_supported(cfg)
-        self.cfg = cfg
-        self.device = resolve_device(device)
         self.folds = list(folds)
         F = len(self.folds)
+        data_axis_only(mesh, "the fold-parallel trainer")
+        if mesh is None and cfg.n_data_shards:
+            raise ValueError(f"n_data_shards={cfg.n_data_shards} needs a mesh of as many ranks: "
+                             "cv.main starts them, or torchrun with parallel.make_mesh")
+        if mesh is not None and F % mesh.n_data:
+            raise ValueError(f"{F} folds do not shard evenly over the mesh's {mesh.n_data}-device "
+                             f"'{DATA_AXIS}' axis")
+        self.mesh = mesh
+        self.fold_group_size = self._resolve_fold_group_size(fold_group_size)
+        # the mesh shards the folds, not the batch
+        check_supported(dataclasses.replace(cfg, n_data_shards=0))
+        self.cfg = cfg
+        self.device = mesh.device if mesh is not None else resolve_device(device)
+        self.is_writer = mesh is None or mesh.is_writer  # rank 0 writes the root files
+        self.local = local_folds(F, mesh)  # the folds (indices) trained here
         self.results_root = results_root
         self.row_bucket = row_bucket
         os.makedirs(results_root, exist_ok=True)
@@ -131,34 +162,40 @@ class FoldParallelTrainer:
             data_augmentation=cfg.augmentations,
             data_augmentation_probability=cfg.data_augmentation_percentage, seed=cfg.seed,
         )
+        # under a mesh every rank holds the whole union (replicated, as JAX's
+        # chunks), within its share of the card's budget
         self.store = DeviceChunkStore(self.dataset, device=self.device,
                                       store_dtype=cfg.chunk_store_dtype,
-                                      budget_frac=cfg.chunk_budget_frac)
+                                      budget_frac=cfg.chunk_budget_frac,
+                                      ranks_on_device=1 if mesh is None else mesh.ranks_on_device)
         # one sampling stream per fold, as each sequential run's dataset rng;
-        # and a shared one for the chunk order and the mixup partners
+        # and a shared one for the chunk order and the mixup partners.  Every
+        # rank draws for every fold, so the shared stream is the unsharded one
         self.fold_rngs = [np.random.default_rng(cfg.seed) for _ in self.folds]
         self.shared_rng = np.random.default_rng(cfg.seed)
 
         bank_size = self.dataset.get_number_of_stimuli_segments()
-        self.fold_dirs = []
-        for f_ in self.folds:
-            d = os.path.join(results_root, f"fold_{f_}")
+        self.fold_dirs = [os.path.join(results_root, f"fold_{f_}") for f_ in self.folds]
+        for j in self.local:
+            d = self.fold_dirs[j]
             os.makedirs(os.path.join(d, "checkpoints"), exist_ok=True)
-            fold_cfg = TrainConfig(**{**cfg.to_dict(), "run": f_})
+            fold_cfg = TrainConfig(**{**cfg.to_dict(), "run": self.folds[j]})
             fold_cfg.bank_size = bank_size
             fold_cfg.save(os.path.join(d, "args.txt"))
-            self.fold_dirs.append(d)
         self.loss_file = os.path.join(results_root, "loss.txt")
 
-        # all folds share the init (the reference reuses one seed per fold)
-        self.models = [build_model_from_config(cfg, bank_size, self.device, seed=cfg.seed)
-                       for _ in self.folds]
-        self.optimizers = [
-            make_optimizer(m.parameters(), cfg.optimizer, cfg.learning_rate, cfg.beta1,
-                           cfg.beta2, cfg.weight_decay, cfg.amsgrad_b)
-            for m in self.models]
-        self.schedulers = [make_scheduler(cfg.lr_scheduler, cfg.learning_rate,
-                                          cfg.step_size_scheduler) for _ in self.folds]
+        # all folds share the init (the reference reuses one seed per fold);
+        # the folds of other ranks are None here
+        self.models: List = [None] * F
+        self.optimizers: List = [None] * F
+        self.schedulers: List = [None] * F
+        for j in self.local:
+            self.models[j] = build_model_from_config(cfg, bank_size, self.device, seed=cfg.seed)
+            self.optimizers[j] = make_optimizer(
+                self.models[j].parameters(), cfg.optimizer, cfg.learning_rate, cfg.beta1,
+                cfg.beta2, cfg.weight_decay, cfg.amsgrad_b)
+            self.schedulers[j] = make_scheduler(cfg.lr_scheduler, cfg.learning_rate,
+                                                cfg.step_size_scheduler)
 
         # auto-resume: each fold restores its own checkpoint (model, bank,
         # optimizer; the scheduler starts afresh, as in the JAX trainer) and
@@ -166,24 +203,38 @@ class FoldParallelTrainer:
         # saved best with a worse first epoch
         self.resumed = np.zeros(F, bool)
         self.resume_best_loss = np.full(F, np.inf)
-        for j, d in enumerate(self.fold_dirs):
-            ckpt_dir = os.path.join(d, "checkpoints")
+        for j in self.local:
+            ckpt_dir = os.path.join(self.fold_dirs[j], "checkpoints")
             if ckpt_lib.restore_checkpoint(ckpt_dir, self.models[j],
                                            self.optimizers[j]) is not None:
                 self.resumed[j] = True
                 meta = ckpt_lib.load_best_meta(ckpt_dir)
                 if meta is not None:
                     self.resume_best_loss[j] = meta
+        if mesh is not None:  # every fold's resume state on every rank
+            for resumed, best in gather_objects((self.resumed, self.resume_best_loss), mesh):
+                self.resumed |= resumed
+                self.resume_best_loss = np.minimum(self.resume_best_loss, best)
         if self.resumed.any():
-            printf(f"auto-resumed folds {[self.folds[j] for j in np.where(self.resumed)[0]]} "
-                   "from their checkpoints", self.loss_file)
+            self._log(f"auto-resumed folds {[self.folds[j] for j in np.where(self.resumed)[0]]} "
+                      "from their checkpoints")
 
-        self.fold_group_size = self._resolve_fold_group_size(fold_group_size)
         if self.fold_group_size != F:
-            printf(f"fold-group chunking: {F} folds in groups of {self.fold_group_size} "
-                   "per dispatch", self.loss_file)
-        printf(f"fold-parallel over folds {self.folds}: {count_params(self.models[0])} "
-               f"params x {F} folds", self.loss_file)
+            self._log(f"fold-group chunking: {F} folds in groups of {self.fold_group_size} "
+                      "per dispatch")
+        self._log(f"fold-parallel over folds {self.folds}: "
+                  f"{count_params(self.models[self.local[0]])} params x {F} folds")
+        if mesh is not None:
+            budget = self.store.budget_bytes
+            print(f"{mesh.describe()}: rank {mesh.rank} trains folds "
+                  f"{[self.folds[j] for j in self.local]} over its replica of the union store"
+                  + ("" if budget is None else f" (budget {budget / 2**30:.2f} GiB)"),
+                  flush=True)
+
+    def _log(self, statement: str) -> None:
+        """A line of the root ``loss.txt`` (and stdout), written by rank 0."""
+        if self.is_writer:
+            printf(statement, self.loss_file)
 
     # -- fold-group sizing -----------------------------------------------------
 
@@ -194,6 +245,9 @@ class FoldParallelTrainer:
         F = len(self.folds)
         if requested in (None, 0):
             return F
+        if self.mesh is not None:
+            raise ValueError("fold_group_size cannot combine with a fold-sharded mesh — the "
+                             "mesh already divides the fold stack across chips")
         if requested == "auto":
             print(f"auto fold grouping: G={F} (the folds of a row run one after another, "
                   "so the peak memory does not grow with G)")
@@ -260,7 +314,7 @@ class FoldParallelTrainer:
             for lo in range(0, F, G):
                 for i in range(n):
                     for j in range(lo, lo + G):
-                        if not valid[i, j]:
+                        if not valid[i, j] or self.models[j] is None:  # another rank's
                             continue
                         if train:
                             out = chunk_train_step(
@@ -286,6 +340,21 @@ class FoldParallelTrainer:
 
     # -- driver ----------------------------------------------------------------
 
+    def _merge(self, tr_sums, tr_counts, va_sums, va_counts, epoch_time, uploads):
+        """Every rank's epoch in one object gather: the folds' loss sums and
+        counts (each fold's from the rank that trains it; the others hold
+        zeros there), the slowest rank's train time, each rank's uploads."""
+        every = gather_objects((tr_sums, tr_counts, va_sums, va_counts, epoch_time, uploads),
+                               self.mesh)
+        merged = []
+        for i in (0, 2):
+            sums: Dict[str, np.ndarray] = {}
+            for part in every:
+                for k, v in part[i].items():
+                    sums[k] = sums.get(k, 0.0) + v
+            merged += [sums, sum(part[i + 1] for part in every)]
+        return (*merged, max(part[4] for part in every), [part[5] for part in every])
+
     def fit(self) -> Dict[str, object]:
         cfg = self.cfg
         F = len(self.folds)
@@ -294,7 +363,7 @@ class FoldParallelTrainer:
         best_loss = self.resume_best_loss.copy()
         best_epoch = np.zeros(F, np.int64)
         active = np.ones(F, bool)
-        best_states = [snapshot(m, o) for m, o in zip(self.models, self.optimizers)]
+        best_states = {j: snapshot(self.models[j], self.optimizers[j]) for j in self.local}
         history: List[Dict[str, object]] = []
         self.history = history
 
@@ -302,8 +371,7 @@ class FoldParallelTrainer:
             if epoch > cfg.warmup_epochs:
                 newly_done = active & (epoch > best_epoch + cfg.patience)
                 for j in np.where(newly_done)[0]:
-                    printf(f"fold {self.folds[j]}: early stopping at epoch {epoch}",
-                           self.loss_file)
+                    self._log(f"fold {self.folds[j]}: early stopping at epoch {epoch}")
                 active &= ~newly_done
             if not active.any():
                 break
@@ -319,35 +387,42 @@ class FoldParallelTrainer:
             # per-fold scheduler (ref :502-504); plateau reads the last val CE
             if cfg.lr_scheduler != "no":
                 last_val = history[-1]["val_loss_ce"] if history else [None] * F
-                for j, s in enumerate(self.schedulers):
-                    set_learning_rate(self.optimizers[j], s.step(last_val[j]))
+                for j in self.local:
+                    set_learning_rate(self.optimizers[j], self.schedulers[j].step(last_val[j]))
 
             va_sums, va_counts = self._epoch(self.val_stories, active, train=False)
+            uploads = store_after["uploads"] - store_before["uploads"]
+            if self.mesh is not None:
+                tr_sums, tr_counts, va_sums, va_counts, epoch_time, uploads_by_rank = \
+                    self._merge(tr_sums, tr_counts, va_sums, va_counts, epoch_time, uploads)
             val_ce = np.where(va_counts > 0, va_sums.get("loss_ce", np.zeros(F))
                               / np.maximum(va_counts, 1), np.inf)
             tr_ce = tr_sums.get("loss_ce", np.zeros(F)) / np.maximum(tr_counts, 1)
             pairs = int(tr_counts.sum()) * cfg.batch_size
-            printf(f"epoch {epoch}: train loss_ce {np.array2string(tr_ce, precision=4)} val "
-                   f"loss_ce {np.array2string(val_ce, precision=4)} "
-                   f"({pairs / max(epoch_time, 1e-9):.0f} pairs/s aggregate)", self.loss_file)
-            printf("epoch %d phases %s" % (epoch, json.dumps({
-                "uploads": store_after["uploads"] - store_before["uploads"],
+            self._log(f"epoch {epoch}: train loss_ce {np.array2string(tr_ce, precision=4)} val "
+                      f"loss_ce {np.array2string(val_ce, precision=4)} "
+                      f"({pairs / max(epoch_time, 1e-9):.0f} pairs/s aggregate)")
+            self._log("epoch %d phases %s" % (epoch, json.dumps({
+                "uploads": uploads,
                 "upload_gb": round((store_after["upload_bytes"]
                                     - store_before["upload_bytes"]) / 2**30, 2),
                 "upload_s": round(store_after["upload_s"] - store_before["upload_s"], 1),
                 "upload_wait_s": round(store_after["wait_s"] - store_before["wait_s"], 1),
-            })), self.loss_file)
+            })))
             history.append({
                 "epoch": epoch,
                 "val_loss_ce": val_ce.tolist(),
                 "train_loss_ce": tr_ce.tolist(),
                 "epoch_time_s": epoch_time,
                 "train_pairs_per_s": pairs / max(epoch_time, 1e-9),
+                **({} if self.mesh is None else {"uploads_by_rank": uploads_by_rank}),
             })
 
             improved = active & (val_ce < best_loss)
             for j in np.where(improved)[0]:
                 best_loss[j], best_epoch[j] = val_ce[j], epoch
+                if j not in best_states:  # another rank's fold
+                    continue
                 best_states[j] = snapshot(self.models[j], self.optimizers[j])
                 # save each improved fold now (ref :531-540), so a killed sweep
                 # resumes every fold from its best so far; meta first
@@ -359,9 +434,9 @@ class FoldParallelTrainer:
         # each fold's model holds its best state from here on; a fold that
         # never improved (epochs == 0) still gets its state on disk, so the
         # evaluation suite and serving can load its directory
-        for j, d in enumerate(self.fold_dirs):
+        for j in self.local:
             restore(self.models[j], self.optimizers[j], best_states[j])
-            ckpt_dir = os.path.join(d, "checkpoints")
+            ckpt_dir = os.path.join(self.fold_dirs[j], "checkpoints")
             if not os.path.exists(ckpt_lib.checkpoint_path(ckpt_dir)):
                 ckpt_lib.save_checkpoint(ckpt_dir, self.models[j], self.optimizers[j],
                                          self.schedulers[j])
@@ -374,8 +449,12 @@ class FoldParallelTrainer:
         }
 
     def fold_state(self, fold: int):
-        """The model of ``fold``, holding its best state after :meth:`fit`."""
-        return self.models[self.folds.index(fold)]
+        """The model of ``fold``, holding its best state after :meth:`fit`
+        (a fold of this rank's, under a mesh)."""
+        model = self.models[self.folds.index(fold)]
+        if model is None:
+            raise ValueError(f"fold {fold} is trained by another rank of the mesh")
+        return model
 
     def release_host_data(self) -> None:
         """Free the union dataset's host arrays and the chunk store's device
