@@ -23,14 +23,16 @@ feature-extraction paths on one NVIDIA GPU, end to end.
    apart under ``torch.profiler`` (row kernels, attention, the weight
    gradients' products with their TFLOP/s, sums), the device launches per
    call, a bit-for-bit repeat and what ``ptxas -v`` reported.  For the LSTM
-   kernels (one thread-block cluster per recurrence) also the launch plan,
+   kernels (up to H=256 one thread-block cluster per recurrence) also the launch plan,
    microseconds per step, what ``ptxas -v`` reported (registers, spills),
    the backward's recurrence and its dwhh reduction timed apart; beside the
    flagship's two biLSTMs (D=2, H=128 and H=4) the zoo's unidirectional
    recurrence (D=1, H=128, B=128), also against a unidirectional
-   ``nn.LSTM``; then H=256 (clusters of 8 CTAs; D=2 and D=1) and the widths
-   that run zero-padded, H=100 (to 128) and H=2 (to 4), each against the
-   twin, timed, with its bound, ``nn.LSTM``'s time, registers and spills.
+   ``nn.LSTM``; then H=256 (clusters of 8 CTAs; D=2 and D=1), the widths
+   that run zero-padded, H=100 (to 128) and H=2 (to 4), and past 256 the
+   wide kernels (one persistent cooperative grid): H=512 (D=2 and D=1),
+   H=300 (padded to 320) and H=1024, each against the twin, timed, with its
+   bound, ``nn.LSTM``'s time, the plan, registers and spills.
 4. Builds the flagship model (``TrainConfig()``: EEGConformerInterleaved
    depth 10, convLSTM, clip_sim_no_latent_proj) with seeded weights, serves
    it over HTTP on localhost, answers a request on every route, checks the
@@ -148,7 +150,12 @@ feature-extraction paths on one NVIDIA GPU, end to end.
     ``--lstm_units 100`` (the double_lstm encoders, D=1) and the flagship at
     ``--latent_dim 4`` (H=2): one train step at batch 8, card against CPU
     (``STEP_TOL``), and one epoch of ``cli.main --skip_eval yes`` with the
-    exact launches of #1-#4.
+    exact launches of #1-#4.  Then those of ``K2`` (``k2_path``), run by
+    the wide kernels: ``--lstm_units 512`` and ``1024`` (double_lstm) and
+    the flagship at ``--latent_dim 1024`` (its speech encoder's second
+    biLSTM at H=512), the same way (``--lstm_units 1024`` against the CPU's
+    step in float64), and the ``--lstm_units 512`` run served from its
+    results directory, card against CPU.
 16. The cross-validation driver (``cv_path``, ``cv.main`` at the
     flagship's widths on the same fixture, whose 6 stories put one story in
     each of folds 0-4): ``--parallel yes --folds 0 1 2 3 4 --epochs 2``
@@ -227,8 +234,9 @@ feature-extraction paths on one NVIDIA GPU, end to end.
 22. Sharded serving (``shard_serve_path``, on the serve CLI phase's files):
     ``serve.main --shard 2`` on two ranks sharing the card (256 EEG windows,
     128 speech windows, top-5 of the 256 over 130 candidates) against the
-    one-process CLI (1e-5 of max |x|, the indices equal); exact launches a
-    rank-chunk; the wall time of each call.
+    one-process CLI (1e-5 of max |x|; the indices equal but where two
+    candidates' scores lie within that, with the closest such pair of the
+    run); exact launches a rank-chunk; the wall time of each call.
 23. DP x TP extraction (``tp_extraction_path``, after ``wav2vec_path``, on
     its XLSR-53-width weights): one 24.5 s story with ``--n_data_shards 2
     --n_model_shards 1`` and ``--n_data_shards 1 --n_model_shards 2`` on two
@@ -323,6 +331,8 @@ from transformer_clip_eeg_tpu_torch.ops.lstm_scan import (  # noqa: E402
     _backward_recurrence as lstm_backward_recurrence,
     _dwhh as lstm_dwhh,
     _launch_forward as lstm_forward_cuda,
+    PLAN_HIDDEN,
+    WidePlan,
     lstm_launch_plan,
     lstm_scan_backward,
     lstm_scan_packed,
@@ -609,13 +619,20 @@ def check_block_windows(gen: torch.Generator, params) -> dict:
 
 
 def ptxas_usage(kind: str, hidden: int) -> dict:
-    """What ``ptxas -v`` reported for ``lstm_{kind}_cluster<hidden>``:
+    """What ``ptxas -v`` reported for the kernel that runs ``hidden``
+    (``lstm_{kind}_cluster<hidden>``, or ``lstm_{kind}_wide`` past 256):
     registers, spill stores and loads, stack bytes."""
-    name = f"lstm_{kind}_clusterILi{hidden}E"
+    name = f"lstm_{kind}_clusterILi{hidden}E" if hidden in PLAN_HIDDEN else f"lstm_{kind}_wide"
     return ptxas_of(name)[name]
 
 
 def plan_text(plan) -> str:
+    if isinstance(plan, WidePlan):
+        return (f"wide (forward / backward): {plan.ctas_fwd} / {plan.ctas_bwd} CTAs of "
+                f"{plan.threads} threads x {plan.launches_fwd} / {plan.launches_bwd} launches, "
+                f"{plan.units_fwd} / {plan.units_bwd} units a CTA, whh rows resident "
+                f"{plan.resident_fwd} / {plan.resident_bwd}, smem {plan.smem_fwd} / "
+                f"{plan.smem_bwd} B")
     return (f"clusters of {plan.cluster} CTAs x {plan.batch_tile} rows, {plan.ctas} CTAs of "
             f"{plan.threads} threads")
 
@@ -626,9 +643,13 @@ def plan_text(plan) -> str:
 # encoders run unidirectional ones (D=1) at H=--lstm_units=128.  Then the
 # other hidden sizes the flags give: H=256 (--lstm_units 256, both
 # packings), H=100 (--lstm_units 100, padded to 128) and H=2 (--latent_dim
-# 4's second biLSTM, padded to 4)
+# 4's second biLSTM, padded to 4).  Past 256 the wide kernels: H=512 both
+# packings (--lstm_units 512; --latent_dim 1024's second biLSTM), H=300
+# (padded to 320), H=1024 at D=2 (part of whose whh is streamed from L2)
+# and at D=1 (--lstm_units 1024: all of each CTA's slice resident)
 LSTM_SHAPES = ((128, 64, 2), (4, 256, 2), (128, 128, 1),
-               (256, 64, 2), (256, 256, 1), (100, 100, 2), (2, 256, 2))
+               (256, 64, 2), (256, 256, 1), (100, 100, 2), (2, 256, 2),
+               (512, 64, 2), (512, 512, 1), (300, 64, 2), (1024, 64, 2), (1024, 1024, 1))
 FLAGSHIP_LSTMS = ((128, 2), (4, 2))  # (H, D) of the flagship's two recurrences
 
 
@@ -694,7 +715,8 @@ def check_lstm(gen: torch.Generator) -> dict:
         "bound_ms": total("bound_ms"),
         "bound_by": max(flagship, key=lambda s: s["bound_ms"])["bound_by"],
         "times_are": "sums over the two recurrences of one flagship speech chunk (D=2); "
-                     "shapes also holds D=1, H=256 and the padded H=100 and H=2",
+                     "shapes also holds D=1, H=256, the padded H=100 and H=2, and the wide "
+                     "kernels' H=512, 300 (padded to 320) and 1024",
         "shapes": shapes,
     }
 
@@ -874,7 +896,8 @@ def check_lstm_backward(gen: torch.Generator) -> dict:
         "bound_ms": total("bound_ms"),
         "bound_by": max(flagship, key=lambda s: s["bound_ms"])["bound_by"],
         "times_are": "sums over the two recurrences of one flagship train step (D=2); "
-                     "shapes also holds D=1, H=256 and the padded H=100 and H=2",
+                     "shapes also holds D=1, H=256, the padded H=100 and H=2, and the wide "
+                     "kernels' H=512, 300 (padded to 320) and 1024",
         "shapes": shapes,
     }
 
@@ -1432,30 +1455,44 @@ def step_errors(got: dict, want: dict) -> dict:
 
 
 def card_vs_cpu_step(cfg, host_batch, fused: bool = False, name: str = "",
-                     dtype=torch.float32, augmentations=(), add_eeg: bool = False) -> dict:
-    """One training step at batch 8, dropout on, on the card and on the CPU
-    in ``dtype``: same weights (seed 0), same batch, same step seed, so the
-    same masks.  The losses, every gradient, the bank's rows and the running
-    statistics must agree within ``STEP_TOL`` (``step_errors``).  ``fused``
-    sets ``fused`` on the BasicBlocks of both models; ``augmentations`` and
-    ``add_eeg`` mix and augment the batch on each device (``step_grads``)."""
-    gpu, cpu = (step_grads(cfg, host_batch, dev, dtype, fused, augmentations, add_eeg)
-                for dev in ("cuda", "cpu"))
+                     dtype=torch.float32, augmentations=(), add_eeg: bool = False,
+                     ref_dtype=None) -> dict:
+    """One training step at batch 8, dropout on, on the card in ``dtype`` and
+    on the CPU in ``ref_dtype`` (default ``dtype``): same weights (seed 0),
+    same batch, same step seed, so the same masks.  The losses, every
+    gradient, the bank's rows and the running statistics must agree within
+    ``STEP_TOL`` (``step_errors``).  ``fused`` sets ``fused`` on the
+    BasicBlocks of both models; ``augmentations`` and ``add_eeg`` mix and
+    augment the batch on each device (``step_grads``).  Against another
+    ``ref_dtype`` the CPU's own step in ``dtype`` is held to nothing but
+    reported beside (``cpu_spread``): how far ``dtype`` itself is from it."""
+    ref_dtype = ref_dtype or dtype
+    gpu, cpu = (step_grads(cfg, host_batch, dev, dt, fused, augmentations, add_eeg)
+                for dev, dt in (("cuda", dtype), ("cpu", ref_dtype)))
     errs = step_errors(gpu, cpu)
+    spread = {}
+    if ref_dtype != dtype:
+        own = step_errors(step_grads(cfg, host_batch, "cpu", dtype, fused, augmentations,
+                                     add_eeg), cpu)
+        spread = {"cpu_spread": {"grad_err": own["grad_err"], "loss_err": own["loss_err"],
+                                 "worst_leaf": max(own["grad_err_by_leaf"],
+                                                   key=own["grad_err_by_leaf"].get)}}
     worst = sorted(errs["grad_err_by_leaf"].items(), key=lambda kv: -kv[1])[:6]
     n_norms = sum(n.endswith("running_var") for n in errs["buffer_errs"])
     log(f"one train step at batch 8, dropout on{', conv blocks fused' if fused else ''}"
         f"{', ' + name if name else ''}{', float64' if dtype == torch.float64 else ''}, "
-        f"card vs CPU: losses {gpu['losses']} vs {cpu['losses']} (err {errs['loss_err']:.2e}); "
+        f"card vs CPU{f' ({ref_dtype})' if ref_dtype != dtype else ''}: losses "
+        f"{gpu['losses']} vs {cpu['losses']} (err {errs['loss_err']:.2e}); "
         f"worst gradient error {errs['grad_err']:.2e} (max abs error over max(leaf max, "
         f"{STEP_GRAD_FLOOR:g} x largest gradient)) over {len(errs['grad_err_by_leaf'])} "
         f"leaves, worst {[(n, f'{v:.1e}') for n, v in worst]}; bank rows {errs['bank_err']:.2e}; "
         f"running statistics of {n_norms} batch norms {errs['batch_stats_err']:.2e} "
-        f"(tol {STEP_TOL:g})")
+        f"(tol {STEP_TOL:g}){'; ' + json.dumps(spread) if spread else ''}")
     if not max(errs["loss_err"], errs["grad_err"],
                max(errs["buffer_errs"].values(), default=0.0)) <= STEP_TOL:
         raise AssertionError("the card's train step disagrees with the CPU's")
-    return {**errs, "dtype": str(dtype), "n_grads": len(gpu["grads"]),
+    return {**errs, **spread, "dtype": str(dtype), "reference": f"cpu {ref_dtype}",
+            "n_grads": len(gpu["grads"]),
             "losses_card": gpu["losses"], "losses_cpu": cpu["losses"]}
 
 
@@ -2384,7 +2421,10 @@ def serve_cli_path(results_dir: str) -> dict:
                                          - cpu.embed_speech(arrays["speech"][:8])).max())
     with open(outs["topk"]) as f:
         topk = json.load(f)
-    index = RetrievalIndex.from_embeddings(session.embed_speech(arrays["cand"]), device="cuda")
+    cand_emb = session.embed_speech(arrays["cand"])
+    paths["cand_emb"] = os.path.join(RUN_DIR, "serve_cand_emb.npy")
+    np.save(paths["cand_emb"], cand_emb)
+    index = RetrievalIndex.from_embeddings(cand_emb, device="cuda")
     scores, ids = index.topk(want_emb["eeg"], 5)
     errs["topk_scores_vs_session"] = float(np.abs(np.asarray(topk["scores"]) - scores).max())
     ids_equal = topk["indices"] == ids.tolist()
@@ -3016,39 +3056,68 @@ def bf16_train_path(data_dir: str, cfg, host_batch, f32_step_ms: float) -> dict:
 
 
 # LSTM widths off the 4 ... 128 the kernels were first built for (ROADMAP §3
-# K1), each at the registry's full widths: the flags, and #1-#4's launches per train step.
+# K1), each at the registry's full widths: the flags, #1-#4's launches per
+# train step, and the dtype of the CPU step the card's is held against.
 # --lstm_units sizes the double_lstm encoders' LSTMs (D=1): 256 runs the
 # H=256 instantiation, 100 runs padded to 128; --latent_dim 4 gives the
 # flagship's second biLSTM H=2, padded to 4
 K1 = {
     "lstm_units_256": (dict(eeg_encoder="double_lstm", speech_encoder="double_lstm",
-                            model_arch="clip_kld_latent_proj", lstm_units=256), (0, 0, 4, 4)),
+                            model_arch="clip_kld_latent_proj", lstm_units=256), (0, 0, 4, 4),
+                       torch.float32),
     "lstm_units_100": (dict(eeg_encoder="double_lstm", speech_encoder="double_lstm",
-                            model_arch="clip_kld_latent_proj", lstm_units=100), (0, 0, 4, 4)),
-    "latent_dim_4": (dict(latent_dim=4), (10, 10, 2, 2)),
+                            model_arch="clip_kld_latent_proj", lstm_units=100), (0, 0, 4, 4),
+                       torch.float32),
+    "latent_dim_4": (dict(latent_dim=4), (10, 10, 2, 2), torch.float32),
 }
 
 
-def k1_path(data_dir: str) -> dict:
-    """Each ``K1`` configuration: one train step at batch 8, dropout on, card
-    against CPU (``STEP_TOL``); then ``cli.main --epochs 1 --skip_eval yes``
-    on the fixture on the card with the exact launches of #1-#4 and a finite
-    validation loss."""
+# LSTM widths past 256 (ROADMAP §3 K2), run by the wide kernels.
+# --lstm_units sizes the double_lstm encoders' LSTMs (D=1): 512 and 1024.
+# The convLSTM encoders fix their first biLSTM at 128 units whatever
+# --lstm_units says (JAX models/registry.py:66-68, 157-159); their second
+# biLSTM is --latent_dim // 2 wide, so --latent_dim 1024 runs the default
+# model with its speech encoder's second biLSTM at H=512 (D=2).  The card's
+# float32 step at --lstm_units 1024 is held against the CPU's step in
+# float64 (at STEP_TOL, as every step): there the float32 step is
+# ill-conditioned in the heads' last biases at batch 8 (the CPU's float32
+# gradient of eeg_mu_linear.last_linear.bias is 6.17e-4 of its largest value
+# from its float64 one), so two float32 steps differ by up to twice that;
+# the CPU's float32 spread is reported beside it
+K2 = {
+    "lstm_units_512": (dict(eeg_encoder="double_lstm", speech_encoder="double_lstm",
+                            model_arch="clip_kld_latent_proj", lstm_units=512), (0, 0, 4, 4),
+                       torch.float32),
+    "latent_dim_1024": (dict(latent_dim=1024), (10, 10, 2, 2), torch.float32),
+    "lstm_units_1024": (dict(eeg_encoder="double_lstm", speech_encoder="double_lstm",
+                             model_arch="clip_kld_latent_proj", lstm_units=1024), (0, 0, 4, 4),
+                        torch.float64),
+}
+K2_SERVED = "lstm_units_512"
+
+
+def width_path(data_dir: str, configs: dict, tag: str) -> dict:
+    """Each configuration of ``configs`` (``K1`` or ``K2``): one train step
+    at batch 8, dropout on, card against the CPU's step in the entry's dtype
+    (``STEP_TOL``; beside a float64 one, the CPU's float32 spread); then ``cli.main
+    --epochs 1 --skip_eval yes`` on the fixture on the card with the exact
+    launches of #1-#4 and a finite validation loss.  Each run's entry names
+    its results directory (``results_dir``)."""
     t_start = time.perf_counter()
     out = {}
     rng = np.random.default_rng(8)
     with instrumented() as seen:
-        for name, (flags, per_step) in K1.items():
+        for name, (flags, per_step, ref_dtype) in configs.items():
             cfg = TrainConfig(**flags, bank_size=BANK_SIZE)
             t = cfg.window_length
             batch = {"eeg": rng.standard_normal((8, t, 64)).astype(np.float32),
                      "speech": rng.standard_normal((8, t, cfg.speech_dimension)).astype(
                          np.float32),
                      "ids": np.arange(1, 9, dtype=np.int64)}
-            step = card_vs_cpu_step(cfg, batch, name=f"{name} {flags}")
+            step = card_vs_cpu_step(cfg, batch, name=f"{name} {flags}", ref_dtype=ref_dtype)
             del step["grad_err_by_leaf"]
             argv = ["--data_dir", data_dir, "--epochs", "1", "--skip_eval", "yes",
-                    "--results_folder", os.path.join(RUN_DIR, "k1", name)]
+                    "--results_folder", os.path.join(RUN_DIR, tag, name)]
             for k, v in flags.items():
                 argv += [f"--{k}", str(v)]
             zero_counts()
@@ -3066,11 +3135,51 @@ def k1_path(data_dir: str) -> dict:
             if launches != want or not np.isfinite(val):
                 raise AssertionError(f"{name}: launches {launches}, want {want}; val {val}")
             trainer.release_host_data()
-            out[name] = {"flags": flags, "card_vs_cpu_step": step, "launches": launches,
-                         "step_ms_median": step_ms, "val_loss_ce": val}
+            out[name] = {"flags": flags, "step": step, "launches": launches,
+                         "step_ms_median": step_ms, "val_loss_ce": val,
+                         "results_dir": trainer.results_dir}
     out["seconds"] = time.perf_counter() - t_start
-    log(f"K1 phase: {out['seconds']:.1f} s")
+    log(f"{tag.upper()} phase: {out['seconds']:.1f} s")
+    return out
+
+
+def k1_path(data_dir: str) -> dict:
+    """The ``K1`` widths through :func:`width_path`."""
+    out = width_path(data_dir, K1, "k1")
     log(json.dumps({"k1": out}))
+    return out
+
+
+def k2_path(data_dir: str) -> dict:
+    """The ``K2`` widths through :func:`width_path`, then the
+    ``--lstm_units 512`` run served from its results directory: one
+    128-window chunk of each side, card against CPU (``SERVE_TOL``), with
+    exactly 2 launches of #3 a chunk (the two LSTMs of each double_lstm
+    encoder) and none of the others."""
+    out = width_path(data_dir, K2, "k2")
+    results_dir = out[K2_SERVED]["results_dir"]
+    cfg = TrainConfig.load(os.path.join(results_dir, "args.txt"))
+    rng = np.random.default_rng(9)
+    eeg = rng.standard_normal((128, cfg.window_length, 64)).astype(np.float32)
+    speech = rng.standard_normal((128, cfg.window_length, cfg.speech_dimension)).astype(
+        np.float32)
+    sessions = {dev: InferenceSession.from_results_dir(results_dir, device=dev)
+                for dev in ("cuda", "cpu")}
+    zero_counts()
+    emb = {"cuda": (sessions["cuda"].embed_eeg(eeg), sessions["cuda"].embed_speech(speech))}
+    served = counts()
+    emb["cpu"] = (sessions["cpu"].embed_eeg(eeg), sessions["cpu"].embed_speech(speech))
+    errs = {side: float(np.abs(emb["cuda"][i] - emb["cpu"][i]).max())
+            for i, side in enumerate(("eeg", "speech"))}
+    want = dict.fromkeys(served, 0)
+    want["lstm_scan_packed"] = 4  # 2 LSTMs a double_lstm encoder, one chunk each side
+    log(f"{K2_SERVED} served by from_results_dir, one 128-window chunk each side, card vs "
+        f"CPU: max_abs_err {errs} (tol {SERVE_TOL:g}); launches {served}")
+    if not max(errs.values()) <= SERVE_TOL or served != want:
+        raise AssertionError(f"{K2_SERVED} serving: errors {errs}, launches {served}, "
+                             f"want {want}")
+    out[K2_SERVED].update(served_err=errs, served_launches=served)
+    log(json.dumps({"k2": out}))
     return out
 
 
@@ -4378,6 +4487,18 @@ SHARD_SERVE_TOL = 1e-5  # of max |one process|, embeddings and top-k scores
 CV_MESH_FOLDS = ["0", "1", "2", "3"]
 
 
+def topk_places_that_differ(got, want, full: np.ndarray, scale: float) -> list:
+    """The places of two top-k index lists ``[Q, k]`` that hold different
+    candidates: each with its query, place, the two indices, and the gap
+    between their scores in ``full [Q, N]`` over ``scale``."""
+    got, want = np.asarray(got), np.asarray(want)
+    if got.shape != want.shape:
+        return [{"query": -1, "place": -1, "ids": [], "gap": float("inf")}]
+    return [{"query": int(q), "place": int(i), "ids": [int(got[q, i]), int(want[q, i])],
+             "gap": float(abs(full[q, got[q, i]] - full[q, want[q, i]])) / scale}
+            for q, i in zip(*np.nonzero(got != want))]
+
+
 def _shard_serve_rank(results_dir: str, invocations: dict, mesh) -> int:
     """One of the two ranks of ``shard_serve_path``: ``serve.main --shard 2``
     for each invocation, twice (this rank joins the group; rank 0 writes),
@@ -4411,7 +4532,9 @@ def shard_serve_path(results_dir: str, serve_cli: dict) -> dict:
     port's ``launch`` made) for 256 EEG windows, 128 speech windows and top-5
     of the 256 over 130 candidates (the serve CLI phase's files); rank 0's
     outputs against the one-process CLI's in this call (embeddings and
-    scores within ``SHARD_SERVE_TOL`` of max |x|, the indices equal); exact
+    scores within ``SHARD_SERVE_TOL`` of max |x|; the indices equal at every
+    place but where two candidates' scores lie within that of each other,
+    which the two GEMM shapes may order either way); exact
     launches a rank-chunk (10 #1 a chunk of EEG, 2 #3 a chunk of speech, each
     of a rank's 64 rows); wall time of each call."""
     t0 = time.perf_counter()
@@ -4454,10 +4577,24 @@ def shard_serve_path(results_dir: str, serve_cli: dict) -> dict:
     with open(one["topk"]) as f:
         want_topk = json.load(f)
     scores, want_scores = np.asarray(topk["scores"]), np.asarray(want_topk["scores"])
-    errs["topk_scores"] = float(np.abs(scores - want_scores).max()) / float(
-        np.abs(want_scores).max())
-    ids_equal = topk["indices"] == want_topk["indices"]
+    scale = float(np.abs(want_scores).max())
+    errs["topk_scores"] = float(np.abs(scores - want_scores).max()) / scale
+    # a rank's GEMM over its 65 candidates rounds otherwise than one over
+    # 130, so two candidates whose scores lie within SHARD_SERVE_TOL may
+    # trade places; every other place must hold the same index.  A place
+    # that differs is held to the one-process embeddings' scores (float64)
+    full = np.load(one["eeg"]).astype(np.float64) @ np.load(
+        paths["cand_emb"]).astype(np.float64).T
+    swaps = topk_places_that_differ(topk["indices"], want_topk["indices"], full, scale)
+    # how near this run came to such a tie: the least gap between neighbours
+    # among each query's 6 best, over max |score|
+    best = -np.sort(-full, axis=1)[:, :6]
+    closest = float((best[:, :-1] - best[:, 1:]).min()) / scale
+    ids_equal = not swaps
+    ids_ok = (all(s["gap"] <= SHARD_SERVE_TOL for s in swaps)
+              and all(len(set(row)) == len(row) for row in topk["indices"]))
     out = {"mesh": records[0]["mesh"], "errors": errs, "indices_equal": ids_equal,
+           "index_swaps": swaps, "closest_top6_gap": closest,
            "wall_s": [rec["passes"][1]["wall_s"] for rec in records],
            "wall_s_first_pass": [rec["passes"][0]["wall_s"] for rec in records],
            "one_process_wall_s": serve_cli["wall_s"],
@@ -4465,11 +4602,15 @@ def shard_serve_path(results_dir: str, serve_cli: dict) -> dict:
            "launches_bf16": records[0]["passes"][0]["launches_bf16"],
            "seconds": time.perf_counter() - t0}
     log(f"serve --shard {SHARD_RANKS} ({out['mesh']}): against the one-process CLI {errs} of "
-        f"max |x| (tol {SHARD_SERVE_TOL:g}), top-5 indices equal {ids_equal}; wall s a rank "
+        f"max |x| (tol {SHARD_SERVE_TOL:g}), top-5 indices equal {ids_equal} (places that "
+        f"differ, each with its two candidates' score gap of max |score|: {swaps}; the "
+        f"closest neighbours among a query's 6 best {closest:.3e}); wall s a rank "
         f"{out['wall_s']} (the first pass {out['wall_s_first_pass']}) vs one process "
         f"{serve_cli['wall_s']}; launches a rank a pass {out['launches']}")
-    if not (ids_equal and max(errs.values()) <= SHARD_SERVE_TOL):
-        raise AssertionError("serve --shard disagrees with the one-process CLI")
+    if not (ids_ok and max(errs.values()) <= SHARD_SERVE_TOL):
+        raise AssertionError(f"serve --shard disagrees with the one-process CLI: errors {errs} "
+                             f"of max |x| (tol {SHARD_SERVE_TOL:g}); top-5 places that differ "
+                             f"{swaps[:8]} ({len(swaps)} in all)")
     log(json.dumps({"shard_serve": out}))
     return out
 
@@ -4866,6 +5007,7 @@ def main() -> int:
         server_cli = server_cli_path(train["results_dir"], serve_cli)
         zoo = zoo_path(data_dir)
         k1 = k1_path(data_dir)
+        k2 = k2_path(data_dir)
         cv_run = cv_path(data_dir)
         cv_mesh = cv_mesh_path(data_dir)
         shard_serve = shard_serve_path(train["results_dir"], serve_cli)
@@ -4903,6 +5045,8 @@ def main() -> int:
             cv_parallel=cv_run["launches"]["cv_parallel"][k["name"]],
             cv_sequential=cv_run["launches"]["cv_sequential"][k["name"]],
             **{f"k1_{n}": k1[n]["launches"][k["name"]] for n in K1},
+            **{f"k2_{n}": k2[n]["launches"][k["name"]] for n in K2},
+            k2_served=k2[K2_SERVED]["served_launches"][k["name"]],
             **{path: counts_[k["name"]] for path, counts_ in reference["launches"].items()},
             wav2vec_extraction=wav2vec["launches"][k["name"]],
             baselines=baselines["launches"][k["name"]],
@@ -4955,13 +5099,19 @@ def main() -> int:
             k: v for k, v in cv_run["profile_one_chunk"].items() if k != "top_ops"},
         "rss_gb_around_trims": cv_run["rss_gb_around_trims"], "cv_s": cv_run["seconds"],
         "k1_s": k1["seconds"], "k1_step_grad_err": {
-            n: k1[n]["card_vs_cpu_step"]["grad_err"] for n in K1}}}))
+            n: k1[n]["step"]["grad_err"] for n in K1},
+        "k2_s": k2["seconds"], "k2_step_grad_err": {
+            n: k2[n]["step"]["grad_err"] for n in K2},
+        "k2_step_ms": {n: k2[n]["step_ms_median"] for n in K2},
+        "k2_served_err": k2[K2_SERVED]["served_err"]}}))
     log(json.dumps({"reference_wav2vec_baselines": {
         "reference_ckpt": {k: v for k, v in reference.items() if not k.startswith("launches")},
         "wav2vec": {k: v for k, v in wav2vec.items() if k not in ("top_ops",)},
         "baselines": baselines["errors"]}}))
     log(json.dumps({"multi_device": {
         "shard_serve_wall_s": shard_serve["wall_s"], "shard_serve_errors": shard_serve["errors"],
+        "shard_serve_index_swaps": shard_serve["index_swaps"],
+        "shard_serve_closest_top6_gap": shard_serve["closest_top6_gap"],
         "cv_mesh_pairs_per_s": cv_mesh["pairs_per_s_epoch1"],
         "cv_mesh_fold_diffs": cv_mesh["fold_diffs"], "tp_errors": tp["errors"],
         "tp_grids": tp["grids"], "seconds": {"shard_serve": shard_serve["seconds"],

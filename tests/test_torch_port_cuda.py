@@ -30,10 +30,13 @@ from transformer_clip_eeg_tpu_torch.ops.fused_conv import (
 from transformer_clip_eeg_tpu_torch.ops.lstm import LSTM
 from transformer_clip_eeg_tpu_torch import _build
 from transformer_clip_eeg_tpu_torch.ops.lstm_scan import (
+    WIDE_KC,
+    WidePlan,
     lstm_launch_plan,
     lstm_scan_backward,
     lstm_scan_packed,
     lstm_scan_reference,
+    wide_smem_bytes,
 )
 from transformer_clip_eeg_tpu_torch.serve import InferenceSession, build_model_from_config
 from transformer_clip_eeg_tpu_torch.train.config import TrainConfig
@@ -285,15 +288,44 @@ def test_lstm_kernels_take_any_hidden_size_by_padding(cuda, hidden, t, d, b):
     _assert_lstm_kernels_match_twin(*_lstm_inputs(t, d, b, hidden, 15, cuda))
 
 
+@pytest.mark.parametrize("t,d,b", LSTM_CASES, ids=LSTM_IDS)
+@pytest.mark.parametrize("hidden", [300, 512, 1024])
+def test_lstm_wide_kernels_match_twin(cuda, hidden, t, d, b):
+    """The wide kernels (H > 256: ``--lstm_units 300``, padded to 320, 512
+    and 1024) against the twin at H itself: h, c, dxw and dwhh, one launch of
+    each kernel, ragged batches, one direction and a single step."""
+    _assert_lstm_kernels_match_twin(*_lstm_inputs(t, d, b, hidden, 18, cuda))
+
+
+def test_lstm_wide_kernels_match_twin_at_full_batch(cuda):
+    """The wide kernels at the shapes of ``--lstm_units 512`` and ``1024`` in
+    training (B=128, T=192): both directions packed, where H=1024 streams
+    part of each CTA's slice of whh from L2, and H=1024 at D=1 (the
+    double_lstm encoders), where each CTA's whole slice is resident."""
+    for hidden, d in ((512, 2), (1024, 2), (1024, 1)):
+        assert isinstance(lstm_launch_plan(128, d, hidden), WidePlan)
+        _assert_lstm_kernels_match_twin(*_lstm_inputs(192, d, 128, hidden, 19, cuda))
+
+
+def test_lstm_wide_forward_counts_each_launch(cuda):
+    """Directions past the SMs run in several cooperative launches, and
+    ``lstm_scan_packed`` counts each: 2 x SMs + 1 recurrences at H=320 (one
+    CTA a direction) take 3, against the twin."""
+    d = 2 * torch.cuda.get_device_properties(cuda).multi_processor_count + 1
+    plan = lstm_launch_plan(8, d, 320)
+    assert plan.launches_fwd == 3
+    _assert_lstm_kernels_match_twin(*_lstm_inputs(4, d, 8, 320, 22, cuda), plan.launches_fwd)
+
+
 def test_lstm_kernels_match_twin_at_the_zoos_unidirectional_shape(cuda):
     """Kernels #3 and #4 at D=1, B=128, T=192, H=128: one recurrence of the
     double_lstm and lstm encoders at --lstm_units 128 and the full batch."""
     _assert_lstm_kernels_match_twin(*_lstm_inputs(192, 1, 128, 128, 21, cuda))
 
 
-def _assert_lstm_kernels_match_twin(xw, whh, g):
+def _assert_lstm_kernels_match_twin(xw, whh, g, launches=1):
     """h and c against the twin, then dxw and dwhh against autograd through
-    it, with one launch of each kernel."""
+    it, with ``launches`` of the forward and one count of the backward."""
     with torch.no_grad():
         h, c = lstm_scan_packed(xw, whh, return_c=True)
         torch.cuda.synchronize()
@@ -304,7 +336,7 @@ def _assert_lstm_kernels_match_twin(xw, whh, g):
     before = (lstm_scan_packed.launches, lstm_scan_backward.launches)
     got = torch.autograd.grad(lstm_scan_packed(a, w), (a, w), g)
     torch.cuda.synchronize()
-    assert (lstm_scan_packed.launches, lstm_scan_backward.launches) == (before[0] + 1,
+    assert (lstm_scan_packed.launches, lstm_scan_backward.launches) == (before[0] + launches,
                                                                           before[1] + 1)
     a, w = xw.clone().requires_grad_(), whh.clone().requires_grad_()
     want = torch.autograd.grad(lstm_scan_reference(a, w), (a, w), g)
@@ -312,10 +344,12 @@ def _assert_lstm_kernels_match_twin(xw, whh, g):
         assert _err(got_i, want_i) <= 1e-5, (name, _err(got_i, want_i))
 
 
-def test_lstm_cluster_kernels_repeat_bit_for_bit(cuda):
+@pytest.mark.parametrize("hidden", [128, 512])
+def test_lstm_cluster_kernels_repeat_bit_for_bit(cuda, hidden):
     """No atomics and a fixed summation order: two runs on the same inputs
-    give the same h, c, dxw and dwhh, bit for bit."""
-    xw, whh, g = _lstm_inputs(60, 2, 130, 128, 16, cuda)
+    give the same h, c, dxw and dwhh, bit for bit (the clusters at H=128,
+    the wide kernels at 512)."""
+    xw, whh, g = _lstm_inputs(60, 2, 130, hidden, 16, cuda)
     runs = []
     for _ in range(2):
         with torch.no_grad():
@@ -340,11 +374,51 @@ def test_lstm_kernel_refuses_a_plan_it_cannot_run(cuda):
     for p in (wrong, plan._replace(smem_fwd=plan.smem_fwd + 4, smem_bwd=plan.smem_bwd + 4)):
         fwd = lib.tce_lstm_scan_fwd(xw.data_ptr(), whh.data_ptr(), h.data_ptr(), None, None,
                                     4, 2, 8, 128, p.cluster, p.batch_tile, p.threads,
-                                    p.smem_fwd, stream)
+                                    p.smem_fwd, None, None, stream)
         bwd = lib.tce_lstm_scan_bwd(xw.data_ptr(), whh.data_ptr(), h.data_ptr(), g.data_ptr(),
                                     xw.data_ptr(), 4, 2, 8, 128, p.cluster, p.batch_tile,
-                                    p.threads, p.smem_bwd, stream)
+                                    p.threads, p.smem_bwd, None, None, stream)
         assert (fwd, bwd) == (1, 1), p  # cudaErrorInvalidValue
+    # the wide kernels: resident rows that are not whole chunks, the wrong
+    # shared-memory size, or no state scratch
+    xw, whh, g = _lstm_inputs(4, 2, 8, 512, 17, cuda)
+    h = torch.empty(4, 2, 8, 512, device=cuda)
+    state = torch.empty(2, 8, 512, device=cuda)
+    arrived = torch.zeros(2, dtype=torch.int32, device=cuda)
+    plan = lstm_launch_plan(8, 2, 512)
+    for r_fwd, r_bwd, s_fwd, s_bwd, st in (
+            (8, 8, plan.smem_fwd, plan.smem_bwd, state),
+            (plan.resident_fwd, plan.resident_bwd, plan.smem_fwd + 4, plan.smem_bwd + 4, state),
+            (plan.resident_fwd, plan.resident_bwd, plan.smem_fwd, plan.smem_bwd, None)):
+        ptr = None if st is None else st.data_ptr()
+        fwd = lib.tce_lstm_scan_fwd(xw.data_ptr(), whh.data_ptr(), h.data_ptr(), None, None,
+                                    4, 2, 8, 512, plan.units_fwd, r_fwd, plan.threads, s_fwd,
+                                    ptr, arrived.data_ptr(), stream)
+        bwd = lib.tce_lstm_scan_bwd(xw.data_ptr(), whh.data_ptr(), h.data_ptr(), g.data_ptr(),
+                                    xw.data_ptr(), 4, 2, 8, 512, plan.units_bwd, r_bwd,
+                                    plan.threads, s_bwd, ptr, arrived.data_ptr(), stream)
+        assert (fwd, bwd) == (1, 1), (r_fwd, s_fwd)
+    torch.cuda.synchronize()
+
+
+def test_lstm_wide_kernel_refuses_a_grid_that_cannot_be_co_resident(cuda):
+    """A cooperative grid larger than the card holds at once is refused by
+    the launch (it never hangs on the step barrier): H=2048 at 4 units a CTA
+    is 512 CTAs of one direction, each with all of its slice (128 KiB) in
+    shared memory, so one a SM."""
+    xw, whh, _ = _lstm_inputs(4, 1, 8, 2048, 20, cuda)
+    wf = whh.unflatten(-1, (4, 2048)).transpose(-1, -2).contiguous()
+    h = torch.empty(4, 1, 8, 2048, device=cuda)
+    state = torch.empty(1, 8, 2048, device=cuda)
+    arrived = torch.zeros(1, dtype=torch.int32, device=cuda)
+    # N = 16 columns: 4 column groups; 8 rows: 2 row groups
+    smem = wide_smem_bytes(16, 2048, WIDE_KC, 4, 2, 0)
+    lib = _build.load()
+    rc = lib.tce_lstm_scan_fwd(xw.data_ptr(), wf.data_ptr(), h.data_ptr(), None, None, 4, 1,
+                               8, 2048, 4, 2048, 256, smem, state.data_ptr(),
+                               arrived.data_ptr(), torch.cuda.current_stream().cuda_stream)
+    assert "cooperative" in lib.tce_error_string(rc).decode(), rc
+    torch.cuda.synchronize()
 
 
 def test_gradients_flow_through_the_kernels_to_the_input(cuda):

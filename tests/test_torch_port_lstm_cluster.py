@@ -3,8 +3,9 @@ plan: ``lstm_scan_packed`` forward and its gradient at H=128 on the CPU
 against JAX's interpret-mode ``lstm_scan_pallas_packed`` and ``jax.vjp``,
 and ``lstm_launch_plan``, which sizes the thread-block clusters of kernels
 #3 and #4 (checked again by ``csrc/lstm_cluster.cuh`` on the card), for
-every H the kernels are built for (4 ... 256), and the zero-padding that
-takes any other H up to 256 to the next of them.  The kernels themselves
+every H the cluster kernels are built for (4 ... 256), and the
+zero-padding that takes any other H to the next H the kernels run (past 256
+a multiple of 32, the wide kernels: ``tests/test_torch_port_lstm_wide.py``).  The kernels themselves
 are held at those shapes by the gpu tests of
 ``tests/test_torch_port_cuda.py``."""
 
@@ -111,12 +112,19 @@ def test_plan_with_one_direction():
     assert one._replace(ctas=two.ctas) == two
 
 
-@pytest.mark.parametrize("hidden", [12, 6, 512, 0, 96])
+@pytest.mark.parametrize("hidden", [12, 6, 0, 96])
 def test_plan_refuses_h_not_dividing_128(hidden):
-    """The plan takes only the H the kernels are built for (4, 8, ..., 128
-    and 256); the wrapper pads every other H up to 256 first."""
+    """Up to 256 the plan takes only the H the cluster kernels are built
+    for (4, 8, ..., 128 and 256); the wrapper pads every other H first."""
     with pytest.raises(ValueError, match=r"takes H in \(4, 8, 16, 32, 64, 128, 256\)"):
         lstm_launch_plan(128, 2, hidden)
+
+
+def test_plan_of_512_is_the_wide_family():
+    """H=512 (which no cluster of the portable size holds) gets the wide
+    kernels' plan: one persistent grid of 128 CTAs of 8 units each."""
+    plan = lstm_launch_plan(128, 2, 512, sms=132)
+    assert isinstance(plan, port.WidePlan) and (plan.units_fwd, plan.ctas_fwd) == (8, 128)
 
 
 @pytest.mark.parametrize("hidden,want", [(1, 4), (2, 4), (4, 4), (5, 8), (100, 128),
@@ -125,12 +133,16 @@ def test_plan_hidden_is_the_next_built_size(hidden, want):
     assert plan_hidden(hidden) == want and want in PLAN_HIDDEN
 
 
-def test_plan_hidden_refuses_past_256():
-    with pytest.raises(ValueError, match="H <= 256"):
-        plan_hidden(257)
+@pytest.mark.parametrize("hidden", [257, 300, 384, 513, 1024, 5000])
+def test_plan_hidden_maps_past_256_into_the_wide_family(hidden):
+    """Every H past 256 runs at the next multiple of 64 (fewer than 64
+    units of padding), which the wide kernels' plan takes."""
+    hp = plan_hidden(hidden)
+    assert hp % port.WIDE_GRANULE == 0 and 0 <= hp - hidden < port.WIDE_GRANULE
+    assert isinstance(lstm_launch_plan(128, 2, hp, sms=132), port.WidePlan)
 
 
-@pytest.mark.parametrize("hidden", [2, 100, 200, 256])
+@pytest.mark.parametrize("hidden", [2, 100, 200, 256, 300, 1000])
 def test_zero_padding_is_exact_forward_and_gradients(hidden):
     """The twin on the inputs padded to ``plan_hidden(H)`` and sliced back
     to H against the twin on the original inputs (T=6, D=2, B=3): h within
@@ -163,7 +175,7 @@ def test_plan_constants_match_the_cuda_header():
 
     assert const("OWNERS") == port.OWNERS
     assert const("EG") == port.EXCHANGE_GROUPS
-    assert const("MAX_CLUSTER") * port.MAX_UNITS == port.MAX_HIDDEN
+    assert const("MAX_CLUSTER") * port.MAX_UNITS == port.MAX_CLUSTER_HIDDEN
 
 
 def _c_value(expr: str, env: dict) -> int:

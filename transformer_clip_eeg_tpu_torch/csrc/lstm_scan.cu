@@ -34,11 +34,15 @@
 // [256 k x 128 gate columns] slice fills its 512 threads' registers once
 // (64 floats a thread), so every thread sums all 8 rows, a k group spans 16
 // lanes and an owner sends the h of 2 units (8-byte st.async).
+// Past H=256 (lstm_fwd_wide, lstm_wide.cuh) one persistent cooperative grid
+// runs every recurrence, each CTA summing h_prev W for 4 U gate columns of
+// every batch row from its whh slice in shared memory, one barrier a step.
 
 #include <cuda_runtime.h>
 #include <math.h>
 
 #include "lstm_cluster.cuh"
+#include "lstm_wide.cuh"
 
 namespace {
 
@@ -202,15 +206,107 @@ int launch(const float* xw, const float* whh, float* h_out, float* c_out, float*
                                xw, whh, h_out, c_out, gates_out, T, D, B, units);
 }
 
+// The wide family (lstm_wide.cuh), every H > 256: one persistent cooperative
+// grid, CTA c owning the units [j0, j0 + U) of direction d0 + c / (H / U) for
+// all B rows.  wf is whh permuted to [D][H][H][4] (wf[d][k][4 j + g] =
+// whh[d][k][g H + j]); cstate [D][B][H] carries c; arrived [D] counts each
+// direction's CTAs done with a step (zero at launch).
+__global__ void __launch_bounds__(lstm_wide::NT, 1)
+lstm_fwd_wide(const float* __restrict__ xw, const float* __restrict__ wf, float* h_out,
+              float* __restrict__ c_out, float* __restrict__ gates_out,
+              float* __restrict__ cstate, unsigned* arrived, int T, int D, int B, int H,
+              int U, int R, int d0) {
+  using namespace lstm_wide;
+  extern __shared__ float4 smem4[];
+  const int G = 4 * H, N = 4 * U, per_dir = H / U;
+  const int d = d0 + blockIdx.x / per_dir;
+  const int j0 = (blockIdx.x % per_dir) * U;
+  const int CG = col_groups(N), RG = row_groups(B, CG), KS = k_splits(KC, CG, RG);
+  float* ws = reinterpret_cast<float*>(smem4);          // [R][N]: resident rows of the slice
+  float* abuf = ws + (size_t)R * N;                     // [STAGES][4 RG][KC + PAD]: h_prev
+  float* wbuf = abuf + STAGES * TILE * RG * (KC + PAD); // [STAGES][KC][4 CG]: streamed rows
+  float* red = wbuf + (R < H ? STAGES * KC * TILE * CG : 0);  // [16][NT]: the splits' sums
+  const float* wg = wf + (size_t)d * H * G + 4 * j0;    // row k of the slice at wg + k G
+  for (int p = threadIdx.x; p < R * (N / 4); p += NT) {
+    const int k = p / (N / 4), c4 = p % (N / 4);
+    *reinterpret_cast<float4*>(ws + (size_t)k * N + 4 * c4) =
+        __ldg(reinterpret_cast<const float4*>(wg + (size_t)k * G + 4 * c4));
+  }
+  // (the first read of ws follows a __syncthreads of step_product)
+  const int tid = threadIdx.x;
+  const int cgi = tid % CG, rgi = (tid / CG) % RG, ksi = tid / (CG * RG);
+  const int ncb = (N / 4 + CG - 1) / CG, nrb = (B + TILE * RG - 1) / (TILE * RG);
+
+  for (int t = 0; t < T; ++t) {
+    if (t > 0) wait_for(arrived + d, (unsigned)(t * per_dir));
+    for (int rb = 0; rb < nrb; ++rb) {
+      for (int cb = 0; cb < ncb; ++cb) {
+        const int b0 = rb * TILE * RG, n0 = cb * TILE * CG;
+        const int ncg = min(CG, N / 4 - cb * CG);
+        const bool owner = ksi == 0 && cgi < ncg;  // sums and finishes the tile's columns
+        const int j = j0 + cb * CG + cgi;  // the unit whose 4 gates are this thread's columns
+        // the step's xw and the rows' c, in flight during the product
+        float xv[TILE][4] = {}, cv[TILE] = {};
+#pragma unroll
+        for (int r = 0; r < TILE; ++r) {
+          const int b = b0 + rgi + RG * r;
+          if (owner && b < B) {
+            const float* xr = xw + (((size_t)t * D + d) * B + b) * G + j;
+#pragma unroll
+            for (int g = 0; g < 4; ++g) xv[r][g] = __ldg(xr + g * H);
+            if (t > 0) cv[r] = cstate[((size_t)d * B + b) * H + j];
+          }
+        }
+        float acc[TILE][TILE] = {};
+        if (t > 0) {  // h of step -1 is 0
+          const float* hp = h_out + ((size_t)(t - 1) * D + d) * B * H;
+          step_product<KC>(acc, hp, H, B, b0, wg, G, ws, N, R, H, n0, ncg, abuf, wbuf, CG, RG,
+                           KS, cgi, rgi, ksi);
+          add_splits(acc, red, KS, CG, RG, ksi, ksi < KS && cgi < ncg);
+        }
+        if (!owner) continue;
+#pragma unroll
+        for (int r = 0; r < TILE; ++r) {
+          const int b = b0 + rgi + RG * r;
+          if (b >= B) continue;
+          const size_t row = ((size_t)t * D + d) * B + b;
+          const float ig = sigmoidf(xv[r][0] + acc[r][0]);
+          const float fg = sigmoidf(xv[r][1] + acc[r][1]);
+          const float gg = tanhf(xv[r][2] + acc[r][2]);
+          const float og = sigmoidf(xv[r][3] + acc[r][3]);
+          const float c = fg * cv[r] + ig * gg;
+          const float h = og * tanhf(c);
+          cstate[((size_t)d * B + b) * H + j] = c;
+          h_out[row * H + j] = h;
+          if (c_out != nullptr) c_out[row * H + j] = c;
+          if (gates_out != nullptr) {
+            float* gr = gates_out + row * G + j;
+            gr[0] = ig;
+            gr[H] = fg;
+            gr[2 * H] = gg;
+            gr[3 * H] = og;
+          }
+        }
+      }
+    }
+    if (t + 1 < T) arrive(arrived + d);
+  }
+}
+
 }  // namespace
 
 // Launch on `stream`; returns the CUDA error code (0 on success).  `c_out`
-// and `gates_out` may be NULL.  H is 4, 8, 16, 32, 64, 128 or 256; (n, bt,
-// threads, smem) is the plan of lstm_launch_plan in ops/lstm_scan.py:
-// clusters of n CTAs, bt batch rows each, `smem` bytes of shared memory.
+// and `gates_out` may be NULL.  (n, bt, threads, smem) is the plan of
+// lstm_launch_plan in ops/lstm_scan.py.  H = 4, 8, 16, 32, 64, 128 or 256 runs
+// the clusters: n CTAs each, bt batch rows, `smem` bytes of shared memory;
+// `cstate` and `arrived` are not read.  H > 256 (a multiple of 64) runs the
+// wide kernel: n units per CTA, bt rows of each CTA's whh slice resident in
+// shared memory; whh is then the permuted copy lstm_fwd_wide reads, cstate a
+// [D][B][H] scratch and arrived D zeroed counters.
 extern "C" int tce_lstm_scan_fwd(const float* xw, const float* whh, float* h_out,
                                  float* c_out, float* gates_out, int T, int D, int B, int H,
-                                 int n, int bt, int threads, long long smem, void* stream) {
+                                 int n, int bt, int threads, long long smem, float* cstate,
+                                 unsigned* arrived, void* stream) {
   if (T <= 0 || D <= 0 || B <= 0) return (int)cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
 #define TCE_LSTM_FWD(HH)                                                              \
@@ -224,8 +320,14 @@ extern "C" int tce_lstm_scan_fwd(const float* xw, const float* whh, float* h_out
     TCE_LSTM_FWD(64)
     TCE_LSTM_FWD(128)
     TCE_LSTM_FWD(256)
-    default:
-      return (int)cudaErrorInvalidValue;
+    default: {
+      if (H <= 256 || cstate == nullptr || arrived == nullptr) return (int)cudaErrorInvalidValue;
+      int d0 = 0;
+      void* args[] = {&xw, &whh, &h_out, &c_out, &gates_out, &cstate, &arrived, &T, &D, &B,
+                      &H, &n, &bt, &d0};
+      return lstm_wide::launch_wide((const void*)lstm_fwd_wide, args, &d0, D, B, H, n, bt, H,
+                                    4 * n, threads, smem, s);
+    }
   }
 #undef TCE_LSTM_FWD
 }

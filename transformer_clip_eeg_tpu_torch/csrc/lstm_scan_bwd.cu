@@ -42,12 +42,17 @@
 // anywhere: the same inputs give the same bits.  At H=256 a cluster of 8
 // CTAs splits the units 32 per CTA and a thread holds 2 units x 32 columns
 // (64 floats, the slice once across the CTA's 512 threads), so every thread
-// sums all 8 rows and the CTA has one exchange group.
+// sums all 8 rows and the CTA has one exchange group.  Past H=256
+// (lstm_bwd_wide, lstm_wide.cuh) one persistent cooperative grid runs every
+// recurrence, each CTA summing dpre whh^T for U units of every batch row
+// from its slice of whh^T in shared memory, one barrier a step; dwhh is the
+// same reduction.
 
 #include <cuda_runtime.h>
 #include <math.h>
 
 #include "lstm_cluster.cuh"
+#include "lstm_wide.cuh"
 #include "wgrad.cuh"
 
 namespace {
@@ -221,16 +226,102 @@ int launch(const float* gates, const float* whh, const float* c, const float* g,
                                gates, whh, c, g, dxw, T, D, B, units);
 }
 
+// The wide family (lstm_wide.cuh), every H > 256: one persistent cooperative
+// grid, CTA c owning the units [j0, j0 + U) of direction d0 + c / (H / U) for
+// all B rows.  A step sums dh' of its units from the previous step's dpre
+// (dxw[t+1], all 4H columns, through L2) and whh^T's columns of its units
+// (wb = whh transposed to [D][4H][H]), then writes its units' dpre to dxw[t].
+// dcstate [D][B][H] carries dc; arrived [D] counts each direction's CTAs
+// done with a step (zero at launch).
+__global__ void __launch_bounds__(lstm_wide::NT, 1)
+lstm_bwd_wide(const float* __restrict__ gates, const float* __restrict__ wb,
+              const float* __restrict__ c_all, const float* __restrict__ g_h, float* dxw,
+              float* __restrict__ dcstate, unsigned* arrived, int T, int D, int B, int H, int U,
+              int R, int d0) {
+  using namespace lstm_wide;
+  extern __shared__ float4 smem4[];
+  const int G = 4 * H, N = U, per_dir = H / U;
+  const int d = d0 + blockIdx.x / per_dir;
+  const int j0 = (blockIdx.x % per_dir) * U;
+  const int CG = col_groups(N), RG = row_groups(B, CG), KS = k_splits(KC, CG, RG);
+  float* ws = reinterpret_cast<float*>(smem4);          // [R][N]: resident rows of the slice
+  float* abuf = ws + (size_t)R * N;                     // [STAGES][4 RG][KC + PAD]: dpre
+  float* wbuf = abuf + STAGES * TILE * RG * (KC + PAD); // [STAGES][KC][4 CG]: streamed rows
+  float* red = wbuf + (R < G ? STAGES * KC * TILE * CG : 0);  // [16][NT]: the splits' sums
+  const float* wg = wb + (size_t)d * G * H + j0;        // row k of the slice at wg + k H
+  for (int p = threadIdx.x; p < R * (N / 4); p += NT) {
+    const int k = p / (N / 4), c4 = p % (N / 4);
+    *reinterpret_cast<float4*>(ws + (size_t)k * N + 4 * c4) =
+        __ldg(reinterpret_cast<const float4*>(wg + (size_t)k * H + 4 * c4));
+  }
+  // (the first read of ws follows a __syncthreads of step_product)
+  const int tid = threadIdx.x;
+  const int cgi = tid % CG, rgi = (tid / CG) % RG, ksi = tid / (CG * RG);
+  const int ncb = (N / 4 + CG - 1) / CG, nrb = (B + TILE * RG - 1) / (TILE * RG);
+
+  for (int it = 0; it < T; ++it) {
+    const int t = T - 1 - it;
+    if (it > 0) wait_for(arrived + d, (unsigned)(it * per_dir));
+    for (int rb = 0; rb < nrb; ++rb) {
+      for (int cb = 0; cb < ncb; ++cb) {
+        const int b0 = rb * TILE * RG, n0 = cb * TILE * CG;
+        const int ncg = min(CG, N / 4 - cb * CG);
+        float acc[TILE][TILE] = {};  // dh' of 4 rows x 4 units
+        if (it > 0) {  // dh' of the last step is 0
+          const float* dp = dxw + ((size_t)(t + 1) * D + d) * B * G;
+          step_product<KC>(acc, dp, G, B, b0, wg, H, ws, N, R, G, n0, ncg, abuf, wbuf, CG, RG,
+                           KS, cgi, rgi, ksi);
+          add_splits(acc, red, KS, CG, RG, ksi, ksi < KS && cgi < ncg);
+        }
+        if (ksi != 0 || cgi >= ncg) continue;
+#pragma unroll
+        for (int r = 0; r < TILE; ++r) {
+          const int b = b0 + rgi + RG * r;
+          if (b >= B) continue;
+          const size_t row = ((size_t)t * D + d) * B + b;
+#pragma unroll
+          for (int u = 0; u < TILE; ++u) {
+            const int j = j0 + 4 * (cb * CG + cgi) + u;
+            const float* gr = gates + row * G + j;
+            const float ig = __ldg(gr), fg = __ldg(gr + H), gg = __ldg(gr + 2 * H),
+                        og = __ldg(gr + 3 * H);
+            const float c = __ldg(c_all + row * H + j);
+            const float c_prev =
+                t > 0 ? __ldg(c_all + (((size_t)(t - 1) * D + d) * B + b) * H + j) : 0.f;
+            float* dcs = dcstate + ((size_t)d * B + b) * H + j;
+            const float dh = __ldg(g_h + row * H + j) + acc[r][u];
+            const float tc = tanhf(c);
+            const float dout = dh * tc;
+            const float dcv = dh * og * (1.0f - tc * tc) + (it > 0 ? *dcs : 0.f);
+            *dcs = dcv * fg;
+            float* out = dxw + row * G + j;
+            out[0] = (dcv * gg) * ig * (1.0f - ig);
+            out[H] = (dcv * c_prev) * fg * (1.0f - fg);
+            out[2 * H] = (dcv * ig) * (1.0f - gg * gg);
+            out[3 * H] = dout * og * (1.0f - og);
+          }
+        }
+      }
+    }
+    if (it + 1 < T) arrive(arrived + d);
+  }
+}
+
 }  // namespace
 
 // The recurrence: launch on `stream`; returns the CUDA error code (0 on
 // success).  gates [T][D][B][4H] (activated i, f, g, o from the training
-// forward), whh [D][H][4H], c, g [T][D][B][H]; out: dxw [T][D][B][4H].  H
-// is 4, 8, 16, 32, 64, 128 or 256; (n, bt, threads, smem) is the plan of
-// lstm_launch_plan in ops/lstm_scan.py.
+// forward), whh [D][H][4H], c, g [T][D][B][H]; out: dxw [T][D][B][4H].
+// (n, bt, threads, smem) is the plan of lstm_launch_plan in
+// ops/lstm_scan.py.  H = 4, 8, 16, 32, 64, 128 or 256 runs the clusters
+// (`dcstate` and `arrived` are not read); H > 256 (a multiple of 64) the wide
+// kernel: n units per CTA, bt rows of each CTA's slice of whh^T resident in
+// shared memory; whh is then whh transposed to [D][4H][H], dcstate a
+// [D][B][H] scratch and arrived D zeroed counters.
 extern "C" int tce_lstm_scan_bwd(const float* gates, const float* whh, const float* c,
                                  const float* g, float* dxw, int T, int D, int B, int H,
-                                 int n, int bt, int threads, long long smem, void* stream) {
+                                 int n, int bt, int threads, long long smem, float* dcstate,
+                                 unsigned* arrived, void* stream) {
   if (T <= 0 || D <= 0 || B <= 0) return (int)cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
 #define TCE_LSTM_BWD(HH) \
@@ -244,8 +335,15 @@ extern "C" int tce_lstm_scan_bwd(const float* gates, const float* whh, const flo
     TCE_LSTM_BWD(64)
     TCE_LSTM_BWD(128)
     TCE_LSTM_BWD(256)
-    default:
-      return (int)cudaErrorInvalidValue;
+    default: {
+      if (H <= 256 || dcstate == nullptr || arrived == nullptr)
+        return (int)cudaErrorInvalidValue;
+      int d0 = 0;
+      void* args[] = {&gates, &whh, &c, &g, &dxw, &dcstate, &arrived, &T, &D, &B, &H, &n, &bt,
+                      &d0};
+      return lstm_wide::launch_wide((const void*)lstm_bwd_wide, args, &d0, D, B, H, n, bt,
+                                    4 * H, n, threads, smem, s);
+    }
   }
 #undef TCE_LSTM_BWD
 }

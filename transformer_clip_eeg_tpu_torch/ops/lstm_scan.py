@@ -5,17 +5,23 @@ Counterpart of ``transformer_clip_eeg_tpu/ops/pallas_lstm.py``
 (``lstm_scan_pallas_packed`` and its ``custom_vjp``).  The forward kernel is
 ``csrc/lstm_scan.cu`` (kernel #3), the backward ``csrc/lstm_scan_bwd.cu``
 (kernel #4); each source's header says what bounds it and how it is laid
-out.  Both run each recurrence as a thread-block cluster whose CTAs split
-the hidden units; :func:`lstm_launch_plan` is the one place that sizes the
-launch (``csrc/lstm_cluster.cuh`` checks it).  :func:`lstm_scan_packed`
+out.  Each has two families: up to H=256 every recurrence runs as a
+thread-block cluster whose CTAs split the hidden units
+(``csrc/lstm_cluster.cuh``); past 256 one persistent cooperative grid runs
+all of them, each CTA owning some units of one direction for every batch
+row, with its slice of ``whh`` in shared memory as far as it fits and the
+rest streamed from L2 each step (``csrc/lstm_wide.cuh``).
+:func:`lstm_launch_plan` is the one place that sizes either launch (the
+headers' rules check it).  :func:`lstm_scan_packed`
 launches #3 for a CUDA tensor and runs
 :func:`lstm_scan_reference` for a CPU tensor; under autograd it goes through
 :class:`LSTMScanFunction` (#4 on the card, autograd through the twin on the
 CPU).  There is no other path.
 
-The kernels are built for H in :data:`PLAN_HIDDEN`.  On the card any other
-H up to :data:`MAX_HIDDEN` is zero-padded to the next of them
-(:func:`pad_hidden`) and the result sliced back, as the JAX kernel pads
+The cluster kernels are built for H in :data:`PLAN_HIDDEN`, the wide ones
+for any multiple of :data:`WIDE_GRANULE` past :data:`MAX_CLUSTER_HIDDEN`.  On
+the card any other H is zero-padded to the next of them (:func:`pad_hidden`,
+:func:`plan_hidden`) and the result sliced back, as the JAX kernel pads
 (``ops/pallas_lstm.py:180-201``).  The padding is exact: a padded unit has
 zero gate inputs and zero ``whh`` rows and columns, so its gates are i = f
 = o = 1/2 and g = 0, its c and h stay 0 and never reach a real unit's
@@ -35,15 +41,32 @@ from typing import NamedTuple, Optional, Tuple, Union
 import torch
 import torch.nn.functional as F
 
+from transformer_clip_eeg_tpu_torch.ops.fused_block import SMEM_OPTIN_BYTES
+
 OWNERS = 256         # threads of a CTA that own a (row, unit) (csrc/lstm_cluster.cuh)
 EXCHANGE_GROUPS = 2  # of a CTA's threads at most, each waiting only for its own rows
 MAX_UNITS = 32       # hidden units per CTA
-PLAN_HIDDEN = (4, 8, 16, 32, 64, 128, 256)  # the hidden sizes the kernels are built for
-MAX_HIDDEN = PLAN_HIDDEN[-1]  # clusters of 8 CTAs, the portable cluster size
+PLAN_HIDDEN = (4, 8, 16, 32, 64, 128, 256)  # the hidden sizes the cluster kernels are built for
+MAX_CLUSTER_HIDDEN = PLAN_HIDDEN[-1]  # clusters of 8 CTAs, the portable cluster size
+# the wide kernels (csrc/lstm_wide.cuh): threads a CTA, a thread's tile of 4
+# rows x 4 columns, floats after each staged row, rows of K (H forward, 4H
+# backward) a chunk, and the multiple of which H must be
+WIDE_THREADS = 256
+WIDE_TILE = 4
+WIDE_PAD = 4
+WIDE_KC = 64
+WIDE_GRANULE = 64
+WIDE_MAX_RG = WIDE_MAX_CG = 32  # row and column groups of a tile at most
+WIDE_STAGES = 2  # chunks in the ring of staged rows
+# units a CTA at least, forward and backward: the backward's step at 4 units
+# a CTA (one column group, 8 splits of each chunk) took 8.78 ms at H=512 D=1,
+# at 8 units 7.94 (tools/lstm_wide_units.py on an H100); the forward's 3.28
+# and 4.65
+WIDE_LEAST_UNITS = {"fwd": 4, "bwd": 8}
 
 
 class LaunchPlan(NamedTuple):
-    """How the recurrence kernels launch (``csrc/lstm_cluster.cuh``)."""
+    """How the cluster kernels launch (``csrc/lstm_cluster.cuh``), H <= 256."""
 
     cluster: int     # CTAs per recurrence; each owns hidden // cluster units
     batch_tile: int  # batch rows per cluster: one owner thread per (row, unit)
@@ -53,18 +76,100 @@ class LaunchPlan(NamedTuple):
     smem_bwd: int    # and of the backward kernel
 
 
-def lstm_launch_plan(b: int, d: int, hidden: int) -> LaunchPlan:
+class WidePlan(NamedTuple):
+    """How the wide kernels launch (``csrc/lstm_wide.cuh``), H > 256: one
+    persistent cooperative grid per launch, a CTA per SM, each owning
+    ``units_*`` hidden units of one direction for every batch row.  The
+    forward's slice of ``whh`` is H rows x 4 ``units_fwd`` columns, the
+    backward's (of ``whh^T``) 4H rows x ``units_bwd``; ``resident_*`` of its
+    rows stay in shared memory, the others are streamed from L2 every step."""
+
+    units_fwd: int     # hidden units per CTA of the forward kernel
+    units_bwd: int     # and of the backward kernel
+    ctas_fwd: int      # CTAs per launch: directions per launch x H / units
+    ctas_bwd: int
+    launches_fwd: int  # the directions run D / (directions per launch) at a time
+    launches_bwd: int
+    threads: int       # per CTA
+    resident_fwd: int  # rows of the forward's slice in shared memory (of H)
+    resident_bwd: int  # rows of the backward's slice in shared memory (of 4H)
+    smem_fwd: int      # shared-memory bytes per CTA of the forward kernel
+    smem_bwd: int      # and of the backward kernel
+
+
+def _wide_tiling(b: int, n: int) -> Tuple[int, int]:
+    """Column and row groups of the wide kernels' tile (``col_groups``,
+    ``row_groups`` of ``csrc/lstm_wide.cuh``) for batch ``b`` and ``n``
+    columns a CTA."""
+    cg = min(n // WIDE_TILE, WIDE_MAX_CG)
+    return cg, min(-(-b // WIDE_TILE), WIDE_THREADS // cg, WIDE_MAX_RG)
+
+
+def wide_smem_bytes(n: int, resident: int, kc: int, cg: int, rg: int, streamed: int) -> int:
+    """``smem_bytes`` of ``csrc/lstm_wide.cuh``: the resident rows, a ring
+    of chunks of the step's operand and, if rows of whh are ``streamed``
+    (1), of those rows, and the splits' sums."""
+    return 4 * (resident * n + WIDE_STAGES * WIDE_TILE * rg * (kc + WIDE_PAD)
+                + streamed * WIDE_STAGES * kc * WIDE_TILE * cg
+                + WIDE_TILE * WIDE_TILE * WIDE_THREADS)
+
+
+def _wide_plan(b: int, d: int, hidden: int, sms: int, units: Optional[int] = None
+               ) -> WidePlan:
+    """The wide plan; ``units`` sets both kernels' units a CTA (a multiple
+    of 4 dividing ``hidden``), else each takes its own."""
+    if hidden % WIDE_GRANULE:
+        raise ValueError(f"the wide recurrence takes H a multiple of {WIDE_GRANULE}; "
+                         f"got H={hidden} (lstm_scan_packed pads it)")
+    plan, kc = {"threads": WIDE_THREADS}, WIDE_KC
+    for kind, k, cols in (("fwd", hidden, 4), ("bwd", 4 * hidden, 1)):
+        # the fewest units a CTA, from the kernel's least, that put each
+        # direction's CTAs, D at a time, on the SMs (one each); U = H puts
+        # one CTA per direction
+        u = units or next(u for u in range(WIDE_LEAST_UNITS[kind], hidden + 1, 4)
+                          if hidden % u == 0 and min(d, sms) * (hidden // u) <= sms)
+        per_dir = hidden // u
+        dirs = 1 if per_dir > sms else min(d, sms // per_dir)
+        n = cols * u
+        cg, rg = _wide_tiling(b, n)
+        # all of the slice if it fits beside the ring, else as many chunks as
+        # fit beside the rings of the operand and of the streamed rows (the
+        # rings take at most 148 KiB: the tile is at most 128 x 128)
+        r = k
+        if wide_smem_bytes(n, k, kc, cg, rg, 0) > SMEM_OPTIN_BYTES:
+            r = (SMEM_OPTIN_BYTES - wide_smem_bytes(n, 0, kc, cg, rg, 1)) // (4 * n * kc) * kc
+        plan.update({f"units_{kind}": u, f"ctas_{kind}": dirs * per_dir,
+                     f"launches_{kind}": -(-d // dirs), f"resident_{kind}": r,
+                     f"smem_{kind}": wide_smem_bytes(n, r, kc, cg, rg, int(r < k))})
+    return WidePlan(**plan)
+
+
+def lstm_launch_plan(b: int, d: int, hidden: int, sms: Optional[int] = None
+                     ) -> Union[LaunchPlan, WidePlan]:
     """The launch plan of kernels #3 and #4 for ``D=d`` recurrences of batch
-    ``b`` and hidden size ``hidden``: one cluster per (batch tile,
-    direction), each CTA owning ``min(hidden, 32)`` units (H=128: clusters
-    of 4 CTAs of 8 batch rows, 128 CTAs at B=128, D=2; H=256: clusters of
-    8).  The C entry points check the plan against the header's rules,
-    which also hold each product thread's rows;
-    ``tests/test_torch_port_lstm_cluster.py`` holds this function to them.
-    Raises ``ValueError`` for a shape the kernels cannot run."""
-    if hidden not in PLAN_HIDDEN or min(b, d) < 1:
-        raise ValueError(f"the CUDA recurrence takes H in {PLAN_HIDDEN} and B, D >= 1; "
+    ``b`` and hidden size ``hidden``.  H in :data:`PLAN_HIDDEN`: a
+    :class:`LaunchPlan`, one cluster per (batch tile, direction), each CTA
+    owning ``min(hidden, 32)`` units (H=128: clusters of 4 CTAs of 8 batch
+    rows, 128 CTAs at B=128, D=2; H=256: clusters of 8).  H > 256, a
+    multiple of :data:`WIDE_GRANULE`: a :class:`WidePlan` for a card of
+    ``sms`` SMs (default: the current CUDA device's; H=512, D=2: 8 units a
+    CTA, 128 CTAs, all of ``whh`` resident; D=1: 4 units forward, 8
+    backward; H=1024, D=2: 16 units, 128 CTAs, part of each slice
+    streamed).  The C entry points check the plan against the
+    headers' rules; ``tests/test_torch_port_lstm_cluster.py`` and
+    ``tests/test_torch_port_lstm_wide.py`` hold this function to them.
+    Raises ``ValueError`` for a shape the kernels cannot run (an H that
+    :func:`plan_hidden` does not return, B or D < 1)."""
+    wide = hidden > MAX_CLUSTER_HIDDEN and hidden % WIDE_GRANULE == 0
+    if (hidden not in PLAN_HIDDEN and not wide) or min(b, d) < 1:
+        raise ValueError(f"the CUDA recurrence takes H in {PLAN_HIDDEN} or a multiple of "
+                         f"{WIDE_GRANULE} past {MAX_CLUSTER_HIDDEN}, and B, D >= 1; "
                          f"got H={hidden}, B={b}, D={d}")
+    if wide:
+        if sms is None:
+            sms = torch.cuda.get_device_properties(torch.cuda.current_device()
+                                                   ).multi_processor_count
+        return _wide_plan(b, d, hidden, sms)
     units = min(hidden, MAX_UNITS)
     cluster, bt = hidden // units, OWNERS // units
     threads = 2 * OWNERS if hidden >= 32 else OWNERS
@@ -77,14 +182,14 @@ def lstm_launch_plan(b: int, d: int, hidden: int) -> LaunchPlan:
 
 
 def plan_hidden(hidden: int) -> int:
-    """The hidden size the kernels run ``hidden`` at: the smallest of
-    :data:`PLAN_HIDDEN` that holds it.  Raises ``ValueError`` past
-    :data:`MAX_HIDDEN`."""
+    """The hidden size the kernels run ``hidden`` at: up to
+    :data:`MAX_CLUSTER_HIDDEN` the smallest of :data:`PLAN_HIDDEN` that holds
+    it (the cluster kernels), past it the next multiple of
+    :data:`WIDE_GRANULE` (the wide kernels)."""
     for h in PLAN_HIDDEN:
         if hidden <= h:
             return h
-    raise ValueError(f"the CUDA recurrence takes H <= {MAX_HIDDEN} (clusters of at most 8 "
-                     f"CTAs of 32 units); got H={hidden}")
+    return -(-hidden // WIDE_GRANULE) * WIDE_GRANULE
 
 
 def pad_hidden(xw: torch.Tensor, whh: torch.Tensor, hp: int
@@ -134,16 +239,37 @@ def _check_cuda_inputs(xw: torch.Tensor, whh: torch.Tensor) -> None:
     hidden = g4 // 4
     if tuple(whh.shape) != (d, hidden, g4) or g4 % 4:
         raise ValueError(f"whh {tuple(whh.shape)} does not match xw {tuple(xw.shape)}")
-    if hidden not in PLAN_HIDDEN or min(t, d, b) == 0:
+    if plan_hidden(hidden) != hidden or min(t, d, b) == 0:
         raise ValueError(
-            f"the CUDA recurrence takes H in {PLAN_HIDDEN} and non-empty T, D, B; "
-            f"got xw {tuple(xw.shape)}"
+            f"the CUDA recurrence takes H = plan_hidden(H) (lstm_scan_packed pads any "
+            f"other) and non-empty T, D, B; got xw {tuple(xw.shape)}"
         )
     for name, a in (("xw", xw), ("whh", whh)):
         if a.dtype != torch.float32 or not a.is_contiguous():
             raise ValueError(f"{name} must be contiguous float32, got {a.dtype}")
         if a.device != xw.device or a.data_ptr() % 16:
             raise ValueError(f"{name} must be 16-byte aligned on {xw.device}")
+
+
+def _plan_args(plan: Union[LaunchPlan, WidePlan], kind: str, d: int, b: int, hidden: int,
+               like: torch.Tensor) -> tuple:
+    """The C entry point's plan arguments (n, bt, threads, smem, state,
+    arrived) for ``kind`` "fwd" or "bwd".  A wide plan also takes a [D, B, H]
+    scratch for c (or dc) and D zeroed arrival counters: tensors, which the
+    caller passes by :func:`_addresses` and keeps alive until the call
+    returns."""
+    smem = plan.smem_fwd if kind == "fwd" else plan.smem_bwd
+    if isinstance(plan, LaunchPlan):
+        return plan.cluster, plan.batch_tile, plan.threads, smem, None, None
+    state = like.new_empty((d, b, hidden))
+    arrived = torch.zeros(d, dtype=torch.int32, device=like.device)
+    units, resident = ((plan.units_fwd, plan.resident_fwd) if kind == "fwd"
+                       else (plan.units_bwd, plan.resident_bwd))
+    return units, resident, plan.threads, smem, state, arrived
+
+
+def _addresses(args: tuple) -> list:
+    return [a.data_ptr() if isinstance(a, torch.Tensor) else a for a in args]
 
 
 def _launch_forward(xw: torch.Tensor, whh: torch.Tensor, return_c: bool,
@@ -155,37 +281,43 @@ def _launch_forward(xw: torch.Tensor, whh: torch.Tensor, return_c: bool,
 
     lib = _build.load()
     t, d, b, g4 = xw.shape
-    plan = lstm_launch_plan(b, d, g4 // 4)
-    h_out = xw.new_empty((t, d, b, g4 // 4))
-    c_out = torch.empty_like(h_out) if return_c else None
-    gates = torch.empty_like(xw) if save_gates else None
+    hidden = g4 // 4
     with torch.cuda.device(xw.device):
+        plan = lstm_launch_plan(b, d, hidden)
+        h_out = xw.new_empty((t, d, b, hidden))
+        c_out = torch.empty_like(h_out) if return_c else None
+        gates = torch.empty_like(xw) if save_gates else None
+        w, args = whh, _plan_args(plan, "fwd", d, b, hidden, xw)
+        if isinstance(plan, WidePlan):
+            # [D, H(k), H(j), 4(g)]: a CTA's columns, the 4 gates of each of
+            # its units, side by side in each row
+            w = whh.unflatten(-1, (4, hidden)).transpose(-1, -2).contiguous()
         stream = torch.cuda.current_stream(xw.device).cuda_stream
         rc = lib.tce_lstm_scan_fwd(
-            xw.data_ptr(), whh.data_ptr(), h_out.data_ptr(),
+            xw.data_ptr(), w.data_ptr(), h_out.data_ptr(),
             None if c_out is None else c_out.data_ptr(),
-            None if gates is None else gates.data_ptr(), t, d, b, g4 // 4,
-            plan.cluster, plan.batch_tile, plan.threads, plan.smem_fwd, stream,
+            None if gates is None else gates.data_ptr(), t, d, b, hidden, *_addresses(args),
+            stream,
         )
     _build.check(lib, rc, "lstm_scan_packed")
-    lstm_scan_packed.launches += 1
+    # a wide plan runs the directions past the SMs in several launches
+    lstm_scan_packed.launches += plan.launches_fwd if isinstance(plan, WidePlan) else 1
     return h_out, c_out, gates
 
 
 def lstm_scan_packed(
     xw: torch.Tensor, whh: torch.Tensor, return_c: bool = False
 ) -> Union[torch.Tensor, Tuple[torch.Tensor, torch.Tensor]]:
-    """All ``D`` recurrences in one launch: ``h [T, D, B, H]`` (and ``c``
-    when ``return_c``).  A CUDA tensor launches the kernel (float32,
-    contiguous, H <= 256, else it raises), zero-padded to the next H of
-    :data:`PLAN_HIDDEN` and sliced back; a CPU tensor runs the plain
-    version.  Under autograd ``h`` carries its gradient through
+    """All ``D`` recurrences in one call: ``h [T, D, B, H]`` (and ``c``
+    when ``return_c``).  A CUDA tensor launches the kernel (float32 and
+    contiguous, else it raises; any H, zero-padded to :func:`plan_hidden`
+    and sliced back); a CPU tensor runs the plain version.  Under autograd ``h`` carries its gradient through
     :class:`LSTMScanFunction`; ``c`` has none, so ``return_c`` is refused
     there."""
     if xw.device.type not in ("cpu", "cuda"):
         raise ValueError(f"no LSTM recurrence for device {xw.device}")
     hidden = xw.shape[-1] // 4
-    if xw.device.type == "cuda" and xw.dim() == 4 and hidden not in PLAN_HIDDEN:
+    if xw.device.type == "cuda" and xw.dim() == 4 and plan_hidden(hidden) != hidden:
         out = lstm_scan_packed(*pad_hidden(xw, whh, plan_hidden(hidden)), return_c)
         return (out[0][..., :hidden], out[1][..., :hidden]) if return_c else out[..., :hidden]
     if torch.is_grad_enabled() and (xw.requires_grad or whh.requires_grad):
@@ -230,14 +362,17 @@ def _backward_recurrence(whh: torch.Tensor, c: torch.Tensor, gates: torch.Tensor
 
     lib = _build.load()
     t, d, b, g4 = gates.shape
-    plan = lstm_launch_plan(b, d, g4 // 4)
-    dxw = torch.empty_like(gates)
+    hidden = g4 // 4
     with torch.cuda.device(gates.device):
+        plan = lstm_launch_plan(b, d, hidden)
+        dxw = torch.empty_like(gates)
+        w, args = whh, _plan_args(plan, "bwd", d, b, hidden, gates)
+        if isinstance(plan, WidePlan):
+            w = whh.transpose(1, 2).contiguous()  # [D, 4H, H]: a CTA's units side by side
         stream = torch.cuda.current_stream(gates.device).cuda_stream
         rc = lib.tce_lstm_scan_bwd(
-            gates.data_ptr(), whh.data_ptr(), c.data_ptr(), g.data_ptr(), dxw.data_ptr(),
-            t, d, b, g4 // 4, plan.cluster, plan.batch_tile, plan.threads, plan.smem_bwd,
-            stream,
+            gates.data_ptr(), w.data_ptr(), c.data_ptr(), g.data_ptr(), dxw.data_ptr(),
+            t, d, b, hidden, *_addresses(args), stream,
         )
     _build.check(lib, rc, "lstm_scan_backward (recurrence)")
     return dxw
