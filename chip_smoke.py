@@ -630,7 +630,8 @@ def plan_text(plan) -> str:
     if isinstance(plan, WidePlan):
         return (f"wide (forward / backward): {plan.ctas_fwd} / {plan.ctas_bwd} CTAs of "
                 f"{plan.threads} threads x {plan.launches_fwd} / {plan.launches_bwd} launches, "
-                f"{plan.units_fwd} / {plan.units_bwd} units a CTA, whh rows resident "
+                f"{plan.units_fwd} / {plan.units_bwd} units a CTA in {plan.groups_fwd} / "
+                f"{plan.groups_bwd} batch groups, whh rows resident "
                 f"{plan.resident_fwd} / {plan.resident_bwd}, smem {plan.smem_fwd} / "
                 f"{plan.smem_bwd} B")
     return (f"clusters of {plan.cluster} CTAs x {plan.batch_tile} rows, {plan.ctas} CTAs of "
@@ -645,8 +646,8 @@ def plan_text(plan) -> str:
 # packings), H=100 (--lstm_units 100, padded to 128) and H=2 (--latent_dim
 # 4's second biLSTM, padded to 4).  Past 256 the wide kernels: H=512 both
 # packings (--lstm_units 512; --latent_dim 1024's second biLSTM), H=300
-# (padded to 320), H=1024 at D=2 (part of whose whh is streamed from L2)
-# and at D=1 (--lstm_units 1024: all of each CTA's slice resident)
+# (padded to 320), H=1024 at D=2 and at D=1 (--lstm_units 1024), where part
+# of each CTA's slice of whh is streamed from L2 every step
 LSTM_SHAPES = ((128, 64, 2), (4, 256, 2), (128, 128, 1),
                (256, 64, 2), (256, 256, 1), (100, 100, 2), (2, 256, 2),
                (512, 64, 2), (512, 512, 1), (300, 64, 2), (1024, 64, 2), (1024, 1024, 1))
@@ -698,7 +699,8 @@ def check_lstm(gen: torch.Generator) -> dict:
                 "hidden": hidden, "padded_to": hp, "directions": d, "xw": list(xw.shape),
                 "max_abs_err": err, "ms": ms,
                 "us_per_step": ms / t * 1e3, "plain_ms": plain_ms,
-                "library_ms": library_ms, "bound_ms": bound_ms, "bound_by": bound_by,
+                "library_ms": library_ms, "beats_library": ms < library_ms,
+                "bound_ms": bound_ms, "bound_by": bound_by,
                 "plan": plan._asdict(), "ptxas": usage,
             }
             shapes.append(shape)
@@ -875,7 +877,7 @@ def check_lstm_backward(gen: torch.Generator) -> dict:
             "max_grad_err": max(errs), "ms": ms, "us_per_step": ms / t * 1e3,
             "recurrence_ms": recurrence_ms, "recurrence_us_per_step": recurrence_ms / t * 1e3,
             "dwhh_ms": dwhh_ms, "dwhh_tflops": dwhh_tflops, "plain_ms": plain_ms,
-            "library_ms": library_ms,
+            "library_ms": library_ms, "beats_library": ms < library_ms,
             "bound_ms": bound_ms, "bound_by": bound_by, "plan": plan._asdict(),
             "ptxas": usage,
         }

@@ -308,12 +308,12 @@ def test_lstm_wide_kernels_match_twin_at_full_batch(cuda):
 
 
 def test_lstm_wide_forward_counts_each_launch(cuda):
-    """Directions past the SMs run in several cooperative launches, and
-    ``lstm_scan_packed`` counts each: 2 x SMs + 1 recurrences at H=320 (one
-    CTA a direction) take 3, against the twin."""
+    """(direction, batch group) pairs past the SMs run in several
+    cooperative launches, and ``lstm_scan_packed`` counts each: 2 x SMs + 1
+    recurrences at H=320 take several, against the twin."""
     d = 2 * torch.cuda.get_device_properties(cuda).multi_processor_count + 1
     plan = lstm_launch_plan(8, d, 320)
-    assert plan.launches_fwd == 3
+    assert plan.launches_fwd > 1
     _assert_lstm_kernels_match_twin(*_lstm_inputs(4, d, 8, 320, 22, cuda), plan.launches_fwd)
 
 
@@ -373,49 +373,54 @@ def test_lstm_kernel_refuses_a_plan_it_cannot_run(cuda):
     wrong = lstm_launch_plan(8, 2, 64)
     for p in (wrong, plan._replace(smem_fwd=plan.smem_fwd + 4, smem_bwd=plan.smem_bwd + 4)):
         fwd = lib.tce_lstm_scan_fwd(xw.data_ptr(), whh.data_ptr(), h.data_ptr(), None, None,
-                                    4, 2, 8, 128, p.cluster, p.batch_tile, p.threads,
+                                    4, 2, 8, 128, p.cluster, p.batch_tile, 1, p.threads,
                                     p.smem_fwd, None, None, stream)
         bwd = lib.tce_lstm_scan_bwd(xw.data_ptr(), whh.data_ptr(), h.data_ptr(), g.data_ptr(),
-                                    xw.data_ptr(), 4, 2, 8, 128, p.cluster, p.batch_tile,
+                                    xw.data_ptr(), 4, 2, 8, 128, p.cluster, p.batch_tile, 1,
                                     p.threads, p.smem_bwd, None, None, stream)
         assert (fwd, bwd) == (1, 1), p  # cudaErrorInvalidValue
     # the wide kernels: resident rows that are not whole chunks, the wrong
-    # shared-memory size, or no state scratch
+    # shared-memory size, no state scratch, or batch groups of which one is
+    # empty (7 groups of 2 rows for B=8)
     xw, whh, g = _lstm_inputs(4, 2, 8, 512, 17, cuda)
     h = torch.empty(4, 2, 8, 512, device=cuda)
     state = torch.empty(2, 8, 512, device=cuda)
-    arrived = torch.zeros(2, dtype=torch.int32, device=cuda)
+    arrived = torch.zeros(2 * 8, dtype=torch.int32, device=cuda)
     plan = lstm_launch_plan(8, 2, 512)
-    for r_fwd, r_bwd, s_fwd, s_bwd, st in (
-            (8, 8, plan.smem_fwd, plan.smem_bwd, state),
-            (plan.resident_fwd, plan.resident_bwd, plan.smem_fwd + 4, plan.smem_bwd + 4, state),
-            (plan.resident_fwd, plan.resident_bwd, plan.smem_fwd, plan.smem_bwd, None)):
+    g_fwd, g_bwd = plan.groups_fwd, plan.groups_bwd
+    for r_fwd, r_bwd, s_fwd, s_bwd, st, groups in (
+            (8, 8, plan.smem_fwd, plan.smem_bwd, state, None),
+            (plan.resident_fwd, plan.resident_bwd, plan.smem_fwd + 4, plan.smem_bwd + 4, state,
+             None),
+            (plan.resident_fwd, plan.resident_bwd, plan.smem_fwd, plan.smem_bwd, None, None),
+            (plan.resident_fwd, plan.resident_bwd, plan.smem_fwd, plan.smem_bwd, state, 7)):
         ptr = None if st is None else st.data_ptr()
         fwd = lib.tce_lstm_scan_fwd(xw.data_ptr(), whh.data_ptr(), h.data_ptr(), None, None,
-                                    4, 2, 8, 512, plan.units_fwd, r_fwd, plan.threads, s_fwd,
-                                    ptr, arrived.data_ptr(), stream)
+                                    4, 2, 8, 512, plan.units_fwd, r_fwd, groups or g_fwd,
+                                    plan.threads, s_fwd, ptr, arrived.data_ptr(), stream)
         bwd = lib.tce_lstm_scan_bwd(xw.data_ptr(), whh.data_ptr(), h.data_ptr(), g.data_ptr(),
                                     xw.data_ptr(), 4, 2, 8, 512, plan.units_bwd, r_bwd,
-                                    plan.threads, s_bwd, ptr, arrived.data_ptr(), stream)
-        assert (fwd, bwd) == (1, 1), (r_fwd, s_fwd)
+                                    groups or g_bwd, plan.threads, s_bwd, ptr,
+                                    arrived.data_ptr(), stream)
+        assert (fwd, bwd) == (1, 1), (r_fwd, s_fwd, groups)
     torch.cuda.synchronize()
 
 
 def test_lstm_wide_kernel_refuses_a_grid_that_cannot_be_co_resident(cuda):
     """A cooperative grid larger than the card holds at once is refused by
     the launch (it never hangs on the step barrier): H=2048 at 4 units a CTA
-    is 512 CTAs of one direction, each with all of its slice (128 KiB) in
-    shared memory, so one a SM."""
+    is 512 CTAs of one direction, each with all of its slice (192 KiB with
+    its padding) in shared memory, so one a SM."""
     xw, whh, _ = _lstm_inputs(4, 1, 8, 2048, 20, cuda)
     wf = whh.unflatten(-1, (4, 2048)).transpose(-1, -2).contiguous()
     h = torch.empty(4, 1, 8, 2048, device=cuda)
     state = torch.empty(1, 8, 2048, device=cuda)
     arrived = torch.zeros(1, dtype=torch.int32, device=cuda)
-    # N = 16 columns: 4 column groups; 8 rows: 2 row groups
-    smem = wide_smem_bytes(16, 2048, WIDE_KC, 4, 2, 0)
+    # N = 16 columns, 8 rows in one group: tiles of 16 rows x 16 columns
+    smem = wide_smem_bytes(16, 2048, 16, 16, 0, WIDE_KC["fwd"])
     lib = _build.load()
     rc = lib.tce_lstm_scan_fwd(xw.data_ptr(), wf.data_ptr(), h.data_ptr(), None, None, 4, 1,
-                               8, 2048, 4, 2048, 256, smem, state.data_ptr(),
+                               8, 2048, 4, 2048, 1, 256, smem, state.data_ptr(),
                                arrived.data_ptr(), torch.cuda.current_stream().cuda_stream)
     assert "cooperative" in lib.tce_error_string(rc).decode(), rc
     torch.cuda.synchronize()

@@ -122,9 +122,11 @@ def test_plan_refuses_h_not_dividing_128(hidden):
 
 def test_plan_of_512_is_the_wide_family():
     """H=512 (which no cluster of the portable size holds) gets the wide
-    kernels' plan: one persistent grid of 128 CTAs of 8 units each."""
+    kernels' plan: one persistent grid of 128 CTAs, the forward's of 16 units
+    and 64 batch rows each."""
     plan = lstm_launch_plan(128, 2, 512, sms=132)
-    assert isinstance(plan, port.WidePlan) and (plan.units_fwd, plan.ctas_fwd) == (8, 128)
+    assert isinstance(plan, port.WidePlan)
+    assert (plan.units_fwd, plan.groups_fwd, plan.ctas_fwd) == (16, 2, 128)
 
 
 @pytest.mark.parametrize("hidden,want", [(1, 4), (2, 4), (4, 4), (5, 8), (100, 128),

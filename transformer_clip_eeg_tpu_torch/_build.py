@@ -49,14 +49,15 @@ _SIGNATURES = {
     "tce_fused_block_bwd_workspace": ([_I, _I], _L),
     # xw, whh, h_out, c_out (may be NULL), gates_out (may be NULL), T, D, B, H,
     # the launch plan (clusters: cluster size, batch tile; wide: units per CTA,
-    # resident rows of whh; threads, shared-memory bytes), the wide kernel's
-    # state scratch and arrival counters (NULL for clusters), stream
-    "tce_lstm_scan_fwd": ([_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _L, _P, _P, _P],
-                          _I),
+    # resident rows of whh; then batch groups (wide), threads, shared-memory
+    # bytes), the wide kernel's state scratch and arrival counters (NULL for
+    # clusters), stream
+    "tce_lstm_scan_fwd": ([_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _L, _P, _P,
+                           _P], _I),
     # gates, whh, c, g, dxw, T, D, B, H, the launch plan, scratch and counters
     # as above, stream
-    "tce_lstm_scan_bwd": ([_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _L, _P, _P, _P],
-                          _I),
+    "tce_lstm_scan_bwd": ([_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _L, _P, _P,
+                           _P], _I),
     # h, dxw, dwhh, workspace, T, D, B, H, stream
     "tce_lstm_dwhh": ([_P, _P, _P, _P, _I, _I, _I, _I, _P], _I),
     "tce_lstm_dwhh_workspace": ([_I, _I, _I, _I], _L),

@@ -35,8 +35,10 @@
 // (64 floats a thread), so every thread sums all 8 rows, a k group spans 16
 // lanes and an owner sends the h of 2 units (8-byte st.async).
 // Past H=256 (lstm_fwd_wide, lstm_wide.cuh) one persistent cooperative grid
-// runs every recurrence, each CTA summing h_prev W for 4 U gate columns of
-// every batch row from its whh slice in shared memory, one barrier a step.
+// runs every recurrence, cut into (direction, batch group) pairs and, within
+// a pair, slices of U units: each CTA sums h_prev W for its group's rows and
+// its 4 U gate columns on the tensor cores (split TF32), from its whh slice
+// in shared memory (and, past what fits, L2), one barrier a step per pair.
 
 #include <cuda_runtime.h>
 #include <math.h>
@@ -49,6 +51,10 @@ namespace {
 __device__ __forceinline__ float sigmoidf(float x) {
   return 1.0f / (1.0f + expf(-x));
 }
+
+// the wide kernel's sigmoid, with the fast exponential (2 ulp and 1.16 |x|
+// ulp more): the gate math of a step sits on the chain of T steps
+__device__ __forceinline__ float sigmoid_fast(float x) { return 1.0f / (1.0f + __expf(-x)); }
 
 template <int H>
 __global__ void __launch_bounds__(lstm::threads<H>())
@@ -207,106 +213,128 @@ int launch(const float* xw, const float* whh, float* h_out, float* c_out, float*
 }
 
 // The wide family (lstm_wide.cuh), every H > 256: one persistent cooperative
-// grid, CTA c owning the units [j0, j0 + U) of direction d0 + c / (H / U) for
-// all B rows.  wf is whh permuted to [D][H][H][4] (wf[d][k][4 j + g] =
-// whh[d][k][g H + j]); cstate [D][B][H] carries c; arrived [D] counts each
-// direction's CTAs done with a step (zero at launch).
+// grid, CTA c owning the units [j0, j0 + U) of pair p0 + c / (H / U), the
+// pair p being direction p / BG and batch group p % BG.  wf is whh permuted to
+// [D][H][H][4] (wf[d][k][4 j + g] = whh[d][k][g H + j]); cstate [D][B][H]
+// carries c; arrived [D BG] counts each pair's CTAs done with a step (zero
+// at launch).
 __global__ void __launch_bounds__(lstm_wide::NT, 1)
 lstm_fwd_wide(const float* __restrict__ xw, const float* __restrict__ wf, float* h_out,
               float* __restrict__ c_out, float* __restrict__ gates_out,
               float* __restrict__ cstate, unsigned* arrived, int T, int D, int B, int H,
-              int U, int R, int d0) {
+              int U, int R, int BG, int p0) {
   using namespace lstm_wide;
   extern __shared__ float4 smem4[];
-  const int G = 4 * H, N = 4 * U, per_dir = H / U;
-  const int d = d0 + blockIdx.x / per_dir;
-  const int j0 = (blockIdx.x % per_dir) * U;
-  const int CG = col_groups(N), RG = row_groups(B, CG), KS = k_splits(KC, CG, RG);
-  float* ws = reinterpret_cast<float*>(smem4);          // [R][N]: resident rows of the slice
-  float* abuf = ws + (size_t)R * N;                     // [STAGES][4 RG][KC + PAD]: h_prev
-  float* wbuf = abuf + STAGES * TILE * RG * (KC + PAD); // [STAGES][KC][4 CG]: streamed rows
-  float* red = wbuf + (R < H ? STAGES * KC * TILE * CG : 0);  // [16][NT]: the splits' sums
-  const float* wg = wf + (size_t)d * H * G + 4 * j0;    // row k of the slice at wg + k G
-  for (int p = threadIdx.x; p < R * (N / 4); p += NT) {
-    const int k = p / (N / 4), c4 = p % (N / 4);
-    *reinterpret_cast<float4*>(ws + (size_t)k * N + 4 * c4) =
+  const int G = 4 * H, N = 4 * U, per_pair = H / U, LDW = ldw(N);
+  const int p = p0 + blockIdx.x / per_pair, d = p / BG;
+  const int j0 = (blockIdx.x % per_pair) * U;
+  const int rows = group_rows(B, BG), b_lo = (p % BG) * rows, b_hi = min(b_lo + rows, B);
+  const int tr = tile_rows(rows), tc = tile_cols(N), RS = tc + PAD;
+  float* ws = reinterpret_cast<float*>(smem4);  // [R][LDW]: resident rows of the slice
+  float* ring = ws + (size_t)R * LDW;           // the ring, then the splits' sums
+  const float* wg = wf + (size_t)d * H * G + 4 * j0;  // row k of the slice at wg + k G
+  for (int q = threadIdx.x; q < R * (N / 4); q += NT) {
+    const int k = q / (N / 4), c4 = q % (N / 4);
+    *reinterpret_cast<float4*>(ws + (size_t)k * LDW + 4 * c4) =
         __ldg(reinterpret_cast<const float4*>(wg + (size_t)k * G + 4 * c4));
   }
-  // (the first read of ws follows a __syncthreads of step_product)
-  const int tid = threadIdx.x;
-  const int cgi = tid % CG, rgi = (tid / CG) % RG, ksi = tid / (CG * RG);
-  const int ncb = (N / 4 + CG - 1) / CG, nrb = (B + TILE * RG - 1) / (TILE * RG);
+  // (the first read of ws follows a __syncthreads of tile_product)
+  const Warp w = warp_place<KC_FWD>(tr, tc);
 
   for (int t = 0; t < T; ++t) {
-    if (t > 0) wait_for(arrived + d, (unsigned)(t * per_dir));
-    for (int rb = 0; rb < nrb; ++rb) {
-      for (int cb = 0; cb < ncb; ++cb) {
-        const int b0 = rb * TILE * RG, n0 = cb * TILE * CG;
-        const int ncg = min(CG, N / 4 - cb * CG);
-        const bool owner = ksi == 0 && cgi < ncg;  // sums and finishes the tile's columns
-        const int j = j0 + cb * CG + cgi;  // the unit whose 4 gates are this thread's columns
-        // the step's xw and the rows' c, in flight during the product
-        float xv[TILE][4] = {}, cv[TILE] = {};
+    // the step's xw, wanted after the product: into L2 while the other CTAs
+    // finish the last step
+    for (int b0 = b_lo; b0 < b_hi; b0 += tr)
+      for (int e = threadIdx.x; e < min(tr, b_hi - b0) * U; e += NT) {
+        const float* xr = xw + (((size_t)t * D + d) * B + b0 + e / U) * G + j0 + e % U;
 #pragma unroll
-        for (int r = 0; r < TILE; ++r) {
-          const int b = b0 + rgi + RG * r;
-          if (owner && b < B) {
-            const float* xr = xw + (((size_t)t * D + d) * B + b) * G + j;
-#pragma unroll
-            for (int g = 0; g < 4; ++g) xv[r][g] = __ldg(xr + g * H);
-            if (t > 0) cv[r] = cstate[((size_t)d * B + b) * H + j];
-          }
-        }
-        float acc[TILE][TILE] = {};
+        for (int g = 0; g < 4; ++g) prefetch_l2(xr + g * H);
+      }
+    if (t > 0) wait_for(arrived + p, (unsigned)(t * per_pair));
+    for (int b0 = b_lo; b0 < b_hi; b0 += tr) {
+      const int nr = min(tr, b_hi - b0);
+      for (int n0 = 0; n0 < N; n0 += tc) {
+        const int ncols = min(tc, N - n0);
+        float acc[WARP_MB][WARP_NB][4];
+        zero(acc);
         if (t > 0) {  // h of step -1 is 0
-          const float* hp = h_out + ((size_t)(t - 1) * D + d) * B * H;
-          step_product<KC>(acc, hp, H, B, b0, wg, G, ws, N, R, H, n0, ncg, abuf, wbuf, CG, RG,
-                           KS, cgi, rgi, ksi);
-          add_splits(acc, red, KS, CG, RG, ksi, ksi < KS && cgi < ncg);
+          const float* hp = h_out + (((size_t)(t - 1) * D + d) * B + b0) * H;
+          tile_product<KC_FWD>(acc, hp, H, nr, ws, LDW, R, wg + n0, G, H, n0, tr, tc, ncols,
+                               ring, w);
         }
-        if (!owner) continue;
+        store_sums(acc, ring, tr, tc, ncols, w);
+        // the gate math of each (row, unit) of the tile, EPI at a time: a
+        // unit's 4 gates are 4 neighbouring columns, summed over the splits
+        // in split order
+        const int nu = ncols / 4, np = nr * nu;
+        for (int e0 = threadIdx.x; e0 < np; e0 += EPI * NT) {
+          float4 pre[EPI];
+          float cp[EPI];
 #pragma unroll
-        for (int r = 0; r < TILE; ++r) {
-          const int b = b0 + rgi + RG * r;
-          if (b >= B) continue;
-          const size_t row = ((size_t)t * D + d) * B + b;
-          const float ig = sigmoidf(xv[r][0] + acc[r][0]);
-          const float fg = sigmoidf(xv[r][1] + acc[r][1]);
-          const float gg = tanhf(xv[r][2] + acc[r][2]);
-          const float og = sigmoidf(xv[r][3] + acc[r][3]);
-          const float c = fg * cv[r] + ig * gg;
-          const float h = og * tanhf(c);
-          cstate[((size_t)d * B + b) * H + j] = c;
-          h_out[row * H + j] = h;
-          if (c_out != nullptr) c_out[row * H + j] = c;
-          if (gates_out != nullptr) {
-            float* gr = gates_out + row * G + j;
-            gr[0] = ig;
-            gr[H] = fg;
-            gr[2 * H] = gg;
-            gr[3 * H] = og;
+          for (int i = 0; i < EPI; ++i) {
+            const int e = e0 + i * NT;
+            if (e >= np) continue;
+            const int r = e / nu, u = e % nu, b = b0 + r, j = j0 + n0 / 4 + u;
+            float4 s = *reinterpret_cast<const float4*>(ring + (size_t)r * RS + 4 * u);
+            for (int k = 1; k < w.WK; ++k) {
+              const float4 v =
+                  *reinterpret_cast<const float4*>(ring + ((size_t)k * tr + r) * RS + 4 * u);
+              s.x += v.x;
+              s.y += v.y;
+              s.z += v.z;
+              s.w += v.w;
+            }
+            const float* xr = xw + (((size_t)t * D + d) * B + b) * G + j;
+            pre[i] = make_float4(__ldg(xr) + s.x, __ldg(xr + H) + s.y, __ldg(xr + 2 * H) + s.z,
+                                 __ldg(xr + 3 * H) + s.w);
+            cp[i] = t > 0 ? cstate[((size_t)d * B + b) * H + j] : 0.f;
+          }
+#pragma unroll
+          for (int i = 0; i < EPI; ++i) {
+            const int e = e0 + i * NT;
+            if (e >= np) continue;
+            const int b = b0 + e / nu, j = j0 + n0 / 4 + e % nu;
+            const size_t row = ((size_t)t * D + d) * B + b;
+            const float ig = sigmoid_fast(pre[i].x);
+            const float fg = sigmoid_fast(pre[i].y);
+            const float gg = tanhf(pre[i].z);
+            const float og = sigmoid_fast(pre[i].w);
+            const float c = fg * cp[i] + ig * gg;
+            const float h = og * tanhf(c);
+            cstate[((size_t)d * B + b) * H + j] = c;
+            h_out[row * H + j] = h;
+            if (c_out != nullptr) c_out[row * H + j] = c;
+            if (gates_out != nullptr) {
+              float* gr = gates_out + row * G + j;
+              gr[0] = ig;
+              gr[H] = fg;
+              gr[2 * H] = gg;
+              gr[3 * H] = og;
+            }
           }
         }
+        __syncthreads();  // the sums are read: the next tile's ring may refill them
       }
     }
-    if (t + 1 < T) arrive(arrived + d);
+    if (t + 1 < T) arrive(arrived + p);
   }
 }
 
 }  // namespace
 
 // Launch on `stream`; returns the CUDA error code (0 on success).  `c_out`
-// and `gates_out` may be NULL.  (n, bt, threads, smem) is the plan of
+// and `gates_out` may be NULL.  (n, bt, groups, threads, smem) is the plan of
 // lstm_launch_plan in ops/lstm_scan.py.  H = 4, 8, 16, 32, 64, 128 or 256 runs
 // the clusters: n CTAs each, bt batch rows, `smem` bytes of shared memory;
-// `cstate` and `arrived` are not read.  H > 256 (a multiple of 64) runs the
-// wide kernel: n units per CTA, bt rows of each CTA's whh slice resident in
-// shared memory; whh is then the permuted copy lstm_fwd_wide reads, cstate a
-// [D][B][H] scratch and arrived D zeroed counters.
+// `groups`, `cstate` and `arrived` are not read.  H > 256 (a multiple of 64)
+// runs the wide kernel: n units per CTA, bt rows of each CTA's whh slice
+// resident in shared memory, the batch in `groups` groups; whh is then the
+// permuted copy lstm_fwd_wide reads, cstate a [D][B][H] scratch and arrived
+// D x groups zeroed counters.
 extern "C" int tce_lstm_scan_fwd(const float* xw, const float* whh, float* h_out,
                                  float* c_out, float* gates_out, int T, int D, int B, int H,
-                                 int n, int bt, int threads, long long smem, float* cstate,
-                                 unsigned* arrived, void* stream) {
+                                 int n, int bt, int groups, int threads, long long smem,
+                                 float* cstate, unsigned* arrived, void* stream) {
   if (T <= 0 || D <= 0 || B <= 0) return (int)cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
 #define TCE_LSTM_FWD(HH)                                                              \
@@ -322,11 +350,11 @@ extern "C" int tce_lstm_scan_fwd(const float* xw, const float* whh, float* h_out
     TCE_LSTM_FWD(256)
     default: {
       if (H <= 256 || cstate == nullptr || arrived == nullptr) return (int)cudaErrorInvalidValue;
-      int d0 = 0;
+      int p0 = 0;
       void* args[] = {&xw, &whh, &h_out, &c_out, &gates_out, &cstate, &arrived, &T, &D, &B,
-                      &H, &n, &bt, &d0};
-      return lstm_wide::launch_wide((const void*)lstm_fwd_wide, args, &d0, D, B, H, n, bt, H,
-                                    4 * n, threads, smem, s);
+                      &H, &n, &bt, &groups, &p0};
+      return lstm_wide::launch_wide((const void*)lstm_fwd_wide, args, &p0, D, B, H, n, groups,
+                                    bt, H, 4, lstm_wide::KC_FWD, threads, smem, s);
     }
   }
 #undef TCE_LSTM_FWD

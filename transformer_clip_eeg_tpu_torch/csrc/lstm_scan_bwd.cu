@@ -44,8 +44,10 @@
 // (64 floats, the slice once across the CTA's 512 threads), so every thread
 // sums all 8 rows and the CTA has one exchange group.  Past H=256
 // (lstm_bwd_wide, lstm_wide.cuh) one persistent cooperative grid runs every
-// recurrence, each CTA summing dpre whh^T for U units of every batch row
-// from its slice of whh^T in shared memory, one barrier a step; dwhh is the
+// recurrence, cut into (direction, batch group) pairs and, within a pair,
+// slices of U units: each CTA sums dpre whh^T for its group's rows and its U
+// units on the tensor cores (split TF32), from its slice of whh^T in shared
+// memory (and, past what fits, L2), one barrier a step per pair; dwhh is the
 // same reduction.
 
 #include <cuda_runtime.h>
@@ -227,83 +229,103 @@ int launch(const float* gates, const float* whh, const float* c, const float* g,
 }
 
 // The wide family (lstm_wide.cuh), every H > 256: one persistent cooperative
-// grid, CTA c owning the units [j0, j0 + U) of direction d0 + c / (H / U) for
-// all B rows.  A step sums dh' of its units from the previous step's dpre
-// (dxw[t+1], all 4H columns, through L2) and whh^T's columns of its units
-// (wb = whh transposed to [D][4H][H]), then writes its units' dpre to dxw[t].
-// dcstate [D][B][H] carries dc; arrived [D] counts each direction's CTAs
-// done with a step (zero at launch).
+// grid, CTA c owning the units [j0, j0 + U) of pair p0 + c / (H / U), the
+// pair p being direction p / BG and batch group p % BG.  A step sums dh' of
+// its units from the previous step's dpre (dxw[t+1], its group's rows, all 4H
+// columns, through L2) and whh^T's columns of its units (wb = whh transposed
+// to [D][4H][H]), then writes its units' dpre to dxw[t].  dcstate [D][B][H]
+// carries dc; arrived [D BG] counts each pair's CTAs done with a step (zero
+// at launch).
 __global__ void __launch_bounds__(lstm_wide::NT, 1)
 lstm_bwd_wide(const float* __restrict__ gates, const float* __restrict__ wb,
               const float* __restrict__ c_all, const float* __restrict__ g_h, float* dxw,
               float* __restrict__ dcstate, unsigned* arrived, int T, int D, int B, int H, int U,
-              int R, int d0) {
+              int R, int BG, int p0) {
   using namespace lstm_wide;
   extern __shared__ float4 smem4[];
-  const int G = 4 * H, N = U, per_dir = H / U;
-  const int d = d0 + blockIdx.x / per_dir;
-  const int j0 = (blockIdx.x % per_dir) * U;
-  const int CG = col_groups(N), RG = row_groups(B, CG), KS = k_splits(KC, CG, RG);
-  float* ws = reinterpret_cast<float*>(smem4);          // [R][N]: resident rows of the slice
-  float* abuf = ws + (size_t)R * N;                     // [STAGES][4 RG][KC + PAD]: dpre
-  float* wbuf = abuf + STAGES * TILE * RG * (KC + PAD); // [STAGES][KC][4 CG]: streamed rows
-  float* red = wbuf + (R < G ? STAGES * KC * TILE * CG : 0);  // [16][NT]: the splits' sums
-  const float* wg = wb + (size_t)d * G * H + j0;        // row k of the slice at wg + k H
-  for (int p = threadIdx.x; p < R * (N / 4); p += NT) {
-    const int k = p / (N / 4), c4 = p % (N / 4);
-    *reinterpret_cast<float4*>(ws + (size_t)k * N + 4 * c4) =
+  const int G = 4 * H, N = U, per_pair = H / U, LDW = ldw(N);
+  const int p = p0 + blockIdx.x / per_pair, d = p / BG;
+  const int j0 = (blockIdx.x % per_pair) * U;
+  const int rows = group_rows(B, BG), b_lo = (p % BG) * rows, b_hi = min(b_lo + rows, B);
+  const int tr = tile_rows(rows), tc = tile_cols(N), RS = tc + PAD;
+  float* ws = reinterpret_cast<float*>(smem4);  // [R][LDW]: resident rows of the slice
+  float* ring = ws + (size_t)R * LDW;           // the ring, then the splits' sums
+  const float* wg = wb + (size_t)d * G * H + j0;  // row k of the slice at wg + k H
+  for (int q = threadIdx.x; q < R * (N / 4); q += NT) {
+    const int k = q / (N / 4), c4 = q % (N / 4);
+    *reinterpret_cast<float4*>(ws + (size_t)k * LDW + 4 * c4) =
         __ldg(reinterpret_cast<const float4*>(wg + (size_t)k * H + 4 * c4));
   }
-  // (the first read of ws follows a __syncthreads of step_product)
-  const int tid = threadIdx.x;
-  const int cgi = tid % CG, rgi = (tid / CG) % RG, ksi = tid / (CG * RG);
-  const int ncb = (N / 4 + CG - 1) / CG, nrb = (B + TILE * RG - 1) / (TILE * RG);
+  // (the first read of ws follows a __syncthreads of tile_product)
+  const Warp w = warp_place<KC_BWD>(tr, tc);
 
   for (int it = 0; it < T; ++it) {
     const int t = T - 1 - it;
-    if (it > 0) wait_for(arrived + d, (unsigned)(it * per_dir));
-    for (int rb = 0; rb < nrb; ++rb) {
-      for (int cb = 0; cb < ncb; ++cb) {
-        const int b0 = rb * TILE * RG, n0 = cb * TILE * CG;
-        const int ncg = min(CG, N / 4 - cb * CG);
-        float acc[TILE][TILE] = {};  // dh' of 4 rows x 4 units
+    // the step's saved values, wanted after the product: into L2 while the
+    // other CTAs finish the last step
+    for (int b0 = b_lo; b0 < b_hi; b0 += tr)
+      for (int e = threadIdx.x; e < min(tr, b_hi - b0) * U; e += NT) {
+        const size_t row = ((size_t)t * D + d) * B + b0 + e / U;
+        const int j = j0 + e % U;
+#pragma unroll
+        for (int g = 0; g < 4; ++g) prefetch_l2(gates + row * G + g * H + j);
+        prefetch_l2(c_all + row * H + j);
+        prefetch_l2(g_h + row * H + j);
+        if (t > 0) prefetch_l2(c_all + (row - (size_t)D * B) * H + j);
+      }
+    if (it > 0) wait_for(arrived + p, (unsigned)(it * per_pair));
+    for (int b0 = b_lo; b0 < b_hi; b0 += tr) {
+      const int nr = min(tr, b_hi - b0);
+      for (int n0 = 0; n0 < N; n0 += tc) {
+        const int ncols = min(tc, N - n0);
+        float acc[WARP_MB][WARP_NB][4];  // dh' of the tile's rows and units
+        zero(acc);
         if (it > 0) {  // dh' of the last step is 0
-          const float* dp = dxw + ((size_t)(t + 1) * D + d) * B * G;
-          step_product<KC>(acc, dp, G, B, b0, wg, H, ws, N, R, G, n0, ncg, abuf, wbuf, CG, RG,
-                           KS, cgi, rgi, ksi);
-          add_splits(acc, red, KS, CG, RG, ksi, ksi < KS && cgi < ncg);
+          const float* dp = dxw + (((size_t)(t + 1) * D + d) * B + b0) * G;
+          tile_product<KC_BWD>(acc, dp, G, nr, ws, LDW, R, wg + n0, H, G, n0, tr, tc, ncols,
+                               ring, w);
         }
-        if (ksi != 0 || cgi >= ncg) continue;
+        store_sums(acc, ring, tr, tc, ncols, w);
+        // the dpre of each (row, unit) of the tile, EPI at a time, dh' summed
+        // over the splits in split order
+        const int np = nr * ncols;
+        for (int e0 = threadIdx.x; e0 < np; e0 += EPI * NT) {
+          StepIn in[EPI];
+          float cv[EPI], dhv[EPI], dcp[EPI];
 #pragma unroll
-        for (int r = 0; r < TILE; ++r) {
-          const int b = b0 + rgi + RG * r;
-          if (b >= B) continue;
-          const size_t row = ((size_t)t * D + d) * B + b;
+          for (int i = 0; i < EPI; ++i) {
+            const int e = e0 + i * NT;
+            if (e >= np) continue;
+            const int r = e / ncols, u = e % ncols, b = b0 + r, j = j0 + n0 + u;
+            float dhn = ring[(size_t)r * RS + u];
+            for (int k = 1; k < w.WK; ++k) dhn += ring[((size_t)k * tr + r) * RS + u];
+            in[i] = load_step(gates, c_all, g_h, t, D, B, H, d, b, j);
+            cv[i] = __ldg(c_all + (((size_t)t * D + d) * B + b) * H + j);
+            dhv[i] = dhn;
+            dcp[i] = it > 0 ? dcstate[((size_t)d * B + b) * H + j] : 0.f;
+          }
 #pragma unroll
-          for (int u = 0; u < TILE; ++u) {
-            const int j = j0 + 4 * (cb * CG + cgi) + u;
-            const float* gr = gates + row * G + j;
-            const float ig = __ldg(gr), fg = __ldg(gr + H), gg = __ldg(gr + 2 * H),
-                        og = __ldg(gr + 3 * H);
-            const float c = __ldg(c_all + row * H + j);
-            const float c_prev =
-                t > 0 ? __ldg(c_all + (((size_t)(t - 1) * D + d) * B + b) * H + j) : 0.f;
-            float* dcs = dcstate + ((size_t)d * B + b) * H + j;
-            const float dh = __ldg(g_h + row * H + j) + acc[r][u];
-            const float tc = tanhf(c);
-            const float dout = dh * tc;
-            const float dcv = dh * og * (1.0f - tc * tc) + (it > 0 ? *dcs : 0.f);
-            *dcs = dcv * fg;
-            float* out = dxw + row * G + j;
-            out[0] = (dcv * gg) * ig * (1.0f - ig);
-            out[H] = (dcv * c_prev) * fg * (1.0f - fg);
-            out[2 * H] = (dcv * ig) * (1.0f - gg * gg);
-            out[3 * H] = dout * og * (1.0f - og);
+          for (int i = 0; i < EPI; ++i) {
+            const int e = e0 + i * NT;
+            if (e >= np) continue;
+            const int b = b0 + e / ncols, j = j0 + n0 + e % ncols;
+            const StepIn& x = in[i];
+            const float dh = x.gh + dhv[i];
+            const float th = tanhf(cv[i]);
+            const float dout = dh * th;
+            const float dcv = dh * x.og * (1.0f - th * th) + dcp[i];
+            dcstate[((size_t)d * B + b) * H + j] = dcv * x.fg;
+            float* out = dxw + (((size_t)t * D + d) * B + b) * G + j;
+            out[0] = (dcv * x.gg) * x.ig * (1.0f - x.ig);
+            out[H] = (dcv * x.c_prev) * x.fg * (1.0f - x.fg);
+            out[2 * H] = (dcv * x.ig) * (1.0f - x.gg * x.gg);
+            out[3 * H] = dout * x.og * (1.0f - x.og);
           }
         }
+        __syncthreads();  // the sums are read: the next tile's ring may refill them
       }
     }
-    if (it + 1 < T) arrive(arrived + d);
+    if (it + 1 < T) arrive(arrived + p);
   }
 }
 
@@ -312,16 +334,17 @@ lstm_bwd_wide(const float* __restrict__ gates, const float* __restrict__ wb,
 // The recurrence: launch on `stream`; returns the CUDA error code (0 on
 // success).  gates [T][D][B][4H] (activated i, f, g, o from the training
 // forward), whh [D][H][4H], c, g [T][D][B][H]; out: dxw [T][D][B][4H].
-// (n, bt, threads, smem) is the plan of lstm_launch_plan in
+// (n, bt, groups, threads, smem) is the plan of lstm_launch_plan in
 // ops/lstm_scan.py.  H = 4, 8, 16, 32, 64, 128 or 256 runs the clusters
-// (`dcstate` and `arrived` are not read); H > 256 (a multiple of 64) the wide
-// kernel: n units per CTA, bt rows of each CTA's slice of whh^T resident in
-// shared memory; whh is then whh transposed to [D][4H][H], dcstate a
-// [D][B][H] scratch and arrived D zeroed counters.
+// (`groups`, `dcstate` and `arrived` are not read); H > 256 (a multiple of
+// 64) the wide kernel: n units per CTA, bt rows of each CTA's slice of whh^T
+// resident in shared memory, the batch in `groups` groups; whh is then whh
+// transposed to [D][4H][H], dcstate a [D][B][H] scratch and arrived D x
+// groups zeroed counters.
 extern "C" int tce_lstm_scan_bwd(const float* gates, const float* whh, const float* c,
                                  const float* g, float* dxw, int T, int D, int B, int H,
-                                 int n, int bt, int threads, long long smem, float* dcstate,
-                                 unsigned* arrived, void* stream) {
+                                 int n, int bt, int groups, int threads, long long smem,
+                                 float* dcstate, unsigned* arrived, void* stream) {
   if (T <= 0 || D <= 0 || B <= 0) return (int)cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
 #define TCE_LSTM_BWD(HH) \
@@ -338,11 +361,11 @@ extern "C" int tce_lstm_scan_bwd(const float* gates, const float* whh, const flo
     default: {
       if (H <= 256 || dcstate == nullptr || arrived == nullptr)
         return (int)cudaErrorInvalidValue;
-      int d0 = 0;
+      int p0 = 0;
       void* args[] = {&gates, &whh, &c, &g, &dxw, &dcstate, &arrived, &T, &D, &B, &H, &n, &bt,
-                      &d0};
-      return lstm_wide::launch_wide((const void*)lstm_bwd_wide, args, &d0, D, B, H, n, bt,
-                                    4 * H, n, threads, smem, s);
+                      &groups, &p0};
+      return lstm_wide::launch_wide((const void*)lstm_bwd_wide, args, &p0, D, B, H, n, groups,
+                                    bt, 4 * H, 1, lstm_wide::KC_BWD, threads, smem, s);
     }
   }
 #undef TCE_LSTM_BWD

@@ -8,9 +8,10 @@ Counterpart of ``transformer_clip_eeg_tpu/ops/pallas_lstm.py``
 out.  Each has two families: up to H=256 every recurrence runs as a
 thread-block cluster whose CTAs split the hidden units
 (``csrc/lstm_cluster.cuh``); past 256 one persistent cooperative grid runs
-all of them, each CTA owning some units of one direction for every batch
-row, with its slice of ``whh`` in shared memory as far as it fits and the
-rest streamed from L2 each step (``csrc/lstm_wide.cuh``).
+all of them, cut into (direction, batch group) pairs and each pair's units
+into slices, a CTA a slice, with its slice of ``whh`` in shared memory as far
+as it fits and the rest streamed from L2 each step, and each step's product
+on the tensor cores in split TF32 (``csrc/lstm_wide.cuh``).
 :func:`lstm_launch_plan` is the one place that sizes either launch (the
 headers' rules check it).  :func:`lstm_scan_packed`
 launches #3 for a CUDA tensor and runs
@@ -36,6 +37,7 @@ recurrent weights ``whh [D, H, 4H]`` (``[in, out]``, the transpose of torch's
 
 from __future__ import annotations
 
+import functools
 from typing import NamedTuple, Optional, Tuple, Union
 
 import torch
@@ -48,21 +50,27 @@ EXCHANGE_GROUPS = 2  # of a CTA's threads at most, each waiting only for its own
 MAX_UNITS = 32       # hidden units per CTA
 PLAN_HIDDEN = (4, 8, 16, 32, 64, 128, 256)  # the hidden sizes the cluster kernels are built for
 MAX_CLUSTER_HIDDEN = PLAN_HIDDEN[-1]  # clusters of 8 CTAs, the portable cluster size
-# the wide kernels (csrc/lstm_wide.cuh): threads a CTA, a thread's tile of 4
-# rows x 4 columns, floats after each staged row, rows of K (H forward, 4H
-# backward) a chunk, and the multiple of which H must be
+# the wide kernels (csrc/lstm_wide.cuh): threads and warps a CTA, rows of K
+# a chunk (forward, K = H; backward, K = 4H), chunks in the ring, floats
+# after each staged row, a tile's rows and columns at most, a warp's blocks
+# of 16 rows and 8 columns, and the multiple of which H must be
 WIDE_THREADS = 256
-WIDE_TILE = 4
+WIDE_WARPS = 8
+WIDE_KC = {"fwd": 64, "bwd": 128}
+WIDE_STAGES = 2
 WIDE_PAD = 4
-WIDE_KC = 64
+WIDE_TM = 128
+WIDE_TN = 64
+WIDE_WARP_MB = 2
+WIDE_WARP_NB = 4
 WIDE_GRANULE = 64
-WIDE_MAX_RG = WIDE_MAX_CG = 32  # row and column groups of a tile at most
-WIDE_STAGES = 2  # chunks in the ring of staged rows
-# units a CTA at least, forward and backward: the backward's step at 4 units
-# a CTA (one column group, 8 splits of each chunk) took 8.78 ms at H=512 D=1,
-# at 8 units 7.94 (tools/lstm_wide_units.py on an H100); the forward's 3.28
-# and 4.65
-WIDE_LEAST_UNITS = {"fwd": 4, "bwd": 8}
+# the cost model that picks each kernel's units a CTA and batch groups
+# (wide_candidates): an SM's split-TF32 products (flops of the three TF32
+# products a microsecond), its share of L2 reads (bytes a microsecond), and
+# what a step costs beside them (the barrier, the gate math)
+WIDE_SM_FLOPS_PER_US = 2.0e6
+WIDE_SM_L2_BYTES_PER_US = 4.0e4
+WIDE_STEP_US = 2.0
 
 
 class LaunchPlan(NamedTuple):
@@ -78,17 +86,21 @@ class LaunchPlan(NamedTuple):
 
 class WidePlan(NamedTuple):
     """How the wide kernels launch (``csrc/lstm_wide.cuh``), H > 256: one
-    persistent cooperative grid per launch, a CTA per SM, each owning
-    ``units_*`` hidden units of one direction for every batch row.  The
-    forward's slice of ``whh`` is H rows x 4 ``units_fwd`` columns, the
-    backward's (of ``whh^T``) 4H rows x ``units_bwd``; ``resident_*`` of its
-    rows stay in shared memory, the others are streamed from L2 every step."""
+    persistent cooperative grid per launch, a CTA per SM.  Each kernel cuts
+    every direction's batch into ``groups_*`` groups and the hidden units into
+    slices of ``units_*``; a CTA owns one slice of one (direction, group)
+    pair.  The forward's slice of ``whh`` is H rows x 4 ``units_fwd``
+    columns, the backward's (of ``whh^T``) 4H rows x ``units_bwd``;
+    ``resident_*`` of its rows stay in shared memory, the others are streamed
+    from L2 every step."""
 
     units_fwd: int     # hidden units per CTA of the forward kernel
     units_bwd: int     # and of the backward kernel
-    ctas_fwd: int      # CTAs per launch: directions per launch x H / units
+    groups_fwd: int    # batch groups of each direction, forward
+    groups_bwd: int    # and backward
+    ctas_fwd: int      # CTAs per launch: pairs per launch x H / units
     ctas_bwd: int
-    launches_fwd: int  # the directions run D / (directions per launch) at a time
+    launches_fwd: int  # the pairs run D x groups / (pairs per launch) at a time
     launches_bwd: int
     threads: int       # per CTA
     resident_fwd: int  # rows of the forward's slice in shared memory (of H)
@@ -97,50 +109,117 @@ class WidePlan(NamedTuple):
     smem_bwd: int      # and of the backward kernel
 
 
-def _wide_tiling(b: int, n: int) -> Tuple[int, int]:
-    """Column and row groups of the wide kernels' tile (``col_groups``,
-    ``row_groups`` of ``csrc/lstm_wide.cuh``) for batch ``b`` and ``n``
-    columns a CTA."""
-    cg = min(n // WIDE_TILE, WIDE_MAX_CG)
-    return cg, min(-(-b // WIDE_TILE), WIDE_THREADS // cg, WIDE_MAX_RG)
+def _group_rows(b: int, groups: int) -> int:
+    return -(-b // groups)
 
 
-def wide_smem_bytes(n: int, resident: int, kc: int, cg: int, rg: int, streamed: int) -> int:
-    """``smem_bytes`` of ``csrc/lstm_wide.cuh``: the resident rows, a ring
-    of chunks of the step's operand and, if rows of whh are ``streamed``
-    (1), of those rows, and the splits' sums."""
-    return 4 * (resident * n + WIDE_STAGES * WIDE_TILE * rg * (kc + WIDE_PAD)
-                + streamed * WIDE_STAGES * kc * WIDE_TILE * cg
-                + WIDE_TILE * WIDE_TILE * WIDE_THREADS)
+def _tile_rows(rows: int) -> int:
+    return min(-(-rows // 16) * 16, WIDE_TM)
 
 
-def _wide_plan(b: int, d: int, hidden: int, sms: int, units: Optional[int] = None
-               ) -> WidePlan:
-    """The wide plan; ``units`` sets both kernels' units a CTA (a multiple
-    of 4 dividing ``hidden``), else each takes its own."""
+def _tile_cols(n: int) -> int:
+    return min(n, WIDE_TN)
+
+
+def _ldw(n: int) -> int:
+    return n + 8 if n % 16 == 0 else n
+
+
+def _warps_k(tr: int, tc: int, kc: int) -> int:
+    wm = -(-(tr // 16) // WIDE_WARP_MB)
+    wn = -(-(tc // 8) // WIDE_WARP_NB)
+    return min(WIDE_WARPS // (wm * wn), kc // 8)
+
+
+def wide_smem_bytes(n: int, resident: int, tr: int, tc: int, streamed: int, kc: int) -> int:
+    """``smem_bytes`` of ``csrc/lstm_wide.cuh`` for ``n`` columns a CTA,
+    tiles of ``tr`` rows x ``tc`` columns and chunks of ``kc`` rows: the
+    resident rows, then a ring of chunks of the step's operand and, if rows
+    of whh are ``streamed`` (1), of those rows, or the splits' sums,
+    whichever is larger."""
+    ring = WIDE_STAGES * (tr * (kc + WIDE_PAD) + streamed * kc * _ldw(tc))
+    red = _warps_k(tr, tc, kc) * tr * (tc + WIDE_PAD)
+    return 4 * (resident * _ldw(n) + max(ring, red))
+
+
+class _WideKernelPlan(NamedTuple):
+    units: int
+    groups: int
+    ctas: int
+    launches: int
+    resident: int
+    smem: int
+    step_us: float   # the cost model's time of a step
+    l2_bytes: int    # read from L2 a step by each CTA: its operand rows and streamed whh
+
+
+def _wide_kernel_plan(b: int, d: int, hidden: int, sms: int, kind: str, units: int,
+                      groups: int) -> Optional[_WideKernelPlan]:
+    """The plan of ``kind`` ("fwd" or "bwd") at ``units`` a CTA and
+    ``groups`` batch groups, or None if the kernel cannot take it."""
+    k, cols = (hidden, 4) if kind == "fwd" else (4 * hidden, 1)
+    kc = WIDE_KC[kind]
+    n, rows = cols * units, _group_rows(b, groups)
+    if hidden % units or n % 8 or (groups - 1) * rows >= b:
+        return None
+    tr, tc = _tile_rows(rows), _tile_cols(n)
+    # all of the slice if it fits beside the ring, else as many chunks as
+    # fit beside the rings of the operand and of the streamed rows
+    resident = k
+    if wide_smem_bytes(n, k, tr, tc, 0, kc) > SMEM_OPTIN_BYTES:
+        free = SMEM_OPTIN_BYTES - wide_smem_bytes(n, 0, tr, tc, 1, kc)
+        if free < 0:
+            return None
+        resident = free // (4 * _ldw(n) * kc) * kc
+    per_pair, pairs = hidden // units, d * groups
+    run = 1 if per_pair > sms else min(sms // per_pair, pairs)
+    launches = -(-pairs // run)
+    row_tiles, col_tiles = -(-rows // tr), -(-n // tc)
+    flops = 3 * 2 * row_tiles * tr * k * col_tiles * tc
+    l2 = 4 * (rows * k * col_tiles + row_tiles * (k - resident) * n)
+    step_us = launches * (max(flops / WIDE_SM_FLOPS_PER_US, l2 / WIDE_SM_L2_BYTES_PER_US)
+                          + WIDE_STEP_US)
+    return _WideKernelPlan(units, groups, run * per_pair, launches, resident,
+                           wide_smem_bytes(n, resident, tr, tc, int(resident < k), kc), step_us,
+                           l2)
+
+
+def wide_candidates(b: int, d: int, hidden: int, sms: int, kind: str) -> list:
+    """Every plan of ``kind`` the kernel takes whose pairs fit the SMs, by
+    the cost model's step time (then the L2 bytes a CTA reads)."""
+    cols = 4 if kind == "fwd" else 1
+    out = []
+    for units in range(1, hidden + 1):
+        if hidden % units or cols * units % 8 or hidden // units > sms:
+            continue
+        for groups in range(1, max(1, -(-b // 16)) + 1):
+            plan = _wide_kernel_plan(b, d, hidden, sms, kind, units, groups)
+            if plan is not None:
+                out.append(plan)
+    return sorted(out, key=lambda p: (round(p.step_us, 6), p.l2_bytes, p.units, p.groups))
+
+
+@functools.lru_cache(maxsize=None)
+def _wide_plan(b: int, d: int, hidden: int, sms: int, fwd: Optional[Tuple[int, int]] = None,
+               bwd: Optional[Tuple[int, int]] = None) -> WidePlan:
+    """The wide plan; ``fwd`` / ``bwd`` = (units, groups) set a kernel's
+    plan, else each takes the cost model's cheapest.  Cached: every call on
+    the card asks for it, and the search walks every candidate."""
     if hidden % WIDE_GRANULE:
         raise ValueError(f"the wide recurrence takes H a multiple of {WIDE_GRANULE}; "
                          f"got H={hidden} (lstm_scan_packed pads it)")
-    plan, kc = {"threads": WIDE_THREADS}, WIDE_KC
-    for kind, k, cols in (("fwd", hidden, 4), ("bwd", 4 * hidden, 1)):
-        # the fewest units a CTA, from the kernel's least, that put each
-        # direction's CTAs, D at a time, on the SMs (one each); U = H puts
-        # one CTA per direction
-        u = units or next(u for u in range(WIDE_LEAST_UNITS[kind], hidden + 1, 4)
-                          if hidden % u == 0 and min(d, sms) * (hidden // u) <= sms)
-        per_dir = hidden // u
-        dirs = 1 if per_dir > sms else min(d, sms // per_dir)
-        n = cols * u
-        cg, rg = _wide_tiling(b, n)
-        # all of the slice if it fits beside the ring, else as many chunks as
-        # fit beside the rings of the operand and of the streamed rows (the
-        # rings take at most 148 KiB: the tile is at most 128 x 128)
-        r = k
-        if wide_smem_bytes(n, k, kc, cg, rg, 0) > SMEM_OPTIN_BYTES:
-            r = (SMEM_OPTIN_BYTES - wide_smem_bytes(n, 0, kc, cg, rg, 1)) // (4 * n * kc) * kc
-        plan.update({f"units_{kind}": u, f"ctas_{kind}": dirs * per_dir,
-                     f"launches_{kind}": -(-d // dirs), f"resident_{kind}": r,
-                     f"smem_{kind}": wide_smem_bytes(n, r, kc, cg, rg, int(r < k))})
+    plan = {"threads": WIDE_THREADS}
+    for kind, forced in (("fwd", fwd), ("bwd", bwd)):
+        if forced is not None:
+            p = _wide_kernel_plan(b, d, hidden, sms, kind, *forced)
+            if p is None:
+                raise ValueError(f"the wide {kind} kernel cannot take (units, groups) = "
+                                 f"{forced} at B={b}, H={hidden}")
+        else:
+            p = wide_candidates(b, d, hidden, sms, kind)[0]
+        plan.update({f"units_{kind}": p.units, f"groups_{kind}": p.groups,
+                     f"ctas_{kind}": p.ctas, f"launches_{kind}": p.launches,
+                     f"resident_{kind}": p.resident, f"smem_{kind}": p.smem})
     return WidePlan(**plan)
 
 
@@ -152,11 +231,13 @@ def lstm_launch_plan(b: int, d: int, hidden: int, sms: Optional[int] = None
     owning ``min(hidden, 32)`` units (H=128: clusters of 4 CTAs of 8 batch
     rows, 128 CTAs at B=128, D=2; H=256: clusters of 8).  H > 256, a
     multiple of :data:`WIDE_GRANULE`: a :class:`WidePlan` for a card of
-    ``sms`` SMs (default: the current CUDA device's; H=512, D=2: 8 units a
-    CTA, 128 CTAs, all of ``whh`` resident; D=1: 4 units forward, 8
-    backward; H=1024, D=2: 16 units, 128 CTAs, part of each slice
-    streamed).  The C entry points check the plan against the
-    headers' rules; ``tests/test_torch_port_lstm_cluster.py`` and
+    ``sms`` SMs (default: the current CUDA device's), each kernel's units a
+    CTA and batch groups the cheapest by the cost model of
+    :func:`wide_candidates` (at B=128 on 132 SMs every shape of
+    ``--lstm_units 512`` and ``1024`` puts 128 CTAs to work in each kernel;
+    ``tools/lstm_wide_units.py`` times the candidates on the card).  The C
+    entry points check the plan against the headers' rules;
+    ``tests/test_torch_port_lstm_cluster.py`` and
     ``tests/test_torch_port_lstm_wide.py`` hold this function to them.
     Raises ``ValueError`` for a shape the kernels cannot run (an H that
     :func:`plan_hidden` does not return, B or D < 1)."""
@@ -253,19 +334,20 @@ def _check_cuda_inputs(xw: torch.Tensor, whh: torch.Tensor) -> None:
 
 def _plan_args(plan: Union[LaunchPlan, WidePlan], kind: str, d: int, b: int, hidden: int,
                like: torch.Tensor) -> tuple:
-    """The C entry point's plan arguments (n, bt, threads, smem, state,
-    arrived) for ``kind`` "fwd" or "bwd".  A wide plan also takes a [D, B, H]
-    scratch for c (or dc) and D zeroed arrival counters: tensors, which the
-    caller passes by :func:`_addresses` and keeps alive until the call
-    returns."""
+    """The C entry point's plan arguments (n, bt, groups, threads, smem,
+    state, arrived) for ``kind`` "fwd" or "bwd".  A wide plan also takes a
+    [D, B, H] scratch for c (or dc) and D x groups zeroed arrival counters:
+    tensors, which the caller passes by :func:`_addresses` and keeps alive
+    until the call returns."""
     smem = plan.smem_fwd if kind == "fwd" else plan.smem_bwd
     if isinstance(plan, LaunchPlan):
-        return plan.cluster, plan.batch_tile, plan.threads, smem, None, None
+        return plan.cluster, plan.batch_tile, 1, plan.threads, smem, None, None
+    units, resident, groups = ((plan.units_fwd, plan.resident_fwd, plan.groups_fwd)
+                               if kind == "fwd" else
+                               (plan.units_bwd, plan.resident_bwd, plan.groups_bwd))
     state = like.new_empty((d, b, hidden))
-    arrived = torch.zeros(d, dtype=torch.int32, device=like.device)
-    units, resident = ((plan.units_fwd, plan.resident_fwd) if kind == "fwd"
-                       else (plan.units_bwd, plan.resident_bwd))
-    return units, resident, plan.threads, smem, state, arrived
+    arrived = torch.zeros(d * groups, dtype=torch.int32, device=like.device)
+    return units, resident, groups, plan.threads, smem, state, arrived
 
 
 def _addresses(args: tuple) -> list:

@@ -1,15 +1,17 @@
 """Times the wide LSTM kernels (#3's forward, #4's recurrence) at each of
-several units-a-CTA counts U, at batch 128, T=192, on one CUDA card.
+several plans (units a CTA x batch groups), at batch 128, T=192, on one CUDA
+card.
 
-For each (H, D) the candidates are the four fewest U (multiples of 4
-dividing H) that put all D directions' CTAs on the SMs at once, and the U
-that :func:`lstm_launch_plan` picks for each kernel (``chosen``: forward,
-backward).  Each U is held against the plain
-twin on the same inputs (forward ``h``: max abs error; ``dxw``: max abs
-error over max(1, max|twin|)) and timed by CUDA events, the median of 20
-calls.  Prints the card's name and power limit, then one JSON line per
-(H, D, U).  Run: ``python -m transformer_clip_eeg_tpu_torch.tools.lstm_wide_units``
-(``--shapes 512x1,1024x1`` to choose the (H, D) pairs).
+For each (H, D) and each kernel the candidates are the ``--top`` cheapest
+plans by the cost model of ``ops.lstm_scan.wide_candidates``, the first of
+them the one ``lstm_launch_plan`` picks (``chosen``).  Each plan is
+held against the plain twin on the same inputs (forward ``h``: max abs
+error; ``dxw``: max abs error over max(1, max|twin|)) and timed by CUDA
+events, the median of 20 calls; the backward's candidates run on the
+forward's outputs under the chosen plan.  Prints the card's name and power
+limit, then one JSON line per (H, D, kernel, plan).  Run: ``python -m
+transformer_clip_eeg_tpu_torch.tools.lstm_wide_units`` (``--shapes
+512x1,1024x1`` to choose the (H, D) pairs).
 """
 
 from __future__ import annotations
@@ -42,15 +44,10 @@ def time_ms(fn, reps: int = 20, warmup: int = 3) -> float:
     return statistics.median(s.elapsed_time(e) for s, e in pairs)
 
 
-def candidates(d: int, hidden: int, sms: int) -> list:
-    fit = [u for u in range(4, hidden + 1, 4) if hidden % u == 0 and d * (hidden // u) <= sms]
-    plan = port.lstm_launch_plan(128, d, hidden, sms=sms)
-    return sorted(set(fit[:4]) | {plan.units_fwd, plan.units_bwd})
-
-
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--shapes", default=SHAPES, help="HxD pairs, comma-separated")
+    ap.add_argument("--top", type=int, default=6, help="plans a kernel and shape")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         raise SystemExit("needs a CUDA card")
@@ -73,28 +70,36 @@ def main(argv=None) -> int:
         h_ref = port.lstm_scan_reference(a, whh)
         dxw_ref, = torch.autograd.grad(h_ref, a, g)
         h_ref = h_ref.detach()
+        _, c, gates = port._launch_forward(xw, whh, True, True)
         picked = chosen(b, d, hidden, sms=sms)
-        for units in candidates(d, hidden, sms):
-            plan = port._wide_plan(b, d, hidden, sms, units)
-            port.lstm_launch_plan = lambda *a, **k: plan
-            try:
-                h, c, gates = port._launch_forward(xw, whh, True, True)
-                dxw = port._backward_recurrence(whh, c, gates, g)
-                torch.cuda.synchronize()
-                row = dict(
-                    H=hidden, D=d, U=units,
-                    chosen=[units == picked.units_fwd, units == picked.units_bwd],
-                    ctas=plan.ctas_fwd, resident=[plan.resident_fwd, plan.resident_bwd],
-                    h_err=float((h - h_ref).abs().max()),
-                    dxw_err=float((dxw - dxw_ref).abs().max())
-                    / max(1.0, float(dxw_ref.abs().max())),
-                    fwd_ms=time_ms(lambda: port._launch_forward(xw, whh, False, False)),
-                    bwd_rec_ms=time_ms(lambda: port._backward_recurrence(whh, c, gates, g)))
-            finally:
-                port.lstm_launch_plan = chosen
-            print(json.dumps(row), flush=True)
-            del h, c, gates, dxw
-        del xw, whh, g, a, dxw_ref, h_ref
+        for kind in ("fwd", "bwd"):
+            # the cost model's cheapest first: the one the plan takes
+            for cand in port.wide_candidates(b, d, hidden, sms, kind)[:args.top]:
+                forced = {kind: (cand.units, cand.groups)}
+                plan = port._wide_plan(b, d, hidden, sms, **forced)
+                port.lstm_launch_plan = lambda *a, **k: plan
+                try:
+                    if kind == "fwd":
+                        h, _, _ = port._launch_forward(xw, whh, False, False)
+                        torch.cuda.synchronize()
+                        err = float((h - h_ref).abs().max())
+                        ms = time_ms(lambda: port._launch_forward(xw, whh, False, False))
+                    else:
+                        dxw = port._backward_recurrence(whh, c, gates, g)
+                        torch.cuda.synchronize()
+                        err = (float((dxw - dxw_ref).abs().max())
+                               / max(1.0, float(dxw_ref.abs().max())))
+                        ms = time_ms(lambda: port._backward_recurrence(whh, c, gates, g))
+                finally:
+                    port.lstm_launch_plan = chosen
+                mine = (getattr(picked, f"units_{kind}"), getattr(picked, f"groups_{kind}"))
+                print(json.dumps(dict(
+                    H=hidden, D=d, kernel=kind, U=cand.units, groups=cand.groups,
+                    chosen=(cand.units, cand.groups) == mine, ctas=cand.ctas,
+                    launches=cand.launches, resident=cand.resident,
+                    model_us_per_step=round(cand.step_us, 3), err=err, ms=ms,
+                    us_per_step=ms / t * 1e3)), flush=True)
+        del xw, whh, g, a, dxw_ref, h_ref, c, gates
         torch.cuda.empty_cache()
     return 0
 
