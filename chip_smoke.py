@@ -164,7 +164,7 @@ feature-extraction paths on one NVIDIA GPU, end to end.
     per union chunk in epoch 0 and none in epoch 1, not one per fold; the
     epoch-2 aggregate pairs/s of ``loss.txt``) and fold 2 alone, timed;
     then, on cuDNN's deterministic algorithms and each in a process of its
-    own, the 5 folds, fold 2 alone and the 5 folds with
+    own, 2 epochs, folds 0-2, fold 2 alone and folds 0-2 with
     ``--fold_group_size 1``: fold 2's train and val CE of
     every epoch and its best weights, and every fold of the groups against
     the ungrouped run, bit for bit; ``--parallel no --folds 0 1 --epochs 1``
@@ -190,7 +190,8 @@ feature-extraction paths on one NVIDIA GPU, end to end.
     and 24.5 s whose remainder after whole 8 s segments takes the
     reference's duplicated tail); the extraction CLI in a subprocess writes
     ``[round(frames * 64 / 50), 1024]`` layer-19 features (frames from the
-    chunk arithmetic), finite, and a second run skips both stories; a slab
+    chunk arithmetic), finite, and a second run (its ``main`` in this
+    process) skips both stories; a slab
     of 16 chunks of 10 s timed by CUDA events in f32 and bf16, profiled
     once, its peak memory and bound; a 60 s story through the extractor;
     two chunks card against CPU in f32 (``W2V_TOL``, beside the CPU's own
@@ -216,7 +217,8 @@ feature-extraction paths on one NVIDIA GPU, end to end.
     a chunk's embeddings and the 8 eval files against a one-process
     ``--only_evaluate`` on the same checkpoint; (d) each rank's epoch-2
     median step beside the one process's, the all-gather and the gradient
-    all-reduce, and #1-#4 at a rank's batch of 64 beside their bound there.
+    all-reduce.  #1-#4 at a rank's batch of 64 beside their bound there are
+    timed with the kernel checks (``kernels_at_b64``).
 21. The fold-sharded mesh (``cv_mesh_path``, after ``cv_path``): ``cv
     --parallel yes --n_data_shards 2 --folds 0 1 2 3 --epochs 1`` on two
     ranks sharing the card over gloo (the port's ``launch``; each rank's
@@ -243,26 +245,68 @@ feature-extraction paths on one NVIDIA GPU, end to end.
     ranks sharing the card against the one-process CLI (``W2V_TOL``); the
     1 x 2 grid's bf16 taps against f32 (JAX's 0.05); ms per slab of 16
     chunks, the all-reduces' host ms per slab, each rank's peak memory.
-24. Prints one JSON line of per-kernel numbers (``launches_by_path`` with
+24. The learning-quality gate (``learning_quality_path``,
+    ``tools/learning_quality.py``): JAX's recipe at the flagship's depth 10
+    and widths, 12 epochs at batch 8 on the correlated fixture, then the
+    match-mismatch evaluation, in float32 and in bfloat16; each must clear
+    best val CE < 1.4, accuracy >= 0.7, top-1 >= 0.3; the launches of each.
+25. The rehearsals (``rehearsal_path``) at a cut shape
+    (``REHEARSAL_SHAPE``): ``tools/scale_rehearsal.py``'s ``gen``,
+    ``ingest``, ``evict`` (equal digests, the tiny budget paying uploads)
+    and a 1-epoch flagship ``train`` at batch 128, each stage a process of
+    its own; ``tools/wav2vec_rehearsal.py`` on 2 stories of 2 min at
+    XLSR-53 width (the first pass ends after its first story; the resume
+    extracts exactly the other; bf16 within 0.05); ``tools/
+    serve_rehearsal.py``: the index at 100,000 rows of 1,536 and 8
+    concurrent clients through the micro-batcher (coalesced answers equal to
+    one-at-a-time ones).  Each phase's seconds are printed.
+26. Prints one JSON line of per-kernel numbers (``launches_by_path`` with
     ``train_augmented``, ``serve_cli``, ``server_cli``, ``train_bf16``,
     ``cv_parallel``, ``cv_sequential``, the ``K1`` runs,
     ``reference_only_evaluate``, ``reference_resume``,
     ``wav2vec_extraction``, ``baselines``, ``ddp_train`` and ``ddp_eval``
     (rank 0's), ``shard_serve``, ``cv_mesh_train``, ``cv_mesh_eval`` (rank
-    0's) and ``tp_extraction``; #1-#4 with ``ms_b64`` and ``bound_ms_b64``;
+    0's), ``tp_extraction``, ``learning_quality``,
+    ``learning_quality_bf16``, ``rehearsal_train``, ``rehearsal_extraction``
+    and ``rehearsal_serve``; #1-#4 with ``ms_b64`` and ``bound_ms_b64``;
     the bf16 instantiations of #1 and #2 as entries of their own), then,
     last, the ``{"ok": true, "device": ...}`` line.
 
-Any failure raises and exits non-zero.  Imports nothing of JAX.
+The kernel checks (3, 7, 14) and #1-#4 at batch 64, the serving path and
+the augmentations run first, with nothing else on the card; then, as
+alone, every phase whose processes take cuDNN algorithms by the free
+memory and hold their numbers to another process's: the default run (5),
+the zoo (6), 17, 20, 14's run, 11 and 16 (alone on the card, a process on
+cuDNN's deterministic algorithms took up to 68 GiB, the zoo 44 GiB:
+workspaces as large as the free memory, so a process beside them ran out
+of memory, and one held to another limit took other algorithms).  The
+rest run in three lanes at once (``LANES``): this process runs 14's steps
+at batch 8, 15, 12, 13 and 22; a process of its own runs 21 and 24,
+another 18, 23 and 25 (``python3 chip_smoke.py --lane NAME DATA_DIR OUT``,
+each with ``LANE_THREADS`` CPU threads, its output printed when it ends,
+its results returned in a pickle).  Meanwhile each lane's process may hold
+at most ``MAIN_LANE_MEMORY`` or ``LANE_MEMORY`` of the card, and each rank
+and fresh deterministic process ``CHILD_MEMORY`` (``capped``,
+``cap_rank``).  Every phase gives its cached blocks back when it ends,
+its peak printed in ``phase_peak_reserved_gib``.  So the lanes' host-clock and
+CUDA-event times are taken beside the other lanes' work; the ``kernels``
+line's ``ms``, ``plain_ms``, ``library_ms`` and ``ms_b64`` are not.  Then
+8, 9 and 19.
+
+Any failure raises and exits non-zero; a lane that fails fails the script,
+and the script stops every lane's processes when it ends.  Imports nothing
+of JAX.
 """
 
 from __future__ import annotations
 
 import contextlib
 import gzip
+import inspect
 import io
 import json
 import os
+import pickle
 import re
 import shutil
 import signal
@@ -363,6 +407,7 @@ from transformer_clip_eeg_tpu_torch.train.loop import (  # noqa: E402
     Trainer,
     batch_iterator,
 )
+from transformer_clip_eeg_tpu_torch.tools import kernel_launches  # noqa: E402
 from transformer_clip_eeg_tpu_torch.train.state import make_optimizer  # noqa: E402
 from transformer_clip_eeg_tpu_torch.train.steps import (  # noqa: E402
     _apply_mixup,
@@ -396,6 +441,27 @@ FLAGSHIP_DROP = DropoutConfig(True, 1234, 0.5, 0.5)  # the block's rates in trai
 CONV_DROP = DropoutConfig(True, 4321, 0.2)  # the conv blocks' rate in training
 N_FUSED_BLOCKS = 11  # the flagship's square BasicBlocks: 10 EEG (K=64), 1 speech (K=32)
 RUN_DIR = os.path.join(os.path.dirname(os.path.abspath(__file__)), "build", "chip_smoke_run")
+# the share of the card each rank and each fresh deterministic process may
+# hold while the lanes run (``capped``, ``cap_rank``; see ``LANES``)
+CHILD_MEMORY = 0.12
+LANES_ENV = "CHIP_SMOKE_LANES"  # "1" in the lanes' processes and what they start
+
+
+def capped(script: str) -> str:
+    """A ``python -c`` script that, while the lanes run, holds its process
+    to ``CHILD_MEMORY``."""
+    line = "torch.backends.cudnn.allow_tf32 = False\n"
+    if line not in script:
+        raise ValueError("the script sets no cuDNN flags to follow")
+    if os.environ.get(LANES_ENV) != "1":
+        return script
+    return script.replace(line, line + f"torch.cuda.set_per_process_memory_fraction({CHILD_MEMORY})\n")
+
+
+def cap_rank() -> None:
+    """A rank started while the lanes run holds its process to ``CHILD_MEMORY``."""
+    if os.environ.get(LANES_ENV) == "1":
+        torch.cuda.set_per_process_memory_fraction(CHILD_MEMORY)
 
 
 def log(msg: str) -> None:
@@ -1260,7 +1326,7 @@ def serve_path() -> dict:
         })
         t5 = time.perf_counter()
         torch.cuda.synchronize()
-        launches = {f.__name__: f.launches for f in COUNTERS}
+        launches = counts()
         timings = {
             "healthz_s": t1 - t0, "embed_eeg_300_s": t2 - t1,
             "embed_speech_130_s": t3 - t2, "retrieval_add_topk_s": t4 - t3,
@@ -1499,7 +1565,9 @@ def card_vs_cpu_step(cfg, host_batch, fused: bool = False, name: str = "",
 
 
 def counts() -> dict:
-    return {f.__name__: f.launches for f in COUNTERS}
+    """The launches of #1-#7 by wrapper (a wrapper's count holds its bf16
+    instantiation's too), read through ``tools.kernel_launches``."""
+    return {k: v for k, v in kernel_launches().items() if not k.endswith("_bf16")}
 
 
 # the wrappers that count their bf16 instantiation's launches apart too
@@ -1507,7 +1575,8 @@ BF16_COUNTERS = (fused_transformer_block, fused_block_backward)
 
 
 def bf16_counts() -> dict:
-    return {f.__name__: f.launches_bf16 for f in BF16_COUNTERS}
+    """The launches of #1/#2's bf16 instantiations, by wrapper."""
+    return {k[:-len("_bf16")]: v for k, v in kernel_launches().items() if k.endswith("_bf16")}
 
 
 def zero_counts() -> None:
@@ -2077,7 +2146,7 @@ def fused_path(cfg, host_batch) -> dict:
         zero_counts()
         fn(x)
         torch.cuda.synchronize()
-        launches[what] = {f.__name__: f.launches for f in COUNTERS}
+        launches[what] = counts()
     step = card_vs_cpu_step(cfg, host_batch, fused=True)
 
     batch = {k: torch.from_numpy(v).to("cuda") for k, v in host_batch.items()}
@@ -2091,7 +2160,7 @@ def fused_path(cfg, host_batch) -> dict:
     zero_counts()
     runs["fused"]()
     torch.cuda.synchronize()
-    launches["train_step"] = {f.__name__: f.launches for f in COUNTERS}
+    launches["train_step"] = counts()
     want = {
         "eeg_chunk": {"fused_transformer_block": 10, "lstm_scan_packed": 0,
                       "fused_basic_block": 10},
@@ -2102,9 +2171,9 @@ def fused_path(cfg, host_batch) -> dict:
                        "fused_basic_block": N_FUSED_BLOCKS,
                        "fused_conv_backward": N_FUSED_BLOCKS, "conv1d_same": N_FUSED_BLOCKS},
     }
-    for what, counts in want.items():
+    for what, per_kernel in want.items():
         full = dict.fromkeys(launches[what], 0)
-        full.update(counts)
+        full.update(per_kernel)
         if launches[what] != full:
             raise AssertionError(f"launches on the fused path, {what}: {launches[what]}, "
                                  f"want {full}")
@@ -2152,7 +2221,7 @@ def long_window_path() -> dict:
     emb = {dev: (s.embed_eeg(batch["eeg"]), s.embed_speech(batch["speech"]))
            for dev, s in sessions.items()}
     torch.cuda.synchronize()
-    launches["embed"] = {f.__name__: f.launches for f in COUNTERS}
+    launches["embed"] = counts()
     dim = sessions["cuda"].model.eegModel.get_output_dim(t)
     _check_embeddings("embed_eeg at T=256", emb["cuda"][0], 8, dim)
     errs = {name: float(np.abs(emb["cuda"][i] - emb["cpu"][i]).max())
@@ -2164,13 +2233,13 @@ def long_window_path() -> dict:
     del sessions
     zero_counts()
     step = card_vs_cpu_step(cfg, batch)
-    launches["train_step"] = {f.__name__: f.launches for f in COUNTERS}
+    launches["train_step"] = counts()
     want = {"embed": {"fused_transformer_block": 10, "lstm_scan_packed": 2},
             "train_step": {"fused_transformer_block": 10, "fused_block_backward": 10,
                            "lstm_scan_packed": 2, "lstm_scan_backward": 2}}
-    for what, counts in want.items():
+    for what, per_kernel in want.items():
         full = dict.fromkeys(launches[what], 0)
-        full.update(counts)
+        full.update(per_kernel)
         if launches[what] != full:
             raise AssertionError(f"launches at T=256, {what}: {launches[what]}, want {full}")
     log(f"kernel launches at T=256: {launches}")
@@ -2463,14 +2532,10 @@ def server_cli_path(results_dir: str, serve: dict) -> dict:
             "torch.backends.cuda.matmul.allow_tf32 = False\n"
             "torch.backends.cudnn.allow_tf32 = False\n"
             "from transformer_clip_eeg_tpu_torch import server\n"
-            "from transformer_clip_eeg_tpu_torch.ops import fused_block, fused_conv, lstm_scan\n"
-            "counters = (fused_block.fused_transformer_block, fused_block.fused_block_backward,"
-            " lstm_scan.lstm_scan_packed, lstm_scan.lstm_scan_backward,"
-            " fused_conv.fused_basic_block, fused_conv.fused_conv_backward,"
-            " fused_conv.conv1d_same)\n"
+            "from transformer_clip_eeg_tpu_torch.tools import kernel_launches\n"
             "rc = server.main()\n"
-            "print('launches ' + json.dumps({f.__name__: f.launches for f in counters}),"
-            " flush=True)\n"
+            "print('launches ' + json.dumps({k: v for k, v in kernel_launches().items()"
+            " if not k.endswith('_bf16')}), flush=True)\n"
             "sys.exit(rc)\n")
     t_start = time.perf_counter()
     proc = subprocess.Popen(
@@ -2951,8 +3016,7 @@ def bf16_train_path(data_dir: str, cfg, host_batch, f32_step_ms: float) -> dict:
     ``--only_evaluate`` evaluates float32.  Both data paths again on cuDNN's
     deterministic algorithms (losses within ``HOST_DEVICE_TOL``); the
     epoch-2 median step beside the float32 run's (``f32_step_ms``) and 3
-    device-mode steps profiled; then one bf16 step at batch 8, card against
-    CPU, for the flagship, its fused variant and Z1-Z5."""
+    device-mode steps profiled (the steps at batch 8 are ``bf16_step_path``'s)."""
     with instrumented() as seen:
         zero_counts()
         t0 = time.perf_counter()
@@ -2995,7 +3059,7 @@ def bf16_train_path(data_dir: str, cfg, host_batch, f32_step_ms: float) -> dict:
         if cli.main(["--only_evaluate", "yes", "--results_folder", dev.results_dir],
                     device="cuda") != 0:
             raise AssertionError("--only_evaluate of the bf16 run returned non-zero")
-        if any(bf16_counts().values()) or not fused_transformer_block.launches:
+        if any(bf16_counts().values()) or not counts()["fused_transformer_block"]:
             raise AssertionError(f"--only_evaluate of the bf16 run launched {counts()}, bf16 "
                                  f"{bf16_counts()}: want float32 blocks only")
         check_eval_files(dev.results_dir)
@@ -3032,7 +3096,21 @@ def bf16_train_path(data_dir: str, cfg, host_batch, f32_step_ms: float) -> dict:
         profile = profile_calls(run_step, reps=3, top=16)
         store.release()
         log(f"  3 bf16 device-mode steps profiled: {json.dumps(profile)}")
+    result = {"run_s": run_s, "train_steps_per_epoch": n_train, "val_steps_per_epoch": n_val,
+              "launches_train": launches, "launches_train_bf16": launches_bf16,
+              "launches_eval": suite["launches"], "eval_suite_s": suite["wall_s"],
+              "eval_files": eval_files, "losses": values, "phases_device": phases,
+              "step_ms_median_epoch2": step_ms, "f32_step_ms_median_epoch2": f32_step_ms,
+              "step_ms_all_epoch2": [v * 1e3 for v in dev.history[1]["step_s"]],
+              "host_vs_device_loss_rel": loss_rel, "profile_3_device_steps": profile}
+    log(json.dumps({"bf16_train": result}))
+    return result
 
+
+def bf16_step_path(cfg, host_batch) -> dict:
+    """One bf16 train step at batch 8, card against CPU (``bf16_card_vs_cpu_step``),
+    for the flagship and its fused variant on ``BF16_STEP_BATCHES`` batches
+    of ``host_batch`` and for Z1-Z5 on one."""
     steps = {"flagship": bf16_card_vs_cpu_step(cfg, host_batch, name="flagship",
                                                n_batches=BF16_STEP_BATCHES),
              "fused": bf16_card_vs_cpu_step(cfg, host_batch, fused=True, name="flagship",
@@ -3045,16 +3123,8 @@ def bf16_train_path(data_dir: str, cfg, host_batch, f32_step_ms: float) -> dict:
                  "speech": rng.standard_normal((8, t, zcfg.speech_dimension)).astype(np.float32),
                  "ids": np.arange(1, 9, dtype=np.int64)}
         steps[z] = bf16_card_vs_cpu_step(zcfg, batch, name=z)
-    result = {"run_s": run_s, "train_steps_per_epoch": n_train, "val_steps_per_epoch": n_val,
-              "launches_train": launches, "launches_train_bf16": launches_bf16,
-              "launches_eval": suite["launches"], "eval_suite_s": suite["wall_s"],
-              "eval_files": eval_files, "losses": values, "phases_device": phases,
-              "step_ms_median_epoch2": step_ms, "f32_step_ms_median_epoch2": f32_step_ms,
-              "step_ms_all_epoch2": [v * 1e3 for v in dev.history[1]["step_s"]],
-              "host_vs_device_loss_rel": loss_rel, "profile_3_device_steps": profile,
-              "card_vs_cpu_steps": steps}
-    log(json.dumps({"bf16_train": result}))
-    return result
+    log(json.dumps({"bf16_steps": steps}))
+    return {"card_vs_cpu_steps": steps}
 
 
 # LSTM widths off the 4 ... 128 the kernels were first built for (ROADMAP §3
@@ -3187,6 +3257,10 @@ def k2_path(data_dir: str) -> dict:
 
 CV_FOLDS = ["0", "1", "2", "3", "4"]  # the fixture's 6 stories: one per fold, then the test set
 CV_ISOLATED_FOLD = 2
+# the deterministic isolation and group runs: 2 epochs on folds 0-2 (fold 2
+# among others, a best epoch to choose per fold) keep every check of the 5
+# folds with 3/5 of their training steps
+CV_DET_FOLDS = ["0", "1", "2"]
 
 
 @contextlib.contextmanager
@@ -3310,10 +3384,10 @@ def cv_path(data_dir: str) -> dict:
     evaluation suites: ``cv_summary.json`` with 5 folds and every number
     finite, exact launches, one upload per union chunk (not per fold), the
     aggregate pairs/s; (2) fold 2 alone, timed; (3) on cuDNN's
-    deterministic algorithms, each in a fresh process, the 5 folds, fold 2
-    alone and the 5 folds in groups of one: fold 2's CE every epoch and its
-    best weights equal, and the groups equal the ungrouped run, bit for
-    bit; (4) ``--parallel no
+    deterministic algorithms, each in a fresh process, 2 epochs, folds 0-2,
+    fold 2 alone and folds 0-2 in groups of one: fold 2's CE every epoch
+    and its best weights equal, and the groups equal the ungrouped run, bit
+    for bit; (4) ``--parallel no
     --folds 0 1 --epochs 1``; (5) one fold-parallel chunk under the profiler;
     host RSS around the final heap trim."""
     from transformer_clip_eeg_tpu_torch import cv
@@ -3394,14 +3468,17 @@ def cv_path(data_dir: str) -> dict:
             # each run the first of a fresh process (see det_cv_run)
             det = {name: det_cv_run(os.path.join(root, name), data_dir, folds, *flags)
                    for name, folds, flags in (
-                       ("det_5", CV_FOLDS, ()),
+                       ("det_all", CV_DET_FOLDS, ()),
                        ("det_solo", [str(CV_ISOLATED_FOLD)], ()),
-                       ("det_g1", CV_FOLDS, ("--fold_group_size", "1")))}
-            j = CV_FOLDS.index(str(CV_ISOLATED_FOLD))
-            iso = fold_differences(det["det_5"], j, det["det_solo"], 0)
-            groups = [fold_differences(det["det_5"], i, det["det_g1"], i)
-                      for i in range(len(CV_FOLDS))]
-            log(f"deterministic cuDNN: fold {CV_ISOLATED_FOLD} among 5 vs alone: {iso}; "
+                       ("det_g1", CV_DET_FOLDS, ("--fold_group_size", "1")))}
+            j = CV_DET_FOLDS.index(str(CV_ISOLATED_FOLD))
+            iso = fold_differences(det["det_all"], j, det["det_solo"], 0)
+            groups = [fold_differences(det["det_all"], i, det["det_g1"], i)
+                      for i in range(len(CV_DET_FOLDS))]
+            if iso["epochs"] != 2:
+                raise AssertionError(f"the isolation runs trained {iso['epochs']} epochs, not 2")
+            log(f"deterministic cuDNN: fold {CV_ISOLATED_FOLD} among folds {CV_DET_FOLDS} vs "
+                f"alone: {iso}; "
                 f"groups of 1 vs ungrouped, per fold: {groups}")
             if iso["max_loss_diff"] or iso["max_param_diff"] or \
                     any(g["max_loss_diff"] or g["max_param_diff"] for g in groups):
@@ -3519,7 +3596,7 @@ def det_cv_run(results: str, data_dir: str, folds, *flags: str,
     deterministic algorithms, ``DETERMINISTIC_TORCH``) or ``"default"``
     (what a user's run takes; TF32 off in every mode): its per-epoch history
     and each fold's best checkpoint (weights and bank)."""
-    script, env = _DET_CV_RUN, None
+    script, env = capped(_DET_CV_RUN), None
     if algorithms == "strict":
         script = script.replace("from transformer_clip_eeg_tpu_torch import cv\n",
                                 DETERMINISTIC_TORCH + "from transformer_clip_eeg_tpu_torch "
@@ -3584,11 +3661,7 @@ torch.backends.cudnn.allow_tf32 = False
 torch.backends.cudnn.deterministic = True
 torch.use_deterministic_algorithms(True, warn_only=True)
 from transformer_clip_eeg_tpu_torch import cli
-from transformer_clip_eeg_tpu_torch.ops.fused_block import fused_block_backward, fused_transformer_block
-from transformer_clip_eeg_tpu_torch.ops.fused_conv import conv1d_same, fused_basic_block, fused_conv_backward
-from transformer_clip_eeg_tpu_torch.ops.lstm_scan import lstm_scan_backward, lstm_scan_packed
-counters = (fused_transformer_block, fused_block_backward, lstm_scan_packed, lstm_scan_backward,
-            fused_basic_block, fused_conv_backward, conv1d_same)
+from transformer_clip_eeg_tpu_torch.tools import kernel_launches
 calls = {"eeg": 0, "speech": 0}
 suite = cli.run_eval_suite
 def counted(model, *a, **k):
@@ -3599,8 +3672,10 @@ def counted(model, *a, **k):
 cli.run_eval_suite = counted
 rc = cli.main(["--only_evaluate", "yes", "--results_folder", sys.argv[1]])
 torch.cuda.synchronize()
-print(json.dumps({"rc": rc, "launches": {f.__name__: f.launches for f in counters},
-                  "launches_bf16": {f.__name__: f.launches_bf16 for f in counters[:2]},
+launched = kernel_launches()
+print(json.dumps({"rc": rc,
+                  "launches": {k: v for k, v in launched.items() if not k.endswith("_bf16")},
+                  "launches_bf16": {k[:-5]: v for k, v in launched.items() if k.endswith("_bf16")},
                   "encoder_calls": calls}))
 """
 
@@ -3610,7 +3685,7 @@ def only_evaluate_run(results_dir: str) -> dict:
     wall time, and the 8 JSON files it wrote."""
     env = dict(os.environ, CUBLAS_WORKSPACE_CONFIG=":4096:8")
     t0 = time.perf_counter()
-    proc = subprocess.run([sys.executable, "-c", _ONLY_EVALUATE_RUN, results_dir],
+    proc = subprocess.run([sys.executable, "-c", capped(_ONLY_EVALUATE_RUN), results_dir],
                           cwd=os.path.dirname(os.path.abspath(__file__)), capture_output=True,
                           text=True, timeout=600, env=env)
     wall = time.perf_counter() - t0
@@ -3845,10 +3920,11 @@ def wav2vec_path() -> dict:
     ``lm_head``), and two synthetic stories at 48 kHz: the CLI in a
     subprocess writes ``{story}_-_wav2vec_19.npy`` of ``[round(frames * 64 /
     50), 1024]``, finite, frames from the chunk arithmetic; a second run
-    skips both stories.  Then, in this process (TF32 off): one slab of 16
-    chunks of 10 s timed by CUDA events, under the profiler once, its peak
-    memory and bound; one 60 s story through the extractor, host clock; two
-    chunks card against CPU float32 (and the CPU's float32 against its
+    (the CLI's ``main`` in this process) skips both stories.  Then, in
+    this process (TF32 off): one slab of 16 chunks of 10 s timed by CUDA
+    events, under the profiler once, its peak memory and bound; one 60 s
+    story through the extractor, host clock; two chunks card against CPU
+    float32 (and the CPU's float32 against its
     float64, the spread the limit rests on); the bf16 forward against f32 at
     JAX's limit."""
     from transformer_clip_eeg_tpu_torch.models.wav2vec2 import (
@@ -3857,30 +3933,18 @@ def wav2vec_path() -> dict:
         load_wav2vec2,
     )
     from transformer_clip_eeg_tpu_torch.preprocess.wav2vec import Wav2Vec2FeatureExtractor
+    from transformer_clip_eeg_tpu_torch.preprocess.wav2vec import main as extraction_main
+    from transformer_clip_eeg_tpu_torch.tools.wav2vec_rehearsal import build_model_dir
 
     t_start = time.perf_counter()
     root = os.path.join(RUN_DIR, "wav2vec")
     model_dir, stim = os.path.join(root, "xlsr53_random"), os.path.join(root, "stimuli", "eeg")
-    os.makedirs(model_dir)
     os.makedirs(stim)
     cfg = Wav2Vec2Config()
-    gen = torch.Generator().manual_seed(0)
-    src = Wav2Vec2Model(cfg)
-    src.init_random(gen)
-    sd = {f"wav2vec2.{k}": v for k, v in src.state_dict().items()}
-    v = sd.pop("wav2vec2.encoder.pos_conv_embed.conv.weight")
-    sd["wav2vec2.encoder.pos_conv_embed.conv.weight_v"] = v
-    sd["wav2vec2.encoder.pos_conv_embed.conv.weight_g"] = torch.rand(
-        1, 1, v.shape[2], generator=gen) + 0.5
-    sd["lm_head.weight"] = torch.randn(32, cfg.hidden_size, generator=gen) * 0.02
-    sd["lm_head.bias"] = torch.zeros(32)
-    n_params = sum(t.numel() for k, t in src.state_dict().items())
-    del src
-    torch.save(sd, os.path.join(model_dir, "pytorch_model.bin"))
-    with open(os.path.join(model_dir, "config.json"), "w") as f:
-        json.dump(cfg.to_hf_dict(), f)
+    build_model_dir(model_dir, cfg, seed=0)
+    with torch.device("meta"):
+        n_params = sum(p.numel() for p in Wav2Vec2Model(cfg).state_dict().values())
     bin_gb = os.path.getsize(os.path.join(model_dir, "pytorch_model.bin")) / 1e9
-    del sd
     rng = np.random.default_rng(0)
     for story, seconds in W2V_STORIES.items():
         raw = os.path.join(root, f"{story}.npz")
@@ -3896,18 +3960,24 @@ def wav2vec_path() -> dict:
         f"{bin_gb:.2f} GB; stories {W2V_STORIES} s at {W2V_FS} Hz; written in "
         f"{time.perf_counter() - t_start:.1f} s")
 
-    # the CLI, twice
-    argv = [sys.executable, "-m", "transformer_clip_eeg_tpu_torch.preprocess.wav2vec",
-            "--dataset_root", root, "--model_path", model_dir, "--layers", str(W2V_LAYER)]
-    runs = []
-    for _ in range(2):
-        t0 = time.perf_counter()
-        proc = subprocess.run(argv, cwd=os.path.dirname(os.path.abspath(__file__)),
-                              capture_output=True, text=True, timeout=600)
-        runs.append({"wall_s": time.perf_counter() - t0, "stdout": proc.stdout})
-        if proc.returncode != 0:
-            raise AssertionError(f"the extraction CLI exited {proc.returncode}: "
-                                 f"{proc.stderr[-3000:]}")
+    # the CLI in a subprocess, then its main again in this process (a second
+    # process only paid the start-up again), which must skip both stories
+    cli_args = ["--dataset_root", root, "--model_path", model_dir, "--layers", str(W2V_LAYER)]
+    t0 = time.perf_counter()
+    proc = subprocess.run([sys.executable, "-m",
+                           "transformer_clip_eeg_tpu_torch.preprocess.wav2vec", *cli_args],
+                          cwd=os.path.dirname(os.path.abspath(__file__)),
+                          capture_output=True, text=True, timeout=600)
+    runs = [{"wall_s": time.perf_counter() - t0, "stdout": proc.stdout}]
+    if proc.returncode != 0:
+        raise AssertionError(f"the extraction CLI exited {proc.returncode}: "
+                             f"{proc.stderr[-3000:]}")
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(io.StringIO()) as printed:
+        rc = extraction_main(cli_args, device="cuda")
+    runs.append({"wall_s": time.perf_counter() - t0, "stdout": printed.getvalue()})
+    if rc != 0:
+        raise AssertionError(f"the extraction CLI's main returned {rc}")
     save_dir = os.path.join(root, "derivatives", "preprocessed_stimuli")
     shapes = {}
     for story, seconds in W2V_STORIES.items():
@@ -4195,6 +4265,7 @@ def _ddp_rank(data_dir: str, mesh) -> int:
     default algorithms, timed, the eval suite on the deterministic ones), its
     launches and step times, then the collectives timed.  Writes
     ``rank<r>.json``."""
+    cap_rank()
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     steps = ddp_step_checks(mesh)
@@ -4245,7 +4316,7 @@ def ddp_one_rank(data_dir: str) -> dict:
     for name, extra in (("plain", []), ("one_rank", ["--n_data_shards", "1"])):
         results = os.path.join(DDP_DIR, name)
         proc = subprocess.run(
-            [sys.executable, "-c", _DET_CLI_RUN, "--data_dir", data_dir, "--epochs", "1",
+            [sys.executable, "-c", capped(_DET_CLI_RUN), "--data_dir", data_dir, "--epochs", "1",
              "--skip_eval", "yes", "--results_folder", results, *extra],
             cwd=os.path.dirname(os.path.abspath(__file__)), capture_output=True, text=True,
             timeout=600)
@@ -4406,7 +4477,6 @@ def ddp_path(data_dir: str, train: dict) -> dict:
     # (d) times
     one_ms = train["step_ms_median_epoch2"]["device"]
     rank_ms = [statistics.median(rec["step_ms_epoch2"]) for rec in records]
-    b64 = kernels_at_b64(torch.Generator().manual_seed(64))
     out = {
         "mesh": records[0]["mesh"], "one_rank": one_rank,
         "steps": records[0]["steps"],
@@ -4422,7 +4492,7 @@ def ddp_path(data_dir: str, train: dict) -> dict:
         "pairs_per_s_epoch2": {"two_ranks": DDP_BATCH / max(rank_ms) * 1e3,
                                "one_process": DDP_BATCH / one_ms * 1e3},
         "collectives": [rec["collectives"] for rec in records],
-        "kernels_b64": b64, "ranks_s": ranks_s, "seconds": time.perf_counter() - t0,
+        "ranks_s": ranks_s, "seconds": time.perf_counter() - t0,
     }
     log(f"ddp (b)-(c): 2 ranks on one card ({out['mesh']}): launches a rank "
         f"{out['launches_train']} (train) {out['launches_eval']} (eval); replicas "
@@ -4483,6 +4553,7 @@ def baselines_phase() -> dict:
 
 SHARD_RANKS = 2  # on the one card: ranks outnumber cards, so gloo on the CUDA tensors
 SHARD_DIR = os.path.join(RUN_DIR, "shard")
+SHARD_SERVE_DIR = os.path.join(RUN_DIR, "shard_serve")  # cleared by shard_serve_path
 # the sharded serve CLI against the one-process CLI in the same call: each
 # rank's 64 rows of a chunk may take other cuDNN algorithms than 128 rows
 SHARD_SERVE_TOL = 1e-5  # of max |one process|, embeddings and top-k scores
@@ -4507,6 +4578,7 @@ def _shard_serve_rank(results_dir: str, invocations: dict, mesh) -> int:
     the wall time of each call (the first pass pays this fresh process's
     start-up on the card) and this rank's kernel launches in each pass.
     Writes ``serve_rank<r>.json``."""
+    cap_rank()
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     passes = []
@@ -4523,7 +4595,7 @@ def _shard_serve_rank(results_dir: str, invocations: dict, mesh) -> int:
             launches[name] = {k: v - before[k] for k, v in counts().items()}
         passes.append({"wall_s": wall, "launches": counts(), "launches_bf16": bf16_counts(),
                        "launches_by_invocation": launches})
-    with open(os.path.join(SHARD_DIR, f"serve_rank{mesh.rank}.json"), "w") as f:
+    with open(os.path.join(SHARD_SERVE_DIR, f"serve_rank{mesh.rank}.json"), "w") as f:
         json.dump({"rank": mesh.rank, "mesh": mesh.describe(), "passes": passes}, f)
     return 0
 
@@ -4540,10 +4612,10 @@ def shard_serve_path(results_dir: str, serve_cli: dict) -> dict:
     launches a rank-chunk (10 #1 a chunk of EEG, 2 #3 a chunk of speech, each
     of a rank's 64 rows); wall time of each call."""
     t0 = time.perf_counter()
-    shutil.rmtree(SHARD_DIR, ignore_errors=True)
-    os.makedirs(SHARD_DIR)
+    shutil.rmtree(SHARD_SERVE_DIR, ignore_errors=True)
+    os.makedirs(SHARD_SERVE_DIR)
     paths, one = serve_cli["paths"], serve_cli["outs"]
-    outs = {k: os.path.join(SHARD_DIR, os.path.basename(v)) for k, v in one.items()}
+    outs = {k: os.path.join(SHARD_SERVE_DIR, os.path.basename(v)) for k, v in one.items()}
     invocations = {"eeg": ["--eeg", paths["eeg"], "--out", outs["eeg"]],
                    "speech": ["--speech", paths["speech"], "--out", outs["speech"]],
                    "topk": ["--eeg", paths["eeg"], "--candidates", paths["cand"], "--topk", "5",
@@ -4552,7 +4624,7 @@ def shard_serve_path(results_dir: str, serve_cli: dict) -> dict:
         raise AssertionError("a serve --shard rank returned non-zero")
     records = []
     for r in range(SHARD_RANKS):
-        with open(os.path.join(SHARD_DIR, f"serve_rank{r}.json")) as f:
+        with open(os.path.join(SHARD_SERVE_DIR, f"serve_rank{r}.json")) as f:
             records.append(json.load(f))
     # a chunk is 128 windows, 64 rows a rank: 2 EEG chunks per EEG call, 1 and
     # 2 speech chunks (128 speech windows, 130 candidates)
@@ -4625,6 +4697,7 @@ def _cv_mesh_rank(data_dir: str, results: dict, mesh) -> int:
     into ``results["strict"]``, then on the default algorithms with the
     suites into ``results["default"]``; of each its folds' history and
     launches by phase.  Writes ``cv_rank<r>.json``."""
+    cap_rank()
     from transformer_clip_eeg_tpu_torch import cv
     from transformer_clip_eeg_tpu_torch.train.fold_parallel import (
         FoldParallelTrainer,
@@ -4832,6 +4905,7 @@ def _tp_rank(model_dir: str, story: str, mesh) -> int:
     synchronised) with and without the all-reduces timed apart, this rank's
     peak memory; on ``(1, 2)`` the story's taps in bf16.  Writes
     ``tp_rank<r>.json`` and, rank 0, the bf16 taps."""
+    cap_rank()
     from transformer_clip_eeg_tpu_torch.models import wav2vec2 as w2v
     from transformer_clip_eeg_tpu_torch.parallel import make_mesh
     from transformer_clip_eeg_tpu_torch.preprocess import wav2vec as extraction
@@ -4961,8 +5035,271 @@ def tp_extraction_path() -> dict:
     return out
 
 
+# --- the learning-quality gate and the scale rehearsals ----------------------
+
+LQ_DIR = os.path.join(RUN_DIR, "learning_quality")
+REHEARSAL_DIR = os.path.join(RUN_DIR, "rehearsal")
+# the scale rehearsal's cut: SparrKULee's story length and feature width and
+# the flagship model, with 5 stories (fold 0's training split then holds 3
+# chunks, more than the tiny budget's 2.5) and 8 + 2 subjects of 4 stories each
+REHEARSAL_SHAPE = dict(n_stories=5, n_subjects=8, n_test_subjects=2, story_seconds=600,
+                       speech_dim=1024, stories_per_subject=4)
+W2V_REHEARSAL = ["--stories", "2", "--story_min", "2", "--stop_after", "1"]
+SERVE_ROWS = 100_000
+SERVE_DIM = 1536  # the flagship's embedding: 192 x 8
+LQ_RUNS = {"learning_quality": "float32", "learning_quality_bf16": "bfloat16"}
+
+
+def _launched(counted: dict, names, what: str) -> None:
+    missing = [n for n in names if not counted.get(n)]
+    if missing:
+        raise AssertionError(f"{what} launched no {missing}: {counted}")
+
+
+def _unlaunched(counted: dict, names, what: str) -> None:
+    extra = {n: counted[n] for n in names if counted.get(n)}
+    if extra:
+        raise AssertionError(f"{what} launched {extra}")
+
+
+CONV_NAMES = ("fused_basic_block", "fused_conv_backward", "conv1d_same")
+BF16_KEYS = ("fused_transformer_block_bf16", "fused_block_backward_bf16")
+
+
+def learning_quality_path() -> dict:
+    """JAX's learning-quality gate at the flagship's depth 10 (widths of
+    ``TrainConfig()``, 12 epochs at batch 8 on the correlated fixture, then
+    the match-mismatch evaluation), ``tools/learning_quality.run_gate`` on
+    the card in float32 and in bfloat16: each must clear best val CE < 1.4,
+    accuracy >= 0.7 and top-1 >= 0.3.  Each run's kernel launches from 0:
+    #1-#4 (the bf16 run trains with #1/#2's bf16 instantiations and
+    validates in float32, so it launches no float32 #2), none of #5-#7."""
+    from transformer_clip_eeg_tpu_torch.tools import learning_quality as lq
+
+    out = {"launches": {}}
+    for path, dtype in LQ_RUNS.items():
+        zero_counts()
+        rec = lq.run_gate(LQ_DIR, compute_dtype=dtype)
+        launched = kernel_launches()
+        log(json.dumps({path: rec, "launches": launched}))
+        if not rec["passed"]:
+            raise AssertionError(f"the {dtype} gate missed JAX's thresholds: {rec}")
+        _unlaunched(launched, CONV_NAMES, path)
+        if dtype == "float32":
+            _launched(launched, KERNEL_NAMES, path)
+            _unlaunched(launched, BF16_KEYS, path)
+        else:  # a wrapper's count holds its bf16 instantiation's too
+            _launched(launched, ("fused_transformer_block", "lstm_scan_packed",
+                                 "lstm_scan_backward") + BF16_KEYS, path)
+            if launched["fused_block_backward"] != launched["fused_block_backward_bf16"]:
+                raise AssertionError(f"{path} launched the float32 #2: {launched}")
+        out[path] = rec
+        out["launches"][path] = launched
+    return out
+
+
+def rehearsal_path() -> dict:
+    """The port's rehearsals at a cut shape (``REHEARSAL_SHAPE``: the story
+    length, the feature width and the model kept).  The scale rehearsal's
+    ``gen``, ``ingest``, ``evict`` and a 1-epoch flagship ``train`` at batch
+    128 without the suite, each stage a process of its own: the eviction's
+    digests equal with the tiny budget paying uploads; the epoch uploading
+    each training chunk once; #1-#4 launched by the training process and
+    none of #5-#7 or the bf16 instantiations.  The wav2vec rehearsal on 2
+    stories of 2 min at XLSR-53 width, on ``wav2vec_path``'s checkpoint
+    directory (run after it): its first pass ends itself after its first
+    story, the resume extracts exactly the other, bf16 within JAX's 0.05;
+    no pass launches a kernel of the port.  The serving rehearsal:
+    the index at 100,000 rows of 1,536, then 8 clients x 6 requests of 8
+    windows through the flagship's service, coalesced answers equal to
+    one-at-a-time ones and #1 launched by them."""
+    from transformer_clip_eeg_tpu_torch.tools import scale_rehearsal as sr
+    from transformer_clip_eeg_tpu_torch.tools import serve_rehearsal as sv
+    from transformer_clip_eeg_tpu_torch.tools import wav2vec_rehearsal as wr
+
+    torch.cuda.empty_cache()  # the stage processes budget the card's free memory
+    out, seconds = {"launches": {}}, {}
+    t0 = time.perf_counter()
+    root = os.path.join(REHEARSAL_DIR, "corpus")
+    rc = sr.main(["--root", root, "--stages", "gen", "ingest", "evict", "train",
+                  "--epochs", "1", "--batch_size", "128", "--skip_eval"]
+                 + [f"--{k}={v}" for k, v in REHEARSAL_SHAPE.items()])
+    if rc != 0:
+        raise AssertionError(f"the scale rehearsal exited {rc}")
+    with open(os.path.join(root, "_scale_out", "scale_results.jsonl")) as f:
+        scale = {r["stage"]: r for r in map(json.loads, f)}
+    ev, tr = scale["evict"], scale["train"]
+    if not (ev["correct"] and ev["tiny"]["uploads"] > ev["ample"]["uploads"]
+            == ev["n_chunks"]):
+        raise AssertionError(f"eviction: {ev}")
+    if tr["rc"] != 0 or [p["uploads"] for p in tr["phases"]] != [
+            scale["ingest"]["fold0_train_chunks"]]:
+        raise AssertionError(f"the rehearsal's training: {tr}")
+    _launched(tr["kernel_launches"], KERNEL_NAMES, "rehearsal_train")
+    _unlaunched(tr["kernel_launches"], CONV_NAMES + BF16_KEYS, "rehearsal_train")
+    out["scale"] = scale
+    out["launches"]["rehearsal_train"] = tr["kernel_launches"]
+    seconds["scale"] = time.perf_counter() - t0
+
+    t0 = time.perf_counter()
+    w2v_root = os.path.join(REHEARSAL_DIR, "w2v")
+    os.makedirs(w2v_root)
+    # wav2vec_path's checkpoint directory: the same writer, seed and width
+    os.symlink(os.path.join(RUN_DIR, "wav2vec", "xlsr53_random"),
+               os.path.join(w2v_root, "hf_model"))
+    wr.main(["--root", w2v_root] + W2V_REHEARSAL)
+    with open(os.path.join(w2v_root, "rehearsal.jsonl")) as f:
+        w2v = {r["stage"]: r for r in map(json.loads, f)}
+    if not (w2v["first_pass_cut"]["stopped"] and len(w2v["first_pass_cut"]["files"]) == 1
+            and w2v["resume_to_completion"]["extracted_exactly_the_missing"]):
+        raise AssertionError(f"the extraction's resume: {w2v}")
+    passes = [w2v[stage]["kernel_launches"]
+              for stage in ("first_pass_cut", "resume_to_completion", "bf16_delta")]
+    extraction = {k: sum(p[k] for p in passes) for k in passes[0]}
+    _unlaunched(extraction, tuple(extraction), "rehearsal_extraction")
+    out["wav2vec"] = w2v
+    out["launches"]["rehearsal_extraction"] = extraction
+    seconds["wav2vec"] = time.perf_counter() - t0
+
+    t0 = time.perf_counter()
+    zero_counts()
+    index = sv.bench_index(SERVE_ROWS, SERVE_DIM, "cuda")
+    clients = sv.bench_microbatch()
+    served = kernel_launches()
+    log(json.dumps({"serve_rehearsal": {"index": index, "microbatch": clients,
+                                        "launches": served}}))
+    _launched(served, ("fused_transformer_block",), "rehearsal_serve")
+    _unlaunched(served, ("fused_block_backward", "lstm_scan_backward") + CONV_NAMES
+                + BF16_KEYS, "rehearsal_serve")
+    out["serve"] = {"index": index, "microbatch": clients}
+    out["launches"]["rehearsal_serve"] = served
+    seconds["serve"] = time.perf_counter() - t0
+    out["seconds"] = seconds
+    log(f"rehearsal_path: {json.dumps(seconds)} s")
+    return out
+
+
+PHASE_SECONDS: dict = {}
+PHASE_PEAK_GIB: dict = {}  # the most a phase's process held on the card (reserved)
+
+
+def timed(fn, *args):
+    """``fn(*args)``, its seconds kept in ``PHASE_SECONDS`` and the most
+    this process reserved on the card meanwhile in ``PHASE_PEAK_GIB``, under
+    its name; then the process's unused cached blocks go back to the card
+    (a fresh process that a later phase starts may take the card's free
+    memory)."""
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    try:
+        return fn(*args)
+    finally:
+        PHASE_SECONDS[fn.__name__] = time.perf_counter() - t0
+        PHASE_PEAK_GIB[fn.__name__] = torch.cuda.max_memory_reserved() / 2**30
+        torch.cuda.empty_cache()
+
+
+# After the phases that must have the card alone, the rest run in three
+# lanes at once: this process runs the first, a process of its own each of
+# these (``python3 chip_smoke.py --lane NAME DATA_DIR OUT``).  The lanes
+# share only the fixture, which they read, and each keeps its own files
+# under ``RUN_DIR``.
+LANES = {
+    "mesh_gate": ("cv_mesh_path", "learning_quality_path"),
+    "extraction": ("wav2vec_path", "tp_extraction_path", "rehearsal_path"),
+}
+LANE_THREADS = 4  # each lane process's CPU threads (the host has 8 cores)
+LANE_TIMEOUT_S = 1500
+# While the lanes run, each lane's process may hold at most this share of the
+# card (its allocator gives back cached blocks when it would pass it; a
+# cuDNN workspace that does not fit takes the next algorithm), so the lanes
+# and the processes they start share the card's memory.  Alone on the card
+# a process on cuDNN's deterministic algorithms took up to 68 GiB and the
+# zoo 44 GiB (H100 80GB HBM3, ``chip_memory_probe.py``): workspaces as large
+# as the free memory
+MAIN_LANE_MEMORY = 0.25
+LANE_MEMORY = {"mesh_gate": 0.2, "extraction": 0.2}
+
+
+def _picklable(obj):
+    """``obj`` with every value that is not plain data, an array or a tensor
+    (on the CPU) replaced by its ``repr``."""
+    if isinstance(obj, dict):
+        return {k: _picklable(v) for k, v in obj.items()}
+    if isinstance(obj, (list, tuple)):
+        return [_picklable(v) for v in obj]
+    if isinstance(obj, torch.Tensor):
+        return obj.detach().cpu()
+    if obj is None or isinstance(obj, (str, bytes, bool, int, float, np.ndarray, np.generic)):
+        return obj
+    return repr(obj)
+
+
+def lane_main(name: str, data_dir: str, out_path: str) -> int:
+    """The phases of lane ``name`` in turn (those that take it get
+    ``data_dir``); their results and seconds pickled to ``out_path``."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    torch.set_num_threads(LANE_THREADS)
+    torch.cuda.init()
+    torch.cuda.set_per_process_memory_fraction(LANE_MEMORY[name])
+    _build.load()
+    results = {}
+    for phase in LANES[name]:
+        fn = globals()[phase]
+        takes_data = "data_dir" in inspect.signature(fn).parameters
+        results[phase] = timed(fn, *((data_dir,) if takes_data else ()))
+    with open(out_path, "wb") as f:
+        pickle.dump({"results": _picklable(results), "seconds": PHASE_SECONDS,
+                     "peak_gib": PHASE_PEAK_GIB}, f)
+    return 0
+
+
+def start_lane(name: str, data_dir: str) -> dict:
+    """Lane ``name`` started in a process of its own (and its own session,
+    so that :func:`stop_lane` reaches the processes it starts); its output
+    goes to ``RUN_DIR/lane_<name>.log``."""
+    base = os.path.join(RUN_DIR, f"lane_{name}")
+    env = {**os.environ, "OMP_NUM_THREADS": str(LANE_THREADS), "PYTHONUNBUFFERED": "1"}
+    with open(base + ".log", "w") as out:
+        proc = subprocess.Popen(
+            [sys.executable, os.path.abspath(__file__), "--lane", name, data_dir, base + ".pkl"],
+            stdout=out, stderr=subprocess.STDOUT, env=env, start_new_session=True)
+    return {"name": name, "proc": proc, "base": base, "t0": time.perf_counter()}
+
+
+def finish_lane(lane: dict):
+    """Waits for ``lane`` and prints its output; returns its phases' results
+    by phase name, or None if it failed (after printing the end of its
+    output to standard error)."""
+    rc = lane["proc"].wait(timeout=LANE_TIMEOUT_S)
+    PHASE_SECONDS[f"lane_{lane['name']}"] = time.perf_counter() - lane["t0"]
+    with open(lane["base"] + ".log") as f:
+        text = f.read()
+    log(f"--- lane {lane['name']}: its phases' output ---")
+    print(text, end="", flush=True)
+    if rc != 0:
+        print(f"lane {lane['name']} exited {rc}; the end of its output:\n{text[-8000:]}",
+              file=sys.stderr, flush=True)
+        return None
+    with open(lane["base"] + ".pkl", "rb") as f:
+        got = pickle.load(f)
+    PHASE_SECONDS.update(got["seconds"])
+    PHASE_PEAK_GIB.update(got["peak_gib"])
+    return got["results"]
+
+
+def stop_lane(lane: dict) -> None:
+    """Kills whatever of ``lane``'s session still runs."""
+    with contextlib.suppress(ProcessLookupError):
+        os.killpg(lane["proc"].pid, signal.SIGKILL)
+    lane["proc"].wait()
+
+
 def main() -> int:
     t_start = time.perf_counter()
+    # a SIGTERM unwinds main, so that the lanes are stopped
+    signal.signal(signal.SIGTERM, lambda *_: sys.exit(143))
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
         capture_output=True, text=True, check=True, timeout=60,
@@ -4980,64 +5317,83 @@ def main() -> int:
 
     gen = torch.Generator().manual_seed(0)
     x, params = block_case(gen)
-    block = check_block(x, params)
-    block_bwd = check_block_backward(x, params, gen)
-    block["windows"] = check_block_windows(gen, params)
+    block = timed(check_block, x, params)
+    block_bwd = timed(check_block_backward, x, params, gen)
+    block["windows"] = timed(check_block_windows, gen, params)
     # the bf16 checks draw from a generator of their own: the earlier checks'
     # inputs stay as they were
     gen_bf16 = torch.Generator().manual_seed(10)
-    bf16_kernels = check_block_bf16(gen_bf16, params)
+    bf16_kernels = timed(check_block_bf16, gen_bf16, params)
     del x, params
-    lstm = check_lstm(gen)
-    lstm_bwd = check_lstm_backward(gen)
-    convs = check_conv(gen)
-    bf16_inputs = check_lstm_conv_bf16(gen_bf16)
+    lstm = timed(check_lstm, gen)
+    lstm_bwd = timed(check_lstm_backward, gen)
+    convs = timed(check_conv, gen)
+    bf16_inputs = timed(check_lstm_conv_bf16, gen_bf16)
+    # #1-#4 at a rank's batch of 64 (the 2-rank run's shapes), timed while
+    # the card runs nothing else
+    b64 = timed(kernels_at_b64, torch.Generator().manual_seed(64))
     torch.cuda.empty_cache()
-    serve = serve_path()
+    serve = timed(serve_path)
     log(json.dumps({"serve": serve}))
-    augment = augment_phase()
+    augment = timed(augment_phase)
     data_dir = write_fixture()
+    lanes = []
     try:
-        train, cfg, host_batch = train_path(data_dir)
-        reference = reference_ckpt_path(train["results_dir"], data_dir)
-        ddp = ddp_path(data_dir, train)
-        bf16_train = bf16_train_path(data_dir, cfg, host_batch,
-                                     train["step_ms_median_epoch2"]["device"])
-        augmented = augmented_train_path(data_dir, cfg, host_batch,
-                                         train["step_ms_median_epoch2"]["device"])
-        serve_cli = serve_cli_path(train["results_dir"])
-        server_cli = server_cli_path(train["results_dir"], serve_cli)
-        zoo = zoo_path(data_dir)
-        k1 = k1_path(data_dir)
-        k2 = k2_path(data_dir)
-        cv_run = cv_path(data_dir)
-        cv_mesh = cv_mesh_path(data_dir)
-        shard_serve = shard_serve_path(train["results_dir"], serve_cli)
-        wav2vec = wav2vec_path()
-        tp = tp_extraction_path()
+        train, cfg, host_batch = timed(train_path, data_dir)
+        zoo = timed(zoo_path, data_dir)
+        reference = timed(reference_ckpt_path, train["results_dir"], data_dir)
+        ddp = timed(ddp_path, data_dir, train)
+        bf16_train = timed(bf16_train_path, data_dir, cfg, host_batch,
+                           train["step_ms_median_epoch2"]["device"])
+        augmented = timed(augmented_train_path, data_dir, cfg, host_batch,
+                          train["step_ms_median_epoch2"]["device"])
+        cv_run = timed(cv_path, data_dir)
+        os.environ[LANES_ENV] = "1"
+        torch.cuda.set_per_process_memory_fraction(MAIN_LANE_MEMORY)
+        torch.cuda.empty_cache()
+        lanes = [start_lane(name, data_dir) for name in LANES]
+        bf16_train.update(timed(bf16_step_path, cfg, host_batch))
+        k1 = timed(k1_path, data_dir)
+        k2 = timed(k2_path, data_dir)
+        serve_cli = timed(serve_cli_path, train["results_dir"])
+        server_cli = timed(server_cli_path, train["results_dir"], serve_cli)
+        shard_serve = timed(shard_serve_path, train["results_dir"], serve_cli)
+        finished = {lane["name"]: finish_lane(lane) for lane in lanes}
+        failed = [name for name, got in finished.items() if got is None]
+        if failed:
+            raise AssertionError(f"lanes {failed} failed (their output is above)")
+        torch.cuda.set_per_process_memory_fraction(1.0)
+        del os.environ[LANES_ENV]
     finally:
+        for lane in lanes:
+            stop_lane(lane)
         shutil.rmtree(RUN_DIR, ignore_errors=True)
-    fused = fused_path(cfg, host_batch)
-    long_window = long_window_path()
-    baselines = baselines_phase()
+    lane_results = {k: v for got in finished.values() for k, v in got.items()}
+    cv_mesh, learning = (lane_results[p] for p in LANES["mesh_gate"])
+    wav2vec, tp, rehearsal = (lane_results[p] for p in LANES["extraction"])
+    fused = timed(fused_path, cfg, host_batch)
+    long_window = timed(long_window_path)
+    baselines = timed(baselines_phase)
     kernels = [block, block_bwd, lstm, lstm_bwd]
     for k in kernels:
         k["launches"] = train["launches"][k["name"]]
         k["launches_by_path"] = {
             "serve": serve["launches"][k["name"]], "train": train["launches_train"][k["name"]],
             "eval_suite": train["launches_eval"][k["name"]],
-            **{f"t256_{what}": counts[k["name"]]
-               for what, counts in long_window["launches"].items()},
+            **{f"t256_{what}": per_kernel[k["name"]]
+               for what, per_kernel in long_window["launches"].items()},
             **{f"zoo_{z}": zoo[z]["launches"][k["name"]] for z in ZOO}}
     # #5-#7 run on the fused path; the default paths launch none of them
     for k in convs:
         k["launches"] = fused["launches"]["train_step"][k["name"]]
         k["launches_by_path"] = {
             "serve": serve["launches"][k["name"]], "train": train["launches"][k["name"]],
-            **{f"fused_{what}": counts[k["name"]]
-               for what, counts in fused["launches"].items()},
+            **{f"fused_{what}": per_kernel[k["name"]]
+               for what, per_kernel in fused["launches"].items()},
             **{f"zoo_{z}": zoo[z]["launches"][k["name"]] for z in ZOO}}
     kernels += convs
+    # the gate's and the rehearsals' runs, each counted from 0 (bf16 rows: "<name>_bf16")
+    gate_and_rehearsals = {**learning["launches"], **rehearsal["launches"]}
     for k in kernels:
         k["launches_by_path"].update(
             train_augmented=augmented["launches"][k["name"]],
@@ -5057,10 +5413,11 @@ def main() -> int:
             shard_serve=shard_serve["launches"][k["name"]],
             cv_mesh_train=cv_mesh["launches_train"][k["name"]],
             cv_mesh_eval=cv_mesh["launches_eval"][k["name"]],
-            tp_extraction=tp["launches"][k["name"]])
+            tp_extraction=tp["launches"][k["name"]],
+            **{path: c[k["name"]] for path, c in gate_and_rehearsals.items()})
     # #1-#4 at a rank's batch of 64 (the 2-rank run's shapes), beside their bound there
     for k in kernels[:4]:
-        k.update({f"{key}_b64": v for key, v in ddp["kernels_b64"][k["name"]].items()})
+        k.update({f"{key}_b64": v for key, v in b64[k["name"]].items()})
     # #3-#7 take bf16 at their boundary (the kernels are float32 inside)
     lstm["bf16_input"] = {d: bf16_inputs[d] for d in ("lstm_D2", "lstm_D1")}
     lstm_bwd["bf16_input"] = lstm["bf16_input"]
@@ -5084,7 +5441,9 @@ def main() -> int:
                                  "shard_serve": shard_serve["launches_bf16"][base],
                                  "cv_mesh_train": cv_mesh["launches_bf16"][base],
                                  "cv_mesh_eval": cv_mesh["launches_eval_bf16"][base],
-                                 "tp_extraction": tp["launches_bf16"][base]}
+                                 "tp_extraction": tp["launches_bf16"][base],
+                                 **{path: c[f"{base}_bf16"]
+                                    for path, c in gate_and_rehearsals.items()}}
     kernels += bf16_kernels
     log(json.dumps({"augment_and_cli": {
         "augment_ms": {n: r["ms"] for n, r in augment["by_name"].items()},
@@ -5119,6 +5478,14 @@ def main() -> int:
         "tp_grids": tp["grids"], "seconds": {"shard_serve": shard_serve["seconds"],
                                             "cv_mesh": cv_mesh["seconds"],
                                             "tp_extraction": tp["seconds"]}}}))
+    log(json.dumps({"learning_quality_and_rehearsals": {
+        "gate": {path: {k: learning[path][k] for k in (
+            "best_val_loss_ce", "val_loss_ce", "mm_mean_accuracy", "top1_retrieval", "train_s")}
+            for path in LQ_RUNS},
+        "scale": rehearsal["scale"], "wav2vec": rehearsal["wav2vec"],
+        "serve": rehearsal["serve"], "seconds": rehearsal["seconds"]}}))
+    log(json.dumps({"phase_seconds": PHASE_SECONDS}))
+    log(json.dumps({"phase_peak_reserved_gib": PHASE_PEAK_GIB}))
     log(f"chip_smoke finished in {time.perf_counter() - t_start:.1f} s")
     log(json.dumps({"kernels": kernels}))
     log(json.dumps({"ok": True, "device": {
@@ -5129,4 +5496,6 @@ def main() -> int:
 
 
 if __name__ == "__main__":
+    if sys.argv[1:2] == ["--lane"]:
+        sys.exit(lane_main(*sys.argv[2:5]))
     sys.exit(main())

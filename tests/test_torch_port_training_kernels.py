@@ -136,8 +136,8 @@ def test_block_module_training_uses_its_seed():
 
 @pytest.mark.parametrize("hidden", [8, 4])
 def test_lstm_gradient_matches_jax_vjp(hidden):
-    """Autograd through the recurrence's CPU path (``LSTMScanFunction``,
-    whose backward is autograd through ``lstm_scan_reference``) against
+    """Autograd through the recurrence's CPU path (autograd through
+    ``lstm_scan_reference``) against
     ``jax.vjp`` of the interpret-mode Pallas recurrence, two directions."""
     rng = np.random.default_rng(hidden)
     xw = (0.5 * rng.standard_normal((13, 2, 3, 4 * hidden))).astype(np.float32)
@@ -157,7 +157,8 @@ def test_lstm_gradient_matches_jax_vjp(hidden):
 
 def test_lstm_scan_packed_gives_h_a_gradient_and_refuses_c_under_autograd():
     """One entry point for both modes: under autograd ``h`` carries a
-    gradient (through ``LSTMScanFunction``); ``c`` has none, so asking for
+    gradient (``LSTMScanFunction`` on the card, the twin on the CPU); ``c``
+    has none on the card, so asking for
     it there raises instead of returning a tensor cut off from the graph."""
     xw = torch.randn(5, 2, 2, 16, requires_grad=True)
     whh = torch.zeros(2, 4, 16)

@@ -12,11 +12,13 @@ linear index and a 32-bit key::
     bits = h ^ h >> 16
     keep = bits >= uint32(int(p * 2**32)),  kept elements scale by 1 / (1 - p)
 
-all in uint32 arithmetic.  Here it is int64 arithmetic masked to 32 bits (a
-32x32-bit product is split in two 16-bit halves so nothing overflows int64),
-so the CPU and the card draw the same bits, and the CUDA kernels compute the
-same function in-kernel (``drop_bits`` in ``csrc/fused_block.cu``).  Every
-dropout of the port draws from it: the fused block's four masks and
+all in uint32 arithmetic.  Here the key and the index are int64 masked to
+32 bits and the mixing rounds run on int32 tensors holding the same bits
+(two's-complement products wrap mod 2**32 as uint32 ones do; right shifts
+are masked to be logical), so the CPU and the card draw the same bits, and
+the CUDA kernels compute the same function in-kernel (``drop_bits`` in
+``csrc/fused_block.cu``).  Every dropout of the port draws from it: the
+fused block's four masks and
 :class:`~transformer_clip_eeg_tpu_torch.ops.layers.Dropout`.
 """
 
@@ -38,18 +40,37 @@ def _mul32(a: torch.Tensor, c: int) -> torch.Tensor:
     return (lo + hi) & M32
 
 
-def hash_bits(key: Union[int, torch.Tensor], idx: torch.Tensor) -> torch.Tensor:
-    """The 32 hash bits (as int64 in [0, 2**32)) of index ``idx`` under
-    ``key``; ``key`` is an int or an int64 tensor that broadcasts with
-    ``idx``."""
+def _signed(c: int) -> int:
+    """The int32 value with the bits of the 32-bit constant ``c``."""
+    return c - (1 << 32) if c >= 1 << 31 else c
+
+
+def _srl(h: torch.Tensor, n: int) -> torch.Tensor:
+    """Logical right shift of int32 ``h`` by ``n``."""
+    return (h >> n) & ((1 << (32 - n)) - 1)
+
+
+def _int32(x: torch.Tensor) -> torch.Tensor:
+    """int64 ``x`` in [0, 2**32) as the int32 tensor of the same bits."""
+    return (x - ((x >> 31) << 32)).to(torch.int32)
+
+
+def hash_bits32(key: Union[int, torch.Tensor], idx: torch.Tensor) -> torch.Tensor:
+    """The 32 hash bits of index ``idx`` (int64) under ``key`` (an int or an
+    int64 tensor that broadcasts with ``idx``), as int32 of the same bits."""
     if isinstance(key, torch.Tensor):
-        kc = _mul32(key & M32, GOLDEN)
+        kc = _int32(_mul32(key & M32, GOLDEN))
     else:
-        kc = ((int(key) & M32) * GOLDEN) & M32
-    h = (idx + kc) & M32
-    h = _mul32(h ^ (h >> 16), MIX1)
-    h = _mul32(h ^ (h >> 13), MIX2)
-    return h ^ (h >> 16)
+        kc = _signed(((int(key) & M32) * GOLDEN) & M32)
+    h = _int32(idx & M32) + kc
+    h = (h ^ _srl(h, 16)) * _signed(MIX1)
+    h = (h ^ _srl(h, 13)) * _signed(MIX2)
+    return h ^ _srl(h, 16)
+
+
+def hash_bits(key: Union[int, torch.Tensor], idx: torch.Tensor) -> torch.Tensor:
+    """:func:`hash_bits32` as int64 in [0, 2**32)."""
+    return hash_bits32(key, idx).to(torch.int64) & M32
 
 
 def threshold(p: float) -> int:
@@ -63,10 +84,11 @@ def keep_scale(p: float) -> float:
 
 
 def mask_from_bits(bits: torch.Tensor, p: float, dtype=torch.float32) -> torch.Tensor:
-    """0 or ``1 / (1 - p)`` per element."""
-    scale = torch.tensor(keep_scale(p), dtype=dtype, device=bits.device)
-    return torch.where(bits >= threshold(p), scale, torch.zeros((), dtype=dtype,
-                                                                device=bits.device))
+    """0 or ``1 / (1 - p)`` per element of the int32 ``bits`` of
+    :func:`hash_bits32` (compared as unsigned by flipping the sign bit on
+    both sides)."""
+    keep = (bits ^ _signed(1 << 31)) >= _signed(threshold(p) ^ (1 << 31))
+    return keep.to(dtype).mul_(torch.tensor(keep_scale(p), dtype=dtype, device=bits.device))
 
 
 def linear_index(shape: Sequence[int], device=None) -> torch.Tensor:
@@ -84,7 +106,7 @@ def dropout_mask(key: Union[int, torch.Tensor], shape: Sequence[int], p: float,
     element index is ``offset`` plus the row-major linear index inside
     ``shape`` (a slice of rows of a larger tensor takes that tensor's mask
     with ``offset`` the index of its first element)."""
-    return mask_from_bits(hash_bits(key, linear_index(shape, device) + offset), p)
+    return mask_from_bits(hash_bits32(key, linear_index(shape, device) + offset), p)
 
 
 def mesh_rows(mesh, b: int) -> Tuple[int, Optional[int]]:

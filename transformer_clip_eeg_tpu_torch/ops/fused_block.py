@@ -66,7 +66,7 @@ import torch.nn.functional as F
 
 from transformer_clip_eeg_tpu_torch.ops.dropout import (
     M32,
-    hash_bits,
+    hash_bits32,
     keep_scale,
     linear_index,
     mask_from_bits,
@@ -195,14 +195,14 @@ def block_masks(b: int, t: int, e: int, f: int, num_heads: int,
     def rows(mask_id, width, p):
         key = (seed_base + mask_id)[:, None, None]
         idx = local[:, None, None] * (t * width) + linear_index((t, width), device)
-        return mask_from_bits(hash_bits(key, idx), p)
+        return mask_from_bits(hash_bits32(key, idx), p)
 
     attn = ao = fi = fo = None
     if drop.drop_p > 0.0:
         key = seed_base[:, None, None, None] + torch.arange(
             h, dtype=torch.int64, device=device)[None, :, None, None]
         idx = local[:, None, None, None] * (t * t) + linear_index((t, t), device)
-        attn = mask_from_bits(hash_bits(key, idx), drop.drop_p)
+        attn = mask_from_bits(hash_bits32(key, idx), drop.drop_p)
         ao = rows(h, e, drop.drop_p)
         fo = rows(h + 2, e, drop.drop_p)
     if drop.ffn_drop_p > 0.0:
@@ -571,10 +571,11 @@ def fused_block_backward(
 
 
 class FusedBlockFunction(torch.autograd.Function):
-    """The block with its gradient: kernels #1 and #2 for a CUDA tensor; the
-    twin and autograd through the twin for a CPU tensor (the plain statement
-    of #2 for a bf16 one).  ``dx`` comes back in ``x``'s dtype, the
-    parameter gradients in float32."""
+    """The block with its gradient: kernels #1 and #2 for a CUDA tensor; for
+    a bf16 CPU tensor the twin and the plain statement of #2 (a float32 CPU
+    tensor takes autograd through the twin, in
+    :func:`fused_transformer_block`).  ``dx`` comes back in ``x``'s dtype,
+    the parameter gradients in float32."""
 
     @staticmethod
     def forward(ctx, x, num_heads, scale, drop, *params):
@@ -592,15 +593,8 @@ class FusedBlockFunction(torch.autograd.Function):
         num_heads, scale, drop = ctx.cfg
         x, *rest = ctx.saved_tensors
         params = rest[:N_PARAMS]
-        if x.device.type == "cpu" and x.dtype == torch.bfloat16:
+        if x.device.type == "cpu":
             dx, dparams = fused_block_backward_reference(x, params, g, num_heads, scale, drop)
-        elif x.device.type == "cpu":
-            with torch.enable_grad():
-                xs = [x.detach().requires_grad_()]
-                ps = [p.detach().requires_grad_() for p in params]
-                out = fused_transformer_block_reference(xs[0], ps, num_heads, scale, *drop)
-                grads = torch.autograd.grad(out, xs + ps, g)
-            dx, dparams = grads[0], grads[1:]
         else:
             dx, dparams = fused_block_backward(x, params, g, rest[N_PARAMS],
                                                num_heads, scale, drop)
@@ -640,10 +634,10 @@ def fused_transformer_block(
         raise ValueError(f"no fused block for device {x.device}")
     wants_grad = torch.is_grad_enabled() and (
         x.requires_grad or any(p.requires_grad for p in params))
+    if x.device.type == "cpu" and not (wants_grad and x.dtype == torch.bfloat16):
+        return fused_transformer_block_reference(x, params, num_heads, scale, *drop)
     if wants_grad:
         return FusedBlockFunction.apply(x, num_heads, scale, drop, *params)
-    if x.device.type == "cpu":
-        return fused_transformer_block_reference(x, params, num_heads, scale, *drop)
     return fused_block_forward_cuda(x, params, num_heads, scale, drop)[0]
 
 

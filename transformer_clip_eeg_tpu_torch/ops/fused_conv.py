@@ -41,7 +41,7 @@ import torch.nn.functional as F
 
 from transformer_clip_eeg_tpu_torch.ops.dropout import (
     M32,
-    hash_bits,
+    hash_bits32,
     linear_index,
     mask_from_bits,
 )
@@ -84,9 +84,9 @@ def conv_mask(seed: int, b: int, t: int, c: int, p: float, device=None) -> torch
     keyed per batch tile as the JAX kernel keys them."""
     tb = pick_tile(b)
     sample = torch.arange(b, dtype=torch.int64, device=device)
-    key = ((int(seed) & M32) + sample // tb) * CONV_TILE_MULT  # mod 2**32 in hash_bits
+    key = ((int(seed) & M32) + sample // tb) * CONV_TILE_MULT  # mod 2**32 in hash_bits32
     idx = (sample % tb)[:, None, None] * (t * c) + linear_index((t, c), device)
-    return mask_from_bits(hash_bits(key[:, None, None], idx), p)
+    return mask_from_bits(hash_bits32(key[:, None, None], idx), p)
 
 
 def conv1d_reference(x: torch.Tensor, w: torch.Tensor,

@@ -393,21 +393,23 @@ def lstm_scan_packed(
     """All ``D`` recurrences in one call: ``h [T, D, B, H]`` (and ``c``
     when ``return_c``).  A CUDA tensor launches the kernel (float32 and
     contiguous, else it raises; any H, zero-padded to :func:`plan_hidden`
-    and sliced back); a CPU tensor runs the plain version.  Under autograd ``h`` carries its gradient through
-    :class:`LSTMScanFunction`; ``c`` has none, so ``return_c`` is refused
-    there."""
+    and sliced back); a CPU tensor runs the plain version.  Under autograd
+    ``h`` carries its gradient, through :class:`LSTMScanFunction` on the
+    card and autograd through the twin on the CPU; ``c`` has none on the
+    card, so ``return_c`` is refused there, on either device."""
     if xw.device.type not in ("cpu", "cuda"):
         raise ValueError(f"no LSTM recurrence for device {xw.device}")
     hidden = xw.shape[-1] // 4
     if xw.device.type == "cuda" and xw.dim() == 4 and plan_hidden(hidden) != hidden:
         out = lstm_scan_packed(*pad_hidden(xw, whh, plan_hidden(hidden)), return_c)
         return (out[0][..., :hidden], out[1][..., :hidden]) if return_c else out[..., :hidden]
-    if torch.is_grad_enabled() and (xw.requires_grad or whh.requires_grad):
-        if return_c:
-            raise ValueError("return_c has no gradient; call it without autograd")
-        return LSTMScanFunction.apply(xw, whh)
+    wants_grad = torch.is_grad_enabled() and (xw.requires_grad or whh.requires_grad)
+    if wants_grad and return_c:
+        raise ValueError("return_c has no gradient; call it without autograd")
     if xw.device.type == "cpu":
         return lstm_scan_reference(xw, whh, return_c)
+    if wants_grad:
+        return LSTMScanFunction.apply(xw, whh)
     h_out, c_out, _ = _launch_forward(xw, whh, return_c, save_gates=False)
     return (h_out, c_out) if return_c else h_out
 
@@ -478,31 +480,22 @@ def _dwhh(h: torch.Tensor, dxw: torch.Tensor) -> torch.Tensor:
 
 
 class LSTMScanFunction(torch.autograd.Function):
-    """The recurrence with its gradient: kernels #3 and #4 for a CUDA
-    tensor; the twin and autograd through the twin for a CPU tensor.  On
-    the card the forward saves ``h``, ``c`` and the gate activations, not
-    ``xw``: the backward reads the gates instead of recomputing ``xw + h whh``.
-    It takes float32 only, also in the bf16 compute mode: ``ops/lstm.py``
-    casts around it where JAX casts around its kernel, which upcasts its
-    bf16 inputs and runs the recurrence in float32 too."""
+    """The recurrence with its gradient on the card: kernels #3 and #4 (a
+    CPU tensor takes autograd through the twin, in :func:`lstm_scan_packed`).
+    The forward saves ``h``, ``c`` and the gate activations, not ``xw``: the
+    backward reads the gates instead of recomputing ``xw + h whh``.  It
+    takes float32 only, also in the bf16 compute mode: ``ops/lstm.py`` casts
+    around it where JAX casts around its kernel, which upcasts its bf16
+    inputs and runs the recurrence in float32 too."""
 
     @staticmethod
     def forward(ctx, xw, whh):
-        if xw.device.type == "cpu":
-            ctx.save_for_backward(xw, whh)
-            return lstm_scan_reference(xw, whh)
         h, c, gates = _launch_forward(xw, whh, return_c=True, save_gates=True)
         ctx.save_for_backward(whh, h, c, gates)
         return h
 
     @staticmethod
     def backward(ctx, g):
-        if ctx.saved_tensors[0].device.type == "cpu":
-            xw, whh = ctx.saved_tensors
-            with torch.enable_grad():
-                xs = xw.detach().requires_grad_()
-                ws = whh.detach().requires_grad_()
-                return torch.autograd.grad(lstm_scan_reference(xs, ws), (xs, ws), g)
         whh, h, c, gates = ctx.saved_tensors
         return lstm_scan_backward(whh, h, c, gates, g)
 

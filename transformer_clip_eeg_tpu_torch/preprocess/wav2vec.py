@@ -18,7 +18,10 @@ reference's behaviour (ref ``preprocess_audio/create_wav2vec.py``):
 * the main loop: ``stimuli/eeg/*.npz.gz`` in reverse sorted order,
   ``noise_``/``t_`` files skipped, gunzipped, extracted, resampled 50 → 64
   Hz by ``scipy.signal.resample``, saved as ``{story}_-_wav2vec_{layer}.npy``
-  in float32; a story whose first layer's file exists is skipped.
+  in float32; a story whose first layer's file exists is skipped.  The
+  unzipped audio and each feature file are written under a temporary name
+  and renamed when whole, a story's first layer last, so a run stopped at
+  any point resumes with the stories it had not finished.
 
 Equal-length chunks run as batches of at most ``max_chunk_batch`` (the conv
 encoder's first activation is [512, 32000] floats a 10 s chunk), each slab
@@ -38,6 +41,7 @@ over the data axis with the pad rows stripped.  Rank 0 writes the files.
 
 from __future__ import annotations
 
+import contextlib
 import glob
 import gzip
 import json
@@ -199,6 +203,21 @@ class Wav2Vec2FeatureExtractor:
         return {layer: np.vstack(v) for layer, v in outputs.items()}
 
 
+@contextlib.contextmanager
+def _replaced_on_close(path: str):
+    """A binary file that appears at ``path`` whole or not at all: written
+    under a temporary name beside it and renamed once closed, so a run
+    stopped mid-write leaves no partial file for the skip rule to keep."""
+    tmp = f"{path}.partial"
+    try:
+        with open(tmp, "wb") as f:
+            yield f
+        os.replace(tmp, path)
+    finally:
+        if os.path.exists(tmp):
+            os.remove(tmp)
+
+
 def extract_stimulus_features(extractor: Wav2Vec2FeatureExtractor, stimuli_dir: str,
                               save_dir: str, overlap: int = 2, segment_length: int = 8,
                               final_rate_hz: int = FINAL_RATE_HZ) -> List[str]:
@@ -220,7 +239,7 @@ def extract_stimulus_features(extractor: Wav2Vec2FeatureExtractor, stimuli_dir: 
         say("Processing", story)
         unzipped_name = path.rsplit(".gz", 1)[0]
         if writer and not os.path.exists(unzipped_name):
-            with gzip.open(path, "rb") as f_in, open(unzipped_name, "wb") as f_out:
+            with gzip.open(path, "rb") as f_in, _replaced_on_close(unzipped_name) as f_out:
                 shutil.copyfileobj(f_in, f_out)
         # the other ranks read the file rank 0 unzipped, and take the same
         # skip decision (rank 0 writes a story's files only after every rank
@@ -234,14 +253,20 @@ def extract_stimulus_features(extractor: Wav2Vec2FeatureExtractor, stimuli_dir: 
                                                segment_length=segment_length)
         if not writer:
             continue
-        for layer, value in features.items():
-            number_of_samples = round(value.shape[0] * float(final_rate_hz)
-                                      / extractor.frames_per_s)
-            value = scipy.signal.resample(value, number_of_samples)
-            save_name = os.path.join(save_dir, f"{story}_-_wav2vec_{layer}.npy")
-            np.save(save_name, value)
-            saved.append(save_name)
+        # the files are renamed into place in reverse, so the first layer's,
+        # which the skip rule reads, appears only once the others have
+        story_saved = []
+        with contextlib.ExitStack() as files:
+            for layer, value in features.items():
+                number_of_samples = round(value.shape[0] * float(final_rate_hz)
+                                          / extractor.frames_per_s)
+                value = scipy.signal.resample(value, number_of_samples)
+                save_name = os.path.join(save_dir, f"{story}_-_wav2vec_{layer}.npy")
+                np.save(files.enter_context(_replaced_on_close(save_name)), value)
+                story_saved.append(save_name)
+        for save_name in story_saved:
             print(f"Saved to '{save_name}'.")
+        saved += story_saved
     return saved
 
 
