@@ -14,6 +14,7 @@ from transformer_clip_eeg_tpu_torch.ops.fused_block import (
     DropoutConfig,
     drop_args,
     fused_block_backward,
+    fused_block_backward_reference,
     fused_block_forward_cuda,
     fused_block_saved_reference,
     fused_transformer_block,
@@ -87,10 +88,12 @@ def test_fused_block_kernel_refuses_long_windows(cuda):
     lib = _build.load()
     small = torch.zeros(64, device=cuda)
     ptrs = (torch.zeros(16, dtype=torch.int64) + small.data_ptr()).numpy()
-    rc = lib.tce_fused_block_fwd(small.data_ptr(), small.data_ptr(), ptrs.ctypes.data, 1, 4096,
-                                 64, 8, 256, 0.125, *drop_args(DropoutConfig(), 1),
-                                 small.data_ptr(), 0, torch.cuda.current_stream().cuda_stream)
-    assert rc == 1  # cudaErrorInvalidValue
+    for bf16_mode in (0, 1):
+        rc = lib.tce_fused_block_fwd(small.data_ptr(), small.data_ptr(), ptrs.ctypes.data, 1,
+                                     4096, 64, 8, 256, 0.125, *drop_args(DropoutConfig(), 1),
+                                     small.data_ptr(), 0, bf16_mode,
+                                     torch.cuda.current_stream().cuda_stream)
+        assert rc == 1, bf16_mode  # cudaErrorInvalidValue
     torch.cuda.synchronize()
 
 
@@ -567,6 +570,72 @@ def test_block_backward_at_the_longest_window(cuda):
         assert _err(a, w) <= 1e-4, (i, _err(a, w))
 
 
+# ---- the bf16 mode: #1 and #2 on the tensor cores --------------------------------
+# Both sides round the same operands to bf16 and sum in f32 in another order,
+# so an intermediate may flip by one bf16 unit where two sums straddle a
+# rounding boundary: bf16 outputs (out, the saved planes, dx) within 8e-3 of
+# max |twin| (two units), each f32 parameter gradient within 1e-2 of its own
+# largest value (the key bias's, zero in exact arithmetic, of the query
+# bias's), the limits of one module in tests/test_torch_port_bf16_block.py.
+BF16_OUT_TOL = 8e-3
+BF16_GRAD_TOL = 1e-2
+
+
+def _rel(got, want):
+    got, want = got.float(), want.float()
+    return float((got - want).abs().max()) / float(want.abs().max())
+
+
+@pytest.mark.parametrize("b,t", [(3, 33), (8, MAX_KERNEL_T)], ids=["B3T33", "B8T1699"])
+@pytest.mark.parametrize("training", [False, True], ids=["eval", "dropout"])
+def test_bf16_block_kernels_match_twins_at_ragged_shapes(cuda, b, t, training):
+    """#1 and #2's bf16 kernels on a bf16 x and g against the twins: out,
+    what the forward saves, dx and the 16 parameter gradients.  T=33 leaves a
+    partial query tile, key step, warp and row tile; T=1,699 is the longest
+    window, with B=8 a batch tile of 8."""
+    x, params, g = _block_inputs(b, t, 70 + b, cuda)
+    xb, gb = x.to(torch.bfloat16), g.to(torch.bfloat16)
+    drop = DropoutConfig(training, 17, 0.5, 0.5)
+    before = (fused_transformer_block.launches_bf16, fused_block_backward.launches_bf16)
+    with torch.no_grad():
+        out, saved = fused_block_forward_cuda(xb, params, 8, 8.0, drop, save=True)
+        dx, dparams = fused_block_backward(xb, params, gb, saved, 8, 8.0, drop)
+        torch.cuda.synchronize()
+        assert (fused_transformer_block.launches_bf16,
+                fused_block_backward.launches_bf16) == (before[0] + 1, before[1] + 1)
+        assert out.dtype == dx.dtype == torch.bfloat16
+        assert _rel(out, fused_transformer_block_reference(xb, params, 8, 8.0, *drop)) \
+            <= BF16_OUT_TOL
+        want_saved = fused_block_saved_reference(xb, params, 8, 8.0, drop)
+        n = x.numel()
+        for i, name in enumerate(("q", "k", "v", "ctx", "x1", "lse")):
+            part = slice(i * n, (i + 1) * n if i < 5 else None)
+            assert _rel(saved[part], want_saved[part]) <= BF16_OUT_TOL, name
+        del want_saved
+        want_dx, want_dp = fused_block_backward_reference(xb, params, gb, 8, 8.0, drop)
+    assert _rel(dx, want_dx) <= BF16_OUT_TOL
+    for i, (a, w) in enumerate(zip(dparams, want_dp)):
+        scale = float(want_dp[5 if i == 6 else i].abs().max())
+        assert float((a - w).abs().max()) <= BF16_GRAD_TOL * scale, i
+
+
+def test_bf16_block_kernels_repeat_bit_for_bit(cuda):
+    """No atomics and a fixed summation order in the bf16 kernels: two calls
+    give the same bits in out, in everything saved and in every gradient."""
+    x, params, g = _block_inputs(37, 192, 72, cuda)
+    xb, gb = x.to(torch.bfloat16), g.to(torch.bfloat16)
+    for drop in (DropoutConfig(), DropoutConfig(True, 9, 0.5, 0.5)):
+        runs = [fused_block_forward_cuda(xb, params, 8, 8.0, drop, save=True)
+                for _ in range(2)]
+        grads = [fused_block_backward(xb, params, gb, runs[0][1], 8, 8.0, drop)
+                 for _ in range(2)]
+        torch.cuda.synchronize()
+        assert torch.equal(runs[0][0], runs[1][0]) and torch.equal(runs[0][1], runs[1][1])
+        assert torch.equal(grads[0][0], grads[1][0])
+        for i, (a, b) in enumerate(zip(grads[0][1], grads[1][1])):
+            assert torch.equal(a, b), i
+
+
 # ---- the weight-gradient tile (csrc/wgrad.cuh) through its callers ----------------
 
 @pytest.mark.parametrize("t", [1, 7, 192, 218, 256, 320])
@@ -675,11 +744,12 @@ def test_weight_gradient_entry_points_refuse_what_they_cannot_copy(cuda):
     long_t = 4096
     small = torch.zeros(64, device=cuda)
     ptrs = (torch.zeros(16, dtype=torch.int64) + small.data_ptr()).numpy()
-    rc = lib.tce_fused_block_bwd(small.data_ptr(), small.data_ptr(), small.data_ptr(),
-                                 ptrs.ctypes.data, small.data_ptr(), ptrs.ctypes.data,
-                                 small.data_ptr(), 1, long_t, 64, 8, 256, 0.125,
-                                 *drop_args(DropoutConfig(), 1), stream)
-    assert rc == 1
+    for bf16_mode in (0, 1):
+        rc = lib.tce_fused_block_bwd(small.data_ptr(), small.data_ptr(), small.data_ptr(),
+                                     ptrs.ctypes.data, small.data_ptr(), ptrs.ctypes.data,
+                                     small.data_ptr(), 1, long_t, 64, 8, 256, 0.125,
+                                     *drop_args(DropoutConfig(), 1), bf16_mode, stream)
+        assert rc == 1, bf16_mode
     torch.cuda.synchronize()
 
 

@@ -28,9 +28,7 @@ __device__ __forceinline__ float operand(float v) {
   return R ? round_bf16(v) : v;
 }
 
-__device__ __forceinline__ float to_f32(float v) { return v; }
 __device__ __forceinline__ float to_f32(bf16 v) { return __bfloat162float(v); }
-__device__ __forceinline__ void store_as(float* p, float v) { *p = v; }
 __device__ __forceinline__ void store_as(bf16* p, float v) { *p = __float2bfloat16_rn(v); }
 // two consecutive elements (aligned to their pair) as a float2, and back
 __device__ __forceinline__ float2 load2(const float* p) {
@@ -99,36 +97,33 @@ __device__ __forceinline__ float dot8(const float (&a)[8], const float (&b)[8]) 
   return s0 + s1;
 }
 
-// N consecutive floats of device memory (16-byte aligned) into registers,
-// rounded to bf16 when R
-template <int N, bool R = false>
+// N consecutive floats of device memory (16-byte aligned) into registers
+template <int N>
 __device__ __forceinline__ void load_row(const float* __restrict__ src,
                                          float (&w)[N]) {
   const float4* s4 = reinterpret_cast<const float4*>(src);
 #pragma unroll
   for (int i = 0; i < N / 4; ++i) {
     const float4 v = __ldg(s4 + i);
-    w[4 * i] = operand<R>(v.x);
-    w[4 * i + 1] = operand<R>(v.y);
-    w[4 * i + 2] = operand<R>(v.z);
-    w[4 * i + 3] = operand<R>(v.w);
+    w[4 * i] = v.x;
+    w[4 * i + 1] = v.y;
+    w[4 * i + 2] = v.z;
+    w[4 * i + 3] = v.w;
   }
 }
 
-// dot product of a 16-byte aligned shared-memory row with a register row;
-// R rounds the row's values to bf16 as they are read (the register row is
-// the caller's to round)
-template <int N, bool R = false>
+// dot product of a 16-byte aligned shared-memory row with a register row
+template <int N>
 __device__ __forceinline__ float dot_row(const float* row, const float (&w)[N]) {
   const float4* r4 = reinterpret_cast<const float4*>(row);
   float a0 = 0.f, a1 = 0.f, a2 = 0.f, a3 = 0.f;
 #pragma unroll
   for (int i = 0; i < N / 4; ++i) {
     const float4 v = r4[i];
-    a0 = fmaf(operand<R>(v.x), w[4 * i], a0);
-    a1 = fmaf(operand<R>(v.y), w[4 * i + 1], a1);
-    a2 = fmaf(operand<R>(v.z), w[4 * i + 2], a2);
-    a3 = fmaf(operand<R>(v.w), w[4 * i + 3], a3);
+    a0 = fmaf(v.x, w[4 * i], a0);
+    a1 = fmaf(v.y, w[4 * i + 1], a1);
+    a2 = fmaf(v.z, w[4 * i + 2], a2);
+    a3 = fmaf(v.w, w[4 * i + 3], a3);
   }
   return (a0 + a1) + (a2 + a3);
 }
@@ -145,6 +140,14 @@ __device__ __forceinline__ void layernorm_row(const float* src, float* dst,
   const float inv = rsqrtf(var + 1e-5f);
   dst[lane] = d0 * inv * __ldg(g + lane) + __ldg(b + lane);
   dst[lane + 32] = d1 * inv * __ldg(g + lane + 32) + __ldg(b + lane + 32);
+}
+
+// 2^x on the SFU alone (ex2.approx.ftz: a result below 2^-126 is 0), for the
+// bf16 attentions' probabilities
+__device__ __forceinline__ float exp2_sfu(float x) {
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;" : "=f"(y) : "f"(x));
+  return y;
 }
 
 // d gelu(x) / dx for the exact-erf GELU

@@ -51,3 +51,16 @@ __device__ __forceinline__ float drop_mult(uint32_t key, uint32_t idx,
                                            uint32_t thr, float keep) {
   return drop_bits(key, idx) >= thr ? keep : 0.f;
 }
+
+// The block's row-wise masks (ids H .. H + 2, shape [tb T, width]): the
+// tile's key base and the row of the tile's mask for row `row` of the B*T;
+// element e of a mask of width w is at row * w + e
+struct RowDrop {
+  uint32_t seed_base, row;
+};
+
+__device__ __forceinline__ RowDrop row_drop(const DropCfg& drop, int row, int T) {
+  const int b = row / T;
+  const DropSample ds = drop_sample(drop, b, BLOCK_TILE_MULT);
+  return RowDrop{ds.seed_base, (uint32_t)(ds.local * T + (row - b * T))};
+}

@@ -70,21 +70,20 @@
 // repeat bit for bit.
 //
 // The bf16 mode (the JAX kernel's mm_dtype='bfloat16', --compute_dtype
-// bfloat16) is a second instantiation of each kernel, on XT = bf16: x is read
-// and out written in bf16, every product takes operands rounded to bf16 with
-// f32 sums, and everything else (LayerNorms, softmax, GELU, masks, residuals)
-// stays f32.  The row products are one mma.sync m16n8k16 bf16 product each
-// (rowtile.cuh, rounding as the fragments load) in place of split TF32's
-// three.  q, k, v and the context are operands only, so they are rounded
-// where they are made and kept as bf16 values in the f32 planes of `work`
-// (the layout the backward reads).  The attention rounds the probabilities
-// as JAX does, after they are normalised and dropped out; an online softmax
-// would round exp(s - m) before the sum is known, and bf16(e) / l is not
-// bf16(e / l), so the bf16 attention walks the keys twice: once for the
-// row's max and sum, once for the context.  Bound at the flagship shape:
+// bfloat16) is a second instantiation of the row kernels, on XT = bf16, and
+// an attention kernel of its own: x is read and out written in bf16, every
+// product takes operands rounded to bf16 with f32 sums, and everything else
+// (LayerNorms, softmax, GELU, masks, residuals) stays f32.  The row products
+// are one mma.sync m16n8k16 bf16 product each (rowtile.cuh, rounding as the
+// fragments load) in place of split TF32's three.  q, k, v and the context
+// are operands only, so they are rounded where they are made and kept as
+// bf16 values in the f32 planes of `work` (the layout the backward reads).
+// The attention (attn_fwd_bf16_kernel, 2' below) runs both of its products on
+// the tensor cores and walks the keys twice, since JAX rounds the
+// probabilities after they are normalised.  Bound at the flagship shape:
 // 3.62 GFLOP of products at 989 TFLOP/s dense bf16 (3.7 us) against 6.3 MB
 // of bf16 x and out plus 25 MB of f32 planes written and read back by the
-// three launches; the simple version is bound by neither (PERF.md).
+// three launches (PERF.md).
 
 #include <cuda_runtime.h>
 #include <math.h>
@@ -245,72 +244,10 @@ __device__ __forceinline__ void attn_step(const float* Ks, const float* Vs, int 
   }
 }
 
-// The bf16 mode's two passes.  The scores of one tile of KT keys from j0 on
-// for a thread's two queries (-inf past T when RAGGED)
-template <bool RAGGED>
-__device__ __forceinline__ void tile_scores(const float* Ks, int j0, int T,
-                                            const float (&qv)[NQ][D], float (&s)[NQ][KT]) {
-#pragma unroll
-  for (int jj = 0; jj < KT; ++jj) {
-    float kk[D];
-    load8(Ks + (j0 + jj) * D, kk);
-#pragma unroll
-    for (int u = 0; u < NQ; ++u) {
-      s[u][jj] = dot8(qv[u], kk);
-      if (RAGGED && j0 + jj >= T) s[u][jj] = -INFINITY;
-    }
-  }
-}
-
-// pass 1: the running max m and sum l of the clean probabilities
-template <bool RAGGED>
-__device__ __forceinline__ void attn_stats_bf16(const float* Ks, int j0, int T,
-                                                const float (&qv)[NQ][D], float (&m)[NQ],
-                                                float (&l)[NQ]) {
-  float s[NQ][KT];
-  tile_scores<RAGGED>(Ks, j0, T, qv, s);
-#pragma unroll
-  for (int u = 0; u < NQ; ++u) {
-    float tmax = -INFINITY;
-#pragma unroll
-    for (int jj = 0; jj < KT; ++jj) tmax = fmaxf(tmax, s[u][jj]);
-    const float mn = fmaxf(m[u], tmax);
-    l[u] *= exp2f(m[u] - mn);
-    m[u] = mn;
-#pragma unroll
-    for (int jj = 0; jj < KT; ++jj) l[u] += exp2f(s[u][jj] - mn);
-  }
-}
-
-// pass 2: acc += bf16(mask * 2^(s - m) / l) v, the probabilities normalised
-// and dropped out before they are rounded, as JAX rounds p as p.v's operand
-template <bool RAGGED, bool DROP>
-__device__ __forceinline__ void attn_accum_bf16(const float* Ks, const float* Vs, int j0, int T,
-                                                const float (&qv)[NQ][D], const float (&m)[NQ],
-                                                const float (&l)[NQ], float (&acc)[NQ][D],
-                                                uint32_t key, const uint32_t (&idx)[NQ],
-                                                const DropCfg& drop) {
-  float s[NQ][KT];
-  tile_scores<RAGGED>(Ks, j0, T, qv, s);
-#pragma unroll
-  for (int jj = 0; jj < KT; ++jj) {
-    float vv[D];
-    load8(Vs + (j0 + jj) * D, vv);
-#pragma unroll
-    for (int u = 0; u < NQ; ++u) {
-      float p = exp2f(s[u][jj] - m[u]) / l[u];
-      if (DROP) p *= drop_mult(key, idx[u] + (uint32_t)(j0 + jj), drop.thr, drop.keep);
-      p = round_bf16(p);
-#pragma unroll
-      for (int d = 0; d < D; ++d) acc[u][d] = fmaf(p, vv[d], acc[u][d]);
-    }
-  }
-}
-
 // (one CTA an SM is all the bound asks for: the compiler then takes the
 // registers it wants, 104 in eval and 138 with the mask hash, which measured
 // 10% faster in training than the 116-125 it settles on unasked)
-template <bool DROP, bool BF16>
+template <bool DROP>
 __global__ void __launch_bounds__(ATT_NT, 1)
 attn_fwd_kernel(const float* __restrict__ q, const float* __restrict__ k,
                 const float* __restrict__ v, float* __restrict__ ctx,
@@ -360,24 +297,16 @@ attn_fwd_kernel(const float* __restrict__ q, const float* __restrict__ k,
       idx[u] = (uint32_t)(ds.local * T + t[u]) * (uint32_t)T;
     }
     int j0 = 0;
-    if constexpr (BF16) {
-      for (; j0 + KT <= T; j0 += KT) attn_stats_bf16<false>(Ks, j0, T, qv, m, l);
-      if (j0 < T) attn_stats_bf16<true>(Ks, j0, T, qv, m, l);
-      for (j0 = 0; j0 + KT <= T; j0 += KT)
-        attn_accum_bf16<false, DROP>(Ks, Vs, j0, T, qv, m, l, acc, key, idx, drop);
-      if (j0 < T) attn_accum_bf16<true, DROP>(Ks, Vs, j0, T, qv, m, l, acc, key, idx, drop);
-    } else {
-      for (; j0 + KT <= T; j0 += KT)
-        attn_step<false, DROP>(Ks, Vs, j0, T, qv, m, l, acc, key, idx, drop);
-      if (j0 < T) attn_step<true, DROP>(Ks, Vs, j0, T, qv, m, l, acc, key, idx, drop);
-    }
+    for (; j0 + KT <= T; j0 += KT)
+      attn_step<false, DROP>(Ks, Vs, j0, T, qv, m, l, acc, key, idx, drop);
+    if (j0 < T) attn_step<true, DROP>(Ks, Vs, j0, T, qv, m, l, acc, key, idx, drop);
 
 #pragma unroll
     for (int u = 0; u < NQ; ++u) {
       if (!live[u]) continue;
-      const float inv = 1.0f / l[u];  // the bf16 context is normalised already
+      const float inv = 1.0f / l[u];
 #pragma unroll
-      for (int d = 0; d < D; ++d) acc[u][d] = BF16 ? round_bf16(acc[u][d]) : acc[u][d] * inv;
+      for (int d = 0; d < D; ++d) acc[u][d] *= inv;
       store8(ctx + base + (size_t)t[u] * E, acc[u]);
       if (lse != nullptr)  // the row's log-sum-exp: P = exp(s / scale - lse)
         lse[((size_t)b * H + h) * T + t[u]] = m[u] * 0.69314718055994531f + logf(l[u]);
@@ -385,18 +314,177 @@ attn_fwd_kernel(const float* __restrict__ q, const float* __restrict__ k,
   }
 }
 
-// ---- 3. out-projection, residual, LN2 and the FFN --------------------------------
-// the tile's (key base, row of the sample's mask) for row `row` of the B*T
-struct RowDrop {
-  uint32_t seed_base, row;
-};
+// ---- 2'. the bf16 mode's attention, on the tensor cores --------------------------
+// JAX rounds the probabilities as p.v's operand, after they are normalised and
+// dropped out; an online softmax would round 2^(s - m) before the sum is
+// known, and bf16(e) / l is not bf16(e / l), so the keys are walked twice:
+// once for each row's max m and sum l, once for the context.  A warp takes a
+// tile of BQT queries (q as the A operand of m16n8k8, k = the head's 8
+// columns), the head's K and V wait as bf16 rows in shared memory, and each
+// pass walks the keys BKT at a time: S = Q K^T (ldmatrix, four m16n8k8
+// blocks), times log2(e) / scale in f32.  Pass 1 keeps each row's max and
+// this lane's share of the sum (the 4 lanes of a row agree on the max after
+// each step and add their sums at the end); pass 2 forms p = bf16(mask 2^(s -
+// m) / l) in the accumulators' places, which for two adjacent 8-key blocks
+// are the A fragment of m16n8k16, and adds p V (V by ldmatrix.trans).  Keys
+// past T score -inf and their V rows are zero.
+constexpr int BQT = 16;         // queries a warp's tile
+constexpr int BKT = 32;         // keys a step of the two passes; K and V padded to it
+constexpr int BATT_WARPS = 8;   // most warps of attn_fwd_bf16_kernel
 
-__device__ __forceinline__ RowDrop row_drop(const DropCfg& drop, int row, int T) {
-  const int b = row / T;
-  const DropSample ds = drop_sample(drop, b, BLOCK_TILE_MULT);
-  return RowDrop{ds.seed_base, (uint32_t)(ds.local * T + (row - b * T))};
+// the scores q.k of keys j0 .. j0 + BKT - 1 for the warp's queries (-inf
+// past T when RAGGED): s[nb][c] at row g (c < 2) or g + 8, key j0 + 8 nb +
+// 2 (lane % 4) + c % 2
+template <bool RAGGED>
+__device__ __forceinline__ void bf16_scores(const rowtile::bf16_t* Kb, int j0, int T,
+                                            const uint32_t (&qa)[2], int lane, float (&s)[4][4]) {
+  uint32_t kb[4];
+  rowtile::ldsm4<false>(kb, Kb + (j0 + lane) * D);
+#pragma unroll
+  for (int nb = 0; nb < 4; ++nb) {
+#pragma unroll
+    for (int c = 0; c < 4; ++c) s[nb][c] = 0.f;
+    rowtile::mma_bf16_k8(s[nb], qa, kb[nb]);
+#pragma unroll
+    for (int c = 0; c < 4; ++c)
+      if (RAGGED && j0 + 8 * nb + 2 * (lane & 3) + (c & 1) >= T) s[nb][c] = -INFINITY;
+  }
 }
 
+// pass 1, one step of keys: the rows' running max m of s qscale (the 4 lanes
+// of a row agree on it) and this lane's share of the sum l of 2^(s qscale - m)
+template <bool RAGGED>
+__device__ __forceinline__ void bf16_stats_step(const rowtile::bf16_t* Kb, int j0, int T,
+                                                const uint32_t (&qa)[2], float qscale, int lane,
+                                                float (&m)[2], float (&l)[2]) {
+  float s[4][4];
+  bf16_scores<RAGGED>(Kb, j0, T, qa, lane, s);
+#pragma unroll
+  for (int hh = 0; hh < 2; ++hh) {
+    float tmax = -INFINITY;
+#pragma unroll
+    for (int nb = 0; nb < 4; ++nb) tmax = fmaxf(tmax, fmaxf(s[nb][2 * hh], s[nb][2 * hh + 1]));
+    tmax = fmaxf(tmax, __shfl_xor_sync(0xffffffffu, tmax, 1));
+    tmax = fmaxf(tmax, __shfl_xor_sync(0xffffffffu, tmax, 2));
+    const float mn = fmaxf(m[hh], tmax * qscale);  // qscale > 0: the max of the scaled
+    l[hh] *= exp2_sfu(m[hh] - mn);
+    m[hh] = mn;
+#pragma unroll
+    for (int nb = 0; nb < 4; ++nb)
+#pragma unroll
+      for (int c = 2 * hh; c < 2 * hh + 2; ++c) l[hh] += exp2_sfu(fmaf(s[nb][c], qscale, -mn));
+  }
+}
+
+// pass 2, one step of keys: acc += bf16(mask 2^(s qscale - m) / l) v
+template <bool RAGGED, bool DROP>
+__device__ __forceinline__ void bf16_ctx_step(const rowtile::bf16_t* Kb,
+                                              const rowtile::bf16_t* Vb, int j0, int T,
+                                              const uint32_t (&qa)[2], float qscale,
+                                              const float (&m)[2], const float (&inv_l)[2],
+                                              const uint32_t (&idx)[2], uint32_t key,
+                                              const DropCfg& drop, int lane, float (&acc)[4]) {
+  float s[4][4];
+  bf16_scores<RAGGED>(Kb, j0, T, qa, lane, s);
+  uint32_t vb[4];  // V's keys j0 + 8 i .. + 7 as B fragments (k = keys)
+  rowtile::ldsm4<true>(vb, Vb + (j0 + lane) * D);
+#pragma unroll
+  for (int ks = 0; ks < 2; ++ks) {
+    uint32_t pa[4];
+#pragma unroll
+    for (int nbi = 0; nbi < 2; ++nbi) {
+      const int nb = 2 * ks + nbi;
+#pragma unroll
+      for (int hh = 0; hh < 2; ++hh) {
+        float p[2];
+#pragma unroll
+        for (int c = 0; c < 2; ++c) {
+          p[c] = exp2_sfu(fmaf(s[nb][2 * hh + c], qscale, -m[hh])) * inv_l[hh];
+          if (DROP)
+            p[c] *= drop_mult(key, idx[hh] + (uint32_t)(j0 + 8 * nb + 2 * (lane & 3) + c),
+                              drop.thr, drop.keep);
+        }
+        pa[2 * nbi + hh] = rowtile::pack_bf16(p[0], p[1]);
+      }
+    }
+    const uint32_t bv[2] = {vb[2 * ks], vb[2 * ks + 1]};
+    rowtile::mma_bf16(acc, pa, bv);
+  }
+}
+
+template <bool DROP>
+__global__ void __launch_bounds__(32 * BATT_WARPS)
+attn_fwd_bf16_kernel(const float* __restrict__ q, const float* __restrict__ k,
+                     const float* __restrict__ v, float* __restrict__ ctx,
+                     float* __restrict__ lse, int T, float qscale, DropCfg drop) {
+  extern __shared__ __align__(16) float smem[];
+  const int Tp = (T + BKT - 1) / BKT * BKT;
+  rowtile::bf16_t* Kb = reinterpret_cast<rowtile::bf16_t*>(smem);  // [Tp][D]
+  rowtile::bf16_t* Vb = Kb + Tp * D;                               // [Tp][D]
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5, nw = blockDim.x >> 5;
+  const int g8 = lane >> 2, t4 = lane & 3;
+  const int b = blockIdx.x / H, h = blockIdx.x % H;
+  const size_t base = (size_t)b * T * E + h * D;
+
+  for (int j = tid; j < Tp; j += blockDim.x) {
+    float kv[D], vv[D];
+#pragma unroll
+    for (int d = 0; d < D; ++d) kv[d] = vv[d] = 0.f;
+    if (j < T) {
+      load8(k + base + (size_t)j * E, kv);
+      load8(v + base + (size_t)j * E, vv);
+    }
+    rowtile::store_bf16x8(Kb + j * D, kv);
+    rowtile::store_bf16x8(Vb + j * D, vv);
+  }
+  __syncthreads();
+
+  const DropSample ds = drop_sample(drop, b, BLOCK_TILE_MULT);
+  const uint32_t key = ds.seed_base + (uint32_t)h;
+  for (int t0 = BQT * warp; t0 < T; t0 += BQT * nw) {
+    const int tq[2] = {t0 + g8, t0 + g8 + 8};
+    uint32_t qa[2], idx[2];  // idx: the mask's index of (t, 0), (local T + t) T, mod 2^32
+#pragma unroll
+    for (int hh = 0; hh < 2; ++hh) {
+      const float2 qq = tq[hh] < T
+                            ? *reinterpret_cast<const float2*>(q + base + (size_t)tq[hh] * E + 2 * t4)
+                            : make_float2(0.f, 0.f);
+      qa[hh] = rowtile::pack_bf16(qq.x, qq.y);
+      idx[hh] = (uint32_t)(ds.local * T + tq[hh]) * (uint32_t)T;
+    }
+
+    // pass 1: each row's max m and the sum l of 2^(s - m), the clean probabilities
+    float m[2] = {-INFINITY, -INFINITY}, l[2] = {0.f, 0.f};
+    int j0 = 0;
+    for (; j0 + BKT <= T; j0 += BKT) bf16_stats_step<false>(Kb, j0, T, qa, qscale, lane, m, l);
+    if (j0 < T) bf16_stats_step<true>(Kb, j0, T, qa, qscale, lane, m, l);
+    float inv_l[2];
+#pragma unroll
+    for (int hh = 0; hh < 2; ++hh) {
+      l[hh] += __shfl_xor_sync(0xffffffffu, l[hh], 1);
+      l[hh] += __shfl_xor_sync(0xffffffffu, l[hh], 2);
+      inv_l[hh] = 1.0f / l[hh];
+    }
+
+    // pass 2: ctx += bf16(mask 2^(s - m) / l) v
+    float acc[4] = {0.f, 0.f, 0.f, 0.f};
+    for (j0 = 0; j0 + BKT <= T; j0 += BKT)
+      bf16_ctx_step<false, DROP>(Kb, Vb, j0, T, qa, qscale, m, inv_l, idx, key, drop, lane, acc);
+    if (j0 < T)
+      bf16_ctx_step<true, DROP>(Kb, Vb, j0, T, qa, qscale, m, inv_l, idx, key, drop, lane, acc);
+
+#pragma unroll
+    for (int hh = 0; hh < 2; ++hh) {
+      if (tq[hh] >= T) continue;
+      *reinterpret_cast<float2*>(ctx + base + (size_t)tq[hh] * E + 2 * t4) =
+          make_float2(round_bf16(acc[2 * hh]), round_bf16(acc[2 * hh + 1]));
+      if (lse != nullptr && t4 == 0)  // the row's log-sum-exp: P = exp(s / scale - lse)
+        lse[((size_t)b * H + h) * T + tq[hh]] = m[hh] * 0.69314718055994531f + logf(l[hh]);
+    }
+  }
+}
+
+// ---- 3. out-projection, residual, LN2 and the FFN --------------------------------
 // v * the mask of elements idx, idx + 1 under `key`
 __device__ __forceinline__ float2 drop2(float2 v, uint32_t key, uint32_t idx, uint32_t thr,
                                         float keep) {
@@ -598,6 +686,18 @@ size_t attn_smem_bytes(int T) {
   return 2 * (size_t)((T + KT - 1) / KT * KT) * D * sizeof(float);
 }
 
+// warps of attn_fwd_bf16_kernel: as many as split the tiles of BQT queries
+// evenly over the fewest rounds of at most BATT_WARPS
+int attn_bf16_threads(int T) {
+  const int tiles = (T + BQT - 1) / BQT;
+  const int rounds = (tiles + BATT_WARPS - 1) / BATT_WARPS;
+  return 32 * ((tiles + rounds - 1) / rounds);
+}
+
+size_t attn_bf16_smem_bytes(int T) {
+  return 2 * (size_t)((T + BKT - 1) / BKT * BKT) * D * sizeof(rowtile::bf16_t);
+}
+
 cudaError_t set_smem(const void* fn, size_t bytes, int optin) {
   if (bytes > (size_t)optin) return cudaErrorInvalidValue;
   return cudaFuncSetAttribute(fn, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
@@ -623,12 +723,20 @@ cudaError_t launch_forward(const XT* x, XT* out, const BlockParams& P, int B, in
                                                                                k, v);
   if ((err = cudaGetLastError()) != cudaSuccess) return err;
   const float qscale = inv_scale * 1.4426950408889634f;
-  if (drop.on)
-    attn_fwd_kernel<true, BF16><<<B * H, attn_threads(T), attn_smem_bytes(T), st>>>(
+  if constexpr (BF16) {
+    if (drop.on)
+      attn_fwd_bf16_kernel<true><<<B * H, attn_bf16_threads(T), attn_bf16_smem_bytes(T), st>>>(
+          q, k, v, ctx, lse, T, qscale, drop);
+    else
+      attn_fwd_bf16_kernel<false><<<B * H, attn_bf16_threads(T), attn_bf16_smem_bytes(T),
+                                    st>>>(q, k, v, ctx, lse, T, qscale, drop);
+  } else if (drop.on) {
+    attn_fwd_kernel<true><<<B * H, attn_threads(T), attn_smem_bytes(T), st>>>(
         q, k, v, ctx, lse, T, qscale, drop);
-  else
-    attn_fwd_kernel<false, BF16><<<B * H, attn_threads(T), attn_smem_bytes(T), st>>>(
+  } else {
+    attn_fwd_kernel<false><<<B * H, attn_threads(T), attn_smem_bytes(T), st>>>(
         q, k, v, ctx, lse, T, qscale, drop);
+  }
   if ((err = cudaGetLastError()) != cudaSuccess) return err;
   proj_ffn_kernel<XT><<<ffn_ctas, FFN_NT, FFN_SMEM_FLOATS * sizeof(float), st>>>(
       x, ctx, out, P, T, BT, drop, x1);
@@ -642,10 +750,10 @@ cudaError_t configure(int optin) {
   cudaError_t err;
   if ((err = set_smem((const void*)ln_qkv_kernel<float>, qkv_bytes, optin)) != cudaSuccess ||
       (err = set_smem((const void*)ln_qkv_kernel<bf16>, qkv_bytes, optin)) != cudaSuccess ||
-      (err = set_smem((const void*)attn_fwd_kernel<true, false>, optin, optin)) != cudaSuccess ||
-      (err = set_smem((const void*)attn_fwd_kernel<false, false>, optin, optin)) != cudaSuccess ||
-      (err = set_smem((const void*)attn_fwd_kernel<true, true>, optin, optin)) != cudaSuccess ||
-      (err = set_smem((const void*)attn_fwd_kernel<false, true>, optin, optin)) != cudaSuccess ||
+      (err = set_smem((const void*)attn_fwd_kernel<true>, optin, optin)) != cudaSuccess ||
+      (err = set_smem((const void*)attn_fwd_kernel<false>, optin, optin)) != cudaSuccess ||
+      (err = set_smem((const void*)attn_fwd_bf16_kernel<true>, optin, optin)) != cudaSuccess ||
+      (err = set_smem((const void*)attn_fwd_bf16_kernel<false>, optin, optin)) != cudaSuccess ||
       (err = set_smem((const void*)proj_ffn_kernel<float>, ffn_bytes, optin)) != cudaSuccess ||
       (err = set_smem((const void*)proj_ffn_kernel<bf16>, ffn_bytes, optin)) != cudaSuccess)
     return err;

@@ -28,9 +28,19 @@
 // staging, for one conversion a pair where split TF32 spends two splits and
 // three products.  An m16n8k16 fragment (lane 4 g + t) holds row g, or g + 8,
 // at columns 2 t, 2 t + 1, or + 8: float2 loads, which conflict two ways in
-// rows of K + 4 floats (a later layout in bf16 rows is the fix, not made yet).
+// rows of K + 4 floats (the forward's row kernels keep that layout; the bf16
+// attentions and the backward's bf16 row kernels stage bf16 rows, below).
+//
+// bf16 rows in shared memory.  Operands staged as bf16, each row padded by
+// BPAD values (16 bytes), are read by ldmatrix: lane l gives the address of
+// row l % 8 of matrix l / 8, and the 8 rows of a matrix then lie in 8
+// different 16-byte bank groups (rows of 64 or 256 values, 128 or 512 bytes,
+// would put all 8 in one).  ldmatrix.trans gives the B fragment of a product
+// whose B is stored [k][n] (Y = A W with W as torch stores it), movmatrix the
+// transpose of a fragment a warp already holds.
 #pragma once
 
+#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
@@ -174,6 +184,96 @@ __device__ __forceinline__ void mma_tile_mode(const float* a, const float* w,
     mma_tile_bf16<MB, NB, K, LDA, LDW>(a, w, acc, lane);
   else
     mma_tile<MB, NB, K, LDA, LDW>(a, w, acc, lane);
+}
+
+// ---- bf16 rows in shared memory (the header's last paragraph) ----------------------
+using bf16_t = __nv_bfloat16;
+constexpr int BPAD = 8;  // bf16 values added to every bf16 row: 16 bytes
+
+// c += a b for one block: a 16 x 8 (row major), b 8 x 8 (column major), bf16
+// operands, f32 sums (a: rows g, g + 8 at columns 2 t, 2 t + 1; b: rows 2 t,
+// 2 t + 1 at column g)
+__device__ __forceinline__ void mma_bf16_k8(float (&c)[4], const uint32_t (&a)[2], uint32_t b) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k8.row.col.f32.bf16.bf16.f32 {%0,%1,%2,%3}, {%4,%5}, {%6}, "
+      "{%0,%1,%2,%3};"
+      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
+      : "r"(a[0]), "r"(a[1]), "r"(b));
+}
+
+// Four 8 x 8 matrices of bf16 from shared memory: lane l gives the address of
+// row l % 8 of matrix l / 8 (16 bytes, 16-byte aligned); r[i] receives row
+// lane / 4 of matrix i (TRANS: of its transpose) at columns 2 (lane % 4) and
+// + 1, the lower column in the lower half, as a fragment of mma.sync
+template <bool TRANS>
+__device__ __forceinline__ void ldsm4(uint32_t (&r)[4], const bf16_t* p) {
+  const uint32_t addr = static_cast<uint32_t>(__cvta_generic_to_shared(p));
+  if constexpr (TRANS)
+    asm volatile("ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0,%1,%2,%3}, [%4];"
+                 : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+                 : "r"(addr));
+  else
+    asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0,%1,%2,%3}, [%4];"
+                 : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+                 : "r"(addr));
+}
+
+// the 8 x 8 bf16 matrix the warp holds as one register a lane (row lane / 4,
+// columns 2 (lane % 4), + 1), transposed
+__device__ __forceinline__ uint32_t movm_trans(uint32_t a) {
+  uint32_t d;
+  asm volatile("movmatrix.sync.aligned.m8n8.trans.b16 %0, %1;" : "=r"(d) : "r"(a));
+  return d;
+}
+
+// 8 floats as 8 bf16 (nearest even) at p, 16-byte aligned
+__device__ __forceinline__ void store_bf16x8(bf16_t* p, const float (&v)[8]) {
+  *reinterpret_cast<uint4*>(p) = make_uint4(pack_bf16(v[0], v[1]), pack_bf16(v[2], v[3]),
+                                            pack_bf16(v[4], v[5]), pack_bf16(v[6], v[7]));
+}
+
+// rows x K floats of device memory (row n at src + n K, 16-byte aligned) as
+// bf16 rows of LD values in shared memory; all nt threads call it
+template <int K, int LD>
+__device__ __forceinline__ void stage_bf16(bf16_t* dst, const float* __restrict__ src, int rows,
+                                           int tid, int nt) {
+  for (int c = tid; c < rows * (K / 4); c += nt) {
+    const int n = c / (K / 4), k = (c % (K / 4)) * 4;
+    const float4 v = __ldg(reinterpret_cast<const float4*>(src + (size_t)n * K + k));
+    *reinterpret_cast<uint2*>(dst + n * LD + k) =
+        make_uint2(pack_bf16(v.x, v.y), pack_bf16(v.z, v.w));
+  }
+}
+
+// acc[mi][ni] += A B over k < K (a multiple of 16), both bf16 rows in shared
+// memory: A the warp's MB x 16 rows from a, along k (rows LDA apart); B from
+// b, either [n][k] (KN false: rows LDB apart, one an output column, Y = A W^T
+// with W as torch stores it) or [k][n] (KN: rows LDB apart, Y = A W).  The
+// accumulator layout is mma_tile's; NB is even.
+template <int MB, int NB, int K, int LDA, int LDB, bool KN>
+__device__ __forceinline__ void mma_tile_smem(const bf16_t* a, const bf16_t* b,
+                                              float (&acc)[MB][NB][4], int lane) {
+  static_assert(NB % 2 == 0 && K % 16 == 0, "whole pairs of n-blocks, whole k-steps");
+  const bf16_t* ap = a + (lane & 15) * LDA + (lane >> 4) * 8;
+  const bf16_t* bp = KN ? b + (lane & 15) * LDB + (lane >> 4) * 8
+                        : b + ((lane >> 4) * 8 + (lane & 7)) * LDB + ((lane >> 3) & 1) * 8;
+#pragma unroll
+  for (int k = 0; k < K; k += 16) {
+    uint32_t af[MB][4];
+#pragma unroll
+    for (int mi = 0; mi < MB; ++mi) ldsm4<false>(af[mi], ap + 16 * mi * LDA + k);
+#pragma unroll
+    for (int nj = 0; nj < NB; nj += 2) {
+      uint32_t bf[4];  // n-blocks nj and nj + 1
+      ldsm4<KN>(bf, KN ? bp + k * LDB + 8 * nj : bp + 8 * nj * LDB + k);
+      const uint32_t b0[2] = {bf[0], bf[1]}, b1[2] = {bf[2], bf[3]};
+#pragma unroll
+      for (int mi = 0; mi < MB; ++mi) {
+        mma_bf16(acc[mi][nj], af[mi], b0);
+        mma_bf16(acc[mi][nj + 1], af[mi], b1);
+      }
+    }
+  }
 }
 
 // row and first column, inside the warp's tile, of acc[mi][ni][2 half], [2 half + 1]

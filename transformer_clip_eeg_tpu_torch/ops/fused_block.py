@@ -17,7 +17,7 @@ autograd through that twin.  There is no other path.
 On the card the block takes float32, E=64 with 8 heads, F=256 and any window
 of ``T <= MAX_KERNEL_T`` rows (26 s at 64 Hz): no kernel holds a whole sample
 in shared memory, and the limit that is left is one head's records in the
-attention backward.
+f32 attention backward (the bf16 one's are smaller: :func:`bf16_attention_plan`).
 
 The bf16 mode (``--compute_dtype bfloat16``; the JAX kernel's
 ``mm_dtype='bfloat16'``) is selected by a bfloat16 ``x`` and by nothing
@@ -27,8 +27,10 @@ rounded to bf16 (round to nearest even) and sums in float32; everything else
 float32, the attention probabilities are rounded only as an operand of
 ``p v`` (normalised and dropped out first), ``out`` and ``dx`` come back in
 bf16 and the 16 parameter gradients in float32.  The parameters stay
-float32.  On the card the kernels' bf16 instantiations run; on the CPU the
-twins below take the same mode from ``x``'s dtype, and the CPU backward in
+float32.  On the card the kernels' bf16 instantiations run, every product
+on the tensor cores (bf16 ``mma.sync``: #1's row products and attention,
+#2's row kernels and attention); on the CPU the twins below take the same
+mode from ``x``'s dtype, and the CPU backward in
 bf16 is :func:`fused_block_backward_reference` (autograd through the twin
 would round the gradients where the casts are, not where JAX's VJP rounds
 its operands).
@@ -107,10 +109,13 @@ def saved_numel(b: int, t: int, e: int, num_heads: int) -> int:
 ATTN_KEY_TILE = 16
 
 
-def attention_smem_bytes(t: int) -> int:
+def attention_smem_bytes(t: int, bf16: bool = False) -> int:
     """Shared memory of the forward's attention CTA for a window of ``t``
     rows (``attn_smem_bytes`` in ``csrc/fused_block.cu``): one head's K and V,
-    8 floats a row each, padded to whole key tiles."""
+    8 floats a row each, padded to whole key tiles; ``bf16``: the bf16
+    attention's (:func:`bf16_attention_plan`)."""
+    if bf16:
+        return bf16_attention_plan(t).fwd_smem_bytes
     d = KERNEL_E // KERNEL_H
     return 4 * 2 * d * (-(-t // ATTN_KEY_TILE) * ATTN_KEY_TILE)
 
@@ -132,6 +137,43 @@ def attention_backward_smem_bytes(t: int) -> int:
 # grow with T, the forward's attention keeps 64 bytes a row, the backward's 112
 # bytes a row beside 41 KB: 1,699 rows (26.5 s at 64 Hz)
 MAX_KERNEL_T = (SMEM_OPTIN_BYTES - 4 * 8 * _BWD_WARP_FLOATS) // (4 * _BWD_QUERY_FLOATS)
+
+# The bf16 mode's attentions run on the tensor cores (``attn_fwd_bf16_kernel``,
+# ``attn_bwd_bf16_kernel``): the forward's warps take tiles of 16 queries and
+# walk the keys 32 at a time, at most 8 warps; the backward's warps own 32
+# keys each, as the f32 backward's, and walk the queries 32 at a time.
+BF16_QUERY_TILE, BF16_KEY_TILE, BF16_ATTN_WARPS = 16, 32, 8
+
+
+class Bf16AttentionPlan(NamedTuple):
+    """Threads and shared-memory bytes of the bf16 attentions' CTAs, one a
+    (sample, head)."""
+
+    fwd_threads: int
+    fwd_smem_bytes: int
+    bwd_threads: int
+    bwd_smem_bytes: int
+
+
+def bf16_attention_plan(t: int) -> Bf16AttentionPlan:
+    """The launch of the bf16 attentions for a window of ``t`` rows, as the
+    kernels compute it (``attn_bf16_threads`` and ``attn_bf16_smem_bytes`` in
+    ``csrc/fused_block.cu``, ``attn_threads`` and ``attn_bf16_smem_bytes`` in
+    ``csrc/fused_block_bwd.cu``): the forward's warps split the query tiles
+    evenly over the fewest rounds, K and V wait as bf16 rows padded to whole
+    key tiles; the backward keeps each query's f32 dQ, its (lse, delta) and
+    its q and dctx as bf16.  The window is the block's, 1 to
+    ``MAX_KERNEL_T`` rows; past it this raises."""
+    if not 0 < t <= MAX_KERNEL_T:
+        raise ValueError(f"the CUDA block takes windows of 1 to {MAX_KERNEL_T} rows, got T={t}")
+    d = KERNEL_E // KERNEL_H
+    tiles = -(-t // BF16_QUERY_TILE)
+    rounds = -(-tiles // BF16_ATTN_WARPS)
+    padded = -(-t // BF16_KEY_TILE) * BF16_KEY_TILE
+    return Bf16AttentionPlan(
+        fwd_threads=32 * -(-tiles // rounds), fwd_smem_bytes=2 * padded * d * 2,
+        bwd_threads=32 * min(padded // BF16_KEY_TILE, 8),
+        bwd_smem_bytes=padded * (4 * d + 8 + 2 * 2 * d))
 
 
 class DropoutConfig(NamedTuple):
