@@ -28,7 +28,10 @@ feature-extraction paths on one NVIDIA GPU, end to end.
    the backward's recurrence and its dwhh reduction timed apart; beside the
    flagship's two biLSTMs (D=2, H=128 and H=4) the zoo's unidirectional
    recurrence (D=1, H=128, B=128), also against a unidirectional
-   ``nn.LSTM``; then H=256 (clusters of 8 CTAs; D=2 and D=1), the widths
+   ``nn.LSTM``; then H=256 (clusters of 8 CTAs, its slice in shared memory and
+   its product on the tensor cores; D=2 and D=1: also the clusters the card
+   holds at once beside the plan's, a bit-for-bit repeat of both kernels,
+   and a spill fails the run), the widths
    that run zero-padded, H=100 (to 128) and H=2 (to 4), and past 256 the
    wide kernels (one persistent cooperative grid): H=512 (D=2 and D=1),
    H=300 (padded to 320) and H=1024, each against the twin, timed, with its
@@ -376,8 +379,10 @@ from transformer_clip_eeg_tpu_torch.ops.lstm_scan import (  # noqa: E402
     _dwhh as lstm_dwhh,
     _launch_forward as lstm_forward_cuda,
     PLAN_HIDDEN,
+    MidPlan,
     WidePlan,
     lstm_launch_plan,
+    mid_coresident,
     lstm_scan_backward,
     lstm_scan_packed,
     lstm_scan_reference,
@@ -514,14 +519,15 @@ def block_case(gen: torch.Generator):
     return torch.randn(b, t, e, generator=gen).to(dev), params
 
 
-def library_layer(params, e=64, h=8, f=256, scale=8.0):
+def library_layer(params, e=64, h=8, f=256, scale=8.0, dropout=0.0):
     """The nearest single torch call: a pre-LN TransformerEncoderLayer with
     the block's weights.  Its attention divides by sqrt(head dim); folding
     sqrt(d)/sqrt(E) into the Q projection makes it compute this block's
-    function exactly."""
+    function exactly (without dropout; with ``dropout`` in training mode it
+    is the yardstick of the block's training forward)."""
     (g1, be1, wq, wk, wv, bq, bk, bv, wo, bo, g2, be2, w1, bb1, w2, bb2) = params
     lib = torch.nn.TransformerEncoderLayer(
-        e, h, f, dropout=0.0, activation="gelu", batch_first=True,
+        e, h, f, dropout=dropout, activation="gelu", batch_first=True,
         norm_first=True, device="cuda",
     )
     q_fold = (e // h) ** 0.5 / scale
@@ -625,6 +631,10 @@ def check_block(x, params) -> dict:
         plain_ms = time_ms(lambda: fused_transformer_block_reference(x, params, h, scale))
         library_ms = time_ms(lambda: lib(x))
         parts = {"eval": block_forward_parts(run_eval), "training": block_forward_parts(run_tr)}
+    # the training forward's yardstick: the layer at the block's rate, in
+    # training mode, recording its graph for the backward
+    lib_tr = library_layer(params, dropout=0.5).train()
+    library_training_ms = time_ms(lambda: lib_tr(x))
     usage = ptxas_of(*(k for keys in BLOCK_FWD_PARTS.values() for k in keys))
     spills = {k: u for k, u in usage.items() if u["spill_stores"] or u["spill_loads"]}
     if spills:
@@ -635,7 +645,8 @@ def check_block(x, params) -> dict:
     bound_ms, bound_by = bound(flops, nbytes)
     log(f"  kernel {ms:.4f} ms (training, saving for the backward: {ms_tr:.4f} ms), "
         f"plain {plain_ms:.4f} ms, TransformerEncoderLayer "
-        f"{library_ms:.4f} ms (its max_abs_err {lib_err:.3e}), bound {bound_ms:.4f} ms "
+        f"{library_ms:.4f} ms (its max_abs_err {lib_err:.3e}; in training at dropout 0.5 "
+        f"{library_training_ms:.4f} ms), bound {bound_ms:.4f} ms "
         f"({bound_by}, {flops / 1e9:.3f} GFLOP)")
     log(f"  parts (device ms per call, torch.profiler): eval "
         f"{json.dumps(parts['eval']['parts_ms'])}, training "
@@ -653,6 +664,7 @@ def check_block(x, params) -> dict:
         "tol": BLOCK_TOL, "ms": ms, "kernel_ms": ms,
         "training_ms": ms_tr,
         "plain_ms": plain_ms, "library_ms": library_ms,
+        "library_training_ms": library_training_ms,
         "library_call": "torch.nn.TransformerEncoderLayer(norm_first=True), eval",
         "library_max_abs_err": lib_err,
         "bound_ms": bound_ms, "bound_by": bound_by,
@@ -700,12 +712,31 @@ def check_block_windows(gen: torch.Generator, params) -> dict:
     return out
 
 
-def ptxas_usage(kind: str, hidden: int) -> dict:
-    """What ``ptxas -v`` reported for the kernel that runs ``hidden``
-    (``lstm_{kind}_cluster<hidden>``, or ``lstm_{kind}_wide`` past 256):
-    registers, spill stores and loads, stack bytes."""
-    name = f"lstm_{kind}_clusterILi{hidden}E" if hidden in PLAN_HIDDEN else f"lstm_{kind}_wide"
+def ptxas_usage(kind: str, hidden: int, plan) -> dict:
+    """What ``ptxas -v`` reported for the kernel that runs ``hidden`` under
+    ``plan`` (``lstm_{kind}_cluster<hidden>``, ``lstm_{kind}_mid<tile / 8>``
+    at 256, or ``lstm_{kind}_wide`` past 256): registers, spill stores and
+    loads, stack bytes.  Raises if an H=256 kernel spills."""
+    if isinstance(plan, MidPlan):
+        ptxas_spills(f"lstm_{kind}_mid")
+        name = f"lstm_{kind}_midILi{plan.batch_tile // 8}E"
+    elif hidden in PLAN_HIDDEN:
+        name = f"lstm_{kind}_clusterILi{hidden}E"
+    else:
+        name = f"lstm_{kind}_wide"
     return ptxas_of(name)[name]
+
+
+def mid_waves(plan) -> dict:
+    """An H=256 plan's clusters beside those each kernel's tile holds on
+    this card at once (``cudaOccupancyMaxActiveClusters``); raises if a plan
+    that claims one wave does not fit."""
+    clusters = plan.ctas // plan.cluster
+    out = {"clusters": clusters, "waves": plan.waves,
+           "coresident": {k: mid_coresident(k, plan) for k in ("fwd", "bwd")}}
+    if plan.waves == 1 and min(out["coresident"].values()) < clusters:
+        raise AssertionError(f"the H=256 plan is not one wave on this card: {out}")
+    return out
 
 
 def plan_text(plan) -> str:
@@ -716,8 +747,14 @@ def plan_text(plan) -> str:
                 f"{plan.groups_bwd} batch groups, whh rows resident "
                 f"{plan.resident_fwd} / {plan.resident_bwd}, smem {plan.smem_fwd} / "
                 f"{plan.smem_bwd} B")
-    return (f"clusters of {plan.cluster} CTAs x {plan.batch_tile} rows, {plan.ctas} CTAs of "
+    text = (f"clusters of {plan.cluster} CTAs x {plan.batch_tile} rows, {plan.ctas} CTAs of "
             f"{plan.threads} threads")
+    if isinstance(plan, MidPlan):
+        w = mid_waves(plan)
+        text += (f", {w['clusters']} clusters in {w['waves']} wave(s), co-resident on this "
+                 f"card: {w['coresident']['fwd']} (forward) / {w['coresident']['bwd']} "
+                 f"(backward)")
+    return text
 
 
 # the recurrences timed in the kernel phase: (H, input width, D).  The
@@ -772,7 +809,10 @@ def check_lstm(gen: torch.Generator) -> dict:
             bound_ms, bound_by = bound(flops, nbytes)
             hp = plan_hidden(hidden)
             plan = lstm_launch_plan(b, d, hp)
-            usage = ptxas_usage("fwd", hp)
+            usage = ptxas_usage("fwd", hp, plan)
+            if isinstance(plan, MidPlan):
+                assert_repeats(f"lstm_scan_packed H={hidden} D={d}",
+                               lambda: (lstm_scan_packed(xw, whh),))
             log(f"  H={hidden}{f' (padded to {hp})' if hp != hidden else ''}, D={d}: kernel "
                 f"{ms:.4f} ms ({ms / t * 1e3:.3f} us/step), plain "
                 f"{plain_ms:.4f} ms, nn.LSTM {library_ms:.4f} ms, bound {bound_ms:.4f} ms "
@@ -785,6 +825,8 @@ def check_lstm(gen: torch.Generator) -> dict:
                 "bound_ms": bound_ms, "bound_by": bound_by,
                 "plan": plan._asdict(), "ptxas": usage,
             }
+            if isinstance(plan, MidPlan):
+                shape.update(mid_waves(plan), repeats_bit_for_bit=True)
             shapes.append(shape)
     flagship = [s for s in shapes if _flagship_lstm(s)]
     total = lambda key: sum(s[key] for s in flagship)  # noqa: E731
@@ -931,7 +973,11 @@ def check_lstm_backward(gen: torch.Generator) -> dict:
         dwhh_ms = time_ms(lambda: lstm_dwhh(h, dxw))
         dwhh_tflops = 2.0 * (t - 1) * d * b * hp * 4 * hp / (dwhh_ms * 1e-3) / 1e12
         plan = lstm_launch_plan(b, d, hp)
-        usage = ptxas_usage("bwd", hp)
+        usage = ptxas_usage("bwd", hp, plan)
+        if isinstance(plan, MidPlan):
+            assert_repeats(f"lstm_scan_backward H={hidden} D={d} (recurrence, dwhh)",
+                           lambda: (lstm_backward_recurrence(whh_p, c, gates, g_p),
+                                    lstm_dwhh(h, dxw)))
         plain_ms = time_ms(lambda: torch.autograd.grad(ref_h, (ra, rw), g, retain_graph=True),
                            reps=5, warmup=1)
         lib = torch.nn.LSTM(in_dim, hidden, batch_first=True, bidirectional=d == 2,
@@ -961,6 +1007,8 @@ def check_lstm_backward(gen: torch.Generator) -> dict:
             "bound_ms": bound_ms, "bound_by": bound_by, "plan": plan._asdict(),
             "ptxas": usage,
         }
+        if isinstance(plan, MidPlan):
+            shape.update(mid_waves(plan), repeats_bit_for_bit=True)
         shapes.append(shape)
     flagship = [s for s in shapes if _flagship_lstm(s)]
     total = lambda key: sum(s[key] for s in flagship)  # noqa: E731
@@ -4358,9 +4406,11 @@ def ddp_one_rank(data_dir: str) -> dict:
 
 def kernels_at_b64(gen: torch.Generator) -> dict:
     """Kernels #1-#4 at a rank's batch of 64 (the flagship's shapes
-    otherwise), each timed by CUDA events beside its bound at that batch:
-    #1 in training (dropout on, saving for #2), #2, and #3/#4 summed over
-    the flagship's two recurrences (H=128 and H=4, D=2)."""
+    otherwise), each timed by CUDA events beside its bound and its library
+    call at that batch: #1 in training (dropout on, saving for #2; the
+    library layer in training at the same rate), #2 (the layer's backward),
+    and #3/#4 summed over the flagship's two recurrences (H=128 and H=4,
+    D=2; ``nn.LSTM``'s forward and backward, input projection included)."""
     b, t, e, h = 64, 192, 64, 8
     x, params = block_case(gen)
     x = x[:b].contiguous()
@@ -4372,6 +4422,16 @@ def kernels_at_b64(gen: torch.Generator) -> dict:
                                                           save=True))
     bwd_ms = time_ms(lambda: fused_block_backward(x, params, g, saved, h, e ** 0.5,
                                                   FLAGSHIP_DROP))
+    lib = library_layer(params, dropout=0.5).train()
+    xl = x.clone().requires_grad_()
+    lib_leaves = [xl] + list(lib.parameters())
+    lib_out = lib(xl)
+    library = {
+        "fused_transformer_block": time_ms(lambda: lib(xl)),
+        "fused_block_backward": time_ms(
+            lambda: torch.autograd.grad(lib_out, lib_leaves, g, retain_graph=True)),
+        "lstm_scan_packed": 0.0, "lstm_scan_backward": 0.0,
+    }
     out = {
         "fused_transformer_block": (fwd_ms, bound(block_flops(b, t),
                                                   2 * x.numel() * 4 + n_par * 4)),
@@ -4379,7 +4439,16 @@ def kernels_at_b64(gen: torch.Generator) -> dict:
             3 * x.numel() + saved.numel() + 2 * n_par))),
     }
     lstm = {"lstm_scan_packed": [0.0, 0.0, 0.0], "lstm_scan_backward": [0.0, 0.0, 0.0]}
-    for hidden, d in FLAGSHIP_LSTMS:
+    for (hidden, d), in_dim in zip(FLAGSHIP_LSTMS, (64, 256)):
+        cell = torch.nn.LSTM(in_dim, hidden, batch_first=True, bidirectional=d == 2,
+                             device="cuda")
+        xc = torch.randn(b, t, in_dim, generator=gen).to("cuda").requires_grad_()
+        cell_out, _ = cell(xc)
+        g_cell = torch.randn(b, t, d * hidden, generator=gen).to("cuda")
+        with torch.inference_mode():
+            library["lstm_scan_packed"] += time_ms(lambda: cell(xc))
+        library["lstm_scan_backward"] += time_ms(lambda: torch.autograd.grad(
+            cell_out, [xc, *cell.parameters()], g_cell, retain_graph=True))
         lim = 1.0 / hidden ** 0.5
         xw = (0.5 * torch.randn(t, d, b, 4 * hidden, generator=gen)).to("cuda")
         whh = ((torch.rand(d, hidden, 4 * hidden, generator=gen) * 2 - 1) * lim).to("cuda")
@@ -4397,7 +4466,7 @@ def kernels_at_b64(gen: torch.Generator) -> dict:
             lstm[name][2] += nbytes
     for name, (ms, flops, nbytes) in lstm.items():
         out[name] = (ms, bound(flops, nbytes))
-    res = {name: {"ms": ms, "bound_ms": bd[0], "bound_by": bd[1]}
+    res = {name: {"ms": ms, "bound_ms": bd[0], "bound_by": bd[1], "library_ms": library[name]}
            for name, (ms, bd) in out.items()}
     log(f"kernels #1-#4 at batch 64 (a rank's rows): {json.dumps(res)}")
     return res

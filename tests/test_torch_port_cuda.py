@@ -31,9 +31,13 @@ from transformer_clip_eeg_tpu_torch.ops.fused_conv import (
 from transformer_clip_eeg_tpu_torch.ops.lstm import LSTM
 from transformer_clip_eeg_tpu_torch import _build
 from transformer_clip_eeg_tpu_torch.ops.lstm_scan import (
+    MID_TILES,
     WIDE_KC,
+    MidPlan,
     WidePlan,
     lstm_launch_plan,
+    mid_coresident,
+    mid_plan,
     lstm_scan_backward,
     lstm_scan_packed,
     lstm_scan_reference,
@@ -97,11 +101,12 @@ def test_fused_block_kernel_refuses_long_windows(cuda):
     torch.cuda.synchronize()
 
 
-@pytest.mark.parametrize("hidden", [128, 4])
-def test_lstm_kernel_matches_twin(cuda, hidden):
+@pytest.mark.parametrize("hidden,d", [(128, 2), (4, 2), (256, 2), (256, 1)],
+                         ids=["128", "4", "256-D2", "256-D1"])
+def test_lstm_kernel_matches_twin(cuda, hidden, d):
     gen = torch.Generator().manual_seed(1)
-    xw = (0.5 * torch.randn(192, 2, 37, 4 * hidden, generator=gen)).to(cuda)
-    whh = (0.1 * torch.randn(2, hidden, 4 * hidden, generator=gen)).to(cuda)
+    xw = (0.5 * torch.randn(192, d, 37, 4 * hidden, generator=gen)).to(cuda)
+    whh = (0.1 * torch.randn(d, hidden, 4 * hidden, generator=gen)).to(cuda)
     h, c = lstm_scan_packed(xw, whh, return_c=True)
     torch.cuda.synchronize()
     want_h, want_c = lstm_scan_reference(xw, whh, return_c=True)
@@ -235,15 +240,16 @@ def test_fused_block_backward_matches_autograd(cuda, training, b, t):
         assert _err(a, w) <= 1e-4, (i, _err(a, w))
 
 
-@pytest.mark.parametrize("hidden", [128, 4])
-def test_lstm_backward_matches_autograd(cuda, hidden):
+@pytest.mark.parametrize("hidden,d", [(128, 2), (4, 2), (256, 2), (256, 1)],
+                         ids=["128", "4", "256-D2", "256-D1"])
+def test_lstm_backward_matches_autograd(cuda, hidden, d):
     """Kernel #4 (through the autograd Function) against autograd through
     the twin: dxw and dwhh, with whh at torch's init scale U(+-1/sqrt(H))."""
     gen = torch.Generator().manual_seed(6)
     lim = hidden ** -0.5
-    xw = (0.5 * torch.randn(50, 2, 37, 4 * hidden, generator=gen)).to(cuda)
-    whh = ((torch.rand(2, hidden, 4 * hidden, generator=gen) * 2 - 1) * lim).to(cuda)
-    g = torch.randn(50, 2, 37, hidden, generator=gen).to(cuda)
+    xw = (0.5 * torch.randn(50, d, 37, 4 * hidden, generator=gen)).to(cuda)
+    whh = ((torch.rand(d, hidden, 4 * hidden, generator=gen) * 2 - 1) * lim).to(cuda)
+    g = torch.randn(50, d, 37, hidden, generator=gen).to(cuda)
     a, w = xw.clone().requires_grad_(), whh.clone().requires_grad_()
     before = lstm_scan_backward.launches
     got = torch.autograd.grad(lstm_scan_packed(a, w), (a, w), g)
@@ -362,6 +368,63 @@ def test_lstm_cluster_kernels_repeat_bit_for_bit(cuda, hidden):
     torch.cuda.synchronize()
     for name, first, second in zip(("h", "c", "dxw", "dwhh"), *runs):
         assert torch.equal(first, second), name
+
+
+@pytest.mark.parametrize("d", [2, 1])
+def test_lstm_mid_kernels_repeat_bit_for_bit(cuda, d):
+    """The H=256 kernels at B=128, T=192 (tiles of 24 rows at D=2, 16 at
+    D=1): a fixed order of every sum, so two runs give the same h, c, dxw
+    and dwhh, bit for bit."""
+    xw, whh, g = _lstm_inputs(192, d, 128, 256, 23, cuda)
+    assert lstm_launch_plan(128, d, 256).batch_tile == {2: 24, 1: 16}[d]
+    runs = []
+    for _ in range(2):
+        with torch.no_grad():
+            h, c = lstm_scan_packed(xw, whh, return_c=True)
+        a, w = xw.clone().requires_grad_(), whh.clone().requires_grad_()
+        runs.append((h, c, *torch.autograd.grad(lstm_scan_packed(a, w), (a, w), g)))
+    torch.cuda.synchronize()
+    for name, first, second in zip(("h", "c", "dxw", "dwhh"), *runs):
+        assert torch.equal(first, second), name
+
+
+@pytest.mark.parametrize("d", [2, 1])
+def test_lstm_mid_plan_is_one_wave_on_the_card(cuda, d):
+    """At B=128 every cluster of the H=256 plan is co-resident: the card
+    holds at least as many clusters of each kernel (at the plan's tile) as
+    the plan launches, and the plan claims one wave."""
+    plan = lstm_launch_plan(128, d, 256)
+    assert isinstance(plan, MidPlan) and plan.waves == 1
+    for kind in ("fwd", "bwd"):
+        assert mid_coresident(kind, plan) >= plan.ctas // plan.cluster, kind
+
+
+def test_lstm_mid_kernel_refuses_a_grid_beyond_its_waves(cuda):
+    """The H=256 entry points check the plan: a tile they are not built
+    for (20 rows) or the wrong shared-memory size is refused with
+    cudaErrorInvalidValue; a plan claiming one wave for more clusters than
+    the card holds (B=2,048, D=2: 128 clusters of 32-row tiles) is refused
+    as too large, and nothing launches."""
+    lib = _build.load()
+    stream = torch.cuda.current_stream().cuda_stream
+    xw, whh, g = _lstm_inputs(2, 2, 2048, 256, 24, cuda)
+    h = torch.empty(2, 2, 2048, 256, device=cuda)
+    plan = mid_plan(2048, 2, MID_TILES[-1])
+    assert plan.waves > 1
+    cases = ((plan.batch_tile, plan.smem_fwd, plan.smem_bwd, 1, "cooperative"),
+             (20, plan.smem_fwd, plan.smem_bwd, plan.waves, "invalid argument"),
+             (plan.batch_tile, plan.smem_fwd + 4, plan.smem_bwd + 4, plan.waves,
+              "invalid argument"))
+    for bt, s_fwd, s_bwd, waves, want in cases:
+        fwd = lib.tce_lstm_scan_fwd(xw.data_ptr(), whh.data_ptr(), h.data_ptr(), None, None,
+                                    2, 2, 2048, 256, plan.cluster, bt, waves, plan.threads,
+                                    s_fwd, None, None, stream)
+        bwd = lib.tce_lstm_scan_bwd(xw.data_ptr(), whh.data_ptr(), h.data_ptr(), g.data_ptr(),
+                                    xw.data_ptr(), 2, 2, 2048, 256, plan.cluster, bt, waves,
+                                    plan.threads, s_bwd, None, None, stream)
+        for rc in (fwd, bwd):
+            assert want in lib.tce_error_string(rc).decode(), (bt, waves, rc)
+    torch.cuda.synchronize()
 
 
 def test_lstm_kernel_refuses_a_plan_it_cannot_run(cuda):

@@ -1,9 +1,10 @@
 """Torch port, the LSTM recurrence at the flagship's width and its launch
-plan: ``lstm_scan_packed`` forward and its gradient at H=128 on the CPU
-against JAX's interpret-mode ``lstm_scan_pallas_packed`` and ``jax.vjp``,
-and ``lstm_launch_plan``, which sizes the thread-block clusters of kernels
-#3 and #4 (checked again by ``csrc/lstm_cluster.cuh`` on the card), for
-every H the cluster kernels are built for (4 ... 256), and the
+plan: ``lstm_scan_packed`` forward and its gradient at H=128 and H=256 on
+the CPU against JAX's interpret-mode ``lstm_scan_pallas_packed`` and
+``jax.vjp``, and ``lstm_launch_plan``, which sizes the thread-block clusters
+of kernels #3 and #4 (checked again by ``csrc/lstm_cluster.cuh`` and, at
+H=256, ``csrc/lstm_mid.cuh`` on the card), for every H the cluster kernels
+are built for (4 ... 256), and the
 zero-padding that takes any other H to the next H the kernels run (past 256
 a multiple of 32, the wide kernels: ``tests/test_torch_port_lstm_wide.py``).  The kernels themselves
 are held at those shapes by the gpu tests of
@@ -33,6 +34,9 @@ from transformer_clip_eeg_tpu_torch.ops.lstm_scan import (
 LSTM_ATOL = 1e-6       # forward, as tests/test_torch_port_kernels.py
 LSTM_GRAD_ATOL = 1e-5  # gradient, as tests/test_torch_port_training_kernels.py
 HEADER = Path(port.__file__).resolve().parent.parent / "csrc" / "lstm_cluster.cuh"
+MID_HEADER = HEADER.with_name("lstm_mid.cuh")
+# an H100 SXM: its SMs, and the shared memory and 32-bit registers of each
+H100_SMS, SM_SMEM_BYTES, SM_REGISTERS = 132, 233_472, 65_536
 
 
 def _case(t, d, b, hidden, seed):
@@ -88,21 +92,117 @@ def test_h4_plan_is_one_cta_per_recurrence():
 
 def test_h256_plan_is_clusters_of_eight():
     """H=256 (``--lstm_units 256``): clusters of 8 CTAs (the portable
-    size) of 32 units and 8 rows, 512 threads, two waves of 128 clusters'
-    CTAs at B=128, D=2."""
+    size) of 32 units and 256 threads (``csrc/lstm_mid.cuh``), tiles of 24
+    batch rows at B=128, D=2 (96 CTAs, 12 clusters) and of 16 at D=1 (64
+    CTAs, 8 clusters), one wave either way (16-row tiles at D=2 would take
+    16 clusters, and an H100 holds 15 at once)."""
     plan = lstm_launch_plan(128, 2, 256)
-    assert (plan.cluster, plan.batch_tile, plan.threads, plan.ctas) == (8, 8, 512, 256)
-    assert plan.smem_bwd <= SMEM_OPTIN_BYTES
+    assert isinstance(plan, port.MidPlan)
+    assert (plan.cluster, plan.batch_tile, plan.threads, plan.ctas, plan.waves) == (
+        8, 24, 256, 96, 1)
+    one = lstm_launch_plan(128, 1, 256)
+    assert (one.batch_tile, one.ctas, one.waves) == (16, 64, 1)
+    assert max(plan.smem_fwd, plan.smem_bwd, one.smem_bwd) <= SMEM_OPTIN_BYTES
+
+
+def _mid_rules() -> dict:
+    """``csrc/lstm_mid.cuh``'s constants, and its shared-memory bytes of
+    each kernel as functions of the batch tile."""
+    text = MID_HEADER.read_text()
+    env = {}
+    for name, expr in re.findall(r"constexpr int (\w+) = ([^;]+);", text):
+        env[name] = _c_value(expr.split("//")[0], env)
+    for kind in ("fwd", "bwd"):
+        expr = re.search(rf"{kind}_smem_bytes\(int bt\) \{{\s*return (.+?);", text, re.S)[1]
+        expr = re.sub(r"\s+", " ", expr)
+        env[kind] = lambda bt, e=expr: _c_value(e, dict(env, bt=bt))
+    # plan_ok's rule on the batch tile: the tiles the kernels are built for
+    rule = re.search(r"plan_ok\(int n, int bt, int threads\) \{\s*return (.+?);", text, re.S)[1]
+    rule = re.sub(r"\s+", " ", rule).replace("&&", "and").replace("||", "or")
+    env["plan_ok"] = lambda bt: eval(rule.replace("/", "//"), {},
+                                     dict(env, n=env["N"], threads=env["NT"], bt=bt))
+    return env
+
+
+@pytest.mark.parametrize("d", [1, 2])
+def test_h256_plan_is_one_wave_by_the_headers_residency(d):
+    """At B=128 every CTA of the H=256 plan is resident at once, by the
+    header's own arithmetic: each kernel's shared memory (more than half an
+    SM's) and registers (``__launch_bounds__(threads, 1)``: what a thread may
+    take of the SM's) put one CTA on an SM, a cluster of N CTAs then takes N SMs, and the
+    plan's clusters are at most the 15 an H100 holds (``MID_WAVE_CLUSTERS``,
+    what ``cudaOccupancyMaxActiveClusters`` reports on the card) and their
+    CTAs at most its 132 SMs."""
+    rules = _mid_rules()
+    plan = lstm_launch_plan(128, d, 256)
+    # what __launch_bounds__(threads, 1) lets ptxas give a thread
+    regs = min(255, SM_REGISTERS // plan.threads)
+    for smem in (rules["fwd"](plan.batch_tile), rules["bwd"](plan.batch_tile)):
+        per_sm = min(SM_SMEM_BYTES // (smem + 1024), SM_REGISTERS // (plan.threads * regs))
+        assert per_sm == 1 and smem <= SMEM_OPTIN_BYTES
+    clusters = plan.ctas // rules["N"]
+    assert clusters <= port.MID_WAVE_CLUSTERS and clusters * rules["N"] <= H100_SMS
+    assert port.MID_WAVE_CLUSTERS * rules["N"] <= H100_SMS
+    assert plan.waves == 1
+
+
+@pytest.mark.parametrize("d", [1, 2])
+@pytest.mark.parametrize("b", [1, 37, 130])
+def test_h256_plan_covers_ragged_batches(b, d):
+    """H=256 at ragged batches: every row in some tile, the last tile
+    ragged, the smallest tile whose clusters fit one wave (else the largest,
+    in as many waves as the clusters need), each kernel within the card's
+    shared memory."""
+    plan = lstm_launch_plan(b, d, 256)
+    tiles = plan.ctas // (d * plan.cluster)
+    assert (tiles - 1) * plan.batch_tile < b <= tiles * plan.batch_tile
+    fits = [t for t in port.MID_TILES if d * -(-b // t) <= port.MID_WAVE_CLUSTERS]
+    assert plan.batch_tile == (fits[0] if fits else port.MID_TILES[-1])
+    assert plan.waves == -(-(d * tiles) // port.MID_WAVE_CLUSTERS)
+    assert max(plan.smem_fwd, plan.smem_bwd) <= SMEM_OPTIN_BYTES
+
+
+@pytest.mark.parametrize("d", [1, 2])
+def test_h256_forward_matches_pallas_interpret(d):
+    """H=256 (``--lstm_units 256``; ``--latent_dim 512``'s second biLSTM
+    at D=2): the port's recurrence against JAX's interpret-mode kernel."""
+    xw, whh, _ = _case(6, d, 3, 256, seed=30 + d)
+    want = np.asarray(lstm_scan_pallas_packed(jnp.asarray(xw), jnp.asarray(whh), 256, True))
+    got = lstm_scan_packed(torch.from_numpy(xw), torch.from_numpy(whh))
+    assert got.shape == (6, d, 3, 256)
+    np.testing.assert_allclose(got.numpy(), want, atol=LSTM_ATOL)
+
+
+@pytest.mark.parametrize("d", [1, 2])
+def test_h256_gradient_matches_jax_vjp(d):
+    """H=256: dxw and dwhh of the port's CPU path against ``jax.vjp`` of the
+    interpret-mode Pallas recurrence."""
+    xw, whh, g = _case(6, d, 3, 256, seed=40 + d)
+    out, vjp = jax.vjp(lambda a, w: lstm_scan_pallas_packed(a, w, 256, True),
+                       jnp.asarray(xw), jnp.asarray(whh))
+    jdxw, jdwhh = vjp(jnp.asarray(g))
+    a = torch.from_numpy(xw).requires_grad_()
+    w = torch.from_numpy(whh).requires_grad_()
+    h = lstm_scan_packed(a, w)
+    dxw, dwhh = torch.autograd.grad(h, (a, w), torch.from_numpy(g))
+    np.testing.assert_allclose(h.detach().numpy(), np.asarray(out), atol=LSTM_GRAD_ATOL)
+    np.testing.assert_allclose(dxw.numpy(), np.asarray(jdxw), atol=LSTM_GRAD_ATOL)
+    np.testing.assert_allclose(dwhh.numpy(), np.asarray(jdwhh), atol=LSTM_GRAD_ATOL)
 
 
 @pytest.mark.parametrize("b", [1, 37, 130])
 @pytest.mark.parametrize("hidden", [4, 8, 16, 32, 64, 128, 256])
 def test_plan_covers_ragged_batches(hidden, b):
-    """Every batch row in some tile, the last tile ragged, for every H."""
+    """Every batch row in some tile, the last tile ragged, for every H; up
+    to 128 a tile holds one owner thread per (row, unit), at 256 two to four
+    n8 blocks of rows."""
     plan = lstm_launch_plan(b, 2, hidden)
     tiles = plan.ctas // (2 * plan.cluster)
     assert (tiles - 1) * plan.batch_tile < b <= tiles * plan.batch_tile
-    assert plan.batch_tile * (hidden // plan.cluster) == port.OWNERS
+    if hidden == 256:
+        assert plan.batch_tile in port.MID_TILES
+    else:
+        assert plan.batch_tile * (hidden // plan.cluster) == port.OWNERS
     assert max(plan.smem_fwd, plan.smem_bwd) <= SMEM_OPTIN_BYTES
 
 
@@ -178,6 +278,13 @@ def test_plan_constants_match_the_cuda_header():
     assert const("OWNERS") == port.OWNERS
     assert const("EG") == port.EXCHANGE_GROUPS
     assert const("MAX_CLUSTER") * port.MAX_UNITS == port.MAX_CLUSTER_HIDDEN
+    # the H=256 kernels (csrc/lstm_mid.cuh)
+    mid = _mid_rules()
+    assert mid["H"] == port.MAX_CLUSTER_HIDDEN and mid["N"] == port.MID_CLUSTER
+    assert mid["U"] == port.MAX_UNITS and mid["NT"] == port.MID_THREADS
+    assert tuple(8 * nb for nb in range(mid["MIN_NB"], mid["MAX_NB"] + 1)) == port.MID_TILES
+    assert (mid["LDH"], mid["LDP"], mid["SLICE"]) == (port.MID_LDH, port.MID_LDP,
+                                                      port.MID_SLICE)
 
 
 def _c_value(expr: str, env: dict) -> int:
@@ -221,7 +328,21 @@ def test_plan_passes_the_cuda_headers_rules(hidden):
     """The plan the wrapper computes is one the C entry points accept:
     ``plan_units``'s rules with each kernel's threads and rows per product
     thread as the header's ``Fwd<H>`` and ``Bwd<H>`` define them, and the
-    shared-memory bytes of ``fwd_smem_bytes`` and ``bwd_smem_bytes``."""
+    shared-memory bytes of ``fwd_smem_bytes`` and ``bwd_smem_bytes``; at
+    H=256 ``csrc/lstm_mid.cuh``'s ``plan_ok`` and shared-memory bytes, for
+    both tiles."""
+    if hidden == 256:
+        mid = _mid_rules()
+        for d in (1, 2):
+            for tile in port.MID_TILES:
+                plan = port.mid_plan(130, d, tile)
+                assert (plan.cluster, plan.threads) == (mid["N"], mid["NT"])
+                assert mid["plan_ok"](plan.batch_tile)
+                assert plan.smem_fwd == mid["fwd"](tile) and plan.smem_bwd == mid["bwd"](tile)
+                assert max(plan.smem_fwd, plan.smem_bwd) <= SMEM_OPTIN_BYTES
+                # the forward's warps own 4 units each, the backward's 32
+                assert mid["NW"] * 4 == mid["U"] and mid["NW"] * 32 == mid["H"]
+        return
     rules = _header_rules(hidden)
     plan = lstm_launch_plan(130, 2, hidden)
     units = hidden // plan.cluster
@@ -234,9 +355,9 @@ def test_plan_passes_the_cuda_headers_rules(hidden):
         assert consts["NT"] == plan.threads
         assert 1 <= consts["GROUPS"] <= port.EXCHANGE_GROUPS
         assert plan.batch_tile % (consts["GROUPS"] * consts["RPT"]) == 0, struct
-    # the forward's h stores: SEND units' k groups in one warp, 4 or 2 units
+    # the forward's h stores: 4 units' k groups in one warp
     fwd = rules["Fwd"]
-    assert fwd["SEND"] in (2, 4) and fwd["SEND"] * fwd["KG"] <= 32
+    assert 4 * fwd["KG"] <= 32
     # the weight slice a thread holds: at most 64 floats (registers)
     assert fwd["KPT"] * 4 <= 64
     bwd = rules["Bwd"]

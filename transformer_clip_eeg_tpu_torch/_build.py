@@ -49,9 +49,9 @@ _SIGNATURES = {
     "tce_fused_block_bwd_workspace": ([_I, _I], _L),
     # xw, whh, h_out, c_out (may be NULL), gates_out (may be NULL), T, D, B, H,
     # the launch plan (clusters: cluster size, batch tile; wide: units per CTA,
-    # resident rows of whh; then batch groups (wide), threads, shared-memory
-    # bytes), the wide kernel's state scratch and arrival counters (NULL for
-    # clusters), stream
+    # resident rows of whh; then batch groups (wide) or waves (H=256), threads,
+    # shared-memory bytes), the wide kernel's state scratch and arrival
+    # counters (NULL for clusters), stream
     "tce_lstm_scan_fwd": ([_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _L, _P, _P,
                            _P], _I),
     # gates, whh, c, g, dxw, T, D, B, H, the launch plan, scratch and counters
@@ -61,6 +61,10 @@ _SIGNATURES = {
     # h, dxw, dwhh, workspace, T, D, B, H, stream
     "tce_lstm_dwhh": ([_P, _P, _P, _P, _I, _I, _I, _I, _P], _I),
     "tce_lstm_dwhh_workspace": ([_I, _I, _I, _I], _L),
+    # the H=256 kernels' co-resident clusters at a batch tile (or minus a CUDA
+    # error code)
+    "tce_lstm_fwd_mid_coresident": ([_I], _I),
+    "tce_lstm_bwd_mid_coresident": ([_I], _I),
     # x, w (tap-major), b, scale, bias, out, B, T, C, K, the first five dropout
     # arguments, saved z and saved stats (both may be NULL), stream
     "tce_fused_conv_fwd": ([_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, *_DROP[:5], _P, _P, _P],

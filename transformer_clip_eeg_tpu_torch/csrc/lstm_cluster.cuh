@@ -6,7 +6,7 @@
 // [r U, (r+1) U), U = H / n, and all four gates of each: c (forward) or dc
 // (backward) stays in the registers of the thread that owns (row, unit).
 // A CTA has OWNERS owner threads, one per (row, unit), so bt = OWNERS / U.
-// H = 256 takes clusters of 8 CTAs of 32 units (the portable cluster size).
+// This family runs H <= 128; H = 256 runs the clusters of lstm_mid.cuh.
 //
 // The step's product.  Every thread of the CTA (NT: at H >= 32 twice the
 // owners, so that 16 warps hide the latencies of shared-memory loads and
@@ -26,11 +26,9 @@
 // (EG at H <= 128), each with the rows of its own threads and its own
 // mbarriers: a group waits only until its rows of h (or dpre) have arrived
 // from every CTA, and while one group waits for its exchange another
-// computes.  Two buffers and two mbarriers a group, by step parity.  At
-// H = 256 every product thread sums all bt rows (the CTA's slice of whh
-// fills the registers of its threads once, not twice), so there is one
-// group.  The forward sends the h of 4 units in one store where 4 units'
-// k groups share a warp (4 KG <= 32), else of SEND = 32 / KG units.  A cluster of one CTA (the H <= 32
+// computes.  Two buffers and two mbarriers a group, by step parity.  The
+// forward sends the h of 4 units in one store (4 units' k groups share a
+// warp: 4 KG <= 32).  A cluster of one CTA (the H <= 32
 // layers) stores into its own buffer and crosses one __syncthreads a step:
 // a block barrier costs less than the mbarrier round trip.  There is no cluster
 // barrier and no memory fence in the step loop: a cluster barrier with
@@ -59,7 +57,7 @@ namespace lstm {
 namespace {
 
 constexpr int OWNERS = 256;     // threads that own a (row, unit)
-constexpr int MAX_CLUSTER = 8;  // the portable cluster size
+constexpr int MAX_CLUSTER = 8;  // the portable cluster size (this family takes 4 at most)
 constexpr int EG = 2;           // exchange groups at most: threads [g NT / G, (g+1) NT / G)
 
 // Threads per CTA at hidden size H.
@@ -79,24 +77,21 @@ struct Fwd {
   static constexpr int KG = H / KPT;
   static constexpr int RPT = KG * OWNERS / NT;
   static constexpr int NV = 4 * RPT, KEEP = 4;
-  static constexpr int GROUPS = H >= 256 ? 1 : EG;
-  static constexpr int SEND = 4 * KG <= 32 ? 4 : 32 / KG;
+  static constexpr int GROUPS = EG;
 };
 
 // Backward product dpre [bt, 4H] x whh-slice^T [4H, U]: split over the 4H
 // gate columns.  A thread holds UPT units x CPT columns of whh and sums RPT
 // batch rows x UPT units; its group keeps one (row, unit) per owner.
-// At H = 256 a thread holds UPT = 2 units, so that its slice stays 64
-// floats.
 template <int H>
 struct Bwd {
   static constexpr int NT = threads<H>();
-  static constexpr int UPT = H >= 256 ? 2 : 4;
+  static constexpr int UPT = 4;
   static constexpr int CPT = H >= 32 ? H / 8 : 4;
   static constexpr int KG = 4 * H / CPT;
   static constexpr int RPT = KG / UPT * OWNERS / NT;
   static constexpr int NV = RPT * UPT, KEEP = 1;
-  static constexpr int GROUPS = H >= 256 ? 1 : EG;
+  static constexpr int GROUPS = EG;
 };
 
 // Adds the NV values v of the lanes of a group (the lane bits below 2M)
@@ -208,20 +203,10 @@ __device__ __forceinline__ void st_async(uint32_t dst, float4 v, uint32_t bar) {
       : "memory");
 }
 
-// The same for 8 bytes (8-byte aligned).
-__device__ __forceinline__ void st_async(uint32_t dst, float2 v, uint32_t bar) {
-  asm volatile(
-      "st.async.shared::cluster.mbarrier::complete_tx::bytes.v2.b32 [%0], {%1, %2}, [%3];\n"
-      ::"r"(dst), "r"(__float_as_uint(v.x)), "r"(__float_as_uint(v.y)), "r"(bar)
-      : "memory");
-}
-
 // Writes v at shared-memory `slot` of every CTA of the cluster, counted on
-// each CTA's mbarrier `bar`.  One 16-byte (or 8-byte) store per CTA: the
-// receiver's mbarrier counts each store, so fewer and wider stores arrive
-// sooner.
-template <typename V>
-__device__ __forceinline__ void send_all(float* slot, uint64_t* bar, V v, int n) {
+// each CTA's mbarrier `bar`.  One 16-byte store per CTA: the receiver's
+// mbarrier counts each store, so fewer and wider stores arrive sooner.
+__device__ __forceinline__ void send_all(float* slot, uint64_t* bar, float4 v, int n) {
   const uint32_t a = smem_addr(slot), m = smem_addr(bar);
   for (int peer = 0; peer < n; ++peer) st_async(map_rank(a, peer), v, map_rank(m, peer));
 }

@@ -39,10 +39,12 @@
 // registers.  dwhh is a separate reduction over the T*B rows
 // (wgrad.cuh, tce_lstm_dwhh): the directions' products as one launch of
 // per-chunk partial sums, then one launch of fixed-order sums.  No atomics
-// anywhere: the same inputs give the same bits.  At H=256 a cluster of 8
-// CTAs splits the units 32 per CTA and a thread holds 2 units x 32 columns
-// (64 floats, the slice once across the CTA's 512 threads), so every thread
-// sums all 8 rows and the CTA has one exchange group.  Past H=256
+// anywhere: the same inputs give the same bits.  At H=256 (lstm_bwd_mid,
+// lstm_mid.cuh) a cluster of 8 CTAs splits the units 32 per CTA and tiles 16,
+// 24 or 32 batch rows; each CTA multiplies its own units' dpre by its slice of
+// whh^T (in shared memory, on the tensor cores in split TF32), a partial dh'
+// of all 256 units, and sends each CTA its units' partial sums, which the
+// owners add in rank order.  Past H=256
 // (lstm_bwd_wide, lstm_wide.cuh) one persistent cooperative grid runs every
 // recurrence, cut into (direction, batch group) pairs and, within a pair,
 // slices of U units: each CTA sums dpre whh^T for its group's rows and its U
@@ -54,6 +56,7 @@
 #include <math.h>
 
 #include "lstm_cluster.cuh"
+#include "lstm_mid.cuh"
 #include "lstm_wide.cuh"
 #include "wgrad.cuh"
 
@@ -215,6 +218,161 @@ lstm_bwd_cluster(const float* __restrict__ gates, const float* __restrict__ whh,
   if (N > 1) lstm::cluster_sync();
 }
 
+// H = 256 (lstm_mid.cuh): one cluster of 8 CTAs per (batch tile of 8 NB
+// rows, direction), 32 units a CTA.  Thread (warp w, lane u) owns unit u of
+// the CTA in rows w + 8 i (NB rows), keeps their dc and dh' in registers,
+// and writes their dpre to the CTA's dpre buffer (column 4 u + gate) and to
+// dxw.  The product: warp w sums the partial dh' of the 32 units of CTA w
+// over the CTA's 128 dpre columns (16 k-steps) and sends it there.
+template <int NB>
+__global__ void __launch_bounds__(lstm_mid::NT, 1)
+lstm_bwd_mid(const float* __restrict__ gates, const float* __restrict__ whh,
+             const float* __restrict__ c_all, const float* __restrict__ g_h,
+             float* __restrict__ dxw, int T, int D, int B) {
+  using namespace lstm_mid;
+  constexpr int BT = 8 * NB, G = 4 * H, KS = 4 * U / 8;  // KS: k-steps of 8
+  extern __shared__ float4 smem4[];
+  uint64_t* bar = reinterpret_cast<uint64_t*>(smem4);  // [2]: partial sums arrived, by parity
+  float* ws = reinterpret_cast<float*>(smem4 + 1);     // [NW][KS][2 mb][32 lanes][4]: the slice
+  float* pbuf = ws + SLICE;                            // [2][BT][LDP]: this CTA's dpre
+  float* rbuf = pbuf + 2 * BT * LDP;                   // [2][N sources][BT][U]: partial dh'
+  const int n = blockIdx.x % N, tile = blockIdx.x / N, d = blockIdx.y;
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31, g = lane >> 2, q = lane & 3;
+  const int j = n * U + lane;  // the owner's unit
+  const uint32_t p_bytes = (uint32_t)(N * BT * U * sizeof(float));
+
+  // The slice of whh^T in fragment order, as A [256 units][128 dpre columns]:
+  // A[jj][k] = whh[jj][gate H + n U + uu] for the column k = 4 uu + gate.  For
+  // warp w (the units of CTA w), k-step s, m block mb and lane (g, q), a0 ..
+  // a3: row m of block mb is unit 32 w + 4 (m % 8) + 2 mb + m / 8; a0 and a1
+  // (rows g, g + 8) are k = 8 s + 2 q, a2 and a3 k + 1.
+  {
+    const float* W = whh + (size_t)d * H * G + n * U;
+    for (int e = tid; e < SLICE; e += NT) {  // coalesced along the columns' units uu
+      const int uu = e % U, gate = (e / U) % 4, jj = e / (4 * U), k = 4 * uu + gate;
+      const int ul = jj % U;  // the unit in its CTA: 4 g + 2 mb + (row g + 8 of the block)
+      const int dst = (((jj / U * KS + k / 8) * 2 + (ul % 4) / 2) * 32 + 4 * (ul / 4) +
+                       (k % 8) / 2) * 4 + (ul % 2) + 2 * (k & 1);
+      ws[dst] = __ldg(W + (size_t)jj * G + gate * H + uu);
+    }
+  }
+  // step it = T-1-t of the loop: bar[0] counts the partial sums of it = 0,
+  // 2, ..., bar[1] of it = 1, 3, ...; the last step's are not exchanged
+  if (tid == 0) {
+    lstm::mbar_init(&bar[0]);
+    lstm::mbar_init(&bar[1]);
+    lstm::fence_mbar_init();
+    if (T > 1) lstm::mbar_expect(&bar[0], p_bytes);
+    if (T > 2) lstm::mbar_expect(&bar[1], p_bytes);
+  }
+
+  int b[NB];
+  bool valid[NB];
+  StepIn cur[NB];
+  float c[NB], dc[NB], dhn[NB];  // c at the current step; dc' and dh' from step t+1
+#pragma unroll
+  for (int i = 0; i < NB; ++i) {
+    b[i] = tile * BT + warp + NW * i;
+    valid[i] = b[i] < B;
+    cur[i] = StepIn{0.f, 0.f, 0.f, 0.f, 0.f, 0.f};
+    c[i] = dc[i] = dhn[i] = 0.f;
+    if (valid[i]) {
+      cur[i] = load_step(gates, c_all, g_h, T - 1, D, B, H, d, b[i], j);
+      c[i] = __ldg(c_all + (((size_t)(T - 1) * D + d) * B + b[i]) * H + j);
+    }
+  }
+  lstm::cluster_sync();  // the slices staged, every CTA of the cluster running, mbarriers armed
+
+  for (int t = T - 1, it = 0; t >= 0; --t, ++it) {
+    StepIn nxt[NB];  // step t-1, in flight during this one
+#pragma unroll
+    for (int i = 0; i < NB; ++i) {
+      nxt[i] = StepIn{0.f, 0.f, 0.f, 0.f, 0.f, 0.f};
+      if (valid[i] && t > 0) nxt[i] = load_step(gates, c_all, g_h, t - 1, D, B, H, d, b[i], j);
+    }
+    float4 dp[NB];
+#pragma unroll
+    for (int i = 0; i < NB; ++i) {
+      const StepIn& x = cur[i];
+      const float dh = x.gh + dhn[i];
+      const float tc = tanhf(c[i]);
+      const float dout = dh * tc;
+      const float dcv = dh * x.og * (1.0f - tc * tc) + dc[i];
+      dc[i] = dcv * x.fg;
+      dp[i] = make_float4((dcv * x.gg) * x.ig * (1.0f - x.ig),
+                          (dcv * x.c_prev) * x.fg * (1.0f - x.fg),
+                          (dcv * x.ig) * (1.0f - x.gg * x.gg), dout * x.og * (1.0f - x.og));
+      // zeros for rows past B: their operands are zero
+      *reinterpret_cast<float4*>(pbuf + ((it & 1) * BT + warp + NW * i) * LDP + 4 * lane) =
+          valid[i] ? dp[i] : make_float4(0.f, 0.f, 0.f, 0.f);
+    }
+    if (t > 0) {  // dh' of step 0 is not needed
+      __syncthreads();  // the CTA's dpre is complete; every owner has read the last partials
+      float acc[2][NB][4];
+#pragma unroll
+      for (int mb = 0; mb < 2; ++mb)
+#pragma unroll
+        for (int nb = 0; nb < NB; ++nb)
+#pragma unroll
+          for (int e = 0; e < 4; ++e) acc[mb][nb][e] = 0.f;
+      const float* b0 = pbuf + ((it & 1) * BT + g) * LDP + 2 * q;
+      const float4* wl = reinterpret_cast<const float4*>(ws) + warp * KS * 64 + lane;
+#pragma unroll 4
+      for (int s = 0; s < KS; ++s) {
+        uint32_t ah[2][4], al[2][4], bh[NB][2], bl[NB][2];
+        split_a(wl[s * 64], ah[0], al[0]);
+        split_a(wl[s * 64 + 32], ah[1], al[1]);
+        load_b<NB>(b0, LDP, s, bh, bl);
+        step_products<2, NB>(acc, ah, al, bh, bl);
+      }
+      // acc[mb][nb]: (e) 0 unit 4 g + 2 mb, row 8 nb + 2 q; 1 that unit, row
+      // 8 nb + 2 q + 1; 2 unit 4 g + 2 mb + 1, row 8 nb + 2 q; 3 that unit, row
+      // 8 nb + 2 q + 1 (units of CTA warp): a lane sends units 4 g .. 4 g + 3
+      // of its two rows of each n block
+      const uint32_t m = lstm::map_rank(lstm::smem_addr(&bar[it & 1]), warp);
+      const uint32_t slot0 = lstm::map_rank(
+          lstm::smem_addr(rbuf + (((it & 1) * N + n) * BT + 2 * q) * U + 4 * g), warp);
+#pragma unroll
+      for (int nb = 0; nb < NB; ++nb) {
+        const float* a0 = acc[0][nb];
+        const float* a1 = acc[1][nb];
+        const uint32_t a = slot0 + (uint32_t)(8 * nb * U * sizeof(float));
+        lstm::st_async(a, make_float4(a0[0], a0[2], a1[0], a1[2]), m);
+        lstm::st_async(a + (uint32_t)(U * sizeof(float)), make_float4(a0[1], a0[3], a1[1], a1[3]),
+                       m);
+      }
+    }
+    // dxw while the peers compute
+#pragma unroll
+    for (int i = 0; i < NB; ++i) {
+      if (valid[i]) {
+        float* out = dxw + (((size_t)t * D + d) * B + b[i]) * G + j;
+        out[0] = dp[i].x;
+        out[H] = dp[i].y;
+        out[2 * H] = dp[i].z;
+        out[3 * H] = dp[i].w;
+      }
+    }
+    if (t == 0) break;
+    lstm::mbar_wait(&bar[it & 1], (it >> 1) & 1);
+    if (tid == 0 && it + 3 < T) lstm::mbar_expect(&bar[it & 1], p_bytes);
+    // dh' = the partial sums of the 8 CTAs, in rank order
+#pragma unroll
+    for (int i = 0; i < NB; ++i) {
+      const float* rp = rbuf + (it & 1) * N * BT * U + (warp + NW * i) * U + lane;
+      float sum = rp[0];
+#pragma unroll
+      for (int src = 1; src < N; ++src) sum += rp[src * BT * U];
+      dhn[i] = sum;
+      c[i] = cur[i].c_prev;
+      cur[i] = nxt[i];
+    }
+  }
+  // no CTA leaves while a store of the cluster into its shared memory may
+  // be in flight
+  lstm::cluster_sync();
+}
+
 template <int H>
 int launch(const float* gates, const float* whh, const float* c, const float* g, float* dxw,
            int T, int D, int B, int n, int bt, int threads, long long smem,
@@ -226,6 +384,14 @@ int launch(const float* gates, const float* whh, const float* c, const float* g,
   return lstm::launch_clusters(lstm_bwd_cluster<H>, grid, S::NT, n, (size_t)smem,
                                lstm::bwd_smem_bytes(H, bt), stream,
                                gates, whh, c, g, dxw, T, D, B, units);
+}
+
+template <int NB>
+int launch_mid(const float* gates, const float* whh, const float* c, const float* g, float* dxw,
+               int T, int D, int B, int n, int bt, int waves, int threads, long long smem,
+               cudaStream_t stream) {
+  return lstm_mid::launch(lstm_bwd_mid<NB>, D, B, n, bt, waves, threads, smem,
+                          lstm_mid::bwd_smem_bytes(bt), stream, gates, whh, c, g, dxw, T, D, B);
 }
 
 // The wide family (lstm_wide.cuh), every H > 256: one persistent cooperative
@@ -335,8 +501,10 @@ lstm_bwd_wide(const float* __restrict__ gates, const float* __restrict__ wb,
 // success).  gates [T][D][B][4H] (activated i, f, g, o from the training
 // forward), whh [D][H][4H], c, g [T][D][B][H]; out: dxw [T][D][B][4H].
 // (n, bt, groups, threads, smem) is the plan of lstm_launch_plan in
-// ops/lstm_scan.py.  H = 4, 8, 16, 32, 64, 128 or 256 runs the clusters
-// (`groups`, `dcstate` and `arrived` are not read); H > 256 (a multiple of
+// ops/lstm_scan.py.  H = 4, 8, 16, 32, 64 or 128 runs the clusters of
+// lstm_cluster.cuh (`groups`, `dcstate` and `arrived` are not read); H = 256
+// those of lstm_mid.cuh (n = 8, bt = 16, 24 or 32, `groups` the waves the plan
+// claims for its clusters); H > 256 (a multiple of
 // 64) the wide kernel: n units per CTA, bt rows of each CTA's slice of whh^T
 // resident in shared memory, the batch in `groups` groups; whh is then whh
 // transposed to [D][4H][H], dcstate a [D][B][H] scratch and arrived D x
@@ -357,7 +525,15 @@ extern "C" int tce_lstm_scan_bwd(const float* gates, const float* whh, const flo
     TCE_LSTM_BWD(32)
     TCE_LSTM_BWD(64)
     TCE_LSTM_BWD(128)
-    TCE_LSTM_BWD(256)
+    case 256:
+#define TCE_LSTM_BWD_MID(NB)                                                                  \
+  if (bt == 8 * NB)                                                                           \
+    return launch_mid<NB>(gates, whh, c, g, dxw, T, D, B, n, bt, groups, threads, smem, s);
+      TCE_LSTM_BWD_MID(2)
+      TCE_LSTM_BWD_MID(3)
+      TCE_LSTM_BWD_MID(4)
+#undef TCE_LSTM_BWD_MID
+      return (int)cudaErrorInvalidValue;
     default: {
       if (H <= 256 || dcstate == nullptr || arrived == nullptr)
         return (int)cudaErrorInvalidValue;
@@ -369,6 +545,17 @@ extern "C" int tce_lstm_scan_bwd(const float* gates, const float* whh, const flo
     }
   }
 #undef TCE_LSTM_BWD
+}
+
+// The clusters of the H = 256 backward kernel at a batch tile of `bt` rows
+// that the current card holds at once (cudaOccupancyMaxActiveClusters), or
+// minus a CUDA error code.
+extern "C" int tce_lstm_bwd_mid_coresident(int bt) {
+  const size_t smem = lstm_mid::bwd_smem_bytes(bt);
+  if (bt == 16) return lstm_mid::coresident(lstm_bwd_mid<2>, smem);
+  if (bt == 24) return lstm_mid::coresident(lstm_bwd_mid<3>, smem);
+  if (bt == 32) return lstm_mid::coresident(lstm_bwd_mid<4>, smem);
+  return -(int)cudaErrorInvalidValue;
 }
 
 // Floats of workspace tce_lstm_dwhh needs (the partial sums).

@@ -5,13 +5,17 @@ Counterpart of ``transformer_clip_eeg_tpu/ops/pallas_lstm.py``
 (``lstm_scan_pallas_packed`` and its ``custom_vjp``).  The forward kernel is
 ``csrc/lstm_scan.cu`` (kernel #3), the backward ``csrc/lstm_scan_bwd.cu``
 (kernel #4); each source's header says what bounds it and how it is laid
-out.  Each has two families: up to H=256 every recurrence runs as a
-thread-block cluster whose CTAs split the hidden units
-(``csrc/lstm_cluster.cuh``); past 256 one persistent cooperative grid runs
-all of them, cut into (direction, batch group) pairs and each pair's units
-into slices, a CTA a slice, with its slice of ``whh`` in shared memory as far
-as it fits and the rest streamed from L2 each step, and each step's product
-on the tensor cores in split TF32 (``csrc/lstm_wide.cuh``).
+out.  Each has three families: up to H=128 every recurrence runs as a
+thread-block cluster whose CTAs split the hidden units and hold their slice
+of ``whh`` in registers (``csrc/lstm_cluster.cuh``); at H=256 as a cluster of
+8 CTAs, each with its slice in shared memory and the step's product on the
+tensor cores in split TF32, tiles of 16, 24 or 32 batch rows chosen so that
+every cluster is co-resident (``csrc/lstm_mid.cuh``); past 256 one
+persistent cooperative grid runs all of them, cut into (direction, batch
+group) pairs and each pair's units into slices, a CTA a slice, with its slice
+of ``whh`` in shared memory as far as it fits and the rest streamed from L2
+each step, and each step's product on the tensor cores in split TF32
+(``csrc/lstm_wide.cuh``).
 :func:`lstm_launch_plan` is the one place that sizes either launch (the
 headers' rules check it).  :func:`lstm_scan_packed`
 launches #3 for a CUDA tensor and runs
@@ -50,6 +54,21 @@ EXCHANGE_GROUPS = 2  # of a CTA's threads at most, each waiting only for its own
 MAX_UNITS = 32       # hidden units per CTA
 PLAN_HIDDEN = (4, 8, 16, 32, 64, 128, 256)  # the hidden sizes the cluster kernels are built for
 MAX_CLUSTER_HIDDEN = PLAN_HIDDEN[-1]  # clusters of 8 CTAs, the portable cluster size
+# the H=256 kernels (csrc/lstm_mid.cuh): CTAs a cluster, threads a CTA, the
+# batch tiles they are built for (2, 3 or 4 n8 blocks of mma.sync), the
+# floats between rows of the forward's h buffer and of the backward's dpre
+# buffer, and the floats of a CTA's slice of whh
+MID_CLUSTER = 8
+MID_THREADS = 256
+MID_TILES = (16, 24, 32)
+MID_LDH = MAX_CLUSTER_HIDDEN + 8
+MID_LDP = 4 * MAX_UNITS + 8
+MID_SLICE = MAX_CLUSTER_HIDDEN * 4 * MAX_UNITS
+# the clusters of 8 CTAs, one CTA an SM, that an H100 SXM (132 SMs) holds at
+# once (cudaOccupancyMaxActiveClusters of both H=256 kernels at every tile,
+# mid_coresident): the plan's wave, which the C entry points check on the
+# card
+MID_WAVE_CLUSTERS = 15
 # the wide kernels (csrc/lstm_wide.cuh): threads and warps a CTA, rows of K
 # a chunk (forward, K = H; backward, K = 4H), chunks in the ring, floats
 # after each staged row, a tile's rows and columns at most, a warp's blocks
@@ -74,7 +93,7 @@ WIDE_STEP_US = 2.0
 
 
 class LaunchPlan(NamedTuple):
-    """How the cluster kernels launch (``csrc/lstm_cluster.cuh``), H <= 256."""
+    """How the cluster kernels launch (``csrc/lstm_cluster.cuh``), H <= 128."""
 
     cluster: int     # CTAs per recurrence; each owns hidden // cluster units
     batch_tile: int  # batch rows per cluster: one owner thread per (row, unit)
@@ -82,6 +101,61 @@ class LaunchPlan(NamedTuple):
     ctas: int        # in the grid: tiles x directions x cluster
     smem_fwd: int    # shared-memory bytes per CTA of the forward kernel
     smem_bwd: int    # and of the backward kernel
+
+
+class MidPlan(NamedTuple):
+    """How the H=256 kernels launch (``csrc/lstm_mid.cuh``): one cluster of
+    ``cluster`` CTAs per (batch tile, direction), one CTA an SM."""
+
+    cluster: int     # CTAs per recurrence; each owns 32 units
+    batch_tile: int  # batch rows per cluster: 16, 24 or 32 (n8 blocks of mma.sync)
+    threads: int     # per CTA
+    ctas: int        # in the grid: tiles x directions x cluster
+    smem_fwd: int    # shared-memory bytes per CTA of the forward kernel
+    smem_bwd: int    # and of the backward kernel
+    waves: int       # of MID_WAVE_CLUSTERS clusters: 1 while they fit the card at once
+
+
+def mid_smem_bytes(kind: str, tile: int) -> int:
+    """``fwd_smem_bytes`` / ``bwd_smem_bytes`` of ``csrc/lstm_mid.cuh``: two
+    mbarriers, the slice, then two h buffers and the halves of the sums the
+    warps swap (forward) or two dpre buffers and two buffers of the 8 CTAs'
+    partial sums (backward)."""
+    if kind == "fwd":
+        return 16 + 4 * (MID_SLICE + 2 * tile * MID_LDH + 128 * tile)
+    return 16 + 4 * (MID_SLICE + 2 * tile * MID_LDP + 2 * MID_CLUSTER * tile * MAX_UNITS)
+
+
+def mid_plan(b: int, d: int, tile: Optional[int] = None) -> MidPlan:
+    """The H=256 plan for ``d`` recurrences of batch ``b``: the smallest
+    tile of :data:`MID_TILES` whose clusters fit one wave of
+    :data:`MID_WAVE_CLUSTERS` (else the largest), or ``tile``.  At B=128 that
+    is 16 rows at D=1 (8 clusters) and 24 at D=2 (12 clusters: 16-row tiles
+    would take 16, a second wave); ``tools/lstm_mid_tiles.py`` times every
+    tile on the card."""
+    if tile is None:
+        fits = [t for t in MID_TILES if d * -(-b // t) <= MID_WAVE_CLUSTERS]
+        tile = fits[0] if fits else MID_TILES[-1]
+    if tile not in MID_TILES or min(b, d) < 1:
+        raise ValueError(f"the H=256 recurrence takes a batch tile in {MID_TILES} and B, D "
+                         f">= 1; got tile {tile}, B={b}, D={d}")
+    clusters = d * -(-b // tile)
+    return MidPlan(MID_CLUSTER, tile, MID_THREADS, clusters * MID_CLUSTER,
+                   mid_smem_bytes("fwd", tile), mid_smem_bytes("bwd", tile),
+                   -(-clusters // MID_WAVE_CLUSTERS))
+
+
+def mid_coresident(kind: str, plan: MidPlan) -> int:
+    """The clusters of the H=256 ``kind`` ("fwd" or "bwd") kernel at the
+    batch tile of ``plan`` that the current CUDA card holds at once
+    (``cudaOccupancyMaxActiveClusters``)."""
+    from transformer_clip_eeg_tpu_torch import _build
+
+    lib = _build.load()
+    n = getattr(lib, f"tce_lstm_{kind}_mid_coresident")(plan.batch_tile)
+    if n < 0:
+        _build.check(lib, -n, f"mid_coresident({kind!r}, {plan})")
+    return n
 
 
 class WidePlan(NamedTuple):
@@ -224,12 +298,13 @@ def _wide_plan(b: int, d: int, hidden: int, sms: int, fwd: Optional[Tuple[int, i
 
 
 def lstm_launch_plan(b: int, d: int, hidden: int, sms: Optional[int] = None
-                     ) -> Union[LaunchPlan, WidePlan]:
+                     ) -> Union[LaunchPlan, MidPlan, WidePlan]:
     """The launch plan of kernels #3 and #4 for ``D=d`` recurrences of batch
-    ``b`` and hidden size ``hidden``.  H in :data:`PLAN_HIDDEN`: a
+    ``b`` and hidden size ``hidden``.  H in :data:`PLAN_HIDDEN` up to 128: a
     :class:`LaunchPlan`, one cluster per (batch tile, direction), each CTA
     owning ``min(hidden, 32)`` units (H=128: clusters of 4 CTAs of 8 batch
-    rows, 128 CTAs at B=128, D=2; H=256: clusters of 8).  H > 256, a
+    rows, 128 CTAs at B=128, D=2).  H=256: a :class:`MidPlan`
+    (:func:`mid_plan`), clusters of 8 CTAs of 32 units.  H > 256, a
     multiple of :data:`WIDE_GRANULE`: a :class:`WidePlan` for a card of
     ``sms`` SMs (default: the current CUDA device's), each kernel's units a
     CTA and batch groups the cheapest by the cost model of
@@ -246,6 +321,8 @@ def lstm_launch_plan(b: int, d: int, hidden: int, sms: Optional[int] = None
         raise ValueError(f"the CUDA recurrence takes H in {PLAN_HIDDEN} or a multiple of "
                          f"{WIDE_GRANULE} past {MAX_CLUSTER_HIDDEN}, and B, D >= 1; "
                          f"got H={hidden}, B={b}, D={d}")
+    if hidden == MAX_CLUSTER_HIDDEN:
+        return mid_plan(b, d)
     if wide:
         if sms is None:
             sms = torch.cuda.get_device_properties(torch.cuda.current_device()
@@ -332,16 +409,18 @@ def _check_cuda_inputs(xw: torch.Tensor, whh: torch.Tensor) -> None:
             raise ValueError(f"{name} must be 16-byte aligned on {xw.device}")
 
 
-def _plan_args(plan: Union[LaunchPlan, WidePlan], kind: str, d: int, b: int, hidden: int,
-               like: torch.Tensor) -> tuple:
+def _plan_args(plan: Union[LaunchPlan, MidPlan, WidePlan], kind: str, d: int, b: int,
+               hidden: int, like: torch.Tensor) -> tuple:
     """The C entry point's plan arguments (n, bt, groups, threads, smem,
-    state, arrived) for ``kind`` "fwd" or "bwd".  A wide plan also takes a
-    [D, B, H] scratch for c (or dc) and D x groups zeroed arrival counters:
-    tensors, which the caller passes by :func:`_addresses` and keeps alive
-    until the call returns."""
+    state, arrived) for ``kind`` "fwd" or "bwd"; an H=256 plan passes its
+    waves as ``groups``.  A wide plan also takes a [D, B, H] scratch for c
+    (or dc) and D x groups zeroed arrival counters: tensors, which the caller
+    passes by :func:`_addresses` and keeps alive until the call returns."""
     smem = plan.smem_fwd if kind == "fwd" else plan.smem_bwd
     if isinstance(plan, LaunchPlan):
         return plan.cluster, plan.batch_tile, 1, plan.threads, smem, None, None
+    if isinstance(plan, MidPlan):
+        return plan.cluster, plan.batch_tile, plan.waves, plan.threads, smem, None, None
     units, resident, groups = ((plan.units_fwd, plan.resident_fwd, plan.groups_fwd)
                                if kind == "fwd" else
                                (plan.units_bwd, plan.resident_bwd, plan.groups_bwd))
