@@ -163,3 +163,6 @@ def test_profile_dir_writes_a_trace_and_the_loss_line(root, tmp_path):
     trace = json.load(open(trace_dir / PROFILE_TRACE))
     names = {e.get("name", "") for e in trace["traceEvents"]}
     assert any("addmm" in n or "linear" in n for n in names)  # the epoch's ops
+    # the port's spans of the epoch, as ranges
+    assert {"train.step", "train.forward", "train.backward", "train.optimizer",
+            "train.block"} <= names

@@ -81,6 +81,7 @@ from transformer_clip_eeg_tpu_torch.train.steps import (
     eval_step,
     train_step,
 )
+from transformer_clip_eeg_tpu_torch.utils import tracing
 
 
 PROFILE_TRACE = "epoch0_trace.json"  # the trace's name in profile_dir
@@ -190,6 +191,17 @@ def device_indices(device: torch.device, *mats: np.ndarray) -> List[torch.Tensor
     if device.type == "cuda":
         out = [t.pin_memory().to(device, non_blocking=True) for t in out]
     return out
+
+
+def step_seconds(spans) -> List[float]:
+    """The step times of an epoch's spans: the intervals between the
+    ``train.step`` starts, the last one closed by the end of the drain
+    (``train.block``)."""
+    starts = sorted(s.t0_ns for s in spans if s.name == tracing.STEP)
+    if not starts:
+        return []
+    end = max(s.t1_ns for s in spans if s.name == tracing.BLOCK)
+    return list(np.diff(starts + [end]) * 1e-9)
 
 
 def snapshot(model, optimizer) -> Dict[str, Any]:
@@ -329,12 +341,11 @@ class Trainer:
         return prefetch_to_device(batches, self.device)
 
     def _train_batches(self, warmup: bool):
-        """One training epoch: yields ``(losses, pairs)`` per item and
-        appends the host clock at each train step's start to
-        ``self._step_starts``.  In device mode an item is a chunk's
-        bucket-aligned prefix (its mean losses, ``n_scan * bs`` pairs) or one
-        batch of its tail, as the JAX trainer's scan and per-batch steps."""
-        cfg, phase, seed = self.cfg, self._phase, self._train_seed
+        """One training epoch: yields ``(losses, pairs)`` per item.  In
+        device mode an item is a chunk's bucket-aligned prefix (its mean
+        losses, ``n_scan * bs`` pairs) or one batch of its tail, as the JAX
+        trainer's scan and per-batch steps."""
+        cfg, seed = self.cfg, self._train_seed
         step_kw = dict(model_arch=cfg.model_arch, augmentations=cfg.augmentations,
                        augmentation_probability=cfg.data_augmentation_percentage,
                        add_eeg=cfg.addEEG_b, compute_dtype=cfg.compute_dtype)
@@ -346,13 +357,9 @@ class Trainer:
                 idx_d, subs_d, partner_d = device_indices(self.device, idx_m, subs_m, partner_m)
 
                 def step(i):
-                    t0 = time.perf_counter()
-                    self._step_starts.append(t0)
-                    losses = chunk_train_step(self.model, self.optimizer, eeg_c, sp_c, ids_c,
-                                              idx_d[i], subs_d[i], seed, warmup,
-                                              partner=partner_d[i], **step_kw)
-                    phase["dispatch_s"] += time.perf_counter() - t0
-                    return losses
+                    return chunk_train_step(self.model, self.optimizer, eeg_c, sp_c, ids_c,
+                                            idx_d[i], subs_d[i], seed, warmup,
+                                            partner=partner_d[i], **step_kw)
 
                 if n_scan:
                     scanned = [step(i) for i in range(n_scan)]
@@ -362,11 +369,8 @@ class Trainer:
                     yield step(i), bs
         else:
             for batch in self._batches(self.train_dataset, cfg.addEEG_b):
-                t0 = time.perf_counter()
-                self._step_starts.append(t0)
-                losses = train_step(self.model, self.optimizer, batch, seed, warmup, **step_kw)
-                phase["dispatch_s"] += time.perf_counter() - t0
-                yield losses, cfg.batch_size
+                yield (train_step(self.model, self.optimizer, batch, seed, warmup, **step_kw),
+                       cfg.batch_size)
 
     def release_device_data(self) -> None:
         """Drop the chunk stores' resident chunks, so the device memory they
@@ -466,15 +470,10 @@ class Trainer:
                         if self.profile_dir and epoch == 0 and self.is_writer else None)
             t0 = time.time()
             n_batches = n_pairs = next_log = 0
-            # dispatch = host time in step calls, fetch = host time turning
-            # the deferred loss scalars into log lines, block = the
-            # end-of-epoch wait for the card's queue to drain; in device mode
-            # the store's uploads and the time waited for them
-            self._phase = phase = {"dispatch_s": 0.0, "fetch_s": 0.0}
             store_before = self.chunk_store.snapshot_stats() if self.device_data else None
-            # host clock at each step's start; the intervals between them
-            # (the last one closed after the drain) are the step times
-            self._step_starts = step_starts = []
+            # the epoch's spans give the phases line and the step times
+            tracing.clear()
+            tracing.start(ranges=profiler is not None)
             stream_logs = cfg.loss_log_stream == "batch"
             pending_logs: List[Tuple[int, Dict]] = []
             try:
@@ -484,15 +483,15 @@ class Trainer:
                     if n_batches >= next_log:
                         next_log = n_batches - (n_batches % 100) + 100
                         if stream_logs:
-                            tf = time.perf_counter()
-                            msg = self._format_loss_line(epoch, n_batches, losses)
-                            phase["fetch_s"] += time.perf_counter() - tf
+                            with tracing.span(tracing.FETCH):
+                                msg = self._format_loss_line(epoch, n_batches, losses)
                             self.log(msg)
                         else:
                             pending_logs.append((n_batches, losses))
                     n_batches += max(pairs // cfg.batch_size, 1)
                     n_pairs += pairs
             except BaseException:
+                tracing.stop()
                 if profiler is not None:
                     profiler.stop()
                 # a crash mid-epoch must not eat the deferred loss lines
@@ -502,19 +501,26 @@ class Trainer:
                     except Exception:
                         break
                 raise
-            tb = time.perf_counter()
-            self._sync()
-            t_end = time.perf_counter()
-            block_s = t_end - tb
-            tf = time.perf_counter()
-            for nb, losses in pending_logs:
-                self.log(self._format_loss_line(epoch, nb, losses))
-            phase["fetch_s"] += time.perf_counter() - tf
+            try:
+                with tracing.span(tracing.BLOCK):
+                    self._sync()
+                with tracing.span(tracing.FETCH):
+                    for nb, losses in pending_logs:
+                        self.log(self._format_loss_line(epoch, nb, losses))
+            finally:
+                tracing.stop()
+            spans = tracing.records()
             epoch_time = time.time() - t0
             self.log(f"epoch {epoch} done in {epoch_time:.1f}s "
                       f"({n_pairs / max(epoch_time, 1e-9):.0f} pairs/s)")
-            phase_rec = {k: round(v, 1) for k, v in phase.items()}
-            phase_rec["block_s"] = round(block_s, 1)
+            # dispatch = host time in the steps, fetch = host time turning the
+            # deferred loss scalars into log lines, block = the end-of-epoch
+            # wait for the card's queue to drain; in device mode the store's
+            # uploads and the time waited for them
+            phase_rec = {k: round(sum(tracing.durations_s(spans, name)), 1)
+                         for k, name in (("dispatch_s", tracing.STEP),
+                                         ("fetch_s", tracing.FETCH),
+                                         ("block_s", tracing.BLOCK))}
             if store_before is not None:
                 after = self.chunk_store.snapshot_stats()
                 phase_rec.update(
@@ -548,7 +554,7 @@ class Trainer:
                 "val_loss_total": val_metrics["loss_total"],
                 "epoch_time_s": epoch_time,
                 "train_pairs_per_s": n_pairs / max(epoch_time, 1e-9),
-                "step_s": list(np.diff(step_starts + [t_end])) if step_starts else [],
+                "step_s": step_seconds(spans),
                 "pairs_per_step": cfg.batch_size,
             })
 

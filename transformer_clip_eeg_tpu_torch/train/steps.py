@@ -68,6 +68,7 @@ from transformer_clip_eeg_tpu_torch.parallel.collectives import (
     mean_gradients,
 )
 from transformer_clip_eeg_tpu_torch.train.device_data import gather_batch
+from transformer_clip_eeg_tpu_torch.utils import tracing
 
 
 def _split_outputs(model_arch: str, outs) -> Dict[str, torch.Tensor]:
@@ -106,33 +107,41 @@ def train_step(model, optimizer, batch: Dict[str, torch.Tensor], seed: int,
     of ``loss_ce`` (``warmup``) or ``loss_total``, one optimizer update
     (which bumps the step), and the bank's EMA update.  Under a mesh
     ``batch`` is this rank's rows and the gradient is the ranks' mean.
-    Returns the losses, detached."""
-    model.train()
-    mesh = model.mesh
-    step_seed = fold_seed(seed, optimizer.step)
-    eeg = batch["eeg"]
-    row0 = 0 if mesh is None else mesh.rank * eeg.shape[0]
-    if add_eeg:
-        eeg = _apply_mixup(fold_seed(step_seed, MIXUP_STREAM), eeg, batch["partner_eeg"],
-                           augmentation_probability, row0)
-    if augmentations:
-        augment = make_augmentation_fn(augmentations, augmentation_probability)
-        eeg = augment(fold_seed(step_seed, AUGMENT_STREAM), eeg, row0)
-    speech = batch["speech"]
-    if compute_dtype != "float32":  # float32 leaves the batch as it is (a float64 model's too)
-        cast = COMPUTE_DTYPES[compute_dtype]
-        eeg, speech = eeg.to(cast), speech.to(cast)
-    set_dropout_seeds(model, step_seed)
-    losses = _split_outputs(model_arch, model(eeg, speech, batch["ids"]))
-    objective = losses["loss_ce"] if warmup else losses["loss_total"]
-    # a parameter the objective does not reach (temperature_eeg in warmup)
-    # gets a zero gradient, as jax.grad gives it
-    grads = torch.autograd.grad(objective, optimizer.params, allow_unused=True)
-    grads = [torch.zeros_like(p) if g is None else g for g, p in zip(grads, optimizer.params)]
-    if mesh is not None:
-        grads = mean_gradients(grads, mesh)
-    optimizer.apply(grads)
-    return {k: v.detach() for k, v in losses.items()}
+    Returns the losses, detached.  Its spans: ``train.step`` (unless the
+    caller's step holds it), ``train.forward``, ``train.backward``,
+    ``train.optimizer`` (``utils/tracing.py``)."""
+    with tracing.step():
+        with tracing.span(tracing.FORWARD):
+            model.train()
+            mesh = model.mesh
+            step_seed = fold_seed(seed, optimizer.step)
+            eeg = batch["eeg"]
+            row0 = 0 if mesh is None else mesh.rank * eeg.shape[0]
+            if add_eeg:
+                eeg = _apply_mixup(fold_seed(step_seed, MIXUP_STREAM), eeg,
+                                   batch["partner_eeg"], augmentation_probability, row0)
+            if augmentations:
+                augment = make_augmentation_fn(augmentations, augmentation_probability)
+                eeg = augment(fold_seed(step_seed, AUGMENT_STREAM), eeg, row0)
+            speech = batch["speech"]
+            # float32 leaves the batch as it is (a float64 model's too)
+            if compute_dtype != "float32":
+                cast = COMPUTE_DTYPES[compute_dtype]
+                eeg, speech = eeg.to(cast), speech.to(cast)
+            set_dropout_seeds(model, step_seed)
+            losses = _split_outputs(model_arch, model(eeg, speech, batch["ids"]))
+        with tracing.span(tracing.BACKWARD):
+            objective = losses["loss_ce"] if warmup else losses["loss_total"]
+            # a parameter the objective does not reach (temperature_eeg in warmup)
+            # gets a zero gradient, as jax.grad gives it
+            grads = torch.autograd.grad(objective, optimizer.params, allow_unused=True)
+            grads = [torch.zeros_like(p) if g is None else g
+                     for g, p in zip(grads, optimizer.params)]
+            if mesh is not None:
+                grads = mean_gradients(grads, mesh)
+        with tracing.span(tracing.OPTIMIZER):
+            optimizer.apply(grads)
+        return {k: v.detach() for k, v in losses.items()}
 
 
 @torch.no_grad()
@@ -164,11 +173,14 @@ def chunk_train_step(model, optimizer, eeg_chunk, speech_chunk, ids_chunk,
     ``partner`` are int64 index vectors on the chunk's device, the global
     batch's (under a mesh this rank gathers its rows).  A bf16 store
     is gathered, upcast, mixed, augmented and then cast to ``compute_dtype``,
-    in the JAX step's order."""
-    idx, subs, partner = _rank_rows(model.mesh, idx, subs, partner)
-    batch = gather_batch(eeg_chunk, speech_chunk, ids_chunk, idx, subs, add_eeg, partner)
-    return train_step(model, optimizer, batch, seed, warmup, model_arch, augmentations,
-                      augmentation_probability, add_eeg, compute_dtype)
+    in the JAX step's order.  The gather is the span ``train.gather``."""
+    with tracing.step():
+        with tracing.span(tracing.GATHER):
+            idx, subs, partner = _rank_rows(model.mesh, idx, subs, partner)
+            batch = gather_batch(eeg_chunk, speech_chunk, ids_chunk, idx, subs, add_eeg,
+                                 partner)
+        return train_step(model, optimizer, batch, seed, warmup, model_arch, augmentations,
+                          augmentation_probability, add_eeg, compute_dtype)
 
 
 def chunk_eval_step(model, eeg_chunk, speech_chunk, ids_chunk, idx: torch.Tensor,
